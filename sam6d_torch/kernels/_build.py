@@ -1,0 +1,96 @@
+"""Builds the hand-written CUDA kernels under `sam6d_torch/csrc/` and binds
+them with ctypes.
+
+All `*.cu` sources compile with nvcc into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), at first use, into
+`sam6d_torch/_build/` (git-ignored). The file name carries a hash of the
+sources, so an edited kernel is rebuilt and a stale library is never loaded.
+Wrappers pass `tensor.data_ptr()` and `torch.cuda.current_stream().cuda_stream`
+as `c_void_p`; every C entry point returns the launch's `cudaGetLastError()`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "sam6d_fps_single_block": [_P, _P, _I, _I, _I, _P, _P],
+    "sam6d_fps_multi_block": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sam6d_two_scale_ball_query": [_P, _P, _I, _I, _I, _F, _I, _F, _I, _P, _P,
+                                   _P],
+}
+
+_lib = None
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libsam6d_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> tuple[Path, str]:
+    """Compile the kernels if the library for the current sources is missing.
+    Returns (library path, compiler output); `verbose` adds `-Xptxas -v`
+    (registers, shared memory and spills per kernel)."""
+    so = library_path()
+    if so.exists() and not verbose:
+        return so, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return so, proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first call in this process."""
+    global _lib
+    if _lib is None:
+        so, _ = build()
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a launch error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError {err}")
