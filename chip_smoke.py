@@ -9,13 +9,21 @@ Phases, in order; any failure raises and exits non-zero:
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (indices exactly equal; ball-query rows may differ only
      where a pair lies within 1e-6 of r^2), timed with CUDA events;
-  4. slice: writes a synthetic RGB-D job (480x640 frame, box mesh, 42
+  4. PEM slice: writes a synthetic RGB-D job (480x640 frame, box mesh, 42
      point-splatted template views, 16 detections), runs
      `sam6d_torch.cli.main pem` at the full-width PEM-base config with seeded
-     random weights, checks the poses and that both kernels launched, then
-     answers three more frames through PEMPipeline.run_frame.
+     random weights, checks the poses and that both PEM kernels launched,
+     then answers three more frames through PEMPipeline.run_frame;
+  5. ISM slice: DINOv2-L at full width with seeded random weights onboards
+     the 42 templates of a synthetic job, then ISMPipeline.match_frame scores
+     128 proposal slots (the first 48 valid) against them, the fused
+     attention kernel launched 24 times per 16-crop chunk; the card is held
+     to the port's plain CPU path on 2 proposals; detections_to_bop_json
+     writes detection_ism.json and the `pem` CLI poses every record.
 
-Prints one JSON line of kernel records, then as the last line
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. Prints the card's name and power limit, one JSON line of
+kernel records (times, launches, errors, bounds), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -33,10 +41,27 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 NEAR_R2 = 1e-6
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (TF32 is
+# off) and HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 scores and online softmax summed in another order than the plain
+# matmul + softmax (the JAX package's own tolerance for its kernel)
+ATTENTION_ATOL = 2e-5
+# card vs the plain CPU path through 24 fp32 DINOv2-L blocks: GEMMs and
+# reductions summed in another order on the two devices
+ISM_ATOL = 1e-3
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound(flops, nbytes):
+    """(least ms the card could take, what bounds it) for `flops` fp32
+    operations on `nbytes` moved."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, reps=5):
@@ -54,6 +79,41 @@ def cuda_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_busy(fn, label):
+    """Run fn() once under torch.profiler: log the card's busy share (the
+    sum of device-side op times over the wall time; one stream, so they do
+    not overlap) and the ops that took most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    # device-side entries only (kernels, copies, sets): the CPU ops that
+    # launched them report the same time again
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    if busy == 0:
+        log(f"{label}: device busy share not measured (the profiler saw no "
+            f"device time); wall {wall:.1f} ms")
+        return
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    log(f"{label}: card busy {busy:.1f} ms of {wall:.1f} ms wall under the "
+        f"profiler ({100 * busy / wall:.0f}%), {sum(e.count for e in kernels)} "
+        f"device ops; most time: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.1f} ms" for e in top))
 
 
 # ------------------------------------------------------------------ phase 1
@@ -141,7 +201,7 @@ def phase_kernels(cfg):
     """Each kernel against its plain version at every shape the main path
     gives it. FPS: exact indices. Ball query: exact indices, except rows
     holding a pair within NEAR_R2 of r^2 (the two versions round the
-    expanded distance differently)."""
+    expanded distance differently). Fused attention: within ATTENTION_ATOL."""
     import torch
     from sam6d_torch.kernels import ball_query as bq
     from sam6d_torch.kernels import fps
@@ -177,13 +237,22 @@ def phase_kernels(cfg):
         f"ball_query[16x{n_fine}x{n_fine}]", pts, args, bq)
     b1_err, _, _ = _check_ball_query(
         f"ball_query[1x{n_fine}x{n_fine}]", pts[:1].contiguous(), args, bq)
+    # bounds from this run's inputs. FPS: each of the M-1 steps updates N
+    # running distances (3 sub, 3 mul, 2 add, min, argmax compare: 10 ops).
+    # Ball query: the warps walk 32-candidate slices until both quotas are
+    # full; each scanned pair costs 15 ops (two dot products, the expanded
+    # distance, two compares).
+    f_bound = bound(16 * (n_coarse - 1) * n_obs * 10,
+                    4 * 16 * n_obs * 3 + 4 * 16 * n_coarse)
+    b_bound = bound(15 * _ball_query_scanned_pairs(pts, args),
+                    2 * 4 * 16 * n_fine * 3 + 4 * 16 * n_fine * (args[1] + args[3]))
     return [
         dict(name="farthest_point_sample_cuda", route="cuda",
              source="sam6d_torch/csrc/fps.cu",
              replaces="sam6d_tpu/kernels/fps.py:56",
              max_abs_err=max(f_err, t_err, o_err), tolerance="exact indices",
-             ms=f_ms, plain_ms=f_plain, onboard_ms=o_ms,
-             onboard_plain_ms=o_plain,
+             ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0], bound_by=f_bound[1],
+             library_ms=None, onboard_ms=o_ms, onboard_plain_ms=o_plain,
              shapes=f"16x{n_obs}->{n_coarse} (ms); 1x{n_onb}->{n_fine} "
                     f"(onboard_ms); 1x{n_fine}->{n_coarse} checked"),
         dict(name="two_scale_ball_query_cuda", route="cuda",
@@ -192,11 +261,70 @@ def phase_kernels(cfg):
              max_abs_err=max(b_err, b1_err),
              tolerance=f"exact indices except rows with a pair within "
                        f"{NEAR_R2} of r^2",
-             ms=b_ms, plain_ms=b_plain,
+             ms=b_ms, plain_ms=b_plain, bound_ms=b_bound[0], bound_by=b_bound[1],
+             library_ms=None,
              shapes=f"16x{n_fine}x{n_fine} (ms); 1x{n_fine}x{n_fine} checked; "
                     f"r {fm.pe_radius1}/{fm.pe_radius2}, "
                     f"s {fm.pe_nsample1}/{fm.pe_nsample2}"),
+        _check_attention(rng),
     ]
+
+
+def _ball_query_scanned_pairs(pts, args):
+    """(query, candidate) pairs the ball-query kernel's warps walk on `pts`:
+    32-candidate slices until both quotas are full, or all N."""
+    import torch
+    from sam6d_torch.ops.geometry import pairwise_sq_distance
+    r1, s1, r2, s2 = args
+    d2 = pairwise_sq_distance(pts, pts)
+    N = d2.shape[-1]
+    full = ((d2 < r1 * r1).cumsum(-1) >= s1) & ((d2 < r2 * r2).cumsum(-1) >= s2)
+    first = torch.where(full.any(-1), full.int().argmax(-1),
+                        torch.full_like(full[..., 0], N - 1, dtype=torch.long))
+    return int((torch.clamp((first // 32 + 1) * 32, max=N)).sum())
+
+
+def _check_attention(rng):
+    """K5 against its plain version at the describe shape (16 crops of 257
+    tokens, 16 heads of 64), a ragged batch, and N a multiple of both tiles;
+    timed against its plain version and the library's SDPA on the same
+    strided views."""
+    import torch
+    import torch.nn.functional as F
+    from sam6d_torch.kernels import attention_qkv as att
+
+    heads, hd = 16, 64
+    scale = hd ** -0.5
+    err = 0.0
+    for B, N in ((16, 257), (3, 257), (2, 256)):
+        qkv = torch.from_numpy(rng.randn(B, N, 3 * heads * hd).astype(np.float32)
+                               ).cuda()
+        got = att.fused_attention_qkv_cuda(qkv, heads, scale)
+        want = att.fused_attention_qkv_plain(qkv, heads, scale)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        log(f"attention_qkv[{B}x{N}x{3 * heads * hd}, {heads} heads]: max |diff| "
+            f"{e:.2e} (atol {ATTENTION_ATOL})")
+        if not e <= ATTENTION_ATOL:
+            raise AssertionError("fused_attention_qkv kernel differs from plain")
+        err = max(err, e)
+    B, N, C = 16, 257, heads * hd
+    qkv = torch.from_numpy(rng.randn(B, N, 3 * C).astype(np.float32)).cuda()
+    q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    ms = cuda_ms(lambda: att.fused_attention_qkv_cuda(qkv, heads, scale), reps=20)
+    plain_ms = cuda_ms(lambda: att.fused_attention_qkv_plain(qkv, heads, scale), reps=20)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                     reps=20)
+    b_ms, b_by = bound(4 * B * heads * N * N * hd, 4 * B * N * 3 * C + 4 * B * N * C)
+    log(f"attention_qkv[16x257x3072]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="fused_attention_qkv_cuda", route="cuda",
+                source="sam6d_torch/csrc/attention_qkv.cu",
+                replaces="sam6d_tpu/kernels/flash_attention.py:280",
+                max_abs_err=err, tolerance=f"atol {ATTENTION_ATOL}",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms,
+                shapes="16x257x3072, 16 heads of 64 (ms); 3x257 and 2x256 checked")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -233,6 +361,7 @@ def phase_slice(cfg):
     from sam6d_torch.data.synthetic import K_CAM, write_pem_job
     from sam6d_torch.kernels import ball_query as bq
     from sam6d_torch.kernels import fps
+    from sam6d_torch.kernels.attention_qkv import fused_attention_qkv_cuda
     from sam6d_torch.pipelines.pem import PEMPipeline, load_ply
 
     rng = np.random.RandomState(SEED)
@@ -244,6 +373,7 @@ def phase_slice(cfg):
                 "--device", "cuda"]
         fps.farthest_point_sample_cuda.launches = 0
         bq.two_scale_ball_query_cuda.launches = 0
+        fused_attention_qkv_cuda.launches = 0
         t0 = time.perf_counter()
         cli_main(argv)
         torch.cuda.synchronize()
@@ -301,8 +431,199 @@ def phase_slice(cfg):
         device_ms = cuda_ms(lambda: pipe.infer_batch(inputs), reps=3)
         log(f"slice: host prepare_frame {host_ms:.1f} ms; infer_batch on the "
             f"card {device_ms:.1f} ms (CUDA events, median of 3, upload included)")
+        device_busy(lambda: pipe.run_frame(
+            job["rgb_arr"], job["depth_arr"], K_CAM, 1.0, job["dets"],
+            model_points, templates, seed=2), "slice: run_frame B=16")
         check_against_plain(pipe, inputs)
     return launches, frame_ms
+
+
+# ------------------------------------------------------------------ phase 5
+
+def check_ism_against_plain(pipe, rgb, depth, props, cloud, n=2):
+    """The first `n` proposals through the card and through a CPU copy of the
+    pipeline (the kernels' plain versions), against the same reference data:
+    cls and patch descriptors and the three scores within ISM_ATOL."""
+    import copy
+    import torch
+    from sam6d_torch.data.synthetic import K_CAM
+    cpu = copy.copy(pipe)
+    cpu.device = torch.device("cpu")
+    cpu.dinov2 = copy.deepcopy(pipe.dinov2).cpu()
+    cpu.ref_data = {k: v.cpu() for k, v in pipe.ref_data.items()}
+    dets = {k: v[:n] for k, v in props.items()}
+
+    def describe(p):
+        with torch.inference_mode():
+            return p._describe_impl(
+                torch.as_tensor(rgb, device=p.device).float() / 255.0,
+                torch.as_tensor(dets["masks"], device=p.device).float(),
+                torch.as_tensor(dets["boxes"], device=p.device).int(), n)
+
+    errs = {name: float((g.cpu() - w).abs().max())
+            for name, g, w in zip(("cls", "patch"), describe(pipe), describe(cpu))}
+    kw = dict(detections=dets, apply_size_filters=False)
+    got = pipe.match_frame(rgb, depth, K_CAM, 1.0, cloud, **kw)
+    want = cpu.match_frame(rgb, depth, K_CAM, 1.0, cloud, **kw)
+    for k in ("semantic_score", "appe_score", "geometric_score", "visible_ratio"):
+        errs[k] = float(np.abs(got[k] - want[k]).max())
+    same = all((got[k] == want[k]).all() for k in ("object_ids", "best_template", "valid"))
+    log(f"ism: card vs plain path on the CPU ({n} proposals), max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (atol {ISM_ATOL}); object ids, templates, valid equal: {same}")
+    if max(errs.values()) > ISM_ATOL or not same:
+        raise AssertionError("ISM card path disagrees with the plain CPU path")
+
+
+def phase_ism(kernels_mod, cfg, device="cuda"):
+    """The ISM matching slice at the width of `cfg` (DINOv2-L in the smoke) (onboarding, three
+    frames of 128 slots with 48 valid, the plain-path check, detection json
+    -> `pem` CLI). Returns (launches per kernel on the matching path, on the
+    `pem` run of its detections)."""
+    import dataclasses
+    import torch
+    from sam6d_torch.cli.main import main as cli_main
+    from sam6d_torch.data.mesh import load_ply
+    from sam6d_torch.data.synthetic import K_CAM, write_ism_job
+    from sam6d_torch.pipelines.ism import ISMPipeline, detections_to_bop_json
+
+    att, fps, bq = kernels_mod
+    counters = {"fused_attention_qkv_cuda": att.fused_attention_qkv_cuda,
+                "farthest_point_sample_cuda": fps.farthest_point_sample_cuda,
+                "two_scale_ball_query_cuda": bq.two_scale_ball_query_cuda}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    d = cfg.dinov2
+    rng = np.random.RandomState(SEED + 1)
+    with tempfile.TemporaryDirectory() as job_dir:
+        t0 = time.perf_counter()
+        job = write_ism_job(job_dir, rng)
+        props = job["proposals"]
+        n_valid, n_slots = int(props["valid"].sum()), len(props["valid"])
+        cloud = (load_ply(job["cad"]).sample(cfg.matching.pointcloud_sample_num,
+                                             np.random.RandomState(0))
+                 / 1000.0).astype(np.float32)[None]
+        t1 = time.perf_counter()
+        pipe = ISMPipeline(cfg, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(f"ism: job written in {t1 - t0:.1f} s; DINOv2 (C={d.embed_dim}, "
+            f"{d.depth} blocks, {d.num_heads} heads) random weights on the card "
+            f"in {t2 - t1:.1f} s")
+
+        onboard = []
+        for _ in range(2):                    # cold, then warm
+            t0 = time.perf_counter()
+            pipe.onboard_templates_from_dir(os.path.join(job_dir, "templates"))
+            torch.cuda.synchronize()
+            onboard.append(1e3 * (time.perf_counter() - t0))
+        tem_imgs = torch.rand(42, d.img_size, d.img_size, 3, device=device)
+        tem_masks = torch.ones(42, d.img_size, d.img_size, device=device)
+        with torch.inference_mode():
+            describe_tem = cuda_ms(lambda: pipe._describe_templates_impl(
+                tem_imgs, tem_masks), reps=3)
+        log(f"ism: onboarding 42 templates, wall ms (PNG read included): cold "
+            f"{onboard[0]:.1f}, warm {onboard[1]:.1f}; template describe "
+            f"(42 -> 48 crops) {describe_tem:.1f} ms on CUDA events")
+
+        args = (job["rgb_arr"], job["depth_arr"], K_CAM, 1.0, cloud)
+        kw = dict(detections=props, apply_size_filters=False)
+        reset()
+        result = pipe.match_frame(*args, **kw)
+        torch.cuda.synchronize()
+        match_launches = read()
+        want = d.depth * -(-n_valid // d.chunk_size)
+        log(f"ism: match_frame ({n_slots} slots, {n_valid} valid) kernel "
+            f"launches {match_launches}")
+        if match_launches["fused_attention_qkv_cuda"] != want:
+            raise AssertionError(f"expected {want} fused attention launches")
+        sel = result["valid"]
+        if int(sel.sum()) != n_valid or not sel[:n_valid].all():
+            raise AssertionError(f"expected the {n_valid} valid slots selected")
+        for k in ("scores", "semantic_score", "appe_score", "geometric_score",
+                  "visible_ratio"):
+            if result[k].shape != (n_slots,) or not np.isfinite(result[k][sel]).all():
+                raise AssertionError(f"bad {k}")
+
+        frame_ms = []
+        for _ in range(3):
+            reset()
+            t0 = time.perf_counter()
+            pipe.match_frame(*args, **kw)
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            if read()["fused_attention_qkv_cuda"] != want:
+                raise AssertionError("fused attention launch count changed")
+        dev = torch.device(device)
+        with torch.inference_mode():
+            rgb01 = torch.as_tensor(job["rgb_arr"], device=dev).float() / 255.0
+            masks = torch.as_tensor(props["masks"], device=dev).float()
+            boxes = torch.as_tensor(props["boxes"], device=dev)
+            describe = cuda_ms(lambda: pipe._describe_impl(
+                rgb01, masks, boxes.int(), n_valid), reps=3)
+            describe_cap = cuda_ms(lambda: pipe._describe_impl(
+                rgb01, masks, boxes.int(), n_slots), reps=3)
+            depth = torch.as_tensor(job["depth_arr"], device=dev)
+            Kt = torch.as_tensor(K_CAM, device=dev)
+            ds = torch.tensor(np.float32(1.0), device=dev)
+            cl = torch.as_tensor(cloud, device=dev)
+            valid = torch.as_tensor(props["valid"], device=dev)
+            ref = pipe.ref_data
+            score = cuda_ms(lambda: pipe._score_frame_impl(
+                rgb01, masks, boxes, valid, depth, Kt, ds, ref["descriptors"],
+                ref["appe_descriptors"], ref["poses_R"], cl, n_valid, False),
+                reps=3)
+            score_nms = cuda_ms(lambda: pipe._score_frame_impl(
+                rgb01, masks, boxes, valid, depth, Kt, ds, ref["descriptors"],
+                ref["appe_descriptors"], ref["poses_R"], cl, n_valid, True),
+                reps=3)
+        rounds = pipe.last_nms_rounds
+        log("ism: match_frame wall ms: " + ", ".join(f"{m:.1f}" for m in frame_ms)
+            + f"; on CUDA events: describe of {n_valid} valid {describe:.1f} ms "
+            f"(capacity {n_slots}: {describe_cap:.1f}), describe + scores "
+            f"{score:.1f} ms, with per-object NMS {score_nms:.1f} ms "
+            f"({rounds} rounds, {rounds + 1} device->host syncs)")
+
+        device_busy(lambda: pipe.match_frame(*args, **kw), "ism: match_frame")
+        check_ism_against_plain(pipe, job["rgb_arr"], job["depth_arr"], props, cloud)
+
+        records = detections_to_bop_json(result)
+        if len(records) != n_valid or min(r["score"] for r in records) <= 0:
+            raise AssertionError("expected one record of positive score per valid slot")
+        out_dir = os.path.join(job_dir, "sam6d_results")
+        os.makedirs(out_dir, exist_ok=True)
+        seg = os.path.join(out_dir, "detection_ism.json")
+        with open(seg, "w") as f:
+            json.dump(records, f)
+        reset()
+        t0 = time.perf_counter()
+        cli_main(["pem", "--output_dir", job_dir, "--cad_path", job["cad"],
+                  "--rgb_path", job["rgb"], "--depth_path", job["depth"],
+                  "--cam_path", job["cam"], "--seg_path", seg,
+                  "--det_score_thresh", "0", "--device", device])
+        torch.cuda.synchronize()
+        pem_launches = read()
+        log(f"ism -> pem: `pem` CLI on detection_ism.json ({len(records)} records) "
+            f"in {time.perf_counter() - t0:.2f} s; kernel launches {pem_launches}")
+        with open(os.path.join(out_dir, "detection_pem.json")) as f:
+            poses = json.load(f)
+        if len(poses) != len(records):
+            raise AssertionError(f"{len(poses)} poses for {len(records)} records")
+        for r in poses:
+            R = np.asarray(r["R"], np.float64)
+            if not (np.allclose(R @ R.T, np.eye(3), atol=1e-3)
+                    and np.isfinite(r["t"]).all() and np.isfinite(r["score"])):
+                raise AssertionError(f"bad pose {r}")
+        for name in ("farthest_point_sample_cuda", "two_scale_ball_query_cuda"):
+            if pem_launches[name] < 1:
+                raise AssertionError(f"{name} was not launched on the pem run")
+        log(f"ism -> pem: {len(poses)} poses, one per record, R R^T = I (atol 1e-3)")
+    return match_launches, pem_launches
 
 
 def main():
@@ -316,6 +637,15 @@ def main():
     cfg = PEMConfig()
     kernels = phase_kernels(cfg)
     launches, _ = phase_slice(cfg)
+    from sam6d_torch.core.config import ISMConfig, ISMMatchingConfig
+    from sam6d_torch.kernels import attention_qkv, ball_query, fps
+    # random weights give arbitrary semantic scores: pin the load as bench.py
+    # does, so every valid slot is selected
+    ism_cfg = ISMConfig(matching=ISMMatchingConfig(confidence_thresh=-1.0))
+    ism_launches, _ = phase_ism((attention_qkv, fps, ball_query), ism_cfg)
+    # each kernel's count from the run of its own path: K6/K7 from the `pem`
+    # CLI run of phase 4, K5 from match_frame in phase 5
+    launches["fused_attention_qkv_cuda"] = ism_launches["fused_attention_qkv_cuda"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@ A port of the JAX package `sam6d_tpu`, which stays the reference it is held
 against. Plain tensor code is PyTorch; each Pallas kernel of the JAX package
 on a ported path is a CUDA kernel written by hand for sm_90a
 (`sam6d_torch/csrc/`, built and bound by `sam6d_torch.kernels._build`).
-This package never imports jax or flax.
+This package imports nothing of jax, flax or `sam6d_tpu`: it keeps its own
+copies of the host code it needs.
 """
 from __future__ import annotations
 

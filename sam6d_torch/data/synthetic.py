@@ -4,7 +4,9 @@ Writes what the `pem` stage reads: a box mesh (PLY, mm), 42 template views
 (rgb_i.png, mask_i.png, xyz_i.npy: a z-buffered point splat of the mesh
 surface under random rotations), one 480x640 RGB-D frame with the box at
 0.6 m, camera.json and detection_ism.json (COCO-RLE masks over valid depth).
-Used by `chip_smoke.py` and the port's tests; no released data is needed.
+`write_ism_job` adds the fixed-capacity proposal buffer the ISM matching
+stage reads. Used by `chip_smoke.py` and the port's tests; no released data
+is needed.
 """
 from __future__ import annotations
 
@@ -14,9 +16,8 @@ import os
 import numpy as np
 from PIL import Image
 
-from sam6d_tpu.data.mesh import load_ply
-
-from .rle import rle_encode_coco
+from .mesh import load_ply
+from .rle import rle_decode_coco, rle_encode_coco
 
 K_CAM = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
                   [0.0, 0.0, 1.0]], np.float32)
@@ -115,3 +116,38 @@ def write_pem_job(job_dir: str, rng: np.random.RandomState, n_det: int = 16,
         json.dump(dets, f)
     return dict(paths, rgb_arr=rgb, depth_arr=depth.astype(np.float32),
                 dets=dets, pose=(R, T_CAM_MM))
+
+
+def _blob(rng, hit: np.ndarray, min_pixels: int = 200) -> np.ndarray:
+    """A random ellipse inside the object's visible pixels `hit`."""
+    H, W = hit.shape
+    rows, cols = np.nonzero(hit)
+    yy, xx = np.mgrid[:H, :W]
+    while True:
+        k = rng.randint(len(rows))
+        ry, rx = rng.randint(6, 40, 2)
+        m = (((yy - rows[k]) / ry) ** 2 + ((xx - cols[k]) / rx) ** 2 <= 1.0) & hit
+        if m.sum() >= min_pixels:
+            return m
+
+
+def write_ism_job(job_dir: str, rng: np.random.RandomState, n_slots: int = 128,
+                  n_valid: int = 48, n_det: int = 16, n_views: int = 42):
+    """write_pem_job plus a proposal buffer of `n_slots` masks, of which the
+    first `n_valid` are valid (the segmentor emits valid proposals as a
+    prefix): slots 0..n_det-1 are the job's detection masks, the others
+    random blobs on the object. Written to proposals.npz (masks (K, H, W)
+    bool, boxes (K, 4) float32 xyxy, valid (K,) bool); returns the job dict
+    with `proposals` added."""
+    job = write_pem_job(job_dir, rng, n_det=n_det, n_views=n_views)
+    hit = job["depth_arr"] > 0
+    masks = [rle_decode_coco(d["segmentation"]) for d in job["dets"]]
+    masks += [_blob(rng, hit) for _ in range(n_slots - n_det)]
+    masks = np.stack(masks)
+    boxes = np.zeros((n_slots, 4), np.float32)
+    for i, m in enumerate(masks):
+        ys, xs = np.nonzero(m)
+        boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+    proposals = dict(masks=masks, boxes=boxes, valid=np.arange(n_slots) < n_valid)
+    np.savez_compressed(os.path.join(job_dir, "proposals.npz"), **proposals)
+    return dict(job, proposals=proposals)

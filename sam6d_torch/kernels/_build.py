@@ -1,8 +1,9 @@
 """Builds the hand-written CUDA kernels under `sam6d_torch/csrc/` and binds
 them with ctypes.
 
-All `*.cu` sources compile with nvcc into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), at first use, into
+Each `*.cu` source compiles with its own nvcc process, all started together,
+and the objects link into ONE shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), at first use, into
 `sam6d_torch/_build/` (git-ignored). The file name carries a hash of the
 sources, so an edited kernel is rebuilt and a stale library is never loaded.
 Wrappers pass `tensor.data_ptr()` and `torch.cuda.current_stream().cuda_stream`
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,7 @@ _SIGNATURES = {
     "sam6d_fps_multi_block": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "sam6d_two_scale_ball_query": [_P, _P, _I, _I, _I, _F, _I, _F, _I, _P, _P,
                                    _P],
+    "sam6d_fused_attention_qkv": [_P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None
@@ -58,22 +60,41 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernels if the library for the current sources is missing.
-    Returns (library path, compiler output); `verbose` adds `-Xptxas -v`
-    (registers, shared memory and spills per kernel)."""
+    """Compile the kernels if the library for the current sources is missing:
+    one nvcc per source, in parallel, then one link. Returns (library path,
+    compiler output); `verbose` adds `-Xptxas -v` (registers, shared memory
+    and spills per kernel)."""
     so = library_path()
     if so.exists() and not verbose:
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so, proc.stdout + proc.stderr
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    outputs = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, _, proc in jobs]
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        for cmd, text, rc in outputs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return so, "".join(text for _, text, _ in outputs)
 
 
 def load_library() -> ctypes.CDLL:

@@ -14,8 +14,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from sam6d_tpu.core.config import PEMConfig
-
+from ..core.config import PEMConfig
 from .coarse_matching import CoarsePointMatching
 from .fine_matching import FinePointMatching
 from .geo_transformer import GeometricStructureEmbedding

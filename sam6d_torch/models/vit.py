@@ -5,7 +5,9 @@ Port of `sam6d_tpu/models/vit.py` (reference
 channels-last (B, H, W, 3) as in the JAX package; parameter names follow the
 reference `state_dict` (`vit.blocks.{i}.attn.qkv`, `vit.patch_embed.proj`,
 `output_upscaling`, ...). GELU is the exact erf form and attention is an
-explicit matmul + softmax, as on the JAX fp32 path.
+explicit matmul + softmax, as on the JAX fp32 path, or, under `use_flash`
+(DINOv2 in the ISM pipeline; PEM keeps it off, as the JAX package does), the
+fused-attention dispatch of `kernels/attention_qkv.py`.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.attention_qkv import fused_attention_qkv
 
 
 class MlpBlock(nn.Module):
@@ -27,11 +31,18 @@ class MlpBlock(nn.Module):
 
 
 class Attention(nn.Module):
-    """Pre-LN ViT multi-head self-attention with a fused qkv projection."""
+    """Pre-LN ViT multi-head self-attention with a fused qkv projection.
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    With `use_flash` and N <= 1024 the softmax(q k^T) v chain goes to the
+    fused-attention dispatch (`kernels/attention_qkv.py`: the CUDA kernel for
+    a CUDA tensor, its plain version on the CPU), which reads the qkv
+    projection as it is; otherwise it is an explicit matmul + softmax."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 use_flash: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_flash = use_flash
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
@@ -39,6 +50,8 @@ class Attention(nn.Module):
         B, N, C = x.shape
         H = self.num_heads
         hd = C // H
+        if self.use_flash and N <= 1024:
+            return self.proj(fused_attention_qkv(self.qkv(x), H, hd ** -0.5))
         q, k, v = self.qkv(x).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         attn = torch.softmax((q @ k.transpose(-1, -2)) / (hd ** 0.5), dim=-1)
         out = (attn @ v).transpose(1, 2).reshape(B, N, C)

@@ -17,11 +17,10 @@ import numpy as np
 import torch
 from PIL import Image
 
-from sam6d_tpu.core.config import PEMConfig
-from sam6d_tpu.data.mesh import load_ply
-from sam6d_tpu.data.preprocess import prepare_instance, prepare_template
-
 from .. import use_strict_fp32
+from ..core.config import PEMConfig
+from ..data.mesh import load_ply
+from ..data.preprocess import prepare_instance, prepare_template
 from ..data.rle import rle_decode_coco
 from ..models.pem import TEMPLATE_CACHE_KEYS, PEMNet
 from ..weights.pem import random_pem_state_dict

@@ -12,9 +12,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from sam6d_tpu.weights.convert_pem import load_torch_checkpoint
-
 from ..models.pem import PEMNet
+from .checkpoint import (_depth, _layernorm, _linear, _unstack,
+                         load_torch_checkpoint)
 
 
 def load_reference_checkpoint(path: str, net: PEMNet):
@@ -30,29 +30,6 @@ def load_reference_checkpoint(path: str, net: PEMNet):
     net.load_state_dict({k: torch.as_tensor(np.asarray(sd[k])) for k in own},
                         strict=True)
     return sorted(set(sd) - set(own))
-
-
-def _linear(sd, prefix, d):
-    sd[f"{prefix}.weight"] = np.asarray(d["kernel"]).T
-    sd[f"{prefix}.bias"] = np.asarray(d["bias"])
-
-
-def _layernorm(sd, prefix, d):
-    sd[f"{prefix}.weight"] = np.asarray(d["scale"])
-    sd[f"{prefix}.bias"] = np.asarray(d["bias"])
-
-
-def _unstack(tree, i):
-    """Slice item i of a tree of arrays stacked on axis 0 (nn.scan layout)."""
-    if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
-
-
-def _depth(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return np.asarray(tree).shape[0]
 
 
 def _transformer_layer(sd, prefix, d, rpe: bool):

@@ -1,7 +1,9 @@
-"""The port's two kernels (FPS, two-scale ball query) and the sampling ops
-around them. On the CPU the plain PyTorch versions are held to the JAX XLA
-path and to the Pallas kernels in interpret mode, with exact indices. The
-`cuda` tests hold each CUDA kernel to its plain version on the card."""
+"""The port's kernels (FPS, two-scale ball query, fused attention off the qkv
+projection) and the sampling ops around them. On the CPU the plain PyTorch
+versions are held to the JAX XLA path and to the Pallas kernels in interpret
+mode, with exact indices (the attention's plain version is held to JAX in
+test_torch_port_ism_modules.py). The `cuda` tests hold each CUDA kernel to
+its plain version on the card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ from sam6d_tpu.ops.ball_query import first_k_hits as jax_first_k_hits
 from sam6d_tpu.ops.ball_query import group_points as jax_group_points
 from sam6d_tpu.ops.ball_query import two_scale_ball_query as jax_two_scale_ball_query
 from sam6d_tpu.ops import sampling as jsampling
+from sam6d_torch.kernels import attention_qkv
 from sam6d_torch.kernels import ball_query as bq
 from sam6d_torch.kernels import fps
 from sam6d_torch.ops import sampling
@@ -138,10 +141,16 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
         fps.farthest_point_sample_cuda(pts, 4)
     with pytest.raises(ValueError):
         bq.two_scale_ball_query_cuda(pts, pts, 0.1, 2, 0.2, 4)
+    qkv = torch.zeros(1, 5, 3 * 64)
+    n_att = attention_qkv.fused_attention_qkv_cuda.launches
+    with pytest.raises(ValueError):
+        attention_qkv.fused_attention_qkv_cuda(qkv, 1, 0.125)
     fps.farthest_point_sample(pts, 4)          # CPU: plain version
     bq.two_scale_ball_query(pts, pts, 0.1, 2, 0.2, 4)
+    attention_qkv.fused_attention_qkv(qkv, 1, 0.125)
     assert fps.farthest_point_sample_cuda.launches == n_fps
     assert bq.two_scale_ball_query_cuda.launches == n_bq
+    assert attention_qkv.fused_attention_qkv_cuda.launches == n_att
 
 
 # ------------------------------------------------------------- on the card
@@ -196,3 +205,33 @@ def test_ball_query_kernel_matches_plain(cuda_device, B, N, M, scales):
                        bq.two_scale_ball_query_plain(xyz, q, *scales), (r1, r2)):
         near = ((d2 - float(np.float32(r * r))).abs() < 1e-6).any(dim=-1)
         assert not ((g != w).any(dim=-1) & ~near).any()
+
+
+# fp32 scores and online softmax in another order than the plain matmul +
+# softmax: the tolerance of the JAX package's own kernel test
+ATTENTION_ATOL = 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,hd", [
+    (16, 257, 16, 64),      # DINOv2-L, one describe chunk
+    (3, 257, 16, 64),       # ragged batch
+    (2, 128, 4, 64),        # N a multiple of both tiles
+    (2, 17, 4, 32),         # hd 32, N below one tile
+])
+def test_fused_attention_qkv_kernel_matches_plain(cuda_device, B, N, heads, hd):
+    rng = np.random.RandomState(8)
+    qkv = torch.from_numpy(rng.randn(B, N, 3 * heads * hd).astype(np.float32)).to(cuda_device)
+    got = attention_qkv.fused_attention_qkv_cuda(qkv, heads, hd ** -0.5)
+    want = attention_qkv.fused_attention_qkv_plain(qkv, heads, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+@pytest.mark.cuda
+def test_fused_attention_qkv_kernel_refuses_what_it_does_not_take(cuda_device):
+    qkv = torch.zeros(2, 9, 3 * 4 * 48, device=cuda_device)      # hd 48
+    with pytest.raises(ValueError):
+        attention_qkv.fused_attention_qkv_cuda(qkv, 4, 0.1)
+    with pytest.raises(ValueError):
+        attention_qkv.fused_attention_qkv_cuda(qkv.double(), 6, 0.1)

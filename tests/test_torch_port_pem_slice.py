@@ -1,7 +1,8 @@
 """The PEM slice of the PyTorch port against the JAX package on the CPU, at
 the tiny configuration of torch_port_common (atol = rtol = 1e-4 unless
 stated): the fine half from JAX's own coarse pose, the trunk, the onboarding
-caches, and the port's freedom from jax. The `pem` entry point itself is in
+caches, and the freedom of the port and chip_smoke.py from jax and
+sam6d_tpu. The `pem` entry point itself is in
 test_torch_port_pem_cli.py."""
 import os
 import subprocess
@@ -92,13 +93,32 @@ def test_onboard_templates_matches_jax_on_every_cached_array(setup):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys\n"
-            "import sam6d_torch.cli.main, sam6d_torch.pipelines.pem\n"
-            "import sam6d_torch.weights.pem, sam6d_torch.data.synthetic\n"
-            "import sam6d_torch.kernels.fps, sam6d_torch.kernels.ball_query\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib'))\n"
+    """Every module of sam6d_torch, found by walking the package, imports
+    nothing of jax, flax, jaxlib or the JAX package sam6d_tpu."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import sam6d_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(sam6d_torch.__path__, 'sam6d_torch.')]\n"
+            "assert len(names) > 20, names\n"
+            "for n in names:\n"
+            "    importlib.import_module(n)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'flax', 'jaxlib', 'sam6d_tpu'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_never_imports_jax():
+    """chip_smoke.py, at module level or inside any function, imports
+    nothing of jax, flax, jaxlib or sam6d_tpu."""
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert "sam6d_torch.pipelines.ism" in names
+    bad = [m for m in names if m.split(".")[0] in ("jax", "flax", "jaxlib", "sam6d_tpu")]
+    assert not bad, bad

@@ -86,3 +86,41 @@ def close(got, want, atol=ATOL, rtol=RTOL):
     if isinstance(got, torch.Tensor):
         got = got.detach().numpy()
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
+
+
+def tiny_ism_cfgs(confidence_thresh=-1.0):
+    """(JAX ISMConfig, port ISMConfig) of the tiny DINOv2 matching setup of
+    tests/test_ism_pipeline.py: C=32, 2 blocks, 4 heads, 28x28 input, chunk
+    8, 16 proposal slots."""
+    from sam6d_tpu.core import config as jc
+    from sam6d_torch.core import config as pc
+    dino = dict(patch_size=14, embed_dim=32, depth=2, num_heads=4, img_size=28,
+                chunk_size=8)
+    match = dict(confidence_thresh=confidence_thresh)
+    return (jc.ISMConfig(sam=jc.SAMConfig(max_proposals=16),
+                         dinov2=jc.DINOv2Config(**dino),
+                         matching=jc.ISMMatchingConfig(**match)),
+            pc.ISMConfig(sam=pc.SAMConfig(max_proposals=16),
+                         dinov2=pc.DINOv2Config(**dino),
+                         matching=pc.ISMMatchingConfig(**match)))
+
+
+def tiny_dinov2_weights(cfg, seed=1, rng=None):
+    """(port `state_dict`, JAX variables) of one set of seeded DINOv2
+    weights; with `rng`, the LayerNorm affines and LayerScales are perturbed
+    so that folding them is not a no-op."""
+    from sam6d_tpu.weights.convert_dinov2 import convert_dinov2_state_dict
+    from sam6d_torch.models.dinov2 import DINOv2
+    from sam6d_torch.weights.dinov2 import random_dinov2_state_dict
+    d = cfg.dinov2
+    sd = random_dinov2_state_dict(
+        DINOv2(d.img_size, d.patch_size, d.embed_dim, d.depth, d.num_heads), seed)
+    if rng is not None:
+        for k, v in sd.items():
+            if v.dim() == 1 and not k.startswith("patch_embed"):
+                sd[k] = v + torch.from_numpy(
+                    (rng.randn(*v.shape) * 0.2).astype(np.float32))
+    variables = convert_dinov2_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, depth=d.depth,
+        target_grid=d.img_size // d.patch_size)
+    return sd, variables
