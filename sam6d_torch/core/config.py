@@ -2,14 +2,15 @@
 operating points as defaults.
 
 The port's own copy of the part of `sam6d_tpu/core/config.py` it runs: the
-PEM tree (reference `Pose_Estimation_Model/config/base.yaml`) and the ISM
-matching tree (reference `Instance_Segmentation_Model/configs/model/
-ISM_sam.yaml`). Names and defaults are the JAX package's; fields no ported
-code reads are left out.
+PEM tree (reference `Pose_Estimation_Model/config/base.yaml`), the SAM
+segmentor and the ISM matching tree (reference
+`Instance_Segmentation_Model/configs/model/ISM_sam.yaml`). Names and
+defaults are the JAX package's; fields no ported code reads are left out.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Tuple
 
 # --------------------------------------------------------------------- PEM
 
@@ -81,9 +82,39 @@ class PEMConfig:
 
 @dataclass(frozen=True)
 class SAMConfig:
-    """The segmentor's settings the matching stage reads: the fixed proposal
-    capacity. The SAM model itself is not ported yet."""
-    max_proposals: int = 512
+    """SAM ViT image encoder + automatic mask generation (reference
+    build_sam.py:55-107, configs/model/segmentor_model/sam.yaml).
+
+    Left out of the JAX package's tree: the crop cascade and the
+    small-region cleanup (both off at the reference operating point) and
+    the TPU-only `encoder_carry_windows`, `amg_prerank`, `amg_rank_chunk`."""
+    model_type: str = "vit_h"
+    encoder_embed_dim: int = 1280
+    encoder_depth: int = 32
+    encoder_num_heads: int = 16
+    encoder_global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    img_size: int = 1024
+    patch_size: int = 16
+    window_size: int = 14
+    prompt_embed_dim: int = 256
+    # automatic mask generation
+    points_per_side: int = 32
+    points_per_batch: int = 128     # decode chunk (reference GPU used 64)
+    pred_iou_thresh: float = 0.88
+    stability_score_thresh: float = 0.85
+    stability_score_offset: float = 1.0
+    box_nms_thresh: float = 0.7
+    segmentor_width_size: int = 640  # pre-resize width (model/sam.py:107-119)
+    max_proposals: int = 512         # fixed capacity of surviving proposals
+    # exact iou-prefix pass: every grid prompt's predicted IoU from the
+    # factored two-way transformer, then the full decode only for the top
+    # ceil(max_proposals * factor / points_per_batch) chunks of points by
+    # max-channel IoU (greedy NMS keep decisions depend only on higher-IoU
+    # candidates); 0 = full-grid decode
+    amg_iou_prefix_factor: float = 1.0
+    # NMS over the top-T candidates by IoU only (same truncation argument);
+    # 0 = no truncation
+    amg_nms_topk: int = 3072
 
 
 @dataclass(frozen=True)

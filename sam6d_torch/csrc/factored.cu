@@ -1,0 +1,572 @@
+// The three kernels of the SAM AMG's exact iou-prefix pass, for Hopper
+// (sm_90a), plain C interface for ctypes.
+//
+// Replace the Pallas kernels of sam6d_tpu/kernels/factored_t2i.py:
+// factored_ln_stats (_ln_stats_kernel), factored_t2i_attention
+// (_t2i_kernel) and factored_i2t_scores (_i2t_kernel). In that pass the
+// two-way transformer carries each prompt's image side as
+//   x[b] = a[b] * S + P_eff[b]^T U[b]          (S: (N, C), shared)
+// where P_eff is a list of up to four SCALED BLOCKS: raw factor rows
+// Pd_i (B, R_i, N) times an optional per-position scale s_i (B, N). The
+// blocks are passed as a small descriptor (pointers, ranks, scale pointers
+// or null), never concatenated; row r of P_eff is row r - off_i of the
+// block that holds it, times that block's scale.
+//
+// Shapes on the main path (ViT-H SAM, 128-prompt chunks): B = 128,
+// N = 4096 image positions, C = 256 channels, d = 128 attention channels
+// as 8 heads of 16, T = 7 tokens (HT = 56), ranks 57..118. Each kernel is
+// launched twice per chunk.
+//
+// What bounds them (fp32, TF32 off, H100 SXM 67 TFLOP/s, 3.35 TB/s):
+//  - ln_stats: 2*B*R*C*N FLOP for the low-rank part of x (31 GFLOP at
+//    R = 116), compute-bound (~0.46 ms);
+//  - t2i: ~4*B*HT*R*N FLOP (14 GFLOP at R = 118), compute-bound (~0.2 ms);
+//  - i2t: writes B*(HT+1)*N floats (120 MB), 2*B*HT*R*N FLOP (3.5 GFLOP at
+//    R = 59); bytes and operations about even (~0.05 ms).
+//
+// Designs (simple and right first; tensor cores are later work):
+//  - ln_stats: one block per (prompt, 64 positions). It forms the tile of
+//    x itself, 64 positions x C channels in registers (8 x C/32 per
+//    thread), from 16-row chunks of P_eff and U staged in shared memory,
+//    adds a * S, and reduces the channel sum and sum of squares with warp
+//    shuffles: mu = E[x], var = E[x^2] - mu^2 (the TPU kernel's fast-variance
+//    form). This folds the TPU kernel's gram (R x R), mean(U) and S-cross
+//    (R x N) terms into one product; none of them, and no x, reaches memory.
+//  - t2i: one block per prompt, one warp per head (the query is
+//    block-diagonal over heads, so head h needs only its 16 channels). The
+//    low-rank query factor T1 = q_h U_K^T (R x 7 per head) is formed first;
+//    then an online softmax over 64-position tiles: scores in registers
+//    (8 rows x 2 positions per lane), the P_eff tile in shared memory, the
+//    value part accumulated per lane (4 outputs) and the low-rank value
+//    factor T2 = p P_eff^T (8 rows x 4 ranks per lane). Only the head-diagonal
+//    output blocks are written: (B, T, d).
+//  - i2t: one block per (prompt, 128 positions), one warp per head, 4
+//    positions per lane: T = U_Q k_h^T first, scores in registers, the
+//    softmax over the T tokens of each head is per position (no reduction
+//    across lanes), and the (HT + 1) x 128 probability tile is written once,
+//    with the trailing row of ones.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kMaxBlocks = 4;
+constexpr int kThreads = 256;
+constexpr int kHeads = 8;            // t2i / i2t: one warp per head
+constexpr int kHd = 16;              // channels per head
+constexpr int kD = kHeads * kHd;     // attention channels
+constexpr int kRows = 8;             // tokens per head, padded
+constexpr int kMaxRank = 128;
+
+struct Blocks {
+  const float* pd[kMaxBlocks];  // (B, r[i], N) raw factor rows
+  const float* s[kMaxBlocks];   // (B, N) per-position scale, or null
+  int r[kMaxBlocks];            // 0 past the last block
+  int n;
+};
+
+// Row `row` of P_eff for prompt b at position pos: the scaled factor value.
+__device__ __forceinline__ float p_eff(const Blocks& bl, int b, int row, int pos,
+                                       int npos) {
+  int off = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxBlocks; ++i) {
+    if (i < bl.n && row < off + bl.r[i]) {
+      const float v =
+          bl.pd[i][(static_cast<size_t>(b) * bl.r[i] + (row - off)) * npos + pos];
+      return bl.s[i] ? v * bl.s[i][static_cast<size_t>(b) * npos + pos] : v;
+    }
+    off += bl.r[i];
+  }
+  return 0.f;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The per-head token vectors of prompt b, [head][channel][row], rows past
+// t_tok zero.
+__device__ __forceinline__ void load_heads(float* dst, const float* src, int b,
+                                           int t_tok) {
+  for (int e = threadIdx.x; e < kHeads * kHd * kRows; e += kThreads) {
+    const int hh = e / (kHd * kRows), cc = (e / kRows) % kHd, tt = e % kRows;
+    dst[e] = tt < t_tok ? src[(static_cast<size_t>(b) * t_tok + tt) * kD + hh * kHd + cc]
+                        : 0.f;
+  }
+}
+
+// low[r][(h, tt)] = u[b, r, head h] . tok[h][.][tt] for r < rtot; warp h,
+// lanes over r.
+__device__ __forceinline__ void low_rank_factor(float* low, const float* tok,
+                                                const float* u, int b, int rtot) {
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = lane; r < rtot; r += 32) {
+    float acc[kRows];
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt) acc[tt] = 0.f;
+    const float* ur = u + (static_cast<size_t>(b) * rtot + r) * kD + h * kHd;
+#pragma unroll
+    for (int cc = 0; cc < kHd; ++cc) {
+      const float uv = ur[cc];
+#pragma unroll
+      for (int tt = 0; tt < kRows; ++tt)
+        acc[tt] = fmaf(tok[(h * kHd + cc) * kRows + tt], uv, acc[tt]);
+    }
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt) low[r * (kHeads * kRows) + h * kRows + tt] = acc[tt];
+  }
+}
+
+// s[tt] = av * (tok_h[tt] . a_row) + tok_h[tt] . c_row over head h's channels.
+__device__ __forceinline__ void head_scores(float* s, const float* tok, int h,
+                                            const float* a_row, const float* c_row,
+                                            float av) {
+  float x[kHd], y[kHd];
+#pragma unroll
+  for (int q = 0; q < kHd / 4; ++q) {
+    const float4 u = reinterpret_cast<const float4*>(a_row)[q];
+    const float4 v = reinterpret_cast<const float4*>(c_row)[q];
+    x[4 * q] = u.x; x[4 * q + 1] = u.y; x[4 * q + 2] = u.z; x[4 * q + 3] = u.w;
+    y[4 * q] = v.x; y[4 * q + 1] = v.y; y[4 * q + 2] = v.z; y[4 * q + 3] = v.w;
+  }
+  float sa[kRows], sc[kRows];
+#pragma unroll
+  for (int tt = 0; tt < kRows; ++tt) sa[tt] = sc[tt] = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < kHd; ++cc) {
+    const float4 t0 = *reinterpret_cast<const float4*>(&tok[(h * kHd + cc) * kRows]);
+    const float4 t1 = *reinterpret_cast<const float4*>(&tok[(h * kHd + cc) * kRows + 4]);
+    const float tv[kRows] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt) {
+      sa[tt] = fmaf(tv[tt], x[cc], sa[tt]);
+      sc[tt] = fmaf(tv[tt], y[cc], sc[tt]);
+    }
+  }
+#pragma unroll
+  for (int tt = 0; tt < kRows; ++tt) s[tt] = fmaf(av, sa[tt], sc[tt]);
+}
+
+// ------------------------------------------------------------ ln_stats
+
+constexpr int kLnBN = 64;   // positions per block (8 per warp)
+constexpr int kLnRC = 16;   // factor rows per staged chunk
+
+template <int CPL>  // channels per lane, C = 32 * CPL
+__global__ void __launch_bounds__(kThreads)
+    ln_stats_kernel(Blocks bl, const float* __restrict__ uc,
+                    const float* __restrict__ smat, const float* __restrict__ a,
+                    float* __restrict__ out, int npos, int rtot, float eps) {
+  constexpr int C = 32 * CPL;
+  __shared__ float ts[kLnRC][kLnBN];
+  __shared__ float us[kLnRC][C];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y, n0 = blockIdx.x * kLnBN;
+  float x[8][CPL];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) x[i][j] = 0.f;
+
+  for (int r0 = 0; r0 < rtot; r0 += kLnRC) {
+    __syncthreads();  // the previous chunk is read
+    for (int e = threadIdx.x; e < kLnRC * kLnBN; e += kThreads) {
+      const int rr = e / kLnBN, j = e % kLnBN;
+      ts[rr][j] = (r0 + rr < rtot && n0 + j < npos)
+                      ? p_eff(bl, b, r0 + rr, n0 + j, npos) : 0.f;
+    }
+    for (int e = threadIdx.x; e < kLnRC * C; e += kThreads) {
+      const int rr = e / C;
+      us[rr][e % C] = r0 + rr < rtot
+                          ? uc[(static_cast<size_t>(b) * rtot + r0) * C + e] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < kLnRC; ++rr) {
+      float tv[8], uv[CPL];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) tv[i] = ts[rr][warp * 8 + i];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) uv[j] = us[rr][lane * CPL + j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) x[i][j] = fmaf(tv[i], uv[j], x[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pos = n0 + warp * 8 + i;  // warp-uniform
+    float sum = 0.f, sq = 0.f;
+    if (pos < npos) {
+      const float av = a ? a[static_cast<size_t>(b) * npos + pos] : 1.f;
+      const float* srow = smat + static_cast<size_t>(pos) * C + lane * CPL;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const float v = fmaf(av, srow[j], x[i][j]);
+        sum += v;
+        sq = fmaf(v, v, sq);
+      }
+    }
+    sum = warp_sum(sum);
+    sq = warp_sum(sq);
+    if (lane == 0 && pos < npos) {
+      const float mu = sum / C;
+      const float var = sq / C - mu * mu;
+      out[static_cast<size_t>(b) * 2 * npos + pos] = mu;
+      out[(static_cast<size_t>(b) * 2 + 1) * npos + pos] = 1.f / sqrtf(var + eps);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- t2i
+
+constexpr int kT2iBN = 64;            // positions per tile (2 per lane)
+constexpr int kTsStride = kT2iBN + 1;
+
+size_t t2i_smem_bytes() {
+  return sizeof(float) * (kHeads * kHd * kRows + kMaxRank * kHeads * kRows +
+                          kMaxRank * kTsStride + kHeads * kT2iBN * kRows + kT2iBN);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    t2i_kernel(const float* __restrict__ q, const float* __restrict__ uk,
+               const float* __restrict__ uv, Blocks bl, const float* __restrict__ a,
+               const float* __restrict__ ks, const float* __restrict__ kc,
+               const float* __restrict__ vs, float* __restrict__ out, int t_tok,
+               int npos, int rtot) {
+  extern __shared__ float4 smem4[];
+  float* qsm = reinterpret_cast<float*>(smem4);   // [head][channel][row]
+  float* low = qsm + kHeads * kHd * kRows;        // [rank][(head, row)]: T1, then T2
+  float* ts = low + kMaxRank * kHeads * kRows;    // [rank][kTsStride] P_eff tile
+  float* psm = ts + kMaxRank * kTsStride;         // [head][position][row] probs
+  float* at = psm + kHeads * kT2iBN * kRows;      // [position] a
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x;
+
+  load_heads(qsm, q, b, t_tok);
+  __syncthreads();
+  low_rank_factor(low, qsm, uk, b, rtot);
+
+  float m[kRows], l[kRows], t2[kRows][4], accv[4];
+#pragma unroll
+  for (int tt = 0; tt < kRows; ++tt) {
+    m[tt] = -CUDART_INF_F;
+    l[tt] = 0.f;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) t2[tt][qq] = 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) accv[e] = 0.f;
+  const int my_t = lane / 4, my_c = (lane % 4) * 4;  // value outputs of the lane
+
+  for (int n0 = 0; n0 < npos; n0 += kT2iBN) {
+    __syncthreads();  // T1 is written; the previous tile is read
+    for (int e = threadIdx.x; e < rtot * kT2iBN; e += kThreads) {
+      const int r = e / kT2iBN, j = e % kT2iBN;
+      ts[r * kTsStride + j] = n0 + j < npos ? p_eff(bl, b, r, n0 + j, npos) : 0.f;
+    }
+    if (threadIdx.x < kT2iBN)
+      at[threadIdx.x] = n0 + threadIdx.x < npos
+                            ? a[static_cast<size_t>(b) * npos + n0 + threadIdx.x] : 0.f;
+    __syncthreads();
+
+    float s[kRows][2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = lane * 2 + jj, pos = n0 + j;
+      float sj[kRows];
+      if (pos < npos) {
+        head_scores(sj, qsm, h, ks + static_cast<size_t>(pos) * kD + h * kHd,
+                    kc + static_cast<size_t>(pos) * kD + h * kHd, at[j]);
+      } else {
+#pragma unroll
+        for (int tt = 0; tt < kRows; ++tt) sj[tt] = -CUDART_INF_F;
+      }
+#pragma unroll
+      for (int tt = 0; tt < kRows; ++tt) s[tt][jj] = sj[tt];
+    }
+    for (int r = 0; r < rtot; ++r) {
+      const float4 ta = *reinterpret_cast<const float4*>(&low[r * kHeads * kRows + h * kRows]);
+      const float4 tb = *reinterpret_cast<const float4*>(&low[r * kHeads * kRows + h * kRows + 4]);
+      const float tv[kRows] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+      const float p0 = ts[r * kTsStride + lane * 2];
+      const float p1 = ts[r * kTsStride + lane * 2 + 1];
+#pragma unroll
+      for (int tt = 0; tt < kRows; ++tt) {
+        s[tt][0] = fmaf(tv[tt], p0, s[tt][0]);
+        s[tt][1] = fmaf(tv[tt], p1, s[tt][1]);
+      }
+    }
+
+    float corr[kRows];
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt) {
+      const float m_new = fmaxf(m[tt], warp_max(fmaxf(s[tt][0], s[tt][1])));
+      corr[tt] = expf(m[tt] - m_new);  // 0 on the first tile
+      s[tt][0] = expf(s[tt][0] - m_new);
+      s[tt][1] = expf(s[tt][1] - m_new);
+      l[tt] = l[tt] * corr[tt] + warp_sum(s[tt][0] + s[tt][1]);
+      m[tt] = m_new;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      float* dst = &psm[(h * kT2iBN + lane * 2 + jj) * kRows];
+      *reinterpret_cast<float4*>(dst) = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
+    }
+    __syncwarp();  // the head's probabilities are read by its own warp only
+
+    float my_corr = corr[0];
+#pragma unroll
+    for (int tt = 1; tt < kRows; ++tt)
+      if (tt == my_t) my_corr = corr[tt];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accv[e] *= my_corr;
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt)
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) t2[tt][qq] *= corr[tt];
+
+    const int nj = min(kT2iBN, npos - n0);
+    for (int j = 0; j < nj; ++j) {
+      const float pa = psm[(h * kT2iBN + j) * kRows + my_t] * at[j];
+      const float4 v4 = *reinterpret_cast<const float4*>(
+          vs + static_cast<size_t>(n0 + j) * kD + h * kHd + my_c);
+      accv[0] = fmaf(pa, v4.x, accv[0]);
+      accv[1] = fmaf(pa, v4.y, accv[1]);
+      accv[2] = fmaf(pa, v4.z, accv[2]);
+      accv[3] = fmaf(pa, v4.w, accv[3]);
+    }
+    for (int j = 0; j < nj; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(&psm[(h * kT2iBN + j) * kRows]);
+      const float4 pb = *reinterpret_cast<const float4*>(&psm[(h * kT2iBN + j) * kRows + 4]);
+      const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int r = lane + 32 * qq;
+        if (r < rtot) {
+          const float tv = ts[r * kTsStride + j];
+#pragma unroll
+          for (int tt = 0; tt < kRows; ++tt) t2[tt][qq] = fmaf(pv[tt], tv, t2[tt][qq]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with T1
+#pragma unroll
+  for (int qq = 0; qq < 4; ++qq) {
+    const int r = lane + 32 * qq;
+    if (r < rtot) {
+#pragma unroll
+      for (int tt = 0; tt < kRows; ++tt) low[r * kHeads * kRows + h * kRows + tt] = t2[tt][qq];
+    }
+  }
+  __syncwarp();
+  float o[4] = {accv[0], accv[1], accv[2], accv[3]};
+  for (int r = 0; r < rtot; ++r) {
+    const float w = low[r * kHeads * kRows + h * kRows + my_t];
+    const float4 u4 = *reinterpret_cast<const float4*>(
+        uv + (static_cast<size_t>(b) * rtot + r) * kD + h * kHd + my_c);
+    o[0] = fmaf(w, u4.x, o[0]);
+    o[1] = fmaf(w, u4.y, o[1]);
+    o[2] = fmaf(w, u4.z, o[2]);
+    o[3] = fmaf(w, u4.w, o[3]);
+  }
+  float my_l = l[0];
+#pragma unroll
+  for (int tt = 1; tt < kRows; ++tt)
+    if (tt == my_t) my_l = l[tt];
+  if (my_t < t_tok) {
+    const float inv = 1.f / my_l;
+    float* orow = out + (static_cast<size_t>(b) * t_tok + my_t) * kD + h * kHd + my_c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) orow[e] = o[e] * inv;
+  }
+}
+
+// ----------------------------------------------------------------- i2t
+
+constexpr int kI2tBN = 128;  // positions per block (4 per lane)
+constexpr int kI2tRC = 32;   // factor rows per staged chunk
+
+size_t i2t_smem_bytes() {
+  return sizeof(float) * (kHeads * kHd * kRows + kMaxRank * kHeads * kRows +
+                          kI2tRC * kI2tBN);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    i2t_kernel(const float* __restrict__ kt, const float* __restrict__ uq,
+               Blocks bl, const float* __restrict__ a,
+               const float* __restrict__ qs, const float* __restrict__ qc,
+               float* __restrict__ out, int t_tok, int npos, int rtot) {
+  extern __shared__ float4 smem4[];
+  float* ksm = reinterpret_cast<float*>(smem4);  // [head][channel][row]
+  float* low = ksm + kHeads * kHd * kRows;       // [rank][(head, row)]
+  float* ts = low + kMaxRank * kHeads * kRows;   // [kI2tRC][kI2tBN] P_eff chunk
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y, n0 = blockIdx.x * kI2tBN;
+  const int ht = kHeads * t_tok;
+
+  load_heads(ksm, kt, b, t_tok);
+  __syncthreads();
+  if (rtot > 0) low_rank_factor(low, ksm, uq, b, rtot);
+
+  float s[kRows][4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int pos = n0 + lane * 4 + jj;
+    float sj[kRows];
+    if (pos < npos) {
+      head_scores(sj, ksm, h, qs + static_cast<size_t>(pos) * kD + h * kHd,
+                  qc + static_cast<size_t>(pos) * kD + h * kHd,
+                  a ? a[static_cast<size_t>(b) * npos + pos] : 1.f);
+    } else {
+#pragma unroll
+      for (int tt = 0; tt < kRows; ++tt) sj[tt] = 0.f;
+    }
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt) s[tt][jj] = sj[tt];
+  }
+  for (int r0 = 0; r0 < rtot; r0 += kI2tRC) {
+    __syncthreads();  // the low-rank factor is written; the previous chunk is read
+    for (int e = threadIdx.x; e < kI2tRC * kI2tBN; e += kThreads) {
+      const int rr = e / kI2tBN, j = e % kI2tBN;
+      ts[e] = (r0 + rr < rtot && n0 + j < npos) ? p_eff(bl, b, r0 + rr, n0 + j, npos)
+                                                : 0.f;
+    }
+    __syncthreads();
+    const int rn = min(kI2tRC, rtot - r0);
+    for (int rr = 0; rr < rn; ++rr) {
+      const float* lr = &low[(r0 + rr) * kHeads * kRows + h * kRows];
+      const float4 ta = *reinterpret_cast<const float4*>(lr);
+      const float4 tb = *reinterpret_cast<const float4*>(lr + 4);
+      const float tv[kRows] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+      const float4 p4 = *reinterpret_cast<const float4*>(&ts[rr * kI2tBN + lane * 4]);
+      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int tt = 0; tt < kRows; ++tt)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[tt][jj] = fmaf(tv[tt], pv[jj], s[tt][jj]);
+    }
+  }
+
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int pos = n0 + lane * 4 + jj;
+    if (pos >= npos) continue;
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt)
+      if (tt < t_tok) mx = fmaxf(mx, s[tt][jj]);
+    float e[kRows], sum = 0.f;
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt) {
+      e[tt] = tt < t_tok ? expf(s[tt][jj] - mx) : 0.f;
+      sum += e[tt];
+    }
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt)
+      if (tt < t_tok)
+        out[(static_cast<size_t>(b) * (ht + 1) + h * t_tok + tt) * npos + pos] = e[tt] / sum;
+  }
+  if (threadIdx.x < kI2tBN && n0 + threadIdx.x < npos)
+    out[(static_cast<size_t>(b) * (ht + 1) + ht) * npos + n0 + threadIdx.x] = 1.f;
+}
+
+Blocks make_blocks(const float* const* pd, const float* const* s, const int* r,
+                   int nblocks) {
+  Blocks bl;
+  for (int i = 0; i < kMaxBlocks; ++i) {
+    bl.pd[i] = i < nblocks ? pd[i] : nullptr;
+    bl.s[i] = i < nblocks ? s[i] : nullptr;
+    bl.r[i] = i < nblocks ? r[i] : 0;
+  }
+  bl.n = nblocks;
+  return bl;
+}
+
+bool blocks_ok(const int* r, int nblocks, int rtot, int max_rank) {
+  if (nblocks < 0 || nblocks > kMaxBlocks || rtot > max_rank) return false;
+  int sum = 0;
+  for (int i = 0; i < nblocks; ++i) sum += r[i];
+  return sum == rtot;
+}
+
+}  // namespace
+
+extern "C" {
+
+// blocks: nblocks (<= 4) descriptors: pd[i] (b, r[i], n), s[i] (b, n) or
+// null, sum(r) == rtot. uc: (b, rtot, c); smat: (n, c); a: (b, n) or null;
+// out: (b, 2, n) = (mean, 1/sqrt(var + eps)) over the c channels of
+// x = a * S + P_eff^T uc. c must be 256.
+int sam6d_factored_ln_stats(const float* const* pd, const float* const* s,
+                            const int* r, int nblocks, const float* uc,
+                            const float* smat, const float* a, float* out, int b,
+                            int n, int c, int rtot, float eps,
+                            cudaStream_t stream) {
+  if (!blocks_ok(r, nblocks, rtot, 1 << 20)) return static_cast<int>(cudaErrorInvalidValue);
+  const Blocks bl = make_blocks(pd, s, r, nblocks);
+  const dim3 grid((n + kLnBN - 1) / kLnBN, b);
+  if (c != 256) return static_cast<int>(cudaErrorInvalidValue);
+  ln_stats_kernel<8><<<grid, kThreads, 0, stream>>>(bl, uc, smat, a, out, n, rtot, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (b, t, 128) pre-scaled token queries, 8 heads of 16; uk, uv: (b, rtot,
+// 128); a: (b, n); ks, kc, vs: (n, 128). out: (b, t, 128), head h's
+// attention output at channels h*16 (the head-diagonal blocks), without the
+// value bias. t <= 8, 1 <= rtot <= 128, every pointer 16-byte aligned.
+int sam6d_factored_t2i_attention(const float* q, const float* uk, const float* uv,
+                                 const float* const* pd, const float* const* s,
+                                 const int* r, int nblocks, const float* a,
+                                 const float* ks, const float* kc, const float* vs,
+                                 float* out, int b, int t, int n, int rtot,
+                                 cudaStream_t stream) {
+  if (!blocks_ok(r, nblocks, rtot, kMaxRank) || rtot < 1 || t < 1 || t > kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Blocks bl = make_blocks(pd, s, r, nblocks);
+  const size_t bytes = t2i_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      t2i_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  t2i_kernel<<<b, kThreads, bytes, stream>>>(q, uk, uv, bl, a, ks, kc, vs, out, t, n,
+                                             rtot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kt: (b, t, 128) token keys, 8 heads of 16; uq: (b, rtot, 128) or null
+// when rtot == 0; a: (b, n) or null; qs, qc: (n, 128). out: (b, 8t + 1, n):
+// row h*t + tt is the softmax over head h's t tokens at every position, the
+// last row is ones. t <= 8, rtot <= 128, every pointer 16-byte aligned.
+int sam6d_factored_i2t_scores(const float* kt, const float* uq,
+                              const float* const* pd, const float* const* s,
+                              const int* r, int nblocks, const float* a,
+                              const float* qs, const float* qc, float* out, int b,
+                              int t, int n, int rtot, cudaStream_t stream) {
+  if (!blocks_ok(r, nblocks, rtot, kMaxRank) || t < 1 || t > kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Blocks bl = make_blocks(pd, s, r, nblocks);
+  const size_t bytes = i2t_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      i2t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kI2tBN - 1) / kI2tBN, b);
+  i2t_kernel<<<grid, kThreads, bytes, stream>>>(kt, uq, bl, a, qs, qc, out, t, n, rtot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

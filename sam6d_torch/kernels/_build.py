@@ -27,12 +27,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)   # host array of device pointers
+_IP = ctypes.POINTER(ctypes.c_int)      # host array of ints
 _SIGNATURES = {
     "sam6d_fps_single_block": [_P, _P, _I, _I, _I, _P, _P],
     "sam6d_fps_multi_block": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "sam6d_two_scale_ball_query": [_P, _P, _I, _I, _I, _F, _I, _F, _I, _P, _P,
                                    _P],
     "sam6d_fused_attention_qkv": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "sam6d_flash_attention_relpos": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _P],
+    "sam6d_factored_ln_stats": [_PP, _PP, _IP, _I, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _F, _P],
+    "sam6d_factored_t2i_attention": [_P, _P, _P, _PP, _PP, _IP, _I, _P, _P, _P,
+                                     _P, _P, _I, _I, _I, _I, _P],
+    "sam6d_factored_i2t_scores": [_P, _P, _PP, _PP, _IP, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,0 +1,122 @@
+"""SAM ViTDet attention with the decomposed relative-position bias: the CUDA
+kernel (`csrc/attention_relpos.cu`), its plain PyTorch version, and the
+device dispatch.
+
+Replaces `sam6d_tpu/kernels/flash_attention.py::flash_attention_relpos`
+(through `_fused_attention`), which runs in every attention of the SAM
+image encoder: 28 windowed blocks (25 windows of 14x14 tokens) and 4 global
+blocks (64x64 tokens) per frame, 16 heads of hd 80.
+
+    out = softmax(q k^T / sqrt(hd) + rel_h_q[n, row(m)] + rel_w_q[n, col(m)]) v
+
+with rel_h_q[n, kh] = q[n] . rel_pos_h[row(n) - kh + H - 1] (unscaled q),
+rel_w_q likewise over columns (reference add_decomposed_rel_pos,
+image_encoder.py:325-361). Both versions compute the thin tables rel_h_q
+(N x H) and rel_w_q (N x W) with two small einsums, as the TPU wrapper does;
+the kernel adds the bias inside its score tile, so the N x N scores never
+reach memory.
+
+What bounds it on the card: a global block is 4 * 16 * 4096^2 * 80 = 85.9
+GFLOP on ~105 MB, compute-bound on the fp32 FMA units (TF32 off): 1.28 ms
+at 67 TFLOP/s. The windowed blocks are 1.2 GFLOP each.
+
+Semantics shared by both versions: qkv (B, N, 3C) laid out [q | k | v] with
+heads contiguous (hd = C // heads), N = H * W row-major; scores and softmax
+in fp32; every token attends to every token of its window, the zero pad
+tokens of the windowed blocks included, as the reference does; the output
+(B, N, C) holds each head at its channel offset.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check, load_library
+
+KERNEL_HEAD_DIMS = (16, 32, 64, 80)
+
+
+def rel_pos_tables(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
+                   rel_pos_w: torch.Tensor, hw, heads: int):
+    """(rel_h_q (B, heads, N, H), rel_w_q (B, heads, N, W)), contiguous
+    float32: the decomposed bias terms of every query, from the unscaled q
+    third of `qkv` (reference get_rel_pos for q_size == k_size, as the JAX
+    package's _rel_pos_bias)."""
+    B, N, C3 = qkv.shape
+    H, W = hw
+    C = C3 // 3
+    hd = C // heads
+    dev = qkv.device
+    idx_h = (torch.arange(H, device=dev)[:, None] - torch.arange(H, device=dev)[None, :]
+             + (H - 1))
+    idx_w = (torch.arange(W, device=dev)[:, None] - torch.arange(W, device=dev)[None, :]
+             + (W - 1))
+    Rh = rel_pos_h[idx_h]                                   # (H, H, hd)
+    Rw = rel_pos_w[idx_w]                                   # (W, W, hd)
+    q = qkv[..., :C].reshape(B, H, W, heads, hd)
+    rel_h = torch.einsum("bhwnc,hkc->bnhwk", q, Rh).reshape(B, heads, N, H)
+    rel_w = torch.einsum("bhwnc,wkc->bnhwk", q, Rw).reshape(B, heads, N, W)
+    return rel_h.contiguous(), rel_w.contiguous()
+
+
+def flash_attention_relpos_plain(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
+                                 rel_pos_w: torch.Tensor, hw,
+                                 heads: int) -> torch.Tensor:
+    """qkv (B, N, 3C) float32 -> (B, N, C): scores and bias materialized,
+    the arithmetic of the JAX package's `attend` (models/sam.py:197-207)."""
+    B, N, C3 = qkv.shape
+    H, W = hw
+    hd = C3 // 3 // heads
+    q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    rel_h, rel_w = rel_pos_tables(qkv, rel_pos_h, rel_pos_w, hw, heads)
+    bias = (rel_h.view(B, heads, N, H, 1) + rel_w.view(B, heads, N, 1, W))
+    attn = (q * hd ** -0.5) @ k.transpose(-1, -2) + bias.reshape(B, heads, N, N)
+    out = torch.softmax(attn, dim=-1) @ v
+    return out.transpose(1, 2).reshape(B, N, C3 // 3)
+
+
+def flash_attention_relpos_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
+                                rel_pos_w: torch.Tensor, hw,
+                                heads: int) -> torch.Tensor:
+    """The CUDA kernel: same contract as flash_attention_relpos_plain."""
+    if not qkv.is_cuda:
+        raise ValueError("flash_attention_relpos_cuda takes a CUDA tensor")
+    if qkv.dtype != torch.float32 or qkv.dim() != 3:
+        raise ValueError(f"qkv must be (B, N, 3C) float32, got "
+                         f"{tuple(qkv.shape)} {qkv.dtype}")
+    B, N, C3 = qkv.shape
+    H, W = hw
+    if C3 % (3 * heads) or C3 // (3 * heads) not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"qkv width {C3} with {heads} heads: the kernel takes "
+                         f"head dims {KERNEL_HEAD_DIMS}")
+    hd = C3 // 3 // heads
+    if N != H * W or not (0 < B <= 65535 and heads <= 65535):
+        raise ValueError(f"qkv {tuple(qkv.shape)} does not hold a {H}x{W} grid, "
+                         f"or exceeds the launch grid")
+    if tuple(rel_pos_h.shape) != (2 * H - 1, hd) or tuple(rel_pos_w.shape) != (2 * W - 1, hd):
+        raise ValueError("rel_pos tables must be (2H-1, hd) and (2W-1, hd)")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    rel_h, rel_w = rel_pos_tables(qkv, rel_pos_h.float(), rel_pos_w.float(), hw, heads)
+    lib = load_library()
+    out = torch.empty((B, N, C3 // 3), dtype=torch.float32, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.sam6d_flash_attention_relpos(
+        qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        B, N, heads, hd, H, W, float(hd ** -0.5), stream)
+    flash_attention_relpos_cuda.launches += 1
+    check(err, "flash_attention_relpos_cuda")
+    return out
+
+
+flash_attention_relpos_cuda.launches = 0
+
+
+def flash_attention_relpos(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
+                           rel_pos_w: torch.Tensor, hw,
+                           heads: int) -> torch.Tensor:
+    """A CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
+    if qkv.device.type == "cuda":
+        return flash_attention_relpos_cuda(qkv, rel_pos_h, rel_pos_w, hw, heads)
+    if qkv.device.type == "cpu":
+        return flash_attention_relpos_plain(qkv, rel_pos_h, rel_pos_w, hw, heads)
+    raise ValueError(f"no flash_attention_relpos for device {qkv.device}")

@@ -1,12 +1,31 @@
-"""Box IoU and fixed-capacity NMS on the device (port of the device half of
-`sam6d_tpu/ops/masks.py`; the host RLE codecs are in `data/rle.py`).
+"""Mask boxes, box IoU and fixed-capacity NMS on the device (port of the
+device half of `sam6d_tpu/ops/masks.py`; the host RLE codecs are in
+`data/rle.py`).
 
-Parity targets: compute_iou (reference `utils/bbox_utils.py:197-222`) and
+Parity targets: batched_mask_to_box (reference `segment_anything/utils/
+amg.py`), compute_iou (reference `utils/bbox_utils.py:197-222`) and
 per-object NMS (reference `model/utils.py:107-119`).
 """
 from __future__ import annotations
 
 import torch
+
+
+def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) binary -> (N, 4) float32 xyxy boxes (exclusive max); an
+    empty mask gives zeros (reference amg.batched_mask_to_box semantics)."""
+    N, H, W = masks.shape
+    m = masks > 0
+    any_row = m.any(dim=2)                                  # (N, H)
+    any_col = m.any(dim=1)                                  # (N, W)
+    rows = torch.arange(H, device=masks.device)
+    cols = torch.arange(W, device=masks.device)
+    y1 = torch.where(any_row, rows, H).amin(dim=1)
+    y2 = torch.where(any_row, rows, -1).amax(dim=1)
+    x1 = torch.where(any_col, cols, W).amin(dim=1)
+    x2 = torch.where(any_col, cols, -1).amax(dim=1)
+    box = torch.stack([x1, y1, x2 + 1, y2 + 1], dim=1).to(torch.float32)
+    return torch.where(any_row.any(dim=1)[:, None], box, torch.zeros_like(box))
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,11 @@ fixed-capacity buffer (masks, boxes, valid); filtering is a validity mask,
 not index shuffling, so slots compare one-to-one with the JAX package.
 Everything on the card runs in float32 under `torch.inference_mode`; every
 DINOv2 attention goes through the fused-attention dispatch (the CUDA kernel
-of `csrc/attention_qkv.cu` on the card).
+of `csrc/attention_qkv.cu` on the card). With a `segmentor`
+(`pipelines/sam_amg.SAMSegmentor`), `match_frame(detections=None)` takes
+its proposals from SAM on the same device; the masks never leave it.
 
-Not ported yet: the segmentor branch (`detections=None`), BOP onboarding
-and its npz cache, bf16.
+Not ported yet: BOP onboarding and its npz cache, bf16.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ..ops.images import (crop_resize_pad_nearest_stack,
 from ..ops.masks import box_iou, nms_masked_rounds
 from ..render.poses import template_obj_poses
 from ..weights.dinov2 import random_dinov2_state_dict
+from .sam_amg import SAMSegmentor, bilinear_matrix, resize_logits
 
 
 def host_size_filter(masks: np.ndarray, boxes: np.ndarray, valid: np.ndarray,
@@ -45,6 +47,18 @@ def host_size_filter(masks: np.ndarray, boxes: np.ndarray, valid: np.ndarray,
     mask_areas = masks.reshape(len(masks), -1).sum(axis=1, dtype=np.float32) / area
     return (valid & (box_areas > np.float32(min_box_size ** 2))
             & (mask_areas > np.float32(min_mask_size)))
+
+
+def device_size_filter(masks: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+                       min_box_size: float, min_mask_size: float) -> torch.Tensor:
+    """host_size_filter on the device, in the same float32 arithmetic, for
+    proposals that were made there."""
+    H, W = masks.shape[1:]
+    area = torch.tensor(np.float32(H * W), device=masks.device)
+    box_areas = ((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])) / area
+    mask_areas = masks.to(torch.float32).sum(dim=(1, 2)) / area
+    return (valid & (box_areas > float(np.float32(min_box_size ** 2)))
+            & (mask_areas > float(np.float32(min_mask_size))))
 
 
 def needed_prefix(valid: np.ndarray) -> int:
@@ -64,7 +78,7 @@ class ISMPipeline:
     fused-attention path."""
 
     def __init__(self, cfg: ISMConfig, state_dict=None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", segmentor: Optional[SAMSegmentor] = None):
         use_strict_fp32()
         self.cfg = cfg
         self.device = torch.device(device)
@@ -76,6 +90,7 @@ class ISMPipeline:
         net = DINOv2(**dims, use_flash=True, ln_folded=True)
         net.load_state_dict(fold_ln_affine(state_dict), strict=True)
         self.dinov2 = net.to(self.device).eval()
+        self.segmentor = segmentor
         self.ref_data: Dict[str, torch.Tensor] = {}
         self.last_nms_rounds = 0
 
@@ -217,6 +232,24 @@ class ISMPipeline:
                     geometric_score=geo, visible_ratio=vis,
                     best_template=best_template)
 
+    def _segment(self, rgb: np.ndarray):
+        """The segmentor's proposals at the frame's size, on the device:
+        (masks (K, H0, W0) bool, or float coverage when the segmentor ran
+        at another size; boxes (K, 4) xyxy; valid (K,))."""
+        seg = self.segmentor.generate_masks_device(rgb)
+        (H0, W0), (hs, ws) = seg["orig_size"], seg["seg_size"]
+        masks, boxes = seg["masks"], seg["boxes"]
+        if (H0, W0) != (hs, ws):
+            dev = self.device
+            masks = resize_logits(masks.to(torch.float32),
+                                  torch.as_tensor(bilinear_matrix(H0, hs), device=dev),
+                                  torch.as_tensor(bilinear_matrix(W0, ws), device=dev))
+            boxes = boxes * (W0 / ws)
+            lim = torch.tensor([W0 - 1, H0 - 1, W0 - 1, H0 - 1], dtype=boxes.dtype,
+                               device=dev)
+            boxes = torch.minimum(boxes.clamp(min=0), lim)
+        return masks, boxes, seg["valid"]
+
     @torch.inference_mode()
     def match_frame_device(self, rgb: np.ndarray, depth: np.ndarray,
                            K: np.ndarray, depth_scale: float, pointclouds,
@@ -224,24 +257,32 @@ class ISMPipeline:
                            apply_nms_per_object: bool = False,
                            apply_size_filters: bool = True
                            ) -> Dict[str, torch.Tensor]:
-        """Per-frame matching of given proposals `detections` = {masks (K, H,
-        W), boxes (K, 4) xyxy, valid (K,)}, all numpy. Returns device
-        tensors at the proposal capacity."""
-        if detections is None:
-            raise NotImplementedError(
-                "the segmentor branch is not ported yet: pass detections")
+        """Per-frame matching of the proposals `detections` = {masks (K, H,
+        W), boxes (K, 4) xyxy, valid (K,)}, all numpy, or, with
+        `detections=None`, of the segmentor's proposals for `rgb`. Returns
+        device tensors at the proposal capacity."""
         dev = self.device
-        masks_np = np.asarray(detections["masks"])
-        boxes_np = np.asarray(detections["boxes"], np.float32)
-        valid_np = np.asarray(detections["valid"], bool)
-        if apply_size_filters:
-            valid_np = host_size_filter(masks_np, boxes_np, valid_np,
-                                        self.cfg.post.min_box_size,
-                                        self.cfg.post.min_mask_size)
-        # uploaded in the caller's dtype (a bool mask stack is a quarter of
-        # its float32 size) and converted on the card
-        masks = torch.as_tensor(masks_np, device=dev).to(torch.float32)
-        boxes = torch.as_tensor(boxes_np, device=dev)
+        post = self.cfg.post
+        if detections is None:
+            masks, boxes, valid = self._segment(rgb)
+            if apply_size_filters:
+                valid = device_size_filter(masks, boxes, valid, post.min_box_size,
+                                           post.min_mask_size)
+            # the one read-back of the segmentor branch: the (K,) valid flags,
+            # to size the describe to the valid prefix
+            valid_np = valid.cpu().numpy()
+            masks = masks.to(torch.float32)
+        else:
+            masks_np = np.asarray(detections["masks"])
+            boxes_np = np.asarray(detections["boxes"], np.float32)
+            valid_np = np.asarray(detections["valid"], bool)
+            if apply_size_filters:
+                valid_np = host_size_filter(masks_np, boxes_np, valid_np,
+                                            post.min_box_size, post.min_mask_size)
+            # uploaded in the caller's dtype (a bool mask stack is a quarter
+            # of its float32 size) and converted on the card
+            masks = torch.as_tensor(masks_np, device=dev).to(torch.float32)
+            boxes = torch.as_tensor(boxes_np, device=dev)
         rgb_t = torch.as_tensor(np.ascontiguousarray(rgb), device=dev)
         rgb01 = rgb_t.to(torch.float32) / 255.0
         out = self._score_frame_impl(

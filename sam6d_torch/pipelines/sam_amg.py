@@ -1,0 +1,291 @@
+"""SAM automatic mask generation on the card: a frame's RGB -> a fixed
+capacity of proposals (masks, xyxy boxes, valid, predicted IoU).
+
+Port of `sam6d_tpu/pipelines/sam_amg.py` (reference
+`CustomSamAutomaticMaskGenerator`, model/sam.py:52-148, and
+`SamAutomaticMaskGenerator._process_batch`,
+segment_anything/automatic_mask_generator.py:266-321):
+
+- the host resizes the frame to the segmentor width and to the encoder
+  frame (PIL bilinear, as the reference) and uploads uint8; normalization
+  and padding to the 1024^2 canvas run on the card;
+- the exact iou-prefix pass scores every grid prompt's predicted IoU with
+  the factored two-way transformer (the three factored kernels), then the
+  full decode, stability and boxes run only for the top points;
+- mask postprocessing (256^2 logits -> 1024^2 -> crop -> segmentor size)
+  is one composed pair of bilinear matrices per axis;
+- box NMS is the port's masked fixed point (`ops/masks.nms_masked_rounds`,
+  one device->host sync per round, rounds in `last_nms_rounds`).
+
+Top-k selections take a stable descending sort, so ties go to the lower
+index as `jax.lax.top_k` breaks them (`torch.topk` promises no order among
+ties). Left out: the crop cascade, the small-region cleanup (both off at
+the reference operating point), the pre-rank pass, the channel-selected
+re-decode and the truncation-divergence counter.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from PIL import Image
+
+from .. import use_strict_fp32
+from ..core.config import SAMConfig
+from ..data.preprocess import bilinear_resize
+from ..models.sam import SAM
+from ..ops.masks import box_iou, masks_to_boxes, nms_masked_rounds
+from ..weights.sam import random_sam_state_dict
+
+SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+SAM_PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+def build_point_grid(n_per_side: int) -> np.ndarray:
+    """(n^2, 2) grid in [0,1]^2, xy order (reference amg.py:179-187)."""
+    offset = 1.0 / (2 * n_per_side)
+    pts = np.linspace(offset, 1 - offset, n_per_side)
+    x = np.tile(pts[None, :], (n_per_side, 1))
+    y = np.tile(pts[:, None], (1, n_per_side))
+    return np.stack([x, y], axis=-1).reshape(-1, 2)
+
+
+def bilinear_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """(out, in) separable bilinear weights, half-pixel convention
+    (= F.interpolate mode='bilinear', align_corners=False)."""
+    scale = in_size / out_size
+    src = (np.arange(out_size) + 0.5) * scale - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    frac = src - i0
+    i0c = np.clip(i0, 0, in_size - 1)
+    i1c = np.clip(i0 + 1, 0, in_size - 1)
+    M = np.zeros((out_size, in_size), np.float32)
+    M[np.arange(out_size), i0c] += (1 - frac).astype(np.float32)
+    M[np.arange(out_size), i1c] += frac.astype(np.float32)
+    return M
+
+
+def get_preprocess_shape(oldh: int, oldw: int, long_side: int):
+    """ResizeLongestSide target (reference transforms.py)."""
+    scale = long_side / max(oldh, oldw)
+    return int(oldh * scale + 0.5), int(oldw * scale + 0.5)
+
+
+def stable_top_k(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of the 1-D `key`, ties to the lower
+    index (jax.lax.top_k's order)."""
+    return torch.sort(key, descending=True, stable=True).indices[:k]
+
+
+def resize_logits(masks: torch.Tensor, Ry: torch.Tensor, Rx: torch.Tensor) -> torch.Tensor:
+    """(..., h, w) -> (..., Hs, Ws) through the composed bilinear matrices
+    Ry (Hs, h), Rx (Ws, w)."""
+    return Ry @ masks @ Rx.T
+
+
+class SAMSegmentor:
+    """SAM AMG over a fixed proposal capacity, on one device.
+
+    `state_dict`: SAM weights under the reference names; None = seeded
+    random, drawn on the device."""
+
+    def __init__(self, cfg: SAMConfig, state_dict=None, seed: int = 0,
+                 device="cuda"):
+        use_strict_fp32()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        with torch.device("meta"):
+            net = SAM(cfg)
+        if state_dict is None:
+            state_dict = random_sam_state_dict(net, seed, self.device)
+        net = net.to_empty(device=self.device)
+        net.load_state_dict(state_dict, strict=True)
+        self.sam = net.eval()
+        self.points = build_point_grid(cfg.points_per_side)
+        self.last_nms_rounds = 0
+        self.last_prefix = 0
+
+    # -------------------------------------------------------------- internals
+
+    def _encode_u8(self, u8: torch.Tensor) -> torch.Tensor:
+        """(h_in, w_in, 3) uint8 on the device -> (g, g, C) embedding:
+        SAM normalization and zero padding to the square canvas here."""
+        dev = self.device
+        x = ((u8.to(torch.float32) - torch.as_tensor(SAM_PIXEL_MEAN, device=dev))
+             / torch.as_tensor(SAM_PIXEL_STD, device=dev))
+        S = self.cfg.img_size
+        x = torch.nn.functional.pad(x, (0, 0, 0, S - u8.shape[1], 0, S - u8.shape[0]))
+        return self.sam.image_encoder(x[None])[0]
+
+    def _decode_chunk(self, embedding, dense_pe, pts, iou_only: bool = False):
+        """pts (chunk, 2) in the encoder frame -> (masks (chunk, 3, 4g, 4g)
+        logits of the three multimask channels, or None with `iou_only`;
+        iou (chunk, 3))."""
+        labels = torch.ones((pts.shape[0], 1), dtype=torch.int64, device=pts.device)
+        sparse, dense = self.sam.prompt_encoder(pts[:, None, :], labels)
+        masks, iou = self.sam.mask_decoder(embedding, dense_pe, sparse, dense,
+                                           iou_only=iou_only)
+        return (None if masks is None else masks[:, 1:]), iou[:, 1:]
+
+    def _score_all_impl(self, embedding, dense_pe, points, Ry, Rx):
+        """Every prompt decoded in chunks: (iou (3P,), stability (3P,), boxes
+        (3P, 4) at segmentor resolution, low-res logits (3P, 4g, 4g)) in
+        candidate order (prompt-major, channel-minor)."""
+        cfg = self.cfg
+        chunk = cfg.points_per_batch
+        off = cfg.stability_score_offset
+        out = ([], [], [], [])
+        for c in range(0, points.shape[0], chunk):
+            masks, iou = self._decode_chunk(embedding, dense_pe, points[c:c + chunk])
+            hi = resize_logits(masks, Ry, Rx)               # (chunk, 3, Hs, Ws)
+            inter = (hi > off).sum(dim=(-1, -2))
+            union = (hi > -off).sum(dim=(-1, -2))
+            stab = inter.to(torch.float32) / union.clamp(min=1).to(torch.float32)
+            boxes = masks_to_boxes((hi > 0.0).flatten(0, 1))
+            for lst, v in zip(out, (iou.reshape(-1), stab.reshape(-1), boxes,
+                                    masks.flatten(0, 1))):
+                lst.append(v)
+        return tuple(torch.cat(v) for v in out)
+
+    def _iou_all_impl(self, embedding, dense_pe, points):
+        """Exact predicted IoU of every grid prompt from the factored
+        token-side pass (no mask tail). Returns (P, 3)."""
+        chunk = self.cfg.points_per_batch
+        return torch.cat([self._decode_chunk(embedding, dense_pe, points[c:c + chunk],
+                                             iou_only=True)[1]
+                          for c in range(0, points.shape[0], chunk)])
+
+    def prefix_length(self, n_points: int) -> int:
+        """How many of `n_points` grid points the exact iou-prefix pass keeps:
+        ceil(max_proposals * factor / chunk) chunks, or all of them (factor
+        0, a ragged grid, or a prefix as long as the grid)."""
+        cfg = self.cfg
+        chunk = cfg.points_per_batch
+        if cfg.amg_iou_prefix_factor > 0 and n_points % chunk == 0:
+            pref = -(-int(cfg.max_proposals * cfg.amg_iou_prefix_factor) // chunk) * chunk
+            return min(pref, n_points)
+        return n_points
+
+    def _prefix_points(self, embedding, dense_pe, points):
+        """The top prefix_length points by max-channel predicted IoU from the
+        factored token-side pass (greedy NMS keep decisions depend only on
+        higher-IoU candidates)."""
+        pref = self.prefix_length(points.shape[0])
+        if pref == points.shape[0]:
+            return points
+        iou_a = self._iou_all_impl(embedding, dense_pe, points)
+        return points[stable_top_k(iou_a.max(dim=1).values, pref)]
+
+    def _select_impl(self, embedding, dense_pe, points, Ry, Rx):
+        """Decode `points`, filter (pred-IoU, stability), box-NMS, select the
+        top max_proposals. Returns (masks (K, Hs, Ws) bool, boxes (K, 4),
+        valid (K,), iou (K,), the selected candidates' indices (K,))."""
+        cfg = self.cfg
+        chunk = cfg.points_per_batch
+        P = self.last_prefix = points.shape[0]
+        pad = (-P) % chunk      # a ragged last chunk repeats point 0
+        if pad:
+            points = torch.cat([points, points[:1].expand(pad, 2)])
+        iou, stab, boxes, lows = (v[:3 * P] for v in self._score_all_impl(
+            embedding, dense_pe, points, Ry, Rx))
+        valid = (iou > cfg.pred_iou_thresh) & (stab >= cfg.stability_score_thresh)
+        n_cand = iou.shape[0]
+        T = min(cfg.amg_nms_topk or n_cand, n_cand)
+        if T < n_cand:
+            # greedy NMS keep decisions depend only on higher-scored
+            # candidates: NMS over the top-T prefix equals the full run there
+            top = stable_top_k(torch.where(valid, iou, torch.full_like(iou, -torch.inf)), T)
+        else:
+            top = torch.arange(n_cand, device=iou.device)
+        iou_t, valid_t, boxes_t = iou[top], valid[top], boxes[top]
+        same = torch.ones((T, T), dtype=torch.bool, device=iou.device)
+        keep, self.last_nms_rounds = nms_masked_rounds(
+            box_iou(boxes_t, boxes_t), iou_t, valid_t, same, cfg.box_nms_thresh)
+        K = cfg.max_proposals
+        order_t = stable_top_k(torch.where(keep, iou_t, torch.full_like(iou_t, -torch.inf)),
+                               min(K, T))
+        sel_valid = keep[order_t]
+        if order_t.shape[0] < K:
+            # fewer candidates than capacity: candidate 0, marked invalid
+            padn = K - order_t.shape[0]
+            order_t = torch.cat([order_t, order_t.new_zeros(padn)])
+            sel_valid = torch.cat([sel_valid, sel_valid.new_zeros(padn)])
+        order = top[order_t]
+        # the kept low-res logits are gathered, not re-decoded
+        masks = resize_logits(lows[order], Ry, Rx) > 0.0
+        return masks, boxes[order], sel_valid, iou[order], order
+
+    def _propose_impl(self, embedding, points, Ry, Rx):
+        """The AMG tail of one frame: iou prefix, then _select_impl. Returns
+        (masks (K, Hs, Ws) bool, boxes (K, 4), valid (K,), iou (K,))."""
+        dense_pe = self.sam.prompt_encoder.dense_pe()
+        points = self._prefix_points(embedding, dense_pe, points)
+        return self._select_impl(embedding, dense_pe, points, Ry, Rx)[:4]
+
+    # ------------------------------------------------------------------ API
+
+    def preprocess_frame_u8(self, image: np.ndarray):
+        """Host preprocessing up to the resized uint8 image: pre-resize to the
+        segmentor width (reference model/sam.py:77-83), then ResizeLongestSide
+        with PIL bilinear (reference transforms.apply_image). Returns
+        (resized, (H0, W0), (hs, ws), (h_in, w_in))."""
+        cfg = self.cfg
+        H0, W0 = image.shape[:2]
+        hs = int(cfg.segmentor_width_size * H0 / W0)
+        ws = cfg.segmentor_width_size
+        img_s = bilinear_resize(image, hs, ws)
+        h_in, w_in = get_preprocess_shape(hs, ws, cfg.img_size)
+        resized = np.array(Image.fromarray(img_s).resize((w_in, h_in), Image.BILINEAR),
+                           np.uint8)
+        return resized, (H0, W0), (hs, ws), (h_in, w_in)
+
+    def frame_constants(self, hs: int, ws: int, h_in: int, w_in: int):
+        """(Ry (hs, 4g), Rx (ws, 4g), prompt coordinates (P, 2) in the encoder
+        frame) on the device: the composed postprocess matrices (low-res ->
+        canvas -> crop -> segmentor size) and the scaled point grid."""
+        cfg = self.cfg
+        low = cfg.img_size // 4
+        R1 = bilinear_matrix(cfg.img_size, low)
+        Ry = bilinear_matrix(hs, h_in) @ R1[:h_in]
+        Rx = bilinear_matrix(ws, w_in) @ R1[:w_in]
+        pts = self.points * np.array([ws, hs], np.float32) * np.array(
+            [w_in / ws, h_in / hs], np.float32)
+        dev = self.device
+        return (torch.as_tensor(Ry, device=dev), torch.as_tensor(Rx, device=dev),
+                torch.as_tensor(pts, dtype=torch.float32, device=dev))
+
+    @torch.inference_mode()
+    def generate_masks_device(self, image: np.ndarray) -> Dict:
+        """Device-resident AMG of one (H0, W0, 3) uint8 RGB frame. Returns
+        device tensors (masks (K, hs, ws) bool, boxes (K, 4) xyxy at the
+        segmentor size, valid (K,), iou_preds (K,)) and the frame geometry
+        (orig_size, seg_size)."""
+        resized, (H0, W0), (hs, ws), (h_in, w_in) = self.preprocess_frame_u8(image)
+        Ry, Rx, pts = self.frame_constants(hs, ws, h_in, w_in)
+        embedding = self._encode_u8(torch.as_tensor(resized, device=self.device))
+        masks, boxes, valid, iou = self._propose_impl(embedding, pts, Ry, Rx)
+        return dict(masks=masks, boxes=boxes, valid=valid, iou_preds=iou,
+                    orig_size=(H0, W0), seg_size=(hs, ws))
+
+    def generate_masks(self, image: np.ndarray) -> Dict[str, np.ndarray]:
+        """image (H0, W0, 3) uint8 RGB -> host dict(masks (K, H0, W0) float
+        (bilinear coverage at the original size, reference
+        postprocess_resize model/sam.py:85-100), boxes (K, 4) xyxy in
+        original coordinates, valid (K,), iou_preds (K,))."""
+        dev = self.generate_masks_device(image)
+        H0, W0 = dev["orig_size"]
+        hs, ws = dev["seg_size"]
+        masks = dev["masks"]
+        with torch.inference_mode():
+            if (H0, W0) != (hs, ws):
+                masks = resize_logits(masks.to(torch.float32),
+                                      torch.as_tensor(bilinear_matrix(H0, hs), device=self.device),
+                                      torch.as_tensor(bilinear_matrix(W0, ws), device=self.device))
+            masks_out = masks.to(torch.float32).cpu().numpy()
+        boxes_out = dev["boxes"].cpu().numpy() * (W0 / ws)
+        boxes_out[:, [0, 2]] = boxes_out[:, [0, 2]].clip(0, W0 - 1)
+        boxes_out[:, [1, 3]] = boxes_out[:, [1, 3]].clip(0, H0 - 1)
+        return dict(masks=masks_out, boxes=boxes_out.astype(np.float32),
+                    valid=dev["valid"].cpu().numpy(),
+                    iou_preds=dev["iou_preds"].cpu().numpy())

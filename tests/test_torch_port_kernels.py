@@ -235,3 +235,133 @@ def test_fused_attention_qkv_kernel_refuses_what_it_does_not_take(cuda_device):
         attention_qkv.fused_attention_qkv_cuda(qkv, 4, 0.1)
     with pytest.raises(ValueError):
         attention_qkv.fused_attention_qkv_cuda(qkv.double(), 6, 0.1)
+
+
+# ------------------------------------------------------ SAM kernels (K1-K4)
+
+from sam6d_torch.kernels import attention_relpos as relpos  # noqa: E402
+from sam6d_torch.kernels import factored  # noqa: E402
+
+
+def factored_state(rng, B, N, C, d, ranks, scaled, with_a, device="cpu"):
+    """Random scaled-block factor state as the iou-prefix pass carries it:
+    blocks of raw rows in [0, 1) (softmax probabilities and LayerNorm rows),
+    positive per-position scales, S, U (B, R, C), UK/UV-like (B, R, d)."""
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+    blocks = tuple((t(rng.rand(B, r, N)), t(rng.rand(B, N) + 0.5) if s else None)
+                   for r, s in zip(ranks, scaled))
+    R = sum(ranks)
+    return dict(blocks=blocks, S=t(rng.randn(N, C)), U=t(rng.randn(B, R, C) * 0.3),
+                UK=t(rng.randn(B, R, d) * 0.3), UV=t(rng.randn(B, R, d) * 0.3),
+                a=t(rng.rand(B, N) + 0.5) if with_a else None,
+                q=t(rng.randn(B, 7, d) * 0.25), KS=t(rng.randn(N, d) * 0.25),
+                KC=t(rng.randn(N, d) * 0.25), VS=t(rng.randn(N, d)))
+
+
+def test_sam_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
+    rng = np.random.RandomState(9)
+    st = factored_state(rng, 2, 64, 32, 128, (5, 2), (True, False), True)
+    qkv = torch.zeros(1, 9, 3 * 32)
+    rh, rw = torch.zeros(5, 8), torch.zeros(5, 8)
+    counts = [f.launches for f in (relpos.flash_attention_relpos_cuda,
+                                   factored.factored_ln_stats_cuda,
+                                   factored.factored_t2i_attention_cuda,
+                                   factored.factored_i2t_scores_cuda)]
+    with pytest.raises(ValueError):
+        relpos.flash_attention_relpos_cuda(qkv, rh, rw, (3, 3), 4)
+    with pytest.raises(ValueError):
+        factored.factored_ln_stats_cuda(st["blocks"], st["U"], st["S"], st["a"])
+    with pytest.raises(ValueError):
+        factored.factored_t2i_attention_cuda(st["q"], st["UK"], st["UV"], st["blocks"],
+                                             st["a"], st["KS"], st["KC"], st["VS"], 8)
+    with pytest.raises(ValueError):
+        factored.factored_i2t_scores_cuda(st["q"], st["UK"], st["blocks"], st["a"],
+                                          st["KS"], st["KC"], 8)
+    relpos.flash_attention_relpos(qkv, rh, rw, (3, 3), 4)         # CPU: plain
+    factored.factored_ln_stats(st["blocks"], st["U"], st["S"], st["a"])
+    factored.factored_t2i_attention(st["q"], st["UK"], st["UV"], st["blocks"], st["a"],
+                                    st["KS"], st["KC"], st["VS"], 8)
+    factored.factored_i2t_scores(st["q"], st["UK"], st["blocks"], st["a"], st["KS"],
+                                 st["KC"], 8)
+    assert counts == [f.launches for f in (relpos.flash_attention_relpos_cuda,
+                                           factored.factored_ln_stats_cuda,
+                                           factored.factored_t2i_attention_cuda,
+                                           factored.factored_i2t_scores_cuda)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,heads,hd", [
+    (1, (64, 64), 16, 80),      # ViT-H global block
+    (25, (14, 14), 16, 80),     # ViT-H windowed block (25 windows)
+    (2, (5, 7), 2, 16),         # ragged tiles, hd 16
+    (3, (9, 9), 4, 64),
+])
+def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, hd):
+    rng = np.random.RandomState(10)
+    H, W = hw
+    qkv = torch.from_numpy(rng.randn(B, H * W, 3 * heads * hd).astype(np.float32)
+                           ).to(cuda_device)
+    rh = torch.from_numpy(rng.randn(2 * H - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
+    rw = torch.from_numpy(rng.randn(2 * W - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
+    got = relpos.flash_attention_relpos_cuda(qkv, rh, rw, hw, heads)
+    want = relpos.flash_attention_relpos_plain(qkv, rh, rw, hw, heads)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+# the kernels sum over the C channels, the N positions and the R factor rows
+# in another order than the plain versions (K2 forms x instead of the gram
+# quadratic, so 1/sigma carries the cancellation of E[x^2] - mu^2)
+FACTORED_ATOL, LN_INV_RTOL = 1e-4, 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,with_a", [
+    ((57,), (False,), False),                         # layer 1 LayerNorm
+    ((57, 2, 57), (True, True, False), True),         # layer 2 LayerNorm
+])
+def test_factored_ln_stats_kernel_matches_plain(cuda_device, ranks, scaled, with_a):
+    st = factored_state(np.random.RandomState(11), 16, 4096, 256, 128, ranks, scaled,
+                        with_a, cuda_device)
+    mu, inv = factored.factored_ln_stats_cuda(st["blocks"], st["U"], st["S"], st["a"])
+    mu_p, inv_p = factored.factored_ln_stats_plain(st["blocks"], st["U"], st["S"], st["a"])
+    torch.cuda.synchronize()
+    assert float((mu - mu_p).abs().max()) <= FACTORED_ATOL
+    assert float(((inv - inv_p).abs() / inv_p.abs()).max()) <= LN_INV_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,N", [
+    ((57, 2), (True, False), 4096),                   # layer 2 t2i
+    ((57, 2, 57, 2), (True, True, True, False), 4096),  # final attention
+    ((5, 2), (True, False), 100),                     # ragged position tile
+])
+def test_factored_t2i_attention_kernel_matches_plain(cuda_device, ranks, scaled, N):
+    st = factored_state(np.random.RandomState(12), 16, N, 256, 128, ranks, scaled,
+                        True, cuda_device)
+    args = (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
+            st["VS"], 8)
+    got = factored.factored_t2i_attention_cuda(*args)
+    want = factored.factored_t2i_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (16, 7, 128)
+    assert float((got - want).abs().max()) <= FACTORED_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,with_a,N", [
+    ((), (), False, 4096),                            # layer 1 i2t
+    ((57, 2), (True, False), True, 4096),             # layer 2 i2t
+    ((5, 2), (True, False), True, 100),
+])
+def test_factored_i2t_scores_kernel_matches_plain(cuda_device, ranks, scaled, with_a, N):
+    st = factored_state(np.random.RandomState(13), 16, N, 256, 128, ranks, scaled,
+                        with_a, cuda_device)
+    args = (st["q"], st["UK"] if ranks else None, st["blocks"], st["a"], st["KS"],
+            st["KC"], 8)
+    got = factored.factored_i2t_scores_cuda(*args)
+    want = factored.factored_i2t_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (16, 57, N)
+    assert float((got - want).abs().max()) <= FACTORED_ATOL

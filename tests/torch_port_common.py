@@ -124,3 +124,48 @@ def tiny_dinov2_weights(cfg, seed=1, rng=None):
         {k: v.numpy() for k, v in sd.items()}, depth=d.depth,
         target_grid=d.img_size // d.patch_size)
     return sd, variables
+
+
+def tiny_sam_cfgs(**overrides):
+    """(JAX SAMConfig, port SAMConfig) of one tiny SAM: C=32 encoder of 3
+    blocks (4 heads, window 3 on a 4x4 grid, so windowed blocks pad 4 -> 6;
+    block 1 global), 64x64 canvas, an 8x8 prompt grid decoded in chunks of
+    8, capacity 8 (iou prefix 8 of 64 points), NMS over the top 16 of 24
+    candidates, the AMG filters pinned open as bench.py pins them."""
+    from sam6d_tpu.core import config as jc
+    from sam6d_torch.core import config as pc
+    kw = dict(model_type="tiny", encoder_embed_dim=32, encoder_depth=3,
+              encoder_num_heads=4, encoder_global_attn_indexes=(1,), img_size=64,
+              patch_size=16, window_size=3, prompt_embed_dim=32, points_per_side=8,
+              points_per_batch=8, pred_iou_thresh=-10.0, stability_score_thresh=0.0,
+              segmentor_width_size=64, max_proposals=8, amg_nms_topk=16)
+    kw.update(overrides)
+    return jc.SAMConfig(**kw), pc.SAMConfig(**kw)
+
+
+def tiny_sam_weights(cfg, seed=1, rng=None, blocky_masks=False):
+    """(JAX variables, port `state_dict`) of one set of seeded SAM weights:
+    the port's random weights (biases and LayerNorm affines perturbed by
+    `rng`, if given) converted by the JAX package's convert_sam_state_dict,
+    and carried back by sam_state_dict_from_flax.
+
+    `blocky_masks` gives the four taps of both upscaling ConvTransposes the
+    same weights, so each patch's 4x4 low-res block is one logit: random
+    taps make every mask a speckle over the whole frame, every box the
+    frame, and NMS then keeps one proposal."""
+    from sam6d_tpu.weights.convert_sam import convert_sam_state_dict
+    from sam6d_torch.models.sam import SAM
+    from sam6d_torch.weights.sam import random_sam_state_dict, sam_state_dict_from_flax
+    sd = random_sam_state_dict(SAM(cfg), seed)
+    if blocky_masks:
+        for k in ("mask_decoder.output_upscaling.0.weight",
+                  "mask_decoder.output_upscaling.3.weight"):
+            sd[k] = sd[k][..., :1, :1].expand_as(sd[k]).contiguous()
+    if rng is not None:
+        for k, v in sd.items():
+            if v.dim() == 1:
+                sd[k] = v + torch.from_numpy((rng.randn(*v.shape) * 0.2).astype(np.float32))
+    variables = convert_sam_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, depth=cfg.encoder_depth,
+        grid=cfg.img_size // cfg.patch_size)
+    return variables, sam_state_dict_from_flax(variables, cfg)
