@@ -10,7 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
      path's shapes (indices exactly equal; ball-query rows may differ only
      where a pair lies within 1e-6 of r^2), timed with CUDA events beside
      its bound and, where one exists, one PyTorch call computing the same
-     function: FPS, ball query, the fused attention (K5), the SAM rel-pos
+     function: FPS, ball query, the fused attentions (K5; K8 and K9 on
+     head-major operands, K9 with no caller on any path), the SAM rel-pos
      attention (K1, a global and a windowed ViT-H block) and the three
      factored kernels (K2-K4) on states captured from one 128-prompt chunk
      of the iou pass of the ViT-H SAM built first;
@@ -33,7 +34,14 @@ Phases, in order; any failure raises and exits non-zero:
      port's plain CPU path on a depth-2 cut at 1024 prompts, then
      ISMPipeline(segmentor=...).match_frame(detections=None) scores the
      proposals with DINOv2-L and the `pem` CLI poses every record: a whole
-     frame from RGB-D to poses.
+     frame from RGB-D to poses;
+  7. the frame through the entry points, at full width: the `render` CLI
+     (42 views at 512^2 on the card, two views held to the plain CPU
+     render), run_demo (render -> ISM -> PEM, every output file, K1-K7
+     launched), MultiObjectStream with two objects over 4 frames,
+     synchronous and pipelined, with equal poses, and the ISM describe at
+     DINOv2 img_size 448 (1025 tokens: K8 launched 24 times, held to the
+     plain attention on the card).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Prints the card's name and power limit, one JSON line of
@@ -293,6 +301,7 @@ def phase_kernels(cfg, seg):
                     f"r {fm.pe_radius1}/{fm.pe_radius2}, "
                     f"s {fm.pe_nsample1}/{fm.pe_nsample2}"),
         _check_attention(rng),
+        *_check_head_major_attention(rng),
         _check_relpos(rng),
         *_check_factored(capture_factored(seg, rng)),
     ]
@@ -353,6 +362,76 @@ def _check_attention(rng):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms,
                 shapes="16x257x3072, 16 heads of 64 (ms); 3x257 and 2x256 checked")
+
+
+def _check_head_major_attention(rng):
+    """K8 against its plain version at the 448 describe shape (16 crops x 16
+    heads x 1025 tokens of hd 64, the (B, H, N, hd) views of a qkv
+    projection, as models/vit.Attention passes them), at a cross-attention
+    case (61 queries x 300 keys, hd 32) and at hd 80; K9 at the DINOv2-L
+    class shape (16 x 16 x 257 x 64). Each timed against its plain version
+    and SDPA on the same operands."""
+    import torch
+    import torch.nn.functional as F
+    from sam6d_torch.kernels import attention as att
+
+    def views(B, H, N, hd):
+        qkv = torch.from_numpy(rng.randn(B, N, 3 * H * hd).astype(np.float32)).cuda()
+        return qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+
+    def check(name, fn, plain, q, k, v):
+        hd = q.shape[-1]
+        got, want = fn(q, k, v, hd ** -0.5), plain(q, k, v, hd ** -0.5)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        log(f"{name}[q {tuple(q.shape)}, k {tuple(k.shape)}]: max |diff| {e:.2e} "
+            f"(atol {ATTENTION_ATOL})")
+        if not e <= ATTENTION_ATOL:
+            raise AssertionError(f"{name} kernel differs from its plain version")
+        return e
+
+    def timed(name, fn, plain, q, k, v):
+        B, H, Nq, hd = q.shape
+        Nk = k.shape[2]
+        s = hd ** -0.5
+        ms = cuda_ms(lambda: fn(q, k, v, s), reps=10)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, s), reps=5)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=s), reps=10)
+        b_ms, b_by = bound(4 * B * H * Nq * Nk * hd, 4 * B * H * hd * (2 * Nq + 2 * Nk))
+        log(f"{name}[{B}x{H}x{Nq}x{Nk}x{hd}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    q, k, v = views(16, 16, 1025, 64)
+    err = check("fused_attention", att.fused_attention_cuda, att.fused_attention_plain, q, k, v)
+    k8 = timed("fused_attention", att.fused_attention_cuda, att.fused_attention_plain, q, k, v)
+    del q, k, v
+    cross = [torch.from_numpy(rng.randn(2, 4, n, 32).astype(np.float32)).cuda()
+             for n in (61, 300, 300)]
+    err = max(err, check("fused_attention", att.fused_attention_cuda,
+                         att.fused_attention_plain, *cross))
+    err = max(err, check("fused_attention", att.fused_attention_cuda,
+                         att.fused_attention_plain, *views(2, 16, 200, 80)))
+    small = [torch.from_numpy(rng.randn(16, 16, 257, 64).astype(np.float32)).cuda()
+             for _ in range(3)]
+    err9 = check("fused_attention_small", att.fused_attention_small_cuda,
+                 att.fused_attention_small_plain, *small)
+    k9 = timed("fused_attention_small", att.fused_attention_small_cuda,
+               att.fused_attention_small_plain, *small)
+    return [
+        dict(name="fused_attention_cuda", route="cuda",
+             source="sam6d_torch/csrc/attention.cu",
+             replaces="sam6d_tpu/kernels/flash_attention.py:133",
+             max_abs_err=err, tolerance=f"atol {ATTENTION_ATOL}", **k8,
+             shapes="16x16x1025x64 self-attention on qkv views (ms); 2x4x61x300 hd 32 "
+                    "cross-attention and 2x16x200 hd 80 checked"),
+        dict(name="fused_attention_small_cuda", route="cuda",
+             source="sam6d_torch/csrc/attention.cu",
+             replaces="sam6d_tpu/kernels/flash_attention.py:203",
+             max_abs_err=err9, tolerance=f"atol {ATTENTION_ATOL}", **k9,
+             shapes="16x16x257x64 (ms)",
+             note="no caller in either package: held to its plain version only"),
+    ]
 
 
 def _check_relpos(rng):
@@ -1082,6 +1161,244 @@ def phase_sam(seg, ism_cfg, job_dir, job):
     return seg_launches
 
 
+# ------------------------------------------------------------------ phase 7
+
+# card vs the plain CPU render: float32 barycentric sums rounded in another
+# order on the two devices; relative to the attribute (rgb in [0, 1], xyz in
+# mm)
+RENDER_RTOL = 1e-4
+# the card's DINOv2-L descriptors with K8 against the same pipeline's plain
+# matmul + softmax (use_flash off), both on the card
+DESCRIBE_ATOL = 1e-4
+
+
+ALL_FRAME_KERNELS = ("farthest_point_sample_cuda", "two_scale_ball_query_cuda",
+                     "fused_attention_qkv_cuda") + SAM_KERNELS
+
+
+def frame_counters():
+    from sam6d_torch.kernels import attention, ball_query, fps
+    fns = sam_counters()
+    fns.update(farthest_point_sample_cuda=fps.farthest_point_sample_cuda,
+               two_scale_ball_query_cuda=ball_query.two_scale_ball_query_cuda,
+               fused_attention_cuda=attention.fused_attention_cuda,
+               fused_attention_small_cuda=attention.fused_attention_small_cuda)
+    return fns
+
+
+def check_pose_records(poses, what):
+    for r in poses:
+        R = np.asarray(r["R"], np.float64)
+        if not (np.allclose(R @ R.T, np.eye(3), atol=1e-3)
+                and np.isfinite(r["t"]).all() and np.isfinite(r["score"])):
+            raise AssertionError(f"{what}: bad pose {r}")
+
+
+def phase_render(job):
+    """The `render` CLI on the card: 42 views at 512^2 of the job's box,
+    every mask non-empty; two views held to the port's plain CPU render."""
+    from PIL import Image
+    from sam6d_torch.cli.main import main as cli_main
+    from sam6d_torch.data.mesh import load_ply
+    from sam6d_torch.render.poses import template_cam_poses
+    from sam6d_torch.render.templates import RENDER_SIZE, render_view
+    out = os.path.join(job["dir"], "rendered")
+    t0 = time.perf_counter()
+    cli_main(["render", "--cad_path", job["cad"], "--output_dir", out, "--device", "cuda"])
+    render_s = time.perf_counter() - t0
+    tdir = os.path.join(out, "templates")
+    cover = [int((np.array(Image.open(os.path.join(tdir, f"mask_{i}.png"))) == 255).sum())
+             for i in range(42)]
+    if min(cover) == 0:
+        raise AssertionError(f"empty template masks: {[i for i, c in enumerate(cover) if not c]}")
+    mesh = load_ply(job["cad"])
+    poses = template_cam_poses(0, radius=4.0 * float(
+        np.linalg.norm(mesh.vertices.astype(np.float64), axis=1).max()))
+    for i in (0, 21):
+        g_attr, g_mask, _ = render_view(mesh, poses[i], RENDER_SIZE, device="cuda")
+        c_attr, c_mask, _ = render_view(mesh, poses[i], RENDER_SIZE, device="cpu")
+        rel = (np.abs(g_attr - c_attr) / np.maximum(1.0, np.abs(c_attr))).max(-1)
+        ties = int((rel > RENDER_RTOL).sum())
+        log(f"render: view {i} card vs plain CPU render: masks equal "
+            f"{bool((g_mask == c_mask).all())} ({int(g_mask.sum())} px), max rel |diff| "
+            f"{rel.max():.2e}, {ties} pixels beyond {RENDER_RTOL} (tie pixels)")
+        if not (g_mask == c_mask).all() or ties > 0.01 * g_mask.sum():
+            raise AssertionError("the card's render disagrees with the plain CPU render")
+    log(f"render: `render` CLI wrote 42 views at {RENDER_SIZE}^2 in {render_s:.2f} s "
+        f"(cold), mask pixels {min(cover)}-{max(cover)}")
+    return tdir
+
+
+def phase_demo(job, fns):
+    """run_demo at full width (ViT-H SAM, DINOv2-L, PEM-base; seeded random
+    weights, the AMG load pinned as bench.py pins it) on the job's frame:
+    render -> ISM -> PEM, every output file, K1-K7 launched."""
+    import torch
+    from sam6d_torch.core.config import (Config, ISMConfig, ISMMatchingConfig,
+                                         SAMConfig)
+    from sam6d_torch.pipelines.demo import run_demo
+    from sam6d_torch.pipelines.sam_amg import SAMSegmentor
+    cfg = Config(ism=ISMConfig(sam=SAMConfig(pred_iou_thresh=-10.0, stability_score_thresh=0.0,
+                                             max_proposals=128),
+                               matching=ISMMatchingConfig(confidence_thresh=-1.0)))
+    out = os.path.join(job["dir"], "demo")
+    orig = SAMSegmentor.generate_masks_device
+    seg_ms = []
+
+    def timed(self, image):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(self, image)
+        torch.cuda.synchronize()
+        seg_ms.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    SAMSegmentor.generate_masks_device = timed
+    try:
+        reset_counts(fns)
+        res = run_demo(cfg, job["cad"], job["rgb"], job["depth"], job["cam"], out,
+                       det_score_thresh=-1.0, stability_score_thresh=0.0, device="cuda",
+                       seed=SEED)
+        torch.cuda.synchronize()
+        launches = read_counts(fns)
+    finally:
+        SAMSegmentor.generate_masks_device = orig
+    files = ["templates/rgb_41.png", "sam6d_results/detection_ism.json",
+             "sam6d_results/vis_ism.png", "sam6d_results/detection_pem.json"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    if missing or not res["pem"]:
+        raise AssertionError(f"run_demo: missing {missing} or no pose")
+    check_pose_records(res["pem"], "run_demo")
+    split = dict(res["split_ms"])
+    split["segmentation_ms"] = seg_ms[0]
+    split["match_ms"] = split["ism_frame_ms"] - seg_ms[0]
+    log(f"demo: run_demo wrote {files} (+vis_pem.png: "
+        f"{os.path.exists(os.path.join(out, 'sam6d_results', 'vis_pem.png'))}); "
+        f"{len(res['ism'])} ISM records, {len(res['pem'])} poses (R R^T = I within 1e-3); "
+        f"split (wall ms, cold): " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; kernel launches {launches}")
+    for name in ALL_FRAME_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on run_demo")
+    return os.path.join(out, "templates")
+
+
+def phase_stream(seg, ism_cfg, job, tdir, fns):
+    """MultiObjectStream with two onboarded objects (the job's box and a
+    second box of other extents) over 4 frames (the job's frame and 3 with
+    the objects moved): synchronous process_frame on one stream, then
+    process_stream(depth_in_flight=1) on a fresh one; the poses must agree."""
+    import torch
+    from sam6d_torch.data.mesh import load_ply
+    from sam6d_torch.data.synthetic import K_CAM, write_stream_frames
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    from sam6d_torch.pipelines.pem import PEMConfig, PEMPipeline
+    from sam6d_torch.pipelines.streaming import MultiObjectStream
+    from sam6d_torch.render.templates import render_templates
+    cad2, _, frames = write_stream_frames(job["dir"], np.random.RandomState(SEED + 3))
+    tdir2 = render_templates(load_ply(cad2), os.path.join(job["dir"], "obj2"), device="cuda")
+    ism = ISMPipeline(ism_cfg, seed=SEED, device="cuda", segmentor=seg)
+    pem_cfg = PEMConfig()
+    pem = PEMPipeline(pem_cfg, seed=SEED, device="cuda")
+    items = [(rgb, depth, K_CAM, 1.0) for rgb, depth in frames]
+
+    def run(pipelined):
+        stream = MultiObjectStream(ism, pem, det_score_thresh=-1.0)
+        rng = np.random.RandomState(0)
+        t0 = time.perf_counter()
+        for i, (d, cad) in enumerate(((tdir, job["cad"]), (tdir2, cad2))):
+            mesh = load_ply(cad)
+            stream.onboard_object(
+                i + 1, d, mesh.sample(pem_cfg.n_sample_model_point, rng) / 1000.0,
+                ism_points=mesh.sample(ism_cfg.matching.pointcloud_sample_num, rng) / 1000.0)
+        torch.cuda.synchronize()
+        onboard_s = time.perf_counter() - t0
+        reset_counts(fns)
+        out = (list(stream.process_stream(iter(items), depth_in_flight=1)) if pipelined
+               else [stream.process_frame(*it) for it in items])
+        torch.cuda.synchronize()
+        tp = stream.throughput()
+        log(f"stream ({'pipelined, 1 in flight' if pipelined else 'synchronous'}): onboarding "
+            f"2 objects {onboard_s:.2f} s; {len(out)} frames, poses per frame "
+            f"{[len(r['poses']) for r in out]}; throughput {tp}; last frame host split "
+            + ", ".join(f"{k} {v:.1f}" for k, v in stream.last_timing.items())
+            + f"; kernel launches {read_counts(fns)}")
+        return out, tp
+
+    sync, tp_sync = run(False)
+    pipe, tp_pipe = run(True)
+    n_poses = 0
+    for a, b in zip(pipe, sync):
+        if len(a["poses"]) != len(b["poses"]):
+            raise AssertionError("pipelined and synchronous streams posed different detections")
+        for pa, pb in zip(a["poses"], b["poses"]):
+            if not (pa["object_id"] == pb["object_id"]
+                    and np.allclose(pa["R"], pb["R"], atol=1e-5, rtol=0)
+                    and np.allclose(pa["t"], pb["t"], atol=1e-3, rtol=0)):
+                raise AssertionError(f"pipelined pose differs: {pa} vs {pb}")
+        check_pose_records(a["poses"], "stream")
+        n_poses += len(a["poses"])
+    if len(pipe) != len(items) or n_poses < 1:
+        raise AssertionError("the stream posed nothing")
+    log(f"stream: pipelined poses equal the synchronous ones over {len(items)} frames, "
+        f"{n_poses} poses (R atol 1e-5, t atol 1e-3 mm); ms per frame synchronous "
+        f"{tp_sync['ms_per_frame']} vs pipelined {tp_pipe['ms_per_frame']}")
+
+
+def phase_describe_448(job, fns):
+    """ISM at DINOv2Config(img_size=448), full DINOv2-L width: one 16-crop
+    describe chunk, every attention of 1025 tokens through K8 (24
+    launches), held to the same pipeline with use_flash off on the card."""
+    import torch
+    from sam6d_torch.core.config import DINOv2Config, ISMConfig
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    pipe = ISMPipeline(ISMConfig(dinov2=DINOv2Config(img_size=448)), seed=SEED, device="cuda")
+    props = job["proposals"]
+    n = pipe.cfg.dinov2.chunk_size
+    with torch.inference_mode():
+        rgb01 = torch.as_tensor(job["rgb_arr"], device="cuda").float() / 255.0
+        masks = torch.as_tensor(props["masks"][:n], device="cuda").float()
+        boxes = torch.as_tensor(props["boxes"][:n], device="cuda").int()
+        reset_counts(fns)
+        cls, patch = pipe._describe_impl(rgb01, masks, boxes, n)
+        torch.cuda.synchronize()
+        launches = read_counts(fns)
+        ms = cuda_ms(lambda: pipe._describe_impl(rgb01, masks, boxes, n), reps=3)
+        for blk in pipe.dinov2.blocks:
+            blk.attn.use_flash = False
+        try:
+            cls_p, patch_p = pipe._describe_impl(rgb01, masks, boxes, n)
+            plain_ms = cuda_ms(lambda: pipe._describe_impl(rgb01, masks, boxes, n), reps=3)
+        finally:
+            for blk in pipe.dinov2.blocks:
+                blk.attn.use_flash = True
+    err = max(float((cls - cls_p).abs().max()), float((patch - patch_p).abs().max()))
+    log(f"describe 448: {n} crops of 1025 tokens, kernel launches {launches}; descriptors "
+        f"vs use_flash off on the card: max |diff| {err:.2e} (atol {DESCRIBE_ATOL}); "
+        f"describe {ms:.1f} ms with K8, {plain_ms:.1f} ms with the plain attention "
+        f"(CUDA events)")
+    if launches["fused_attention_cuda"] != pipe.cfg.dinov2.depth \
+            or launches["fused_attention_qkv_cuda"] != 0:
+        raise AssertionError("expected one K8 launch per DINOv2 block and no K5")
+    if not err <= DESCRIBE_ATOL:
+        raise AssertionError("the 448 describe disagrees with its plain attention")
+    return launches
+
+
+def phase_frame(seg, ism_cfg, job):
+    """Phase 7: the frame through the port's entry points, at full width.
+    Returns the launches of the 448 describe."""
+    import torch
+    fns = frame_counters()
+    tdir = phase_render(job)
+    torch.cuda.empty_cache()
+    phase_demo(job, fns)
+    torch.cuda.empty_cache()
+    phase_stream(seg, ism_cfg, job, tdir, fns)
+    torch.cuda.empty_cache()
+    return phase_describe_448(job, fns)
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -1116,11 +1433,16 @@ def main():
                                     job_dir, job)
         torch.cuda.empty_cache()
         sam_launches = phase_sam(seg, ism_cfg, job_dir, job)
+        torch.cuda.empty_cache()
+        describe_launches = phase_frame(seg, ism_cfg, dict(job, dir=job_dir))
     # each kernel's count from the run of its own path: K6/K7 from the `pem`
     # CLI run of phase 4, K5 from match_frame in phase 5, K1-K4 from
-    # generate_masks in phase 6
+    # generate_masks in phase 6, K8 (and K9, which no path calls) from the
+    # 448 describe of phase 7
     launches["fused_attention_qkv_cuda"] = ism_launches["fused_attention_qkv_cuda"]
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})
+    launches.update({k: describe_launches[k]
+                     for k in ("fused_attention_cuda", "fused_attention_small_cuda")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,23 @@
-"""Command line of the PyTorch port. One subcommand so far, the PEM stage
-(demo.sh stage 3), with the flags of the JAX CLI's `pem` plus `--device`:
+"""Command line of the PyTorch port: the JAX CLI's `render`, `demo`, `stream`
+and `pem` subcommands, with its flags plus `--device` (default cuda):
 
+  python -m sam6d_torch.cli.main render --cad_path obj.ply --output_dir OUT
+  python -m sam6d_torch.cli.main demo --cad_path obj.ply --rgb_path rgb.png \
+      --depth_path depth.png --cam_path camera.json --output_dir OUT
+  python -m sam6d_torch.cli.main stream --cad_paths a.ply b.ply \
+      --frames_dir FRAMES --cam_path camera.json --output_dir OUT
   python -m sam6d_torch.cli.main pem --output_dir OUT --cad_path obj.ply \
       --rgb_path rgb.png --depth_path depth.png --cam_path camera.json \
-      --seg_path OUT/sam6d_results/detection_ism.json [--pem_ckpt pem.pth]
+      --seg_path OUT/sam6d_results/detection_ism.json
 
-It reads OUT/templates (rgb_i.png, mask_i.png, xyz_i.npy) and writes
-OUT/sam6d_results/detection_pem.json. Without --pem_ckpt the network runs
-seeded random weights (a smoke of the data path, not a pose estimate).
+`render` writes OUT/templates (42 views of rgb_i.png, mask_i.png,
+xyz_i.npy); `demo` renders, segments and matches (detection_ism.json,
+vis_ism.png) and poses (detection_pem.json, vis_pem.png) under
+OUT/sam6d_results; `stream` onboards every CAD and poses every
+rgb*/depth* frame pair of FRAMES into OUT/results.jsonl; `pem` is demo.sh's
+stage 3 on a given detection json. --sam_ckpt, --dinov2_ckpt and --pem_ckpt
+take the reference checkpoint files; without them the networks run seeded
+random weights (a smoke of the data path, not an estimate).
 """
 from __future__ import annotations
 
@@ -15,20 +25,161 @@ import argparse
 import os
 
 
+def _sam_state_dict(path, cfg):
+    if not path:
+        return None
+    from ..models.sam import SAM
+    from ..weights.sam import load_reference_checkpoint
+    net = SAM(cfg)
+    load_reference_checkpoint(path, net)
+    return net.state_dict()
+
+
+def _dinov2_state_dict(path, cfg):
+    if not path:
+        return None
+    from ..models.dinov2 import DINOv2
+    from ..weights.dinov2 import load_reference_checkpoint
+    net = DINOv2(cfg.img_size, cfg.patch_size, cfg.embed_dim, cfg.depth, cfg.num_heads)
+    load_reference_checkpoint(path, net)
+    return net.state_dict()
+
+
+def _pem_state_dict(path, cfg):
+    if not path:
+        return None
+    from ..models.pem import PEMNet
+    from ..weights.pem import load_reference_checkpoint
+    net = PEMNet(cfg)
+    load_reference_checkpoint(path, net)
+    return net.state_dict()
+
+
+def cmd_render(args):
+    from ..core.config import default_config
+    from ..render.templates import render_custom_templates
+    cfg = default_config()
+    out = render_custom_templates(args.cad_path, args.output_dir,
+                                  level=cfg.render.template_level,
+                                  image_size=cfg.render.image_size, device=args.device)
+    print(f"templates written to {out}")
+
+
+def cmd_demo(args):
+    import dataclasses
+    from ..core.config import default_config
+    from ..pipelines.demo import run_demo
+
+    cfg = default_config()
+    if args.segmentor_model != "sam":
+        cfg = dataclasses.replace(
+            cfg, ism=dataclasses.replace(cfg.ism, segmentor=args.segmentor_model))
+    results = run_demo(
+        cfg, args.cad_path, args.rgb_path, args.depth_path, args.cam_path,
+        args.output_dir,
+        dinov2_state_dict=_dinov2_state_dict(args.dinov2_ckpt, cfg.ism.dinov2),
+        sam_state_dict=_sam_state_dict(args.sam_ckpt, cfg.ism.sam),
+        pem_state_dict=_pem_state_dict(args.pem_ckpt, cfg.pem),
+        det_score_thresh=args.det_score_thresh,
+        skip_render=args.skip_render,
+        stability_score_thresh=args.stability_score_thresh,
+        device=args.device,
+    )
+    print(f"{len(results['ism'])} detections, {len(results['pem'])} poses "
+          f"-> {os.path.join(args.output_dir, 'sam6d_results')}")
+
+
+def cmd_stream(args):
+    """Multi-object streaming serving: render (if missing) and onboard every
+    CAD once, then one segmentation, one multi-object scoring and one
+    batched PEM run per frame; writes results.jsonl and prints the
+    throughput summary."""
+    import dataclasses
+    import glob
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from ..core.config import default_config
+    from ..data.mesh import load_mesh
+    from ..data.prefetch import iter_prefetched
+    from ..pipelines.ism import ISMPipeline
+    from ..pipelines.pem import PEMPipeline
+    from ..pipelines.sam_amg import SAMSegmentor
+    from ..pipelines.streaming import MultiObjectStream
+    from ..render.templates import render_templates
+
+    cfg = default_config()
+    if args.proposals:
+        cfg = dataclasses.replace(cfg, ism=dataclasses.replace(
+            cfg.ism, sam=dataclasses.replace(cfg.ism.sam, max_proposals=args.proposals)))
+    os.makedirs(args.output_dir, exist_ok=True)
+    dev = args.device
+    seg = SAMSegmentor(cfg.ism.sam, state_dict=_sam_state_dict(args.sam_ckpt, cfg.ism.sam),
+                       device=dev)
+    ism = ISMPipeline(cfg.ism, state_dict=_dinov2_state_dict(args.dinov2_ckpt, cfg.ism.dinov2),
+                      device=dev, segmentor=seg)
+    pem = PEMPipeline(cfg.pem, state_dict=_pem_state_dict(args.pem_ckpt, cfg.pem), device=dev)
+    stream = MultiObjectStream(ism, pem, det_score_thresh=args.det_score_thresh)
+    rng = np.random.RandomState(0)
+    for i, cad in enumerate(args.cad_paths):
+        obj_dir = os.path.join(args.output_dir, f"obj_{i}")
+        tdir = os.path.join(obj_dir, "templates")
+        mesh = load_mesh(cad)
+        if not os.path.isdir(tdir):
+            render_templates(mesh, obj_dir, level=cfg.ism.template_level,
+                             image_size=cfg.render.image_size, device=dev)
+        # CAD in mm -> sample clouds in meters, as run_demo takes them
+        stream.onboard_object(
+            i, tdir, mesh.sample(cfg.pem.n_sample_model_point, rng) / 1000.0,
+            ism_points=mesh.sample(cfg.ism.matching.pointcloud_sample_num, rng) / 1000.0)
+
+    with open(args.cam_path) as f:
+        cam = json.load(f)
+    K = np.array(cam["cam_K"], np.float32).reshape(3, 3)
+    depth_scale = float(cam.get("depth_scale", 1.0))
+    rgbs = sorted(glob.glob(os.path.join(args.frames_dir, "rgb*.png")))
+    if args.max_frames:
+        rgbs = rgbs[:args.max_frames]
+    out_path = os.path.join(args.output_dir, "results.jsonl")
+
+    def frames():
+        for rp in rgbs:
+            dp = os.path.join(os.path.dirname(rp),
+                              os.path.basename(rp).replace("rgb", "depth", 1))
+            rgb = np.array(Image.open(rp).convert("RGB"))
+            depth = np.array(Image.open(dp)).astype(np.float32)
+            yield rp, rgb, depth
+
+    names = []
+
+    def items():
+        # PNG decode in the prefetch thread; process_stream keeps one frame
+        # in flight (frame t+1's segmentation queued while the host drives
+        # frame t's PEM tail)
+        for rp, rgb, depth in iter_prefetched(frames(), depth=2):
+            names.append(rp)
+            yield rgb, depth, K, depth_scale
+
+    with open(out_path, "w") as f:
+        for j, res in enumerate(stream.process_stream(
+                items(), depth_in_flight=0 if args.no_overlap else 1)):
+            f.write(json.dumps(dict(frame=os.path.basename(names[j]), poses=res["poses"],
+                                    ms=round(res["ms"], 1))) + "\n")
+    tp = stream.throughput()
+    tail = f", p50 {tp['p50_ms']} / p95 {tp['p95_ms']} ms" if "p95_ms" in tp else ""
+    print(f"{tp['frames']} frames, {tp['poses']} poses, "
+          f"{tp['ms_per_frame']} ms/frame{tail} -> {out_path}")
+
+
 def cmd_pem(args):
     from ..pipelines.pem import PEMConfig, run_demo_pem
 
     cfg = PEMConfig()
-    state_dict = None
-    if args.pem_ckpt:
-        from ..models.pem import PEMNet
-        from ..weights.pem import load_reference_checkpoint
-        net = PEMNet(cfg)
-        load_reference_checkpoint(args.pem_ckpt, net)
-        state_dict = net.state_dict()
     results = run_demo_pem(
         cfg, args.output_dir, args.cad_path, args.rgb_path, args.depth_path,
-        args.cam_path, args.seg_path, state_dict=state_dict,
+        args.cam_path, args.seg_path, state_dict=_pem_state_dict(args.pem_ckpt, cfg),
         det_score_thresh=args.det_score_thresh, device=args.device)
     print(f"{len(results)} poses -> "
           f"{os.path.join(args.output_dir, 'sam6d_results', 'detection_pem.json')}")
@@ -37,22 +188,54 @@ def cmd_pem(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="sam6d_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    pp = sub.add_parser("pem", help="PEM stage: detections -> 6D poses")
-    pp.add_argument("--output_dir", required=True)
-    pp.add_argument("--cad_path", required=True)
-    pp.add_argument("--rgb_path", required=True)
-    pp.add_argument("--depth_path", required=True)
-    pp.add_argument("--cam_path", required=True)
+
+    device = argparse.ArgumentParser(add_help=False)
+    device.add_argument("--device", default="cuda",
+                        help="torch device, e.g. cuda, cuda:1 or cpu")
+    ckpts = argparse.ArgumentParser(add_help=False)
+    ckpts.add_argument("--sam_ckpt", default=os.environ.get("SAM_CKPT"))
+    ckpts.add_argument("--dinov2_ckpt", default=os.environ.get("DINOV2_CKPT"))
+    ckpts.add_argument("--pem_ckpt", default=os.environ.get("PEM_CKPT"))
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--output_dir", required=True)
+    common.add_argument("--cad_path", required=True)
+    io = argparse.ArgumentParser(add_help=False, parents=[ckpts])
+    io.add_argument("--rgb_path", required=True)
+    io.add_argument("--depth_path", required=True)
+    io.add_argument("--cam_path", required=True)
+    io.add_argument("--det_score_thresh", type=float, default=0.2)
+
+    pr = sub.add_parser("render", parents=[common, device],
+                        help="CAD -> 42 template views (rgb, mask, xyz)")
+    pr.set_defaults(fn=cmd_render)
+
+    pd = sub.add_parser("demo", parents=[common, io, device],
+                        help="render -> ISM -> PEM on one RGB-D frame")
+    pd.add_argument("--skip_render", action="store_true")
+    pd.add_argument("--segmentor_model", default="sam", choices=["sam", "fastsam"])
+    pd.add_argument("--stability_score_thresh", type=float, default=0.97)
+    pd.set_defaults(fn=cmd_demo)
+
+    pp = sub.add_parser("pem", parents=[common, io, device],
+                        help="PEM stage: detections -> 6D poses")
     pp.add_argument("--seg_path", required=True)
-    pp.add_argument("--det_score_thresh", type=float, default=0.2)
-    pp.add_argument("--pem_ckpt", default=os.environ.get("PEM_CKPT"))
-    # accepted for command-line parity with the JAX CLI; the PEM stage
-    # does not read them
-    pp.add_argument("--sam_ckpt", default=os.environ.get("SAM_CKPT"))
-    pp.add_argument("--dinov2_ckpt", default=os.environ.get("DINOV2_CKPT"))
-    pp.add_argument("--device", default="cuda",
-                    help="torch device, e.g. cuda, cuda:1 or cpu")
     pp.set_defaults(fn=cmd_pem)
+
+    ps = sub.add_parser("stream", parents=[ckpts, device],
+                        help="multi-object serving: onboard N CAD models, then pose "
+                             "every rgb/depth frame pair in --frames_dir")
+    ps.add_argument("--cad_paths", nargs="+", required=True)
+    ps.add_argument("--frames_dir", required=True,
+                    help="directory of rgb*.png with matching depth*.png")
+    ps.add_argument("--cam_path", required=True)
+    ps.add_argument("--output_dir", default="outputs/stream")
+    ps.add_argument("--max_frames", type=int, default=None)
+    ps.add_argument("--no_overlap", action="store_true",
+                    help="synchronous per-frame processing (no frame in flight)")
+    ps.add_argument("--proposals", type=int, default=None,
+                    help="override the AMG proposal capacity")
+    ps.add_argument("--det_score_thresh", type=float, default=0.2)
+    ps.set_defaults(fn=cmd_stream)
     return p
 
 

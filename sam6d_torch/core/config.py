@@ -4,8 +4,10 @@ operating points as defaults.
 The port's own copy of the part of `sam6d_tpu/core/config.py` it runs: the
 PEM tree (reference `Pose_Estimation_Model/config/base.yaml`), the SAM
 segmentor and the ISM matching tree (reference
-`Instance_Segmentation_Model/configs/model/ISM_sam.yaml`). Names and
-defaults are the JAX package's; fields no ported code reads are left out.
+`Instance_Segmentation_Model/configs/model/ISM_sam.yaml`), template
+rendering, and the root `Config` that `run_demo` and the CLI take. Names and
+defaults are the JAX package's; fields no ported code reads (the training
+tree, the compute dtype) are left out.
 """
 from __future__ import annotations
 
@@ -148,7 +150,31 @@ class ISMPostProcessConfig:
 
 @dataclass(frozen=True)
 class ISMConfig:
+    segmentor: str = "sam"          # 'sam' | 'fastsam' (not ported)
     sam: SAMConfig = field(default_factory=SAMConfig)
     dinov2: DINOv2Config = field(default_factory=DINOv2Config)
     matching: ISMMatchingConfig = field(default_factory=ISMMatchingConfig)
     post: ISMPostProcessConfig = field(default_factory=ISMPostProcessConfig)
+    template_level: int = 0         # 42 views
+
+
+# ------------------------------------------------------------------ render
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Offline template rendering (reference Render/render_custom_templates.py)."""
+    template_level: int = 0
+    image_size: int = 512  # Blender default render resolution
+
+
+@dataclass(frozen=True)
+class Config:
+    """Root config."""
+    ism: ISMConfig = field(default_factory=ISMConfig)
+    pem: PEMConfig = field(default_factory=PEMConfig)
+    render: RenderConfig = field(default_factory=RenderConfig)
+
+
+def default_config() -> Config:
+    return Config()

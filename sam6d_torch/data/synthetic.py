@@ -5,8 +5,9 @@ Writes what the `pem` stage reads: a box mesh (PLY, mm), 42 template views
 surface under random rotations), one 480x640 RGB-D frame with the box at
 0.6 m, camera.json and detection_ism.json (COCO-RLE masks over valid depth).
 `write_ism_job` adds the fixed-capacity proposal buffer the ISM matching
-stage reads. Used by `chip_smoke.py` and the port's tests; no released data
-is needed.
+stage reads; `write_stream_frames` a second box of other extents and frames
+in which both boxes have moved, for the `stream` entry point. Used by
+`chip_smoke.py` and the port's tests; no released data is needed.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ K_CAM = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
 T_CAM_MM = np.array([10.0, -5.0, 600.0], np.float32)
 
 
-def _box_ply(path, half=(40.0, 30.0, 20.0)):
+def box_ply(path, half=(40.0, 30.0, 20.0)):
     """A closed box mesh in millimetres."""
     hx, hy, hz = half
     v = np.array([[sx * hx, sy * hy, sz * hz] for sx in (-1, 1)
@@ -71,7 +72,7 @@ def write_pem_job(job_dir: str, rng: np.random.RandomState, n_det: int = 16,
     """Write the job into `job_dir`; returns paths, the frame arrays, the
     detections and the true pose (R, t in mm)."""
     cad = os.path.join(job_dir, "obj.ply")
-    _box_ply(cad)
+    box_ply(cad)
     surf = load_ply(cad).sample(200000, rng)                 # mm, model frame
     colour = (surf / 80.0 + 0.5).clip(0, 1) * 255.0
 
@@ -151,3 +152,37 @@ def write_ism_job(job_dir: str, rng: np.random.RandomState, n_slots: int = 128,
     proposals = dict(masks=masks, boxes=boxes, valid=np.arange(n_slots) < n_valid)
     np.savez_compressed(os.path.join(job_dir, "proposals.npz"), **proposals)
     return dict(job, proposals=proposals)
+
+
+SECOND_BOX_HALF = (25.0, 35.0, 15.0)
+SECOND_BOX_OFFSET_MM = np.array([130.0, 20.0, 40.0], np.float32)
+
+
+def write_stream_frames(job_dir: str, rng: np.random.RandomState, n_moved: int = 3):
+    """The frames of a two-object stream for the job in `job_dir` (made by
+    write_pem_job): writes obj2.ply (a box of SECOND_BOX_HALF extents) and
+    frames/rgb_{k:03d}.png, depth_{k:03d}.png, where frame 0 is the job's
+    frame and frames 1..n_moved show the job's box moved by up to 40 mm and
+    the second box beside it (SECOND_BOX_OFFSET_MM), both under random
+    rotations. Returns (path of obj2.ply, frames dir, [(rgb, depth)] arrays,
+    depth float32 in mm)."""
+    cad2 = os.path.join(job_dir, "obj2.ply")
+    box_ply(cad2, SECOND_BOX_HALF)
+    fdir = os.path.join(job_dir, "frames")
+    os.makedirs(fdir, exist_ok=True)
+    rgb0 = np.array(Image.open(os.path.join(job_dir, "rgb.png")))
+    depth0 = np.array(Image.open(os.path.join(job_dir, "depth.png")))
+    frames = [(rgb0, depth0)]
+    surfs = [load_ply(p).sample(200000, rng)
+             for p in (os.path.join(job_dir, "obj.ply"), cad2)]
+    for _ in range(n_moved):
+        t1 = T_CAM_MM + rng.uniform(-40, 40, 3).astype(np.float32)
+        cams = [surfs[0] @ random_rotation(rng).T + t1,
+                surfs[1] @ random_rotation(rng).T + t1 + SECOND_BOX_OFFSET_MM]
+        cols = [(s / 80.0 + 0.5).clip(0, 1) * 255.0 for s in surfs]
+        depth, pay, _ = _splat(np.concatenate(cams), K_CAM, (480, 640), np.concatenate(cols))
+        frames.append((pay.astype(np.uint8), np.round(depth).astype(np.uint16)))
+    for k, (rgb, depth) in enumerate(frames):
+        Image.fromarray(rgb).save(os.path.join(fdir, f"rgb_{k:03d}.png"))
+        Image.fromarray(depth).save(os.path.join(fdir, f"depth_{k:03d}.png"))
+    return cad2, fdir, [(rgb, depth.astype(np.float32)) for rgb, depth in frames]

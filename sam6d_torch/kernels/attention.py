@@ -1,0 +1,137 @@
+"""Softmax attention on head-major (B, H, N, hd) operands: the two CUDA
+kernels of `csrc/attention.cu`, their plain PyTorch versions, and the device
+dispatches.
+
+- `fused_attention` (K8) replaces
+  `sam6d_tpu/kernels/flash_attention.py::fused_attention`: any Nq and Nk
+  (self- or cross-attention), hd up to 128. `models/vit.Attention` sends
+  every `use_flash` attention with N > 1024 to it, as the JAX package does;
+  the ISM describe at `DINOv2Config(img_size=448)` (1025 tokens) runs it in
+  each of its 24 blocks.
+- `fused_attention_small` (K9) replaces
+  `sam6d_tpu/kernels/flash_attention.py::fused_attention_small`: short
+  self-attention sequences, hd 16, 32 or 64. Neither package calls it on a
+  path; it is held to its plain version all the same.
+
+Semantics shared by every version: out = softmax(q k^T * scale) v with the
+scores and softmax in fp32; q (B, H, Nq, hd), k and v (B, H, Nk, hd); the
+output (B, H, Nq, hd). The kernels read q, k and v through their strides
+(the head dim must be contiguous), so the (B, H, N, hd) views of a fused
+qkv projection need no copy. K8 returns a (B, H, Nq, hd) view of a (B, Nq,
+H, hd) tensor, so `out.transpose(1, 2).reshape(B, Nq, H * hd)` is free.
+
+What bounds them on the card: 4*B*H*Nq*Nk*hd fp32 operations (TF32 off);
+see the header of `csrc/attention.cu`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import check, load_library
+
+MAX_HEAD_DIM = 128
+SMALL_HEAD_DIMS = (16, 32, 64)
+
+
+def _strides(t: torch.Tensor):
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """(B, H, Nq, hd) x (B, H, Nk, hd) -> (B, H, Nq, hd): explicit matmul +
+    softmax + matmul in fp32."""
+    attn = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    return attn @ v
+
+
+def _check_operands(name, q, k, v):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f"{name} takes CUDA tensors")
+    if any(t.dtype != torch.float32 or t.dim() != 4 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must be (B, H, N, hd) float32")
+    B, H, Nq, hd = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != hd:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} do not agree")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name}: the head dim must be contiguous")
+    if not (0 < B <= 65535 and 0 < H <= 65535 and Nq > 0 and k.shape[2] > 0):
+        raise ValueError(f"{name}: empty operands or a grid past 65535 blocks")
+    return B, H, Nq, k.shape[2], hd
+
+
+def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """The K8 kernel: same contract as fused_attention_plain."""
+    B, H, Nq, Nk, hd = _check_operands("fused_attention_cuda", q, k, v)
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"fused_attention_cuda takes hd <= {MAX_HEAD_DIM}, got {hd}")
+    lib = load_library()
+    out = torch.empty((B, Nq, H, hd), dtype=torch.float32, device=q.device)
+    out_h = out.permute(0, 2, 1, 3)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sam6d_fused_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q),
+        _strides(k), _strides(v), _strides(out_h), B, H, Nq, Nk, hd,
+        float(scale), stream)
+    fused_attention_cuda.launches += 1
+    check(err, "fused_attention_cuda")
+    return out_h
+
+
+fused_attention_cuda.launches = 0
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """A CUDA tensor goes to the K8 kernel, a CPU tensor to the plain
+    version."""
+    if q.device.type == "cuda":
+        return fused_attention_cuda(q, k, v, scale)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, scale)
+    raise ValueError(f"no fused_attention for device {q.device}")
+
+
+def fused_attention_small_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                scale: float) -> torch.Tensor:
+    """The plain version of K9: fused_attention_plain on N x N."""
+    return fused_attention_plain(q, k, v, scale)
+
+
+def fused_attention_small_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """The K9 kernel: self-attention (Nq == Nk), hd 16, 32 or 64; returns a
+    contiguous (B, H, N, hd) tensor."""
+    B, H, N, Nk, hd = _check_operands("fused_attention_small_cuda", q, k, v)
+    if Nk != N or hd not in SMALL_HEAD_DIMS:
+        raise ValueError(f"fused_attention_small_cuda takes Nq == Nk and hd in "
+                         f"{SMALL_HEAD_DIMS}, got {N}, {Nk}, {hd}")
+    if any(t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError("fused_attention_small_cuda needs 16-byte aligned rows")
+    lib = load_library()
+    out = torch.empty((B, H, N, hd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sam6d_fused_attention_small(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q),
+        _strides(k), _strides(v), B, H, N, hd, float(scale), stream)
+    fused_attention_small_cuda.launches += 1
+    check(err, "fused_attention_small_cuda")
+    return out
+
+
+fused_attention_small_cuda.launches = 0
+
+
+def fused_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """A CUDA tensor goes to the K9 kernel, a CPU tensor to the plain
+    version."""
+    if q.device.type == "cuda":
+        return fused_attention_small_cuda(q, k, v, scale)
+    if q.device.type == "cpu":
+        return fused_attention_small_plain(q, k, v, scale)
+    raise ValueError(f"no fused_attention_small for device {q.device}")

@@ -7,7 +7,8 @@ reference `state_dict` (`vit.blocks.{i}.attn.qkv`, `vit.patch_embed.proj`,
 `output_upscaling`, ...). GELU is the exact erf form and attention is an
 explicit matmul + softmax, as on the JAX fp32 path, or, under `use_flash`
 (DINOv2 in the ISM pipeline; PEM keeps it off, as the JAX package does), the
-fused-attention dispatch of `kernels/attention_qkv.py`.
+fused-attention dispatches of `kernels/attention_qkv.py` (N <= 1024) and
+`kernels/attention.py` (longer sequences).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import fused_attention
 from ..kernels.attention_qkv import fused_attention_qkv
 
 
@@ -33,10 +35,12 @@ class MlpBlock(nn.Module):
 class Attention(nn.Module):
     """Pre-LN ViT multi-head self-attention with a fused qkv projection.
 
-    With `use_flash` and N <= 1024 the softmax(q k^T) v chain goes to the
-    fused-attention dispatch (`kernels/attention_qkv.py`: the CUDA kernel for
-    a CUDA tensor, its plain version on the CPU), which reads the qkv
-    projection as it is; otherwise it is an explicit matmul + softmax."""
+    With `use_flash` the softmax(q k^T) v chain goes to a kernel dispatch
+    (the CUDA kernel for a CUDA tensor, its plain version on the CPU), as
+    the JAX package routes it: N <= 1024 to `kernels/attention_qkv.py`,
+    which reads the qkv projection as it is, longer sequences to the
+    head-major `kernels/attention.fused_attention` on the (B, H, N, hd)
+    views of the projection. Otherwise it is an explicit matmul + softmax."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  use_flash: bool = False):
@@ -53,9 +57,11 @@ class Attention(nn.Module):
         if self.use_flash and N <= 1024:
             return self.proj(fused_attention_qkv(self.qkv(x), H, hd ** -0.5))
         q, k, v = self.qkv(x).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-        attn = torch.softmax((q @ k.transpose(-1, -2)) / (hd ** 0.5), dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out)
+        if self.use_flash:
+            out = fused_attention(q, k, v, hd ** -0.5)
+        else:
+            out = torch.softmax((q @ k.transpose(-1, -2)) / (hd ** 0.5), dim=-1) @ v
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
 class PatchEmbed(nn.Module):

@@ -260,7 +260,9 @@ class ISMPipeline:
         """Per-frame matching of the proposals `detections` = {masks (K, H,
         W), boxes (K, 4) xyxy, valid (K,)}, all numpy, or, with
         `detections=None`, of the segmentor's proposals for `rgb`. Returns
-        device tensors at the proposal capacity."""
+        device tensors at the proposal capacity, `packed` (K, 12) among
+        them: score, object id, valid, semantic, appearance and geometric
+        scores, visible ratio, best template, box x1 y1 x2 y2."""
         dev = self.device
         post = self.cfg.post
         if detections is None:
@@ -296,6 +298,13 @@ class ISMPipeline:
             needed_prefix(valid_np), apply_nms_per_object)
         out["masks"] = masks
         out["boxes"] = boxes
+        # one (K, 12) row per proposal, so that a serving loop reads the
+        # frame's results back in one copy; the JAX package's column order
+        out["packed"] = torch.cat(
+            [out[k].to(torch.float32)[:, None]
+             for k in ("scores", "object_ids", "valid", "semantic_score", "appe_score",
+                       "geometric_score", "visible_ratio", "best_template")]
+            + [boxes.to(torch.float32)], dim=1)
         return out
 
     def match_frame(self, *args, **kwargs) -> Dict[str, np.ndarray]:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -109,6 +110,39 @@ class PEMPipeline:
 
     # -------------------------------------------------------------- instances
 
+    def _prepare_instances(self, rgb, depth, K, depth_scale, detections, radius_of,
+                           det_score_thresh, seed):
+        """Decode the masks and prepare every detection above
+        `det_score_thresh` (radius_of(det): the radius of its object's model
+        cloud). Returns (instances, kept detections)."""
+        c = self.cfg
+        rng = np.random.RandomState(seed)
+        whole_pts = _host_backproject(depth, depth_scale, K)
+        insts, kept = [], []
+        for det in detections:
+            if det["score"] <= det_score_thresh:
+                continue
+            mask = det.get("mask")
+            if mask is None:      # streaming passes the raw mask, skipping a decode
+                mask = rle_decode_coco(det["segmentation"])
+            mask = np.logical_and(mask > 0, depth > 0)
+            inst = prepare_instance(rgb, whole_pts, mask, radius_of(det), c.img_size,
+                                    c.n_sample_observed_point, rng,
+                                    rgb_mask_flag=c.rgb_mask_flag)
+            if inst is None:
+                continue
+            insts.append(inst)
+            kept.append(det)
+        return insts, kept
+
+    @staticmethod
+    def _stack(insts, key, dtype=np.float32):
+        """Instances stacked and padded to a power-of-two bucket by repeating
+        the last one."""
+        arr = np.stack([i[key] for i in insts]).astype(dtype)
+        pad = _bucket(len(insts)) - len(insts)
+        return np.concatenate([arr, np.repeat(arr[-1:], pad, 0)]) if pad else arr
+
     def prepare_frame(self, rgb: np.ndarray, depth: np.ndarray, K: np.ndarray,
                       depth_scale: float, detections: List[Dict],
                       model_points: np.ndarray, templates: Dict[str, torch.Tensor],
@@ -116,37 +150,14 @@ class PEMPipeline:
         """Host half of a frame: decode masks, prepare every detection above
         `det_score_thresh` and pad to a power-of-two bucket. Returns (PEMNet
         inputs, kept detections); inputs is None if no detection survives."""
-        c = self.cfg
-        rng = np.random.RandomState(seed)
-        whole_pts = _host_backproject(depth, depth_scale, K)
         radius = float(np.linalg.norm(model_points, axis=1).max())
-        insts, kept = [], []
-        for det in detections:
-            if det["score"] <= det_score_thresh:
-                continue
-            mask = det.get("mask")
-            if mask is None:
-                mask = rle_decode_coco(det["segmentation"])
-            mask = np.logical_and(mask > 0, depth > 0)
-            inst = prepare_instance(rgb, whole_pts, mask, radius, c.img_size,
-                                    c.n_sample_observed_point, rng,
-                                    rgb_mask_flag=c.rgb_mask_flag)
-            if inst is None:
-                continue
-            insts.append(inst)
-            kept.append(det)
+        insts, kept = self._prepare_instances(rgb, depth, K, depth_scale, detections,
+                                              lambda det: radius, det_score_thresh, seed)
         if not insts:
             return None, []
-        pad = _bucket(len(insts)) - len(insts)
-
-        def stack(key, dtype=np.float32):
-            arr = np.stack([i[key] for i in insts]).astype(dtype)
-            if pad:
-                arr = np.concatenate([arr, np.repeat(arr[-1:], pad, 0)])
-            return arr
-
-        inputs = dict(rgb=stack("rgb"), rgb_choose=stack("rgb_choose", np.int64),
-                      pts=stack("pts"),
+        inputs = dict(rgb=self._stack(insts, "rgb"),
+                      rgb_choose=self._stack(insts, "rgb_choose", np.int64),
+                      pts=self._stack(insts, "pts"),
                       model=np.asarray(model_points, np.float32)[None],
                       dense_po=templates["dense_po"][None],
                       dense_fo=templates["dense_fo"][None])
@@ -179,6 +190,79 @@ class PEMPipeline:
                         score=float(score[i] * det["score"]),
                         R=pred_R[i].tolist(),
                         t=(pred_t[i] * 1000.0).tolist())
+                   for i, det in enumerate(kept)]
+        return results, kept
+
+    # ---------------------------------------------------------- multi-object
+
+    def run_frame_multi(self, *args, **kwargs):
+        """Multi-object frame, synchronous: dispatch + finalize."""
+        return self.finalize_frame_multi(self.dispatch_frame_multi(*args, **kwargs))
+
+    @torch.inference_mode()
+    def dispatch_frame_multi(self, rgb: np.ndarray, depth: np.ndarray, K: np.ndarray,
+                             depth_scale: float, detections: List[Dict],
+                             model_points_all: torch.Tensor,
+                             templates_all: Dict[str, torch.Tensor],
+                             det_score_thresh: float = 0.2, seed: int = 1):
+        """Host half of a multi-object frame and the launch of its batch.
+        Each detection carries an `object_id` index into the stacked
+        per-object arrays (model_points_all (O, M, 3) on the device;
+        `templates_all` maps each onboard_templates key to its (O, ...)
+        stack); every instance's templates are gathered on the device by
+        that index, so one batched PEMNet run poses a mixed-object frame.
+        Returns a handle for finalize_frame_multi. Only the (O,) model radii
+        are read back here (the host preparation needs them); the poses are
+        not, so a serving loop can queue the next frame's device work first
+        (the JAX package's order)."""
+        tm = {}
+        tt = time.perf_counter()
+        radii = torch.linalg.vector_norm(model_points_all, dim=2).amax(dim=1).cpu().numpy()
+        insts, kept = self._prepare_instances(
+            rgb, depth, K, depth_scale, detections,
+            lambda det: float(radii[int(det["object_id"])]), det_score_thresh, seed)
+        tm["pem_prepare_ms"] = (time.perf_counter() - tt) * 1e3
+        self.last_timing = tm
+        if not insts:
+            return dict(packed=None, kept=[], n=0)
+        tt = time.perf_counter()
+        dev = self.device
+        oidx = self._stack([dict(o=int(d["object_id"])) for d in kept], "o", np.int64)
+        oidx = torch.as_tensor(oidx, device=dev)
+        inputs = dict(rgb=self._stack(insts, "rgb"),
+                      rgb_choose=self._stack(insts, "rgb_choose", np.int64),
+                      pts=self._stack(insts, "pts"))
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+        inputs["model"] = model_points_all[oidx]
+        for k in ("dense_po", "dense_fo") + TEMPLATE_CACHE_KEYS:
+            if k in templates_all:
+                inputs[k] = templates_all[k][oidx]
+        out = self.net.infer(inputs, self._generator(seed))
+        # one (B, 13) result (R row-major, t, score): one copy back per frame
+        packed = torch.cat([out["pred_R"].reshape(-1, 9), out["pred_t"],
+                            out["pred_pose_score"][:, None]], dim=1)
+        tm["pem_upload_dispatch_ms"] = (time.perf_counter() - tt) * 1e3
+        return dict(packed=packed, kept=kept, n=len(kept))
+
+    def finalize_frame_multi(self, state):
+        """Read back a dispatch_frame_multi handle and assemble the results
+        (the detection_pem.json schema plus `object_id`)."""
+        kept, n = state["kept"], state["n"]
+        if not n:
+            return [], []
+        tt = time.perf_counter()
+        packed = state["packed"][:n].cpu().numpy()
+        self.last_timing["pem_device_wait_ms"] = (time.perf_counter() - tt) * 1e3
+        pred_R = packed[:, :9].reshape(-1, 3, 3)
+        results = [dict(scene_id=det.get("scene_id", 0),
+                        image_id=det.get("image_id", 0),
+                        object_id=int(det["object_id"]),
+                        category_id=det.get("category_id", 1),
+                        bbox=det.get("bbox"),
+                        segmentation=det.get("segmentation"),
+                        score=float(packed[i, 12] * det["score"]),
+                        R=pred_R[i].tolist(),
+                        t=(packed[i, 9:12] * 1000.0).tolist())
                    for i, det in enumerate(kept)]
         return results, kept
 

@@ -1,0 +1,275 @@
+"""The port's CUDA kernels held to their plain PyTorch versions on the card
+(every test is marked `cuda` and skips without a GPU): FPS, two-scale ball
+query, the fused attentions (K5 off the qkv projection, K8 and K9 on
+head-major operands), SAM's rel-pos attention (K1) and the factored AMG
+kernels (K2-K4). The file imports torch, numpy, pytest and sam6d_torch only,
+so it runs where JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from sam6d_torch.kernels import attention, attention_qkv
+from sam6d_torch.kernels import attention_relpos as relpos
+from sam6d_torch.kernels import ball_query as bq
+from sam6d_torch.kernels import factored, fps
+from sam6d_torch.ops.geometry import pairwise_sq_distance
+
+def _fps_case(rng, case):
+    """(points (B, N, 3), valid mask or None, npoint)."""
+    if case == "plain":
+        return rng.randn(2, 100, 3).astype(np.float32), None, 16
+    if case == "valid_mask":
+        pts = rng.randn(2, 64, 3).astype(np.float32)
+        pts[:, 40:] += 100.0
+        mask = np.zeros((2, 64), bool)
+        mask[0, :40] = True
+        mask[1, 5:40] = True          # first valid index is not 0
+        return pts, mask, 12
+    if case == "padded_n":
+        return rng.randn(1, 77, 3).astype(np.float32), None, 8
+    # duplicates: sampling with replacement repeats points exactly, so
+    # equal distances (ties) occur and must go to the lowest index
+    base = rng.randn(30, 3).astype(np.float32)
+    return base[rng.randint(0, 30, (3, 90))], None, 40
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "valid_mask", "padded_n", "duplicates"])
+def test_fps_kernel_matches_plain_small(cuda_device, case):
+    pts, mask, m = _fps_case(np.random.RandomState(1), case)
+    p = torch.from_numpy(pts).to(cuda_device)
+    vm = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    got = fps.farthest_point_sample_cuda(p, m, vm)
+    want = fps.farthest_point_sample_plain(p, m, vm)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M", [(16, 2048, 196), (1, 2048, 196),
+                                   (1, 210000, 2048), (2, 9000, 64)])
+def test_fps_kernel_matches_plain_main_path_shapes(cuda_device, B, N, M):
+    """Single-block path (N <= 8192) and multi-block path (larger N), with
+    duplicated points as template sampling with replacement makes them."""
+    rng = np.random.RandomState(6)
+    base = rng.randn(max(N // 3, 1), 3).astype(np.float32)
+    pts = torch.from_numpy(base[rng.randint(0, len(base), (B, N))]).to(cuda_device)
+    mask = torch.from_numpy(rng.rand(B, N) < 0.9).to(cuda_device)
+    for vm in (None, mask):
+        assert torch.equal(fps.farthest_point_sample_cuda(pts, M, vm),
+                           fps.farthest_point_sample_plain(pts, M, vm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,scales", [
+    (16, 2048, 2048, (0.1, 32, 0.2, 64)),
+    (2, 300, 77, (0.2, 4, 0.4, 8)),
+    (1, 50, 50, (0.01, 32, 0.02, 64)),    # mostly empty: tail rule
+])
+def test_ball_query_kernel_matches_plain(cuda_device, B, N, M, scales):
+    r1, s1, r2, s2 = scales
+    rng = np.random.RandomState(7)
+    xyz = torch.from_numpy(rng.randn(B, N, 3).astype(np.float32) * 0.3).to(cuda_device)
+    q = xyz[:, :M].contiguous()
+    d2 = pairwise_sq_distance(q, xyz)
+    for g, w, r in zip(bq.two_scale_ball_query_cuda(xyz, q, *scales),
+                       bq.two_scale_ball_query_plain(xyz, q, *scales), (r1, r2)):
+        near = ((d2 - float(np.float32(r * r))).abs() < 1e-6).any(dim=-1)
+        assert not ((g != w).any(dim=-1) & ~near).any()
+
+
+# fp32 scores and online softmax in another order than the plain matmul +
+# softmax: the tolerance of the JAX package's own kernel test
+ATTENTION_ATOL = 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,hd", [
+    (16, 257, 16, 64),      # DINOv2-L, one describe chunk
+    (3, 257, 16, 64),       # ragged batch
+    (2, 128, 4, 64),        # N a multiple of both tiles
+    (2, 17, 4, 32),         # hd 32, N below one tile
+])
+def test_fused_attention_qkv_kernel_matches_plain(cuda_device, B, N, heads, hd):
+    rng = np.random.RandomState(8)
+    qkv = torch.from_numpy(rng.randn(B, N, 3 * heads * hd).astype(np.float32)).to(cuda_device)
+    got = attention_qkv.fused_attention_qkv_cuda(qkv, heads, hd ** -0.5)
+    want = attention_qkv.fused_attention_qkv_plain(qkv, heads, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+@pytest.mark.cuda
+def test_fused_attention_qkv_kernel_refuses_what_it_does_not_take(cuda_device):
+    qkv = torch.zeros(2, 9, 3 * 4 * 48, device=cuda_device)      # hd 48
+    with pytest.raises(ValueError):
+        attention_qkv.fused_attention_qkv_cuda(qkv, 4, 0.1)
+    with pytest.raises(ValueError):
+        attention_qkv.fused_attention_qkv_cuda(qkv.double(), 6, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Nq,Nk,hd", [
+    (16, 16, 1025, 1025, 64),   # DINOv2-L describe at img_size 448
+    (2, 4, 61, 300, 32),        # cross-attention, ragged tiles
+    (2, 3, 130, 130, 80),       # hd 80
+    (1, 2, 7, 5, 13),           # hd not a multiple of 4, one tile
+    (1, 2, 70, 66, 128),        # the largest hd
+])
+def test_fused_attention_kernel_matches_plain(cuda_device, B, H, Nq, Nk, hd):
+    rng = np.random.RandomState(14)
+    q, k, v = (torch.from_numpy(rng.randn(B, H, n, hd).astype(np.float32)).to(cuda_device)
+               for n in (Nq, Nk, Nk))
+    got = attention.fused_attention_cuda(q, k, v, hd ** -0.5)
+    want = attention.fused_attention_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, Nq, hd)
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+@pytest.mark.cuda
+def test_fused_attention_kernel_reads_qkv_views(cuda_device):
+    """The (B, H, N, hd) views of a fused qkv projection, read through their
+    strides, as models/vit.Attention passes them at N > 1024."""
+    B, N, H, hd = 2, 1100, 4, 64
+    qkv = torch.randn(B, N, 3 * H * hd, device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(0))
+    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    got = attention.fused_attention_cuda(q, k, v, hd ** -0.5)
+    want = attention.fused_attention_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,N,hd", [
+    (16, 16, 257, 64),          # DINOv2-L class tokens
+    (3, 4, 31, 32),             # below one key tile
+    (2, 2, 65, 16),
+])
+def test_fused_attention_small_kernel_matches_plain(cuda_device, B, H, N, hd):
+    rng = np.random.RandomState(15)
+    q, k, v = (torch.from_numpy(rng.randn(B, H, N, hd).astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    got = attention.fused_attention_small_cuda(q, k, v, hd ** -0.5)
+    want = attention.fused_attention_small_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+@pytest.mark.cuda
+def test_fused_attention_kernels_refuse_what_they_do_not_take(cuda_device):
+    q = torch.zeros(1, 2, 9, 48, device=cuda_device)
+    with pytest.raises(ValueError):
+        attention.fused_attention_small_cuda(q, q, q, 0.1)          # hd 48
+    with pytest.raises(ValueError):
+        attention.fused_attention_cuda(q, q[:, :, :, :40], q, 0.1)  # hd differs
+    big = torch.zeros(1, 1, 4, 160, device=cuda_device)
+    with pytest.raises(ValueError):
+        attention.fused_attention_cuda(big, big, big, 0.1)          # hd > 128
+    with pytest.raises(ValueError):
+        attention.fused_attention_cuda(q.double(), q.double(), q.double(), 0.1)
+
+
+def factored_state(rng, B, N, C, d, ranks, scaled, with_a, device="cpu"):
+    """Random scaled-block factor state as the iou-prefix pass carries it:
+    blocks of raw rows in [0, 1) (softmax probabilities and LayerNorm rows),
+    positive per-position scales, S, U (B, R, C), UK/UV-like (B, R, d)."""
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+    blocks = tuple((t(rng.rand(B, r, N)), t(rng.rand(B, N) + 0.5) if s else None)
+                   for r, s in zip(ranks, scaled))
+    R = sum(ranks)
+    return dict(blocks=blocks, S=t(rng.randn(N, C)), U=t(rng.randn(B, R, C) * 0.3),
+                UK=t(rng.randn(B, R, d) * 0.3), UV=t(rng.randn(B, R, d) * 0.3),
+                a=t(rng.rand(B, N) + 0.5) if with_a else None,
+                q=t(rng.randn(B, 7, d) * 0.25), KS=t(rng.randn(N, d) * 0.25),
+                KC=t(rng.randn(N, d) * 0.25), VS=t(rng.randn(N, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,heads,hd", [
+    (1, (64, 64), 16, 80),      # ViT-H global block
+    (25, (14, 14), 16, 80),     # ViT-H windowed block (25 windows)
+    (2, (5, 7), 2, 16),         # ragged tiles, hd 16
+    (3, (9, 9), 4, 64),
+])
+def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, hd):
+    rng = np.random.RandomState(10)
+    H, W = hw
+    qkv = torch.from_numpy(rng.randn(B, H * W, 3 * heads * hd).astype(np.float32)
+                           ).to(cuda_device)
+    rh = torch.from_numpy(rng.randn(2 * H - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
+    rw = torch.from_numpy(rng.randn(2 * W - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
+    got = relpos.flash_attention_relpos_cuda(qkv, rh, rw, hw, heads)
+    want = relpos.flash_attention_relpos_plain(qkv, rh, rw, hw, heads)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+# the kernels sum over the C channels, the N positions and the R factor rows
+# in another order than the plain versions (K2 forms x instead of the gram
+# quadratic, so 1/sigma carries the cancellation of E[x^2] - mu^2)
+FACTORED_ATOL, LN_INV_RTOL = 1e-4, 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,with_a", [
+    ((57,), (False,), False),                         # layer 1 LayerNorm
+    ((57, 2, 57), (True, True, False), True),         # layer 2 LayerNorm
+])
+def test_factored_ln_stats_kernel_matches_plain(cuda_device, ranks, scaled, with_a):
+    st = factored_state(np.random.RandomState(11), 16, 4096, 256, 128, ranks, scaled,
+                        with_a, cuda_device)
+    mu, inv = factored.factored_ln_stats_cuda(st["blocks"], st["U"], st["S"], st["a"])
+    mu_p, inv_p = factored.factored_ln_stats_plain(st["blocks"], st["U"], st["S"], st["a"])
+    torch.cuda.synchronize()
+    assert float((mu - mu_p).abs().max()) <= FACTORED_ATOL
+    assert float(((inv - inv_p).abs() / inv_p.abs()).max()) <= LN_INV_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,N", [
+    ((57, 2), (True, False), 4096),                   # layer 2 t2i
+    ((57, 2, 57, 2), (True, True, True, False), 4096),  # final attention
+    ((5, 2), (True, False), 100),                     # ragged position tile
+])
+def test_factored_t2i_attention_kernel_matches_plain(cuda_device, ranks, scaled, N):
+    st = factored_state(np.random.RandomState(12), 16, N, 256, 128, ranks, scaled,
+                        True, cuda_device)
+    args = (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
+            st["VS"], 8)
+    got = factored.factored_t2i_attention_cuda(*args)
+    want = factored.factored_t2i_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (16, 7, 128)
+    assert float((got - want).abs().max()) <= FACTORED_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,with_a,N", [
+    ((), (), False, 4096),                            # layer 1 i2t
+    ((57, 2), (True, False), True, 4096),             # layer 2 i2t
+    ((5, 2), (True, False), True, 100),
+])
+def test_factored_i2t_scores_kernel_matches_plain(cuda_device, ranks, scaled, with_a, N):
+    st = factored_state(np.random.RandomState(13), 16, N, 256, 128, ranks, scaled,
+                        with_a, cuda_device)
+    args = (st["q"], st["UK"] if ranks else None, st["blocks"], st["a"], st["KS"],
+            st["KC"], 8)
+    got = factored.factored_i2t_scores_cuda(*args)
+    want = factored.factored_i2t_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (16, 57, N)
+    assert float((got - want).abs().max()) <= FACTORED_ATOL
+

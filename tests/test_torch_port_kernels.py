@@ -1,9 +1,10 @@
-"""The port's kernels (FPS, two-scale ball query, fused attention off the qkv
-projection) and the sampling ops around them. On the CPU the plain PyTorch
-versions are held to the JAX XLA path and to the Pallas kernels in interpret
-mode, with exact indices (the attention's plain version is held to JAX in
-test_torch_port_ism_modules.py). The `cuda` tests hold each CUDA kernel to
-its plain version on the card."""
+"""The port's kernels (FPS, two-scale ball query, the fused attentions) and
+the sampling ops around them, on the CPU: the plain PyTorch versions are
+held to the JAX XLA path and to the Pallas kernels in interpret mode, with
+exact indices (the qkv attention's plain version is held to JAX in
+test_torch_port_ism_modules.py), and the CUDA wrappers refuse CPU tensors.
+test_torch_cuda_kernels.py holds each CUDA kernel to its plain version on
+the card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,32 +17,14 @@ from sam6d_tpu.ops.ball_query import first_k_hits as jax_first_k_hits
 from sam6d_tpu.ops.ball_query import group_points as jax_group_points
 from sam6d_tpu.ops.ball_query import two_scale_ball_query as jax_two_scale_ball_query
 from sam6d_tpu.ops import sampling as jsampling
-from sam6d_torch.kernels import attention_qkv
+from sam6d_torch.kernels import attention, attention_qkv
 from sam6d_torch.kernels import ball_query as bq
 from sam6d_torch.kernels import fps
 from sam6d_torch.ops import sampling
 from sam6d_torch.ops.ball_query import group_points
 
+from test_torch_cuda_kernels import _fps_case, factored_state
 from torch_port_common import separated_cloud
-
-
-def _fps_case(rng, case):
-    """(points (B, N, 3), valid mask or None, npoint)."""
-    if case == "plain":
-        return rng.randn(2, 100, 3).astype(np.float32), None, 16
-    if case == "valid_mask":
-        pts = rng.randn(2, 64, 3).astype(np.float32)
-        pts[:, 40:] += 100.0
-        mask = np.zeros((2, 64), bool)
-        mask[0, :40] = True
-        mask[1, 5:40] = True          # first valid index is not 0
-        return pts, mask, 12
-    if case == "padded_n":
-        return rng.randn(1, 77, 3).astype(np.float32), None, 8
-    # duplicates: sampling with replacement repeats points exactly, so
-    # equal distances (ties) occur and must go to the lowest index
-    base = rng.randn(30, 3).astype(np.float32)
-    return base[rng.randint(0, 30, (3, 90))], None, 40
 
 
 @pytest.mark.parametrize("case", ["plain", "valid_mask", "padded_n", "duplicates"])
@@ -153,110 +136,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
     assert attention_qkv.fused_attention_qkv_cuda.launches == n_att
 
 
-# ------------------------------------------------------------- on the card
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["plain", "valid_mask", "padded_n", "duplicates"])
-def test_fps_kernel_matches_plain_small(cuda_device, case):
-    pts, mask, m = _fps_case(np.random.RandomState(1), case)
-    p = torch.from_numpy(pts).to(cuda_device)
-    vm = None if mask is None else torch.from_numpy(mask).to(cuda_device)
-    got = fps.farthest_point_sample_cuda(p, m, vm)
-    want = fps.farthest_point_sample_plain(p, m, vm)
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N,M", [(16, 2048, 196), (1, 2048, 196),
-                                   (1, 210000, 2048), (2, 9000, 64)])
-def test_fps_kernel_matches_plain_main_path_shapes(cuda_device, B, N, M):
-    """Single-block path (N <= 8192) and multi-block path (larger N), with
-    duplicated points as template sampling with replacement makes them."""
-    rng = np.random.RandomState(6)
-    base = rng.randn(max(N // 3, 1), 3).astype(np.float32)
-    pts = torch.from_numpy(base[rng.randint(0, len(base), (B, N))]).to(cuda_device)
-    mask = torch.from_numpy(rng.rand(B, N) < 0.9).to(cuda_device)
-    for vm in (None, mask):
-        assert torch.equal(fps.farthest_point_sample_cuda(pts, M, vm),
-                           fps.farthest_point_sample_plain(pts, M, vm))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N,M,scales", [
-    (16, 2048, 2048, (0.1, 32, 0.2, 64)),
-    (2, 300, 77, (0.2, 4, 0.4, 8)),
-    (1, 50, 50, (0.01, 32, 0.02, 64)),    # mostly empty: tail rule
-])
-def test_ball_query_kernel_matches_plain(cuda_device, B, N, M, scales):
-    r1, s1, r2, s2 = scales
-    rng = np.random.RandomState(7)
-    xyz = torch.from_numpy(rng.randn(B, N, 3).astype(np.float32) * 0.3).to(cuda_device)
-    q = xyz[:, :M].contiguous()
-    from sam6d_torch.ops.geometry import pairwise_sq_distance
-    d2 = pairwise_sq_distance(q, xyz)
-    for g, w, r in zip(bq.two_scale_ball_query_cuda(xyz, q, *scales),
-                       bq.two_scale_ball_query_plain(xyz, q, *scales), (r1, r2)):
-        near = ((d2 - float(np.float32(r * r))).abs() < 1e-6).any(dim=-1)
-        assert not ((g != w).any(dim=-1) & ~near).any()
-
-
-# fp32 scores and online softmax in another order than the plain matmul +
-# softmax: the tolerance of the JAX package's own kernel test
-ATTENTION_ATOL = 2e-5
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N,heads,hd", [
-    (16, 257, 16, 64),      # DINOv2-L, one describe chunk
-    (3, 257, 16, 64),       # ragged batch
-    (2, 128, 4, 64),        # N a multiple of both tiles
-    (2, 17, 4, 32),         # hd 32, N below one tile
-])
-def test_fused_attention_qkv_kernel_matches_plain(cuda_device, B, N, heads, hd):
-    rng = np.random.RandomState(8)
-    qkv = torch.from_numpy(rng.randn(B, N, 3 * heads * hd).astype(np.float32)).to(cuda_device)
-    got = attention_qkv.fused_attention_qkv_cuda(qkv, heads, hd ** -0.5)
-    want = attention_qkv.fused_attention_qkv_plain(qkv, heads, hd ** -0.5)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ATTENTION_ATOL
-
-
-@pytest.mark.cuda
-def test_fused_attention_qkv_kernel_refuses_what_it_does_not_take(cuda_device):
-    qkv = torch.zeros(2, 9, 3 * 4 * 48, device=cuda_device)      # hd 48
-    with pytest.raises(ValueError):
-        attention_qkv.fused_attention_qkv_cuda(qkv, 4, 0.1)
-    with pytest.raises(ValueError):
-        attention_qkv.fused_attention_qkv_cuda(qkv.double(), 6, 0.1)
-
-
 # ------------------------------------------------------ SAM kernels (K1-K4)
 
 from sam6d_torch.kernels import attention_relpos as relpos  # noqa: E402
 from sam6d_torch.kernels import factored  # noqa: E402
 
-
-def factored_state(rng, B, N, C, d, ranks, scaled, with_a, device="cpu"):
-    """Random scaled-block factor state as the iou-prefix pass carries it:
-    blocks of raw rows in [0, 1) (softmax probabilities and LayerNorm rows),
-    positive per-position scales, S, U (B, R, C), UK/UV-like (B, R, d)."""
-    def t(x):
-        return torch.from_numpy(x.astype(np.float32)).to(device)
-    blocks = tuple((t(rng.rand(B, r, N)), t(rng.rand(B, N) + 0.5) if s else None)
-                   for r, s in zip(ranks, scaled))
-    R = sum(ranks)
-    return dict(blocks=blocks, S=t(rng.randn(N, C)), U=t(rng.randn(B, R, C) * 0.3),
-                UK=t(rng.randn(B, R, d) * 0.3), UV=t(rng.randn(B, R, d) * 0.3),
-                a=t(rng.rand(B, N) + 0.5) if with_a else None,
-                q=t(rng.randn(B, 7, d) * 0.25), KS=t(rng.randn(N, d) * 0.25),
-                KC=t(rng.randn(N, d) * 0.25), VS=t(rng.randn(N, d)))
 
 
 def test_sam_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
@@ -290,78 +174,84 @@ def test_sam_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
                                            factored.factored_i2t_scores_cuda)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,hw,heads,hd", [
-    (1, (64, 64), 16, 80),      # ViT-H global block
-    (25, (14, 14), 16, 80),     # ViT-H windowed block (25 windows)
-    (2, (5, 7), 2, 16),         # ragged tiles, hd 16
-    (3, (9, 9), 4, 64),
+# ------------------------------------------------- head-major attention (K8, K9)
+
+# fp32 scores and softmax summed in another order than the Pallas kernels:
+# the JAX package's own kernel tolerance
+ATTENTION_ATOL = 2e-5
+
+
+def _qkv(rng, B, H, Nq, Nk, hd):
+    return (rng.randn(B, H, Nq, hd).astype(np.float32) * 0.5,
+            rng.randn(B, H, Nk, hd).astype(np.float32) * 0.5,
+            rng.randn(B, H, Nk, hd).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,H,Nq,Nk,hd", [
+    (2, 4, 61, 61, 32),         # the JAX kernel test's shape
+    (2, 4, 61, 300, 32),        # cross-attention
+    (1, 2, 20, 20, 80),         # hd 80
 ])
-def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, hd):
-    rng = np.random.RandomState(10)
-    H, W = hw
-    qkv = torch.from_numpy(rng.randn(B, H * W, 3 * heads * hd).astype(np.float32)
-                           ).to(cuda_device)
-    rh = torch.from_numpy(rng.randn(2 * H - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
-    rw = torch.from_numpy(rng.randn(2 * W - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
-    got = relpos.flash_attention_relpos_cuda(qkv, rh, rw, hw, heads)
-    want = relpos.flash_attention_relpos_plain(qkv, rh, rw, hw, heads)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+def test_fused_attention_plain_matches_pallas(B, H, Nq, Nk, hd):
+    from sam6d_tpu.kernels.flash_attention import fused_attention as jax_fused
+    q, k, v = _qkv(np.random.RandomState(16), B, H, Nq, Nk, hd)
+    want = np.asarray(jax_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                scale=hd ** -0.5, interpret=True))
+    got = attention.fused_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), hd ** -0.5)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTENTION_ATOL, rtol=0)
 
 
-# the kernels sum over the C channels, the N positions and the R factor rows
-# in another order than the plain versions (K2 forms x instead of the gram
-# quadratic, so 1/sigma carries the cancellation of E[x^2] - mu^2)
-FACTORED_ATOL, LN_INV_RTOL = 1e-4, 1e-3
+def test_fused_attention_small_plain_matches_pallas():
+    from sam6d_tpu.kernels.flash_attention import fused_attention_small as jax_small
+    q, k, v = _qkv(np.random.RandomState(17), 2, 4, 57, 57, 64)
+    want = np.asarray(jax_small(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                scale=64 ** -0.5, interpret=True))
+    got = attention.fused_attention_small(torch.from_numpy(q), torch.from_numpy(k),
+                                          torch.from_numpy(v), 64 ** -0.5)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTENTION_ATOL, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ranks,scaled,with_a", [
-    ((57,), (False,), False),                         # layer 1 LayerNorm
-    ((57, 2, 57), (True, True, False), True),         # layer 2 LayerNorm
-])
-def test_factored_ln_stats_kernel_matches_plain(cuda_device, ranks, scaled, with_a):
-    st = factored_state(np.random.RandomState(11), 16, 4096, 256, 128, ranks, scaled,
-                        with_a, cuda_device)
-    mu, inv = factored.factored_ln_stats_cuda(st["blocks"], st["U"], st["S"], st["a"])
-    mu_p, inv_p = factored.factored_ln_stats_plain(st["blocks"], st["U"], st["S"], st["a"])
-    torch.cuda.synchronize()
-    assert float((mu - mu_p).abs().max()) <= FACTORED_ATOL
-    assert float(((inv - inv_p).abs() / inv_p.abs()).max()) <= LN_INV_RTOL
+def test_vit_attention_above_1024_tokens_matches_jax():
+    """use_flash at N = 1025 (DINOv2 at img_size 448) goes to the K8 dispatch
+    on the (B, H, N, hd) views of the projection; held to the JAX module's
+    XLA path (use_flash off) on shared weights."""
+    from sam6d_tpu.models.vit import Attention as JaxAttention
+    from sam6d_torch.models.vit import Attention
+    rng = np.random.RandomState(18)
+    C, H, N = 32, 4, 1025
+    x = rng.randn(2, N, C).astype(np.float32)
+    net = Attention(C, H, use_flash=True)
+    with torch.no_grad():
+        for lin in (net.qkv, net.proj):
+            lin.weight.copy_(torch.from_numpy(
+                rng.randn(*lin.weight.shape).astype(np.float32) * C ** -0.5))
+            lin.bias.copy_(torch.from_numpy(rng.randn(*lin.bias.shape).astype(np.float32) * 0.1))
+        calls = []
+        orig = attention.fused_attention_plain
+        attention.fused_attention_plain = lambda *a: calls.append(a) or orig(*a)
+        try:
+            got = net(torch.from_numpy(x)).numpy()
+        finally:
+            attention.fused_attention_plain = orig
+    assert len(calls) == 1 and calls[0][0].shape == (2, H, N, C // H)
+    params = {name: {"kernel": jnp.asarray(lin.weight.detach().numpy().T),
+                     "bias": jnp.asarray(lin.bias.detach().numpy())}
+              for name, lin in (("qkv", net.qkv), ("proj", net.proj))}
+    want = np.asarray(JaxAttention(C, H, use_flash=False).apply(
+        {"params": params}, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, atol=ATTENTION_ATOL, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ranks,scaled,N", [
-    ((57, 2), (True, False), 4096),                   # layer 2 t2i
-    ((57, 2, 57, 2), (True, True, True, False), 4096),  # final attention
-    ((5, 2), (True, False), 100),                     # ragged position tile
-])
-def test_factored_t2i_attention_kernel_matches_plain(cuda_device, ranks, scaled, N):
-    st = factored_state(np.random.RandomState(12), 16, N, 256, 128, ranks, scaled,
-                        True, cuda_device)
-    args = (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
-            st["VS"], 8)
-    got = factored.factored_t2i_attention_cuda(*args)
-    want = factored.factored_t2i_attention_plain(*args)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (16, 7, 128)
-    assert float((got - want).abs().max()) <= FACTORED_ATOL
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("ranks,scaled,with_a,N", [
-    ((), (), False, 4096),                            # layer 1 i2t
-    ((57, 2), (True, False), True, 4096),             # layer 2 i2t
-    ((5, 2), (True, False), True, 100),
-])
-def test_factored_i2t_scores_kernel_matches_plain(cuda_device, ranks, scaled, with_a, N):
-    st = factored_state(np.random.RandomState(13), 16, N, 256, 128, ranks, scaled,
-                        with_a, cuda_device)
-    args = (st["q"], st["UK"] if ranks else None, st["blocks"], st["a"], st["KS"],
-            st["KC"], 8)
-    got = factored.factored_i2t_scores_cuda(*args)
-    want = factored.factored_i2t_scores_plain(*args)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (16, 57, N)
-    assert float((got - want).abs().max()) <= FACTORED_ATOL
+def test_attention_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
+    q = torch.zeros(1, 2, 9, 16)
+    counts = (attention.fused_attention_cuda.launches,
+              attention.fused_attention_small_cuda.launches)
+    with pytest.raises(ValueError):
+        attention.fused_attention_cuda(q, q, q, 0.25)
+    with pytest.raises(ValueError):
+        attention.fused_attention_small_cuda(q, q, q, 0.25)
+    attention.fused_attention(q, q, q, 0.25)              # CPU: plain versions
+    attention.fused_attention_small(q, q, q, 0.25)
+    assert counts == (attention.fused_attention_cuda.launches,
+                      attention.fused_attention_small_cuda.launches)
