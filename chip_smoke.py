@@ -12,7 +12,11 @@ Phases, in order; any failure raises and exits non-zero:
      its bound and, where one exists, one PyTorch call computing the same
      function: FPS, ball query, the fused attentions (K5; K8 and K9 on
      head-major operands, K9 with no caller on any path), the SAM rel-pos
-     attention (K1, a global and a windowed ViT-H block) and the three
+     attention (K1, a global and a windowed ViT-H block; the kernel forms
+     its rel-pos tables itself, and the plain version's two table einsums
+     are timed alone), K1 and K5 also at large scores, beside both bounds
+     (fp32 units; three-pass TF32) and their ptxas registers and spills
+     (none allowed), and the three
      factored kernels (K2-K4) on states captured from one 128-prompt chunk
      of the iou pass of the ViT-H SAM built first;
   4. PEM slice: writes a synthetic RGB-D job (480x640 frame, box mesh, 42
@@ -52,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,8 +69,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 NEAR_R2 = 1e-6
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores (TF32 is
-# off) and HBM3 bandwidth
+# off for every library matmul), dense TF32 on the tensor cores over the
+# three passes that keep fp32 accuracy (K1 and K5 run their products so),
+# and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 # fp32 scores and online softmax summed in another order than the plain
 # matmul + softmax (the JAX package's own tolerance for its kernel)
@@ -94,6 +102,13 @@ def bound(flops, nbytes):
     operations on `nbytes` moved."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tc_bound(product_flops, other_flops, nbytes):
+    """Least ms the card could take when the products run in three-pass TF32
+    on the tensor cores and the rest on the fp32 units."""
+    return 1e3 * max(product_flops / PEAK_TF32X3_FLOPS + other_flops / PEAK_FP32_FLOPS,
+                     nbytes / PEAK_BYTES)
 
 
 def cuda_ms(fn, reps=5):
@@ -176,16 +191,35 @@ def phase_device():
 # ------------------------------------------------------------------ phase 2
 
 def phase_build():
+    """Builds the kernels with `-Xptxas -v`; returns {mangled kernel name:
+    (registers, spill store bytes + spill load bytes)}."""
     from sam6d_torch.kernels import _build
     t0 = time.perf_counter()
     so, out = _build.build(verbose=True)
     _build.load_library()
     secs = time.perf_counter() - t0
     log(f"build: {so.name} in {secs:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    ptxas, entry, spills = {}, None, 0
     for line in out.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
-    return secs
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif spill:
+            spills = int(spill[1]) + int(spill[2])
+        elif used and entry:
+            ptxas[entry] = (int(used[1]), spills)
+    return ptxas
+
+
+def ptxas_record(ptxas, kernel, hd):
+    """(registers, spill bytes) of `kernel`<hd> from phase_build's table."""
+    for name, rec in ptxas.items():
+        if kernel in name and f"ILi{hd}E" in name:
+            return rec
+    raise AssertionError(f"ptxas reported nothing for {kernel}<{hd}>")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -229,7 +263,7 @@ def _check_ball_query(name, pts, args, bq):
     return err, ms, plain_ms
 
 
-def phase_kernels(cfg, seg):
+def phase_kernels(cfg, seg, ptxas):
     """Each kernel against its plain version at every shape the main path
     gives it. FPS: exact indices. Ball query: exact indices, except rows
     holding a pair within NEAR_R2 of r^2 (the two versions round the
@@ -300,9 +334,9 @@ def phase_kernels(cfg, seg):
              shapes=f"16x{n_fine}x{n_fine} (ms); 1x{n_fine}x{n_fine} checked; "
                     f"r {fm.pe_radius1}/{fm.pe_radius2}, "
                     f"s {fm.pe_nsample1}/{fm.pe_nsample2}"),
-        _check_attention(rng),
+        _check_attention(rng, ptxas),
         *_check_head_major_attention(rng),
-        _check_relpos(rng),
+        _check_relpos(rng, ptxas),
         *_check_factored(capture_factored(seg, rng)),
     ]
 
@@ -321,11 +355,12 @@ def _ball_query_scanned_pairs(pts, args):
     return int((torch.clamp((first // 32 + 1) * 32, max=N)).sum())
 
 
-def _check_attention(rng):
+def _check_attention(rng, ptxas):
     """K5 against its plain version at the describe shape (16 crops of 257
-    tokens, 16 heads of 64), a ragged batch, and N a multiple of both tiles;
-    timed against its plain version and the library's SDPA on the same
-    strided views."""
+    tokens, 16 heads of 64), a ragged batch, N a multiple of every tile, and
+    a stress case (q and k x2: scores up to ~20); timed against its plain
+    version and the library's SDPA on the same strided views, beside both
+    bounds (fp32 units; three-pass TF32 on the tensor cores)."""
     import torch
     import torch.nn.functional as F
     from sam6d_torch.kernels import attention_qkv as att
@@ -333,15 +368,16 @@ def _check_attention(rng):
     heads, hd = 16, 64
     scale = hd ** -0.5
     err = 0.0
-    for B, N in ((16, 257), (3, 257), (2, 256)):
-        qkv = torch.from_numpy(rng.randn(B, N, 3 * heads * hd).astype(np.float32)
-                               ).cuda()
+    for B, N, qk in ((16, 257, 1.0), (3, 257, 1.0), (2, 256, 1.0), (16, 257, 2.0)):
+        x = rng.randn(B, N, 3 * heads * hd).astype(np.float32)
+        x[..., :2 * heads * hd] *= qk
+        qkv = torch.from_numpy(x).cuda()
         got = att.fused_attention_qkv_cuda(qkv, heads, scale)
         want = att.fused_attention_qkv_plain(qkv, heads, scale)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
-        log(f"attention_qkv[{B}x{N}x{3 * heads * hd}, {heads} heads]: max |diff| "
-            f"{e:.2e} (atol {ATTENTION_ATOL})")
+        log(f"attention_qkv[{B}x{N}x{3 * heads * hd}, {heads} heads, q and k x{qk:g}]: "
+            f"max |diff| {e:.2e} (atol {ATTENTION_ATOL})")
         if not e <= ATTENTION_ATOL:
             raise AssertionError("fused_attention_qkv kernel differs from plain")
         err = max(err, e)
@@ -352,16 +388,25 @@ def _check_attention(rng):
     plain_ms = cuda_ms(lambda: att.fused_attention_qkv_plain(qkv, heads, scale), reps=20)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                      reps=20)
-    b_ms, b_by = bound(4 * B * heads * N * N * hd, 4 * B * N * 3 * C + 4 * B * N * C)
+    flops, nbytes = 4 * B * heads * N * N * hd, 4 * B * N * 3 * C + 4 * B * N * C
+    b_ms, b_by = bound(flops, nbytes)
+    tc_ms = tc_bound(flops, 0, nbytes)
+    regs, spills = ptxas_record(ptxas, "attention_qkv_kernel", hd)
+    if spills:
+        raise AssertionError(f"fused_attention_qkv (hd {hd}) spills {spills} bytes")
     log(f"attention_qkv[16x257x3072]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"SDPA {lib_ms:.4f} ms, kernel/SDPA {ms / lib_ms:.3f}; bound {b_ms:.4f} ms on the "
+        f"fp32 units ({b_by}, {100 * b_ms / ms:.1f}% of it), {tc_ms:.4f} ms in three-pass "
+        f"TF32 ({100 * tc_ms / ms:.1f}%); ptxas {regs} registers, {spills} bytes spilled")
     return dict(name="fused_attention_qkv_cuda", route="cuda",
                 source="sam6d_torch/csrc/attention_qkv.cu",
                 replaces="sam6d_tpu/kernels/flash_attention.py:280",
                 max_abs_err=err, tolerance=f"atol {ATTENTION_ATOL}",
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms,
-                shapes="16x257x3072, 16 heads of 64 (ms); 3x257 and 2x256 checked")
+                library_ms=lib_ms, library_ratio=ms / lib_ms, tc_bound_ms=tc_ms,
+                ptxas_registers=regs, ptxas_spill_bytes=spills,
+                shapes="16x257x3072, 16 heads of 64 (ms); 3x257, 2x256 and 16x257 with q "
+                       "and k x2 checked")
 
 
 def _check_head_major_attention(rng):
@@ -400,7 +445,8 @@ def _check_head_major_attention(rng):
         b_ms, b_by = bound(4 * B * H * Nq * Nk * hd, 4 * B * H * hd * (2 * Nq + 2 * Nk))
         log(f"{name}[{B}x{H}x{Nq}x{Nk}x{hd}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_ratio=ms / lib_ms,
+                    bound_ms=b_ms, bound_by=b_by)
 
     q, k, v = views(16, 16, 1025, 64)
     err = check("fused_attention", att.fused_attention_cuda, att.fused_attention_plain, q, k, v)
@@ -434,11 +480,15 @@ def _check_head_major_attention(rng):
     ]
 
 
-def _check_relpos(rng):
+def _check_relpos(rng, ptxas):
     """K1 against its plain version at the ViT-H shapes: a global block
     (1 x 64x64 tokens) and a windowed block (25 windows of 14x14), 16 heads
-    of 80; timed against the plain version and SDPA with the materialized
-    bias as its mask."""
+    of 80, and a stress case at the windowed shape (rel-pos parameters x3:
+    scores up to ~20).
+    Timed at both shapes: the kernel (which forms the rel-pos tables of its
+    rows itself), the plain version's two table einsums alone, the plain
+    version, and SDPA with the materialized bias as its mask, beside both
+    bounds (fp32 units; three-pass TF32 on the tensor cores)."""
     import torch
     import torch.nn.functional as F
     from sam6d_torch.kernels import attention_relpos as rp
@@ -446,10 +496,11 @@ def _check_relpos(rng):
     heads, hd = 16, 80
     C = heads * hd
     rec = {}
-    for name, B, (H, W) in (("global", 1, (64, 64)), ("windowed", 25, (14, 14))):
+    for name, B, (H, W), rel in (("global", 1, (64, 64), 1.0), ("windowed", 25, (14, 14), 1.0),
+                                 ("stress", 25, (14, 14), 3.0)):
         N = H * W
         qkv = torch.from_numpy(rng.randn(B, N, 3 * C).astype(np.float32)).cuda()
-        rh, rw = (torch.from_numpy(rng.randn(2 * s - 1, hd).astype(np.float32) * 0.1).cuda()
+        rh, rw = (torch.from_numpy(rng.randn(2 * s - 1, hd).astype(np.float32) * 0.1 * rel).cuda()
                   for s in (H, W))
         args = (qkv, rh, rw, (H, W), heads)
         got = rp.flash_attention_relpos_cuda(*args)
@@ -457,36 +508,59 @@ def _check_relpos(rng):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         del got, want
+        log(f"relpos_attention[{name} {B}x{N}x{3 * C}, rel-pos std {rel * 0.1:g}]: max |diff| "
+            f"{err:.2e} (atol {ATTENTION_ATOL})")
         if not err <= ATTENTION_ATOL:
             raise AssertionError(f"flash_attention_relpos kernel differs from plain ({name})")
+        if name == "stress":
+            rec[name] = dict(err=err)
+            continue
+        rel_h, rel_w = rp.rel_pos_tables(*args)
         ms = cuda_ms(lambda: rp.flash_attention_relpos_cuda(*args), reps=10)
+        tables_ms = cuda_ms(lambda: rp.rel_pos_tables(*args), reps=10)
         plain_ms = cuda_ms(lambda: rp.flash_attention_relpos_plain(*args), reps=5)
         q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        rel_h, rel_w = rp.rel_pos_tables(*args)
         bias = (rel_h.view(B, heads, N, H, 1) + rel_w.view(B, heads, N, 1, W)
                 ).reshape(B, heads, N, N)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bias, scale=hd ** -0.5), reps=5)
         del bias, rel_h, rel_w
-        # q k^T and p v, the bias adds, and the two table einsums
-        flops = 4 * B * heads * N * N * hd + 2 * B * heads * N * N \
-            + 2 * B * heads * N * (H + W) * hd
-        b_ms, b_by = bound(flops, 4 * (B * N * 3 * C + (2 * H + 2 * W - 2) * hd + B * N * C))
-        rec[name] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, b_ms=b_ms, b_by=b_by)
-        log(f"relpos_attention[{name} {B}x{N}x{3 * C}, {heads} heads of {hd}]: max |diff| "
-            f"{err:.2e} (atol {ATTENTION_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA with the bias {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        # q k^T and p v; the bias adds and the tables' dot products
+        products = 4 * B * heads * N * N * hd
+        other = 2 * B * heads * N * N + 2 * B * heads * N * (H + W) * hd
+        nbytes = 4 * (B * N * 3 * C + (2 * H + 2 * W - 2) * hd + B * N * C)
+        b_ms, b_by = bound(products + other, nbytes)
+        tc_ms = tc_bound(products, other, nbytes)
+        rec[name] = dict(err=err, ms=ms, tables_ms=tables_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         b_ms=b_ms, b_by=b_by, tc_ms=tc_ms)
+        log(f"relpos_attention[{name} {B}x{N}x{3 * C}, {heads} heads of {hd}]: kernel "
+            f"{ms:.4f} ms (tables formed inside), the two table einsums alone "
+            f"{tables_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with the bias {lib_ms:.4f} ms, "
+            f"kernel/SDPA {ms / lib_ms:.3f}; bound {b_ms:.4f} ms on the fp32 units ({b_by}, "
+            f"{100 * b_ms / ms:.1f}% of it), {tc_ms:.4f} ms in three-pass TF32 "
+            f"({100 * tc_ms / ms:.1f}%)")
     g, w = rec["global"], rec["windowed"]
+    regs, spills = ptxas_record(ptxas, "attention_relpos_kernel", hd)
+    if spills:
+        raise AssertionError(f"flash_attention_relpos (hd {hd}) spills {spills} bytes")
+    log(f"relpos_attention: ptxas {regs} registers, {spills} bytes spilled (hd {hd})")
     return dict(name="flash_attention_relpos_cuda", route="cuda",
                 source="sam6d_torch/csrc/attention_relpos.cu",
                 replaces="sam6d_tpu/kernels/flash_attention.py:316",
-                max_abs_err=max(g["err"], w["err"]), tolerance=f"atol {ATTENTION_ATOL}",
+                max_abs_err=max(r["err"] for r in rec.values()),
+                tolerance=f"atol {ATTENTION_ATOL}",
                 ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["b_ms"],
-                bound_by=g["b_by"], library_ms=g["lib_ms"],
-                windowed_ms=w["ms"], windowed_plain_ms=w["plain_ms"],
-                windowed_bound_ms=w["b_ms"], windowed_library_ms=w["lib_ms"],
-                shapes="global 1x4096x3840, 16 heads of 80 (ms); windowed 25x196x3840 "
-                       "(windowed_ms); wrapper time, the two table einsums included")
+                bound_by=g["b_by"], library_ms=g["lib_ms"], library_ratio=g["ms"] / g["lib_ms"],
+                tc_bound_ms=g["tc_ms"], tables_einsum_ms=g["tables_ms"],
+                windowed_ms=w["ms"], windowed_tables_einsum_ms=w["tables_ms"],
+                windowed_plain_ms=w["plain_ms"], windowed_bound_ms=w["b_ms"],
+                windowed_tc_bound_ms=w["tc_ms"], windowed_library_ms=w["lib_ms"],
+                windowed_library_ratio=w["ms"] / w["lib_ms"],
+                ptxas_registers=regs, ptxas_spill_bytes=spills,
+                shapes="global 1x4096x3840, 16 heads of 80 (ms: the kernel, tables formed "
+                       "inside; tables_einsum_ms: the plain version's two table einsums "
+                       "alone); windowed 25x196x3840 (windowed_*); windowed with rel-pos x3 "
+                       "checked")
 
 
 FACTORED = ("factored_ln_stats", "factored_t2i_attention", "factored_i2t_scores")
@@ -1405,7 +1479,11 @@ def main():
     phase_device()
     from sam6d_torch import use_strict_fp32
     use_strict_fp32()
-    phase_build()
+    # K1 and K5 use the tensor cores through their own three-pass split;
+    # every library matmul and every plain version stays in full fp32
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on after use_strict_fp32()")
+    ptxas = phase_build()
     from sam6d_torch.core.config import ISMConfig, ISMMatchingConfig, SAMConfig
     from sam6d_torch.data.synthetic import write_ism_job
     from sam6d_torch.kernels import attention_qkv, ball_query, fps
@@ -1420,7 +1498,7 @@ def main():
     torch.cuda.synchronize()
     log(f"sam: ViT-H SAM ({sum(p.numel() for p in seg.sam.parameters())} parameters) "
         f"random weights on the card in {time.perf_counter() - t0:.1f} s")
-    kernels = phase_kernels(cfg, seg)
+    kernels = phase_kernels(cfg, seg, ptxas)
     launches, _ = phase_slice(cfg)
     # random weights give arbitrary semantic scores: pin the load as bench.py
     # does, so every valid slot is selected

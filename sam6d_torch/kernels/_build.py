@@ -5,7 +5,8 @@ Each `*.cu` source compiles with its own nvcc process, all started together,
 and the objects link into ONE shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), at first use, into
 `sam6d_torch/_build/` (git-ignored). The file name carries a hash of the
-sources, so an edited kernel is rebuilt and a stale library is never loaded.
+sources and of the headers they include (`*.cuh`), so an edited kernel or
+header is rebuilt and a stale library is never loaded.
 Wrappers pass `tensor.data_ptr()` and `torch.cuda.current_stream().cuda_stream`
 as `c_void_p`; every C entry point returns the launch's `cudaGetLastError()`.
 """
@@ -66,9 +67,11 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC_DIR) -> Path:
+    """The library built from the `.cu` sources and `.cuh` headers in
+    `csrc`: its name changes when any of their bytes do."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libsam6d_kernels_{digest.hexdigest()[:16]}.so"

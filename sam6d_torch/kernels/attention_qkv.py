@@ -6,10 +6,12 @@ Replaces `sam6d_tpu/kernels/flash_attention.py::fused_attention_qkv`, which
 runs in every DINOv2-L attention of the ISM describe (24 per 16-crop chunk).
 
 What bounds it on the card: at B=16, N=257, 16 heads of hd 64 one call is
-4.33 GFLOP on 67.4 MB, compute-bound on the fp32 FMA units (TF32 off). The
-kernel reads q, k and v straight from the strided (B, N, 3C) tensor, so no
-(B, H, N, hd) copy and no (B, H, N, N) score tensor reaches memory; see the
-header of `csrc/attention_qkv.cu`.
+4.33 GFLOP on 67.4 MB, bound by operations: 65 us on the fp32 FMA units, 26
+us on the tensor cores in three-pass TF32 (fp32 accuracy at 495/3 TFLOP/s),
+which is how the kernel runs its products. It reads q, k and v straight
+from the strided (B, N, 3C) tensor, so no (B, H, N, hd) copy and no
+(B, H, N, N) score tensor reaches memory; see the header of
+`csrc/attention_qkv.cu` and the core in `csrc/tf32x3.cuh`.
 
 Semantics shared by both versions: qkv is laid out [q | k | v] on the
 channel axis with heads contiguous (hd = C // heads); scores and softmax in

@@ -11,14 +11,17 @@ blocks (64x64 tokens) per frame, 16 heads of hd 80.
 
 with rel_h_q[n, kh] = q[n] . rel_pos_h[row(n) - kh + H - 1] (unscaled q),
 rel_w_q likewise over columns (reference add_decomposed_rel_pos,
-image_encoder.py:325-361). Both versions compute the thin tables rel_h_q
-(N x H) and rel_w_q (N x W) with two small einsums, as the TPU wrapper does;
-the kernel adds the bias inside its score tile, so the N x N scores never
-reach memory.
+image_encoder.py:325-361). The plain version computes the thin tables
+rel_h_q (N x H) and rel_w_q (N x W) with two small einsums, as the TPU
+wrapper does; the kernel forms its rows of them itself and adds the bias to
+its score fragments, so neither the tables nor the N x N scores reach
+memory.
 
 What bounds it on the card: a global block is 4 * 16 * 4096^2 * 80 = 85.9
-GFLOP on ~105 MB, compute-bound on the fp32 FMA units (TF32 off): 1.28 ms
-at 67 TFLOP/s. The windowed blocks are 1.2 GFLOP each.
+GFLOP on 84 MB, bound by operations: 1.28 ms on the fp32 FMA units (67
+TFLOP/s), 0.52 ms on the tensor cores in three-pass TF32 (495/3 TFLOP/s),
+which is how the kernel runs its products at fp32 accuracy. A windowed
+block (25 windows of 196 tokens) is 4.9 GFLOP on 100 MB.
 
 Semantics shared by both versions: qkv (B, N, 3C) laid out [q | k | v] with
 heads contiguous (hd = C // heads), N = H * W row-major; scores and softmax
@@ -77,7 +80,9 @@ def flash_attention_relpos_plain(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
 def flash_attention_relpos_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                                 rel_pos_w: torch.Tensor, hw,
                                 heads: int) -> torch.Tensor:
-    """The CUDA kernel: same contract as flash_attention_relpos_plain."""
+    """The CUDA kernel: same contract as flash_attention_relpos_plain. The
+    kernel forms the rel-pos tables of its rows itself, from rel_pos_h and
+    rel_pos_w."""
     if not qkv.is_cuda:
         raise ValueError("flash_attention_relpos_cuda takes a CUDA tensor")
     if qkv.dtype != torch.float32 or qkv.dim() != 3:
@@ -94,14 +99,16 @@ def flash_attention_relpos_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                          f"or exceeds the launch grid")
     if tuple(rel_pos_h.shape) != (2 * H - 1, hd) or tuple(rel_pos_w.shape) != (2 * W - 1, hd):
         raise ValueError("rel_pos tables must be (2H-1, hd) and (2W-1, hd)")
-    if not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
-    rel_h, rel_w = rel_pos_tables(qkv, rel_pos_h.float(), rel_pos_w.float(), hw, heads)
+    rel_pos_h = rel_pos_h.to(qkv.device, torch.float32).contiguous()
+    rel_pos_w = rel_pos_w.to(qkv.device, torch.float32).contiguous()
+    if not qkv.is_contiguous() or any(t.data_ptr() % 16 for t in (qkv, rel_pos_h, rel_pos_w)):
+        raise ValueError("qkv must be contiguous, and qkv and the rel_pos tables "
+                         "16-byte aligned")
     lib = load_library()
     out = torch.empty((B, N, C3 // 3), dtype=torch.float32, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = lib.sam6d_flash_attention_relpos(
-        qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+        qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(),
         B, N, heads, hd, H, W, float(hd ** -0.5), stream)
     flash_attention_relpos_cuda.launches += 1
     check(err, "flash_attention_relpos_cuda")

@@ -92,16 +92,40 @@ def test_ball_query_kernel_matches_plain(cuda_device, B, N, M, scales):
 ATTENTION_ATOL = 2e-5
 
 
+def _qkv_on_card(rng, device, B, N, width, qk_scale=1.0, offset=0):
+    """(B, N, width) float32 qkv on the card; q and k scaled by qk_scale (v
+    as drawn); with `offset` > 0 the tensor starts `offset` floats into a
+    larger buffer (16-byte aligned for a multiple of 4)."""
+    x = rng.randn(B, N, width).astype(np.float32)
+    x[..., :2 * width // 3] *= qk_scale
+    buf = torch.zeros(offset + x.size, device=device)
+    qkv = buf[offset:].view(B, N, width)
+    qkv.copy_(torch.from_numpy(x))
+    return qkv
+
+
+# Stress cases: q and k x2 (K5) and rel-pos parameters x3 (K1) give scores
+# of up to ~20, so that the online rescale and the masked tail meet a wide
+# range of exponents. qkv x4 is not used: two fp32-accurate summation orders
+# already differ by more than ATTENTION_ATOL there (see
+# test_three_pass_tf32_attention_is_fp32_accurate), and neither is a bias
+# near exp's overflow at 88, where one ulp of a score (1.5e-5 at 128) moves
+# the output by about ATTENTION_ATOL.
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,heads,hd", [
-    (16, 257, 16, 64),      # DINOv2-L, one describe chunk
-    (3, 257, 16, 64),       # ragged batch
-    (2, 128, 4, 64),        # N a multiple of both tiles
-    (2, 17, 4, 32),         # hd 32, N below one tile
+@pytest.mark.parametrize("B,N,heads,hd,qk_scale,offset", [
+    pytest.param(16, 257, 16, 64, 1.0, 0, id="16-257-16-64"),   # DINOv2-L, one chunk
+    pytest.param(3, 257, 16, 64, 1.0, 0, id="3-257-16-64"),     # ragged batch
+    pytest.param(2, 128, 4, 64, 1.0, 0, id="2-128-4-64"),       # N a multiple of all tiles
+    pytest.param(2, 17, 4, 32, 1.0, 0, id="2-17-4-32"),         # hd 32, N below one tile
+    pytest.param(2, 48, 4, 32, 1.0, 0, id="2-48-4-32"),         # N = 16 k, half a key tile
+    pytest.param(3, 1, 4, 64, 1.0, 0, id="3-1-4-64"),           # N = 1
+    pytest.param(16, 257, 16, 64, 2.0, 0, id="16-257-16-64-large-scores"),
+    pytest.param(2, 257, 4, 64, 1.0, 4, id="2-257-4-64-offset-16-bytes"),
 ])
-def test_fused_attention_qkv_kernel_matches_plain(cuda_device, B, N, heads, hd):
-    rng = np.random.RandomState(8)
-    qkv = torch.from_numpy(rng.randn(B, N, 3 * heads * hd).astype(np.float32)).to(cuda_device)
+def test_fused_attention_qkv_kernel_matches_plain(cuda_device, B, N, heads, hd, qk_scale,
+                                                  offset):
+    qkv = _qkv_on_card(np.random.RandomState(8), cuda_device, B, N, 3 * heads * hd,
+                       qk_scale, offset)
     got = attention_qkv.fused_attention_qkv_cuda(qkv, heads, hd ** -0.5)
     want = attention_qkv.fused_attention_qkv_plain(qkv, heads, hd ** -0.5)
     torch.cuda.synchronize()
@@ -198,19 +222,25 @@ def factored_state(rng, B, N, C, d, ranks, scaled, with_a, device="cpu"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,hw,heads,hd", [
-    (1, (64, 64), 16, 80),      # ViT-H global block
-    (25, (14, 14), 16, 80),     # ViT-H windowed block (25 windows)
-    (2, (5, 7), 2, 16),         # ragged tiles, hd 16
-    (3, (9, 9), 4, 64),
+@pytest.mark.parametrize("B,hw,heads,hd,rel_scale,offset", [
+    pytest.param(1, (64, 64), 16, 80, 1.0, 0, id="1-hw0-16-80"),     # ViT-H global block
+    pytest.param(25, (14, 14), 16, 80, 1.0, 0, id="25-hw1-16-80"),   # ViT-H windowed, gw 14
+    pytest.param(2, (5, 7), 2, 16, 1.0, 0, id="2-hw2-2-16"),         # ragged tiles, hd 16
+    pytest.param(3, (9, 9), 4, 64, 1.0, 0, id="3-hw3-4-64"),
+    pytest.param(2, (3, 4), 2, 32, 1.0, 0, id="2-3x4-2-32"),         # N below one warp tile
+    pytest.param(25, (14, 14), 16, 80, 3.0, 0, id="25-14x14-16-80-large-bias"),
+    pytest.param(1, (64, 64), 16, 80, 3.0, 0, id="1-64x64-16-80-large-bias"),
+    pytest.param(2, (9, 9), 4, 64, 1.0, 4, id="2-9x9-4-64-offset-16-bytes"),
 ])
-def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, hd):
+def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, hd, rel_scale,
+                                                     offset):
     rng = np.random.RandomState(10)
     H, W = hw
-    qkv = torch.from_numpy(rng.randn(B, H * W, 3 * heads * hd).astype(np.float32)
-                           ).to(cuda_device)
-    rh = torch.from_numpy(rng.randn(2 * H - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
-    rw = torch.from_numpy(rng.randn(2 * W - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
+    qkv = _qkv_on_card(rng, cuda_device, B, H * W, 3 * heads * hd, offset=offset)
+    rh = torch.from_numpy(rng.randn(2 * H - 1, hd).astype(np.float32) * 0.1 * rel_scale
+                          ).to(cuda_device)
+    rw = torch.from_numpy(rng.randn(2 * W - 1, hd).astype(np.float32) * 0.1 * rel_scale
+                          ).to(cuda_device)
     got = relpos.flash_attention_relpos_cuda(qkv, rh, rw, hw, heads)
     want = relpos.flash_attention_relpos_plain(qkv, rh, rw, hw, heads)
     torch.cuda.synchronize()

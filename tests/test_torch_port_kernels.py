@@ -255,3 +255,88 @@ def test_attention_cuda_wrappers_refuse_cpu_tensors_and_count_only_launches():
     attention.fused_attention_small(q, q, q, 0.25)
     assert counts == (attention.fused_attention_cuda.launches,
                       attention.fused_attention_small_cuda.launches)
+
+
+# ------------------------------------- three-pass TF32 (K1, K5 on the card)
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 in numpy: round to nearest, ties away from zero, to
+    10 mantissa bits (the low 13 bits of the float32 cleared)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    mag = ((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return ((u & np.uint32(0x80000000)) | mag).view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b with tf32 operands: one pass (big*big) or three (small*big +
+    big*small + big*big, small = rna(x - big)); products summed in float64,
+    rounded to float32 once, so only the split's error is modelled."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    terms = [(ab, bb)]
+    if passes == 3:
+        a_s, b_s = _tf32_rna(a - ab), _tf32_rna(b - bb)
+        terms = [(a_s, bb), (ab, b_s), (ab, bb)]
+    return sum(x.astype(np.float64) @ y.astype(np.float64) for x, y in terms).astype(np.float32)
+
+
+def _attention(q, k, v, scale, bias, matmul):
+    """The kernels' arithmetic: s = (q * scale) k^T + bias, an fp32 softmax,
+    (p v) / sum p, the two products by `matmul`."""
+    s = matmul(q * np.float32(scale), k.T) + bias
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    return matmul(p, v) / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5"])
+def test_three_pass_tf32_attention_is_fp32_accurate(kernel):
+    """Both products of K1 and K5 run on the tensor cores as three-pass
+    TF32. Emulated here per head: the attention lies within ATTENTION_ATOL
+    of float64, as fp32 products do, while one TF32 pass does not. At qkv
+    x4 the fp32 attention itself is beyond ATTENTION_ATOL of float64, which
+    is why the card's stress cases scale q and k by 2 (K5) and the bias
+    (K1) instead."""
+    rng = np.random.RandomState(19)
+    hd, (H, W) = (80, (14, 14)) if kernel == "K1" else (64, (1, 257))
+    N, heads = H * W, 2
+    for mag in (1.0, 4.0):
+        qkv = rng.randn(1, N, 3 * heads * hd).astype(np.float32) * np.float32(mag)
+        if kernel == "K1":
+            rh, rw = (torch.from_numpy(rng.randn(2 * s - 1, hd).astype(np.float32) * 0.3)
+                      for s in (H, W))
+            th, tw = (t.numpy()[0] for t in relpos.rel_pos_tables(
+                torch.from_numpy(qkv), rh, rw, (H, W), heads))
+            bias = [(th[i][:, :, None] + tw[i][:, None, :]).reshape(N, N) for i in range(heads)]
+        else:
+            bias = [np.zeros((N, N), np.float32)] * heads
+        q, k, v = qkv[0].reshape(N, 3, heads, hd).transpose(1, 2, 0, 3)
+        err = {}
+        for name, mm in (("tf32x3", lambda a, b: _tf32_matmul(a, b, 3)),
+                         ("tf32", lambda a, b: _tf32_matmul(a, b, 1)),
+                         ("fp32", np.matmul)):
+            err[name] = max(
+                np.abs(_attention(q[i], k[i], v[i], hd ** -0.5, bias[i], mm)
+                       - _attention(q[i].astype(np.float64), k[i].astype(np.float64),
+                                    v[i].astype(np.float64), hd ** -0.5,
+                                    bias[i].astype(np.float64), np.matmul)).max()
+                for i in range(heads))
+        if mag == 1.0:
+            assert err["tf32x3"] <= ATTENTION_ATOL and err["fp32"] <= ATTENTION_ATOL
+            assert err["tf32"] > 10 * ATTENTION_ATOL
+        else:
+            assert err["fp32"] > ATTENTION_ATOL
+
+
+def test_library_name_follows_header_bytes(tmp_path):
+    """The kernel library's name hashes the `.cuh` headers with the `.cu`
+    sources, so editing a shared header alone rebuilds it."""
+    import shutil
+    from sam6d_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert _build.library_path(csrc) == _build.library_path()
+    header = csrc / "tf32x3.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    edited = _build.library_path(csrc)
+    assert edited != _build.library_path()
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build.library_path(csrc) not in (edited, _build.library_path())
