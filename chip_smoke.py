@@ -111,8 +111,12 @@ def tc_bound(product_flops, other_flops, nbytes):
                      nbytes / PEAK_BYTES)
 
 
-def cuda_ms(fn, reps=5):
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(fn, reps=5, launches=1):
+    """Median CUDA-event time of fn() in ms, after one warm-up call: the
+    time between two events around `launches` calls in a row, over
+    `launches`. With one call the time includes the host's dispatch of it
+    (the stream is idle when the first event is recorded); a run of calls
+    hides the dispatch behind the device's work."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -121,10 +125,11 @@ def cuda_ms(fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -335,7 +340,7 @@ def phase_kernels(cfg, seg, ptxas):
                     f"r {fm.pe_radius1}/{fm.pe_radius2}, "
                     f"s {fm.pe_nsample1}/{fm.pe_nsample2}"),
         _check_attention(rng, ptxas),
-        *_check_head_major_attention(rng),
+        *_check_head_major_attention(rng, ptxas),
         _check_relpos(rng, ptxas),
         *_check_factored(capture_factored(seg, rng)),
     ]
@@ -409,19 +414,30 @@ def _check_attention(rng, ptxas):
                        "and k x2 checked")
 
 
-def _check_head_major_attention(rng):
+def _check_head_major_attention(rng, ptxas):
     """K8 against its plain version at the 448 describe shape (16 crops x 16
     heads x 1025 tokens of hd 64, the (B, H, N, hd) views of a qkv
-    projection, as models/vit.Attention passes them), at a cross-attention
-    case (61 queries x 300 keys, hd 32) and at hd 80; K9 at the DINOv2-L
-    class shape (16 x 16 x 257 x 64). Each timed against its plain version
-    and SDPA on the same operands."""
+    projection, as models/vit.Attention passes them), at a stress case there
+    (q and k x2: scores up to ~20), at a cross-attention case (61 queries x
+    300 keys, hd 32) and at hd 80; K9 at the DINOv2-L class shape (16 x 16 x
+    257 x 64) and its stress case. Each timed against its plain version and
+    SDPA on the same operands over runs of 10 launches (and by one launch
+    after a sync, the method of the other attention rows and of the earlier
+    K8 and K9 times), beside both bounds (fp32 units; three-pass TF32 on
+    the tensor cores). K9 at 257 tokens and K8 at 1025 are also
+    timed against K5 on the same qkv projection (they on its views), in
+    turns: one shape and one arithmetic, split-once staging against
+    split-per-fragment. Fails on a spill in any instantiation of the
+    head-major kernel."""
     import torch
     import torch.nn.functional as F
     from sam6d_torch.kernels import attention as att
+    from sam6d_torch.kernels import attention_qkv
 
-    def views(B, H, N, hd):
-        qkv = torch.from_numpy(rng.randn(B, N, 3 * H * hd).astype(np.float32)).cuda()
+    def views(B, H, N, hd, qk=1.0):
+        x = rng.randn(B, N, 3 * H * hd).astype(np.float32)
+        x[..., :2 * H * hd] *= qk
+        qkv = torch.from_numpy(x).cuda()
         return qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
 
     def check(name, fn, plain, q, k, v):
@@ -439,43 +455,85 @@ def _check_head_major_attention(rng):
         B, H, Nq, hd = q.shape
         Nk = k.shape[2]
         s = hd ** -0.5
-        ms = cuda_ms(lambda: fn(q, k, v, s), reps=10)
-        plain_ms = cuda_ms(lambda: plain(q, k, v, s), reps=5)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=s), reps=10)
-        b_ms, b_by = bound(4 * B * H * Nq * Nk * hd, 4 * B * H * hd * (2 * Nq + 2 * Nk))
-        log(f"{name}[{B}x{H}x{Nq}x{Nk}x{hd}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        ms = cuda_ms(lambda: fn(q, k, v, s), reps=10, launches=10)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, s), reps=5, launches=10)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=s), reps=10,
+                         launches=10)
+        one_ms = cuda_ms(lambda: fn(q, k, v, s), reps=10)
+        flops, nbytes = 4 * B * H * Nq * Nk * hd, 4 * B * H * hd * (2 * Nq + 2 * Nk)
+        b_ms, b_by = bound(flops, nbytes)
+        tc_ms = tc_bound(flops, 0, nbytes)
+        regs, spills = ptxas_record(ptxas, "head_major_attention_kernel", hd)
+        log(f"{name}[{B}x{H}x{Nq}x{Nk}x{hd}]: runs of 10 launches: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, kernel/SDPA {ms / lib_ms:.3f}; one launch "
+            f"after a sync (the other rows' method) {one_ms:.4f} ms; bound {b_ms:.4f} ms on the "
+            f"fp32 units ({b_by}, {100 * b_ms / ms:.1f}% of it), {tc_ms:.4f} ms in three-pass "
+            f"TF32 ({100 * tc_ms / ms:.1f}%); ptxas {regs} registers, {spills} bytes spilled")
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_ratio=ms / lib_ms,
-                    bound_ms=b_ms, bound_by=b_by)
+                    one_launch_ms=one_ms, bound_ms=b_ms, bound_by=b_by, tc_bound_ms=tc_ms,
+                    ptxas_registers=regs, ptxas_spill_bytes=spills)
 
+    for hdp in range(16, 129, 16):
+        regs, spills = ptxas_record(ptxas, "head_major_attention_kernel", hdp)
+        log(f"head_major_attention<{hdp}>: ptxas {regs} registers, {spills} bytes spilled")
+        if spills:
+            raise AssertionError(f"head_major_attention<{hdp}> spills {spills} bytes")
+
+    k8_args = (att.fused_attention_cuda, att.fused_attention_plain)
     q, k, v = views(16, 16, 1025, 64)
-    err = check("fused_attention", att.fused_attention_cuda, att.fused_attention_plain, q, k, v)
-    k8 = timed("fused_attention", att.fused_attention_cuda, att.fused_attention_plain, q, k, v)
+    err = check("fused_attention", *k8_args, q, k, v)
+    k8 = timed("fused_attention", *k8_args, q, k, v)
     del q, k, v
+    err = max(err, check("fused_attention", *k8_args, *views(16, 16, 1025, 64, qk=2.0)))
     cross = [torch.from_numpy(rng.randn(2, 4, n, 32).astype(np.float32)).cuda()
              for n in (61, 300, 300)]
-    err = max(err, check("fused_attention", att.fused_attention_cuda,
-                         att.fused_attention_plain, *cross))
-    err = max(err, check("fused_attention", att.fused_attention_cuda,
-                         att.fused_attention_plain, *views(2, 16, 200, 80)))
+    err = max(err, check("fused_attention", *k8_args, *cross))
+    err = max(err, check("fused_attention", *k8_args, *views(2, 16, 200, 80)))
+
+    k9_args = (att.fused_attention_small_cuda, att.fused_attention_small_plain)
     small = [torch.from_numpy(rng.randn(16, 16, 257, 64).astype(np.float32)).cuda()
              for _ in range(3)]
-    err9 = check("fused_attention_small", att.fused_attention_small_cuda,
-                 att.fused_attention_small_plain, *small)
-    k9 = timed("fused_attention_small", att.fused_attention_small_cuda,
-               att.fused_attention_small_plain, *small)
+    err9 = check("fused_attention_small", *k9_args, *small)
+    k9 = timed("fused_attention_small", *k9_args, *small)
+    del small
+    err9 = max(err9, check("fused_attention_small", *k9_args, *views(16, 16, 257, 64, qk=2.0)))
+    # split once (K9 at 257 tokens, K8 at 1025, on the views of one qkv)
+    # against split per fragment (K5 on that qkv): one shape, one
+    # arithmetic, timed in turns, runs of 10 launches
+    for rec, name, fn, N in ((k9, "fused_attention_small", att.fused_attention_small_cuda, 257),
+                             (k8, "fused_attention", att.fused_attention_cuda, 1025)):
+        qkv = torch.from_numpy(rng.randn(16, N, 3 * 1024).astype(np.float32)).cuda()
+        q, k, v = qkv.view(16, N, 3, 16, 64).permute(2, 0, 3, 1, 4)
+        ab = {"K5": [], name: []}
+        for who in ("K5", name, name, "K5"):
+            ab[who].append(cuda_ms(
+                (lambda: attention_qkv.fused_attention_qkv_cuda(qkv, 16, 0.125)) if who == "K5"
+                else (lambda: fn(q, k, v, 0.125)), reps=10, launches=10))
+        rec["same_call_k5_ms"] = statistics.mean(ab["K5"])
+        rec["same_call_ms"] = statistics.mean(ab[name])
+        log(f"{name} (split once) vs fused_attention_qkv (split per fragment) on one "
+            f"16x{N}x3072 qkv, in turns: {name} {ab[name][0]:.4f}, {ab[name][1]:.4f} ms; "
+            f"K5 {ab['K5'][0]:.4f}, {ab['K5'][1]:.4f} ms; ratio "
+            f"{rec['same_call_ms'] / rec['same_call_k5_ms']:.3f}")
+        del qkv, q, k, v
     return [
         dict(name="fused_attention_cuda", route="cuda",
              source="sam6d_torch/csrc/attention.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:133",
              max_abs_err=err, tolerance=f"atol {ATTENTION_ATOL}", **k8,
-             shapes="16x16x1025x64 self-attention on qkv views (ms); 2x4x61x300 hd 32 "
-                    "cross-attention and 2x16x200 hd 80 checked"),
+             shapes="16x16x1025x64 self-attention on qkv views (ms, plain_ms, library_ms: runs "
+                    "of 10 launches; one_launch_ms: one launch after a sync); the same with q "
+                    "and k x2, 2x4x61x300 hd 32 cross-attention and 2x16x200 hd 80 checked; "
+                    "same_call_*: the kernel on the views of one 16x1025x3072 qkv and K5 on it, "
+                    "in turns, runs of 10 launches"),
         dict(name="fused_attention_small_cuda", route="cuda",
              source="sam6d_torch/csrc/attention.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:203",
              max_abs_err=err9, tolerance=f"atol {ATTENTION_ATOL}", **k9,
-             shapes="16x16x257x64 (ms)",
+             shapes="16x16x257x64 (ms, plain_ms, library_ms: runs of 10 launches; "
+                    "one_launch_ms: one launch after a sync); the same on qkv views with q and "
+                    "k x2 checked; same_call_*: the kernel on the views of one 16x257x3072 qkv "
+                    "and K5 on it, in turns, runs of 10 launches",
              note="no caller in either package: held to its plain version only"),
     ]
 

@@ -1,5 +1,5 @@
 // Plain softmax attention on head-major (B, H, N, hd) operands, for Hopper
-// (sm_90a), plain C interface for ctypes. Two kernels:
+// (sm_90a), plain C interface for ctypes. One kernel serves two entries:
 //
 // K8 replaces the Pallas kernel
 // sam6d_tpu/kernels/flash_attention.py::fused_attention (through
@@ -15,32 +15,35 @@
 // (_small_kernel): the same function for short self-attention sequences,
 // hd 16, 32 or 64, output (B, H, N, hd) contiguous.
 //
-// Scores, the running max and sum, and the accumulator are fp32. K8 clamps
-// the denominator at 1e-30 as _fused_kernel does; K9 divides by the plain
-// sum as _small_kernel does, and sums the same probabilities that multiply
-// V (the TPU kernel's rule for its value-dtype cast, trivially kept here).
+// Scores, the running max and sum, and the accumulator are fp32. q is
+// scaled before the product (the fp32 q * scale, as K8's TPU kernel and K5
+// do; K9's TPU kernel scales the product instead, a difference well inside
+// ATTENTION_ATOL). K8 clamps the denominator at 1e-30 as _fused_kernel
+// does; K9's contract is the plain sum, which the clamp never changes (the
+// row maximum contributes exp(0) = 1).
 //
-// What bounds them: 4*B*H*Nq*Nk*hd operations on the fp32 FMA units (TF32
-// off, 67 TFLOP/s on an H100 SXM): K8 at 16x16x1025^2x64 is 68.9 GFLOP,
-// 1.03 ms; K9 at 16x16x257^2x64 is 4.33 GFLOP, 0.065 ms. The bytes (q, k, v
-// read once, out written once) are a few percent of that time.
+// What bounds them on an H100 SXM: 4*B*H*Nq*Nk*hd operations. K8 at
+// 16x16x1025^2x64 is 68.9 GFLOP: 1.03 ms on the fp32 FMA units (67
+// TFLOP/s), 0.417 ms on the tensor cores in three-pass TF32 (495/3 = 165
+// TFLOP/s); K9 at 16x16x257^2x64 is 4.33 GFLOP: 0.065 ms and 0.026 ms. The
+// bytes (q, k, v read once, out written once) take a few percent of that.
 //
-// Design (simple and right first; wgmma/TMA are later work).
-//  - K8 is K1's structure (attention_relpos.cu) without the bias: one block
-//    of 256 threads per (64 query rows, head, sample); the q tile
-//    (pre-scaled) transposed in shared memory; per 64-key tile, K staged
-//    transposed, a 4x4 score micro-tile per thread (two float4 shared loads
-//    per 16 FMAs), keys past Nk set to -inf in the tile (no padded copy in
-//    memory), an online softmax with each row split over 4 threads, the V
-//    tile reusing K's buffer, and 4 rows x HDP/16 output columns per thread.
-//    hd is padded to HDP, the next multiple of 16, by masked loads (zero
-//    columns add nothing to a score and are never written).
-//  - K9 is K5's body (attention_qkv.cu) with three base pointers: one
-//    thread per query row holding its q row and accumulator in registers,
-//    K and V tiles of 32 keys in shared memory read as float4 broadcasts,
-//    an online softmax per tile; the ragged tail is masked.
-#include <cuda_runtime.h>
-#include <math_constants.h>
+// Design: the three-pass TF32 core of tf32x3.cuh with split-once staging:
+// 8 warps of 16 query rows per block (128 rows per K/V read), the block's q
+// rows scaled and split once into TF32 big/small pairs in shared memory,
+// each K/V tile (32 keys at HDP <= 64, 16 above) fetched into registers
+// while the previous one computes and split once by the threads that load
+// it, so B fragments are one 16-byte shared load and no arithmetic; only P
+// is split per fragment. hd is padded to HDP, the next multiple of 16, by
+// masked loads (zero columns add nothing to a score and are never
+// written); rows that are not 16-byte aligned (hd % 4 != 0, offset views)
+// take 4-byte loads. Shared memory: 110 KB at HDP 64 (two blocks, 16 warps
+// an SM, at 128 registers a thread), 177 KB at HDP 128 (one block).
+// Measured on an H100 (PERF.md): one block of 8 warps an SM, 4-warp
+// blocks, 16-key tiles at hd 64 and two 16-row tiles a warp were all
+// slower; a cp.async raw stage (the other way to split once) would add
+// 16.5 KB and leave one block an SM.
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -49,291 +52,65 @@ struct Strides {
   long long b, h, n;
 };
 
-// ------------------------------------------------------------------ K8
+constexpr int kWarps = 8;
+constexpr int kRows = 16 * kWarps;  // query rows per block
 
-constexpr int kBQ = 64;             // query rows per block
-constexpr int kBK = 64;             // keys per tile
-constexpr int kThreads = 256;
-constexpr int kPStride = kBQ + 4;   // row stride of the key-major score tile
-
-size_t fused_smem_bytes(int hdp) {
-  return sizeof(float) * (static_cast<size_t>(hdp) * kBQ + hdp * kBK +
-                          kBK * kPStride + 7 * kBQ);
-}
+// Keys per K/V tile and resident blocks per SM the registers must allow:
+// 32 keys and two blocks at HDP <= 64 (128 registers a thread); above, the
+// output fragments take twice as many registers and shared memory allows
+// one block anyway, and 16-key tiles halve the prefetched tile's registers
+// (32-key tiles spilled 40 bytes at HDP 128).
+template <int HDP>
+__host__ __device__ constexpr int tile_keys() { return HDP <= 64 ? 32 : 16; }
+template <int HDP>
+__host__ __device__ constexpr int min_blocks() { return HDP <= 64 ? 2 : 1; }
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-    fused_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out,
-                           Strides sq, Strides sk, Strides sv, Strides so,
-                           int nq, int nk_total, int hd, float scale) {
-  static_assert(HDP % 16 == 0, "padded head dim must be a multiple of 16");
-  constexpr int DPT = HDP / 16;  // output columns per thread
+__global__ void __launch_bounds__(kWarps * 32, min_blocks<HDP>())
+    head_major_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ out,
+                                Strides sq, Strides sk, Strides sv, Strides so, int nq,
+                                int nk, int hd, float scale) {
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [HDP][kBQ] scaled q, transposed
-  float* kv = qs + HDP * kBQ;                   // [HDP][kBK] k^T, then [kBK][HDP] v
-  float* ps = kv + HDP * kBK;                   // [kBK][kPStride] scores -> probs
-  float* red = ps + kBK * kPStride;             // [4][kBQ] partial max / sum
-  float* row_m = red + 4 * kBQ;                 // [kBQ] running max
-  float* row_l = row_m + kBQ;                   // [kBQ] running sum
-  float* row_c = row_l + kBQ;                   // [kBQ] this tile's rescale
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kBQ;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-
-  for (int e = tid; e < kBQ * HDP; e += kThreads) {
-    const int r = e / HDP, d = e % HDP;
-    qs[d * kBQ + r] = (q0 + r < nq && d < hd) ? qb[(q0 + r) * sq.n + d] * scale : 0.f;
-  }
-  if (tid < kBQ) {
-    row_m[tid] = -CUDART_INF_F;
-    row_l[tid] = 0.f;
-  }
-
-  const int ty = tid / 16, tx = tid % 16;  // rows ty*4.., keys tx*4 / cols tx*DPT
-  const int sr = tid % kBQ, sq4 = tid / kBQ;  // softmax: row sr, keys sq4*16..
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
-
-  for (int k0 = 0; k0 < nk_total; k0 += kBK) {
-    const int nk = min(kBK, nk_total - k0);
-    __syncthreads();  // the previous tile's v and probabilities are read
-    for (int e = tid; e < kBK * HDP; e += kThreads) {
-      const int j = e / HDP, d = e % HDP;
-      kv[d * kBK + j] = (j < nk && d < hd) ? kb[(k0 + j) * sk.n + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&qs[d * kBQ + ty * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&kv[d * kBK + tx * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kk[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = tx * 4 + j;
-      const bool live = key < nk;
-      *reinterpret_cast<float4*>(&ps[key * kPStride + ty * 4]) =
-          make_float4(live ? s[0][j] : -CUDART_INF_F, live ? s[1][j] : -CUDART_INF_F,
-                      live ? s[2][j] : -CUDART_INF_F, live ? s[3][j] : -CUDART_INF_F);
-    }
-    __syncthreads();  // scores stored; the K tile is no longer read
-
-    for (int e = tid; e < kBK * HDP; e += kThreads) {
-      const int j = e / HDP, d = e % HDP;
-      kv[e] = (j < nk && d < hd) ? vb[(k0 + j) * sv.n + d] : 0.f;
-    }
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, ps[(sq4 * 16 + j) * kPStride + sr]);
-    red[sq4 * kBQ + sr] = mx;
-    __syncthreads();
-    const float m_old = row_m[sr];
-    const float m_new = fmaxf(m_old, fmaxf(fmaxf(red[sr], red[kBQ + sr]),
-                                           fmaxf(red[2 * kBQ + sr], red[3 * kBQ + sr])));
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float* p = &ps[(sq4 * 16 + j) * kPStride + sr];
-      const float e = expf(*p - m_new);
-      *p = e;
-      sum += e;
-    }
-    __syncthreads();  // every partial max is read
-    red[sq4 * kBQ + sr] = sum;
-    __syncthreads();
-    if (sq4 == 0) {
-      const float corr = expf(m_old - m_new);  // 0 on the first tile
-      row_l[sr] = row_l[sr] * corr + ((red[sr] + red[kBQ + sr]) +
-                                      (red[2 * kBQ + sr] + red[3 * kBQ + sr]));
-      row_m[sr] = m_new;
-      row_c[sr] = corr;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = row_c[ty * 4 + i];
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) acc[i][e] *= corr;
-    }
-    for (int j = 0; j < nk; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&ps[j * kPStride + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      float vv[DPT];
-#pragma unroll
-      for (int e = 0; e < DPT; ++e) vv[e] = kv[j * HDP + tx * DPT + e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(pv[i], vv[e], acc[i][e]);
-    }
-  }
-
-  float* ob = out + b * so.b + h * so.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= nq) continue;
-    const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
-    float* orow = ob + (q0 + r) * so.n;
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) {
-      const int d = tx * DPT + e;
-      if (d < hd) orow[d] = acc[i][e] * inv;
-    }
-  }
+  const int h = blockIdx.y, b = blockIdx.z;
+  const sam6d::Operands op{q + b * sq.b + h * sq.h, k + b * sk.b + h * sk.h,
+                           v + b * sv.b + h * sv.h, out + b * so.b + h * so.h,
+                           sq.n, sk.n, sv.n, so.n, nq, nk, hd};
+  sam6d::attention_rows<HDP, kWarps, tile_keys<HDP>(), sam6d::Staging::kSplitOnce>(
+      op, reinterpret_cast<float*>(smem4), blockIdx.x * kRows, scale, sam6d::NoBias{});
 }
 
 template <int HDP>
-int launch_fused(const float* q, const float* k, const float* v, float* out,
-                 Strides sq, Strides sk, Strides sv, Strides so, int b, int heads,
-                 int nq, int nk, int hd, float scale, cudaStream_t stream) {
-  const size_t bytes = fused_smem_bytes(HDP);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_attention_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+int launch(const float* q, const float* k, const float* v, float* out, Strides sq,
+           Strides sk, Strides sv, Strides so, int b, int heads, int nq, int nk, int hd,
+           float scale, cudaStream_t stream) {
+  constexpr size_t bytes =
+      sam6d::core_smem_bytes<HDP, kWarps, tile_keys<HDP>(), sam6d::Staging::kSplitOnce>();
+  cudaError_t err = cudaFuncSetAttribute(head_major_attention_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nq + kBQ - 1) / kBQ, heads, b);
-  fused_attention_kernel<HDP><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid((nq + kRows - 1) / kRows, heads, b);
+  head_major_attention_kernel<HDP><<<grid, kWarps * 32, bytes, stream>>>(
       q, k, v, out, sq, sk, sv, so, nq, nk, hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------------------ K9
-
-constexpr int kRowsPerBlock = 64;
-constexpr int kKeysPerTile = 32;
-
-template <int HD>
-__global__ void __launch_bounds__(kRowsPerBlock)
-    fused_attention_small_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ k,
-                                 const float* __restrict__ v,
-                                 float* __restrict__ out, Strides sq, Strides sk,
-                                 Strides sv, int heads, int n, float scale) {
-  static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ float4 ks[kKeysPerTile][HD / 4];
-  __shared__ float4 vs[kKeysPerTile][HD / 4];
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  const bool live = row < n;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-
-  float4 qr[HD / 4];
-  float4 acc[HD / 4];
-  const float4* qrow = reinterpret_cast<const float4*>(
-      q + b * sq.b + h * sq.h + (live ? row : 0) * sq.n);
-#pragma unroll
-  for (int d = 0; d < HD / 4; ++d) {
-    qr[d] = qrow[d];
-    acc[d] = make_float4(0.f, 0.f, 0.f, 0.f);
+int launch_padded(const float* q, const float* k, const float* v, float* out, Strides sq,
+                  Strides sk, Strides sv, Strides so, int b, int heads, int nq, int nk,
+                  int hd, float scale, cudaStream_t stream) {
+  if (hd < 1 || nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((hd + 15) / 16) {
+    case 1: return launch<16>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 2: return launch<32>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 3: return launch<48>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 4: return launch<64>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 5: return launch<80>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 6: return launch<96>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 7: return launch<112>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    case 8: return launch<128>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  float m = -CUDART_INF_F;  // running max of the scaled scores
-  float l = 0.f;            // running sum of exp(s - m)
-
-  for (int k0 = 0; k0 < n; k0 += kKeysPerTile) {
-    const int nk = min(kKeysPerTile, n - k0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kKeysPerTile * (HD / 4); e += kRowsPerBlock) {
-      const int j = e / (HD / 4);
-      const int d = e % (HD / 4);
-      if (j < nk) {
-        ks[j][d] = reinterpret_cast<const float4*>(kb + (k0 + j) * sk.n)[d];
-        vs[j][d] = reinterpret_cast<const float4*>(vb + (k0 + j) * sv.n)[d];
-      }
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    float s[kKeysPerTile];
-    float tile_max = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kKeysPerTile; ++j) {
-      if (j < nk) {
-        float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD / 4; ++d) {
-          const float4 kk = ks[j][d];
-          p0 = fmaf(qr[d].x, kk.x, p0);
-          p1 = fmaf(qr[d].y, kk.y, p1);
-          p2 = fmaf(qr[d].z, kk.z, p2);
-          p3 = fmaf(qr[d].w, kk.w, p3);
-        }
-        s[j] = ((p0 + p1) + (p2 + p3)) * scale;
-        tile_max = fmaxf(tile_max, s[j]);
-      }
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);  // 0 on the first tile
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < HD / 4; ++d) {
-      acc[d].x *= corr;
-      acc[d].y *= corr;
-      acc[d].z *= corr;
-      acc[d].w *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeysPerTile; ++j) {
-      if (j < nk) {
-        const float p = expf(s[j] - m_new);  // summed and applied alike
-        l += p;
-#pragma unroll
-        for (int d = 0; d < HD / 4; ++d) {
-          const float4 vv = vs[j][d];
-          acc[d].x = fmaf(p, vv.x, acc[d].x);
-          acc[d].y = fmaf(p, vv.y, acc[d].y);
-          acc[d].z = fmaf(p, vv.z, acc[d].z);
-          acc[d].w = fmaf(p, vv.w, acc[d].w);
-        }
-      }
-    }
-    m = m_new;
-  }
-  if (!live) return;
-
-  const float inv = 1.f / l;
-  float4* orow = reinterpret_cast<float4*>(
-      out + ((static_cast<size_t>(b) * heads + h) * n + row) * HD);
-#pragma unroll
-  for (int d = 0; d < HD / 4; ++d) {
-    orow[d] = make_float4(acc[d].x * inv, acc[d].y * inv, acc[d].z * inv,
-                          acc[d].w * inv);
-  }
-}
-
-template <int HD>
-int launch_small(const float* q, const float* k, const float* v, float* out,
-                 Strides sq, Strides sk, Strides sv, int b, int heads, int n,
-                 float scale, cudaStream_t stream) {
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, b);
-  fused_attention_small_kernel<HD><<<grid, kRowsPerBlock, 0, stream>>>(
-      q, k, v, out, sq, sk, sv, heads, n, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -350,20 +127,9 @@ int sam6d_fused_attention(const float* q, const float* k, const float* v,
                           const long long* sv, const long long* so, int b,
                           int heads, int nq, int nk, int hd, float scale,
                           cudaStream_t stream) {
-  const Strides tq{sq[0], sq[1], sq[2]}, tk{sk[0], sk[1], sk[2]},
-      tv{sv[0], sv[1], sv[2]}, to{so[0], so[1], so[2]};
-  if (hd < 1 || nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((hd + 15) / 16) {
-    case 1: return launch_fused<16>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 2: return launch_fused<32>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 3: return launch_fused<48>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 4: return launch_fused<64>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 5: return launch_fused<80>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 6: return launch_fused<96>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 7: return launch_fused<112>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    case 8: return launch_fused<128>(q, k, v, out, tq, tk, tv, to, b, heads, nq, nk, hd, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_padded(q, k, v, out, Strides{sq[0], sq[1], sq[2]}, Strides{sk[0], sk[1], sk[2]},
+                       Strides{sv[0], sv[1], sv[2]}, Strides{so[0], so[1], so[2]}, b, heads,
+                       nq, nk, hd, scale, stream);
 }
 
 // q, k, v: (b, heads, n, hd) float32, hd contiguous, 16-byte aligned rows
@@ -374,14 +140,11 @@ int sam6d_fused_attention_small(const float* q, const float* k, const float* v,
                                 const long long* sk, const long long* sv, int b,
                                 int heads, int n, int hd, float scale,
                                 cudaStream_t stream) {
-  const Strides tq{sq[0], sq[1], sq[2]}, tk{sk[0], sk[1], sk[2]},
-      tv{sv[0], sv[1], sv[2]};
-  switch (hd) {
-    case 16: return launch_small<16>(q, k, v, out, tq, tk, tv, b, heads, n, scale, stream);
-    case 32: return launch_small<32>(q, k, v, out, tq, tk, tv, b, heads, n, scale, stream);
-    case 64: return launch_small<64>(q, k, v, out, tq, tk, tv, b, heads, n, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (hd != 16 && hd != 32 && hd != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(n) * hd;
+  return launch_padded(q, k, v, out, Strides{sq[0], sq[1], sq[2]}, Strides{sk[0], sk[1], sk[2]},
+                       Strides{sv[0], sv[1], sv[2]}, Strides{heads * rows, rows, hd}, b, heads,
+                       n, n, hd, scale, stream);
 }
 
 }  // extern "C"

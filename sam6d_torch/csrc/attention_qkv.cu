@@ -39,11 +39,13 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     attention_qkv_kernel(const float* __restrict__ qkv, float* __restrict__ out,
                          int n, int c, float scale) {
   extern __shared__ float4 smem4[];
-  const int b = blockIdx.z;
-  sam6d::attention_rows<HD, kWarps, kTileKeys>(qkv + static_cast<size_t>(b) * n * 3 * c,
-                                    out + static_cast<size_t>(b) * n * c,
-                                    reinterpret_cast<float*>(smem4), n, c, blockIdx.y,
-                                    blockIdx.x * kRows, scale, sam6d::NoBias{});
+  const float* q = qkv + static_cast<size_t>(blockIdx.z) * n * 3 * c + blockIdx.y * HD;
+  const long long rs = 3LL * c;
+  const sam6d::Operands op{q, q + c, q + 2 * c,
+                           out + static_cast<size_t>(blockIdx.z) * n * c + blockIdx.y * HD,
+                           rs, rs, rs, c, n, n, HD};
+  sam6d::attention_rows<HD, kWarps, kTileKeys, sam6d::Staging::kSplitPerFragment>(
+      op, reinterpret_cast<float*>(smem4), blockIdx.x * kRows, scale, sam6d::NoBias{});
 }
 
 template <int HD>

@@ -144,12 +144,15 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   float* smem = reinterpret_cast<float*>(smem4);
   float* tab_h = smem + sam6d::core_smem_bytes<HD, kWarps, kTileKeys>() / sizeof(float);
   const int c = heads * HD;
-  const int b = blockIdx.z;
+  const float* q = qkv + static_cast<size_t>(blockIdx.z) * n * 3 * c + blockIdx.y * HD;
+  const long long rs = 3LL * c;
+  const sam6d::Operands op{q, q + c, q + 2 * c,
+                           out + static_cast<size_t>(blockIdx.z) * n * c + blockIdx.y * HD,
+                           rs, rs, rs, c, n, n, HD};
   const RelPosBias<HD> bias{tab_h, tab_h + kRows * (gh + 1), rel_pos_h, rel_pos_w, gh, gw,
                             static_cast<int>(threadIdx.x / 32) * 16 + static_cast<int>(threadIdx.x % 32) / 4};
-  sam6d::attention_rows<HD, kWarps, kTileKeys>(qkv + static_cast<size_t>(b) * n * 3 * c,
-                                               out + static_cast<size_t>(b) * n * c, smem, n, c,
-                                               blockIdx.y, blockIdx.x * kRows, scale, bias);
+  sam6d::attention_rows<HD, kWarps, kTileKeys, sam6d::Staging::kSplitPerFragment>(
+      op, smem, blockIdx.x * kRows, scale, bias);
 }
 
 template <int HD>

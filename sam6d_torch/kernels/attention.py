@@ -1,6 +1,6 @@
-"""Softmax attention on head-major (B, H, N, hd) operands: the two CUDA
-kernels of `csrc/attention.cu`, their plain PyTorch versions, and the device
-dispatches.
+"""Softmax attention on head-major (B, H, N, hd) operands: the two C entries
+of `csrc/attention.cu` (one kernel on the three-pass TF32 core of
+`csrc/tf32x3.cuh`), their plain PyTorch versions, and the device dispatches.
 
 - `fused_attention` (K8) replaces
   `sam6d_tpu/kernels/flash_attention.py::fused_attention`: any Nq and Nk
@@ -20,8 +20,9 @@ output (B, H, Nq, hd). The kernels read q, k and v through their strides
 qkv projection need no copy. K8 returns a (B, H, Nq, hd) view of a (B, Nq,
 H, hd) tensor, so `out.transpose(1, 2).reshape(B, Nq, H * hd)` is free.
 
-What bounds them on the card: 4*B*H*Nq*Nk*hd fp32 operations (TF32 off);
-see the header of `csrc/attention.cu`.
+What bounds them on the card: 4*B*H*Nq*Nk*hd operations, run as
+fp32-accurate three-pass TF32 on the tensor cores; see the header of
+`csrc/attention.cu`.
 """
 from __future__ import annotations
 

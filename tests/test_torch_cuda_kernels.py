@@ -141,18 +141,39 @@ def test_fused_attention_qkv_kernel_refuses_what_it_does_not_take(cuda_device):
         attention_qkv.fused_attention_qkv_cuda(qkv.double(), 6, 0.1)
 
 
+def _head_major_operands(rng, device, B, H, Nq, Nk, hd, qk, offset):
+    """q (B, H, Nq, hd), k and v (B, H, Nk, hd) from `rng`, q and k times
+    `qk`; with `offset` > 0 each lies `offset` floats into its buffer (rows
+    4-byte aligned only)."""
+    out = []
+    for n, scale in ((Nq, qk), (Nk, qk), (Nk, 1.0)):
+        x = torch.from_numpy(rng.randn(B, H, n, hd).astype(np.float32) * np.float32(scale))
+        buf = torch.zeros(offset + x.numel(), device=device)
+        view = buf[offset:].view(B, H, n, hd)
+        view.copy_(x)
+        out.append(view)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Nq,Nk,hd", [
-    (16, 16, 1025, 1025, 64),   # DINOv2-L describe at img_size 448
-    (2, 4, 61, 300, 32),        # cross-attention, ragged tiles
-    (2, 3, 130, 130, 80),       # hd 80
-    (1, 2, 7, 5, 13),           # hd not a multiple of 4, one tile
-    (1, 2, 70, 66, 128),        # the largest hd
+@pytest.mark.parametrize("B,H,Nq,Nk,hd,qk,offset", [
+    pytest.param(16, 16, 1025, 1025, 64, 1.0, 0, id="16-16-1025-1025-64"),  # DINOv2-L at 448
+    pytest.param(2, 4, 61, 300, 32, 1.0, 0, id="2-4-61-300-32"),   # cross-attention, ragged tiles
+    pytest.param(2, 3, 130, 130, 80, 1.0, 0, id="2-3-130-130-80"),  # hd 80
+    pytest.param(1, 2, 7, 5, 13, 1.0, 0, id="1-2-7-5-13"),    # hd not a multiple of 4, one tile
+    pytest.param(1, 2, 70, 66, 128, 1.0, 0, id="1-2-70-66-128"),  # the largest hd
+    pytest.param(2, 3, 1, 300, 64, 1.0, 0, id="2-3-1-300-64-one-query"),
+    pytest.param(2, 3, 50, 1, 64, 1.0, 0, id="2-3-50-1-64-one-key"),
+    pytest.param(1, 1, 1, 1, 32, 1.0, 0, id="1-1-1-1-32-one-query-one-key"),
+    pytest.param(2, 2, 50, 20, 64, 1.0, 0, id="2-2-50-20-64-keys-below-a-tile"),
+    pytest.param(1, 2, 129, 70, 64, 1.0, 0, id="1-2-129-70-64-a-row-past-a-block"),
+    pytest.param(16, 16, 1025, 1025, 64, 2.0, 0, id="16-16-1025-1025-64-large-scores"),
+    pytest.param(2, 3, 37, 45, 13, 1.0, 1, id="2-3-37-45-13-offset-4-bytes"),
+    pytest.param(2, 2, 200, 150, 128, 1.0, 0, id="2-2-200-150-128"),
 ])
-def test_fused_attention_kernel_matches_plain(cuda_device, B, H, Nq, Nk, hd):
-    rng = np.random.RandomState(14)
-    q, k, v = (torch.from_numpy(rng.randn(B, H, n, hd).astype(np.float32)).to(cuda_device)
-               for n in (Nq, Nk, Nk))
+def test_fused_attention_kernel_matches_plain(cuda_device, B, H, Nq, Nk, hd, qk, offset):
+    q, k, v = _head_major_operands(np.random.RandomState(14), cuda_device, B, H, Nq, Nk, hd,
+                                   qk, offset)
     got = attention.fused_attention_cuda(q, k, v, hd ** -0.5)
     want = attention.fused_attention_plain(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()
@@ -176,15 +197,17 @@ def test_fused_attention_kernel_reads_qkv_views(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,N,hd", [
-    (16, 16, 257, 64),          # DINOv2-L class tokens
-    (3, 4, 31, 32),             # below one key tile
-    (2, 2, 65, 16),
+@pytest.mark.parametrize("B,H,N,hd,qk", [
+    pytest.param(16, 16, 257, 64, 1.0, id="16-16-257-64"),   # DINOv2-L class tokens
+    pytest.param(3, 4, 31, 32, 1.0, id="3-4-31-32"),         # below one key tile
+    pytest.param(2, 2, 65, 16, 1.0, id="2-2-65-16"),
+    pytest.param(2, 3, 1, 64, 1.0, id="2-3-1-64-one-token"),
+    pytest.param(1, 2, 129, 64, 1.0, id="1-2-129-64-a-row-past-a-block"),
+    pytest.param(16, 16, 257, 64, 2.0, id="16-16-257-64-large-scores"),
 ])
-def test_fused_attention_small_kernel_matches_plain(cuda_device, B, H, N, hd):
-    rng = np.random.RandomState(15)
-    q, k, v = (torch.from_numpy(rng.randn(B, H, N, hd).astype(np.float32)).to(cuda_device)
-               for _ in range(3))
+def test_fused_attention_small_kernel_matches_plain(cuda_device, B, H, N, hd, qk):
+    q, k, v = _head_major_operands(np.random.RandomState(15), cuda_device, B, H, N, N, hd,
+                                   qk, 0)
     got = attention.fused_attention_small_cuda(q, k, v, hd ** -0.5)
     want = attention.fused_attention_small_plain(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()

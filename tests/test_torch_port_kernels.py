@@ -279,24 +279,34 @@ def _tf32_matmul(a, b, passes):
     return sum(x.astype(np.float64) @ y.astype(np.float64) for x, y in terms).astype(np.float32)
 
 
-def _attention(q, k, v, scale, bias, matmul):
+def _attention(q, k, v, scale, bias, matmul, tile=None):
     """The kernels' arithmetic: s = (q * scale) k^T + bias, an fp32 softmax,
-    (p v) / sum p, the two products by `matmul`."""
+    (p v) / sum p, the two products by `matmul`. With `tile`, p v is formed
+    per tile of that many keys and the tiles' sums are added in float32, as
+    the kernels add each tile's tensor-core sum to O on the fp32 units."""
     s = matmul(q * np.float32(scale), k.T) + bias
     p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
-    return matmul(p, v) / p.sum(-1, keepdims=True)
+    if tile is None:
+        pv = matmul(p, v)
+    else:
+        pv = np.zeros((p.shape[0], v.shape[1]), s.dtype)
+        for k0 in range(0, p.shape[1], tile):
+            pv += matmul(p[:, k0:k0 + tile], v[k0:k0 + tile])
+    return pv / p.sum(-1, keepdims=True)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K5"])
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K8"])
 def test_three_pass_tf32_attention_is_fp32_accurate(kernel):
-    """Both products of K1 and K5 run on the tensor cores as three-pass
+    """Both products of K1, K5 and K8 run on the tensor cores as three-pass
     TF32. Emulated here per head: the attention lies within ATTENTION_ATOL
-    of float64, as fp32 products do, while one TF32 pass does not. At qkv
-    x4 the fp32 attention itself is beyond ATTENTION_ATOL of float64, which
-    is why the card's stress cases scale q and k by 2 (K5) and the bias
-    (K1) instead."""
+    of float64, as fp32 products do, while one TF32 pass does not. K8 at the
+    448 describe's 1025 keys (no bias), with P V summed per 32-key tile and
+    the tiles added in float32. At qkv x4 the fp32 attention itself is
+    beyond ATTENTION_ATOL of float64, which is why the card's stress cases
+    scale q and k by 2 (K5, K8) and the bias (K1) instead."""
     rng = np.random.RandomState(19)
-    hd, (H, W) = (80, (14, 14)) if kernel == "K1" else (64, (1, 257))
+    hd, (H, W) = {"K1": (80, (14, 14)), "K5": (64, (1, 257)), "K8": (64, (1, 1025))}[kernel]
+    tile = 32 if kernel == "K8" else None
     N, heads = H * W, 2
     for mag in (1.0, 4.0):
         qkv = rng.randn(1, N, 3 * heads * hd).astype(np.float32) * np.float32(mag)
@@ -314,14 +324,16 @@ def test_three_pass_tf32_attention_is_fp32_accurate(kernel):
                          ("tf32", lambda a, b: _tf32_matmul(a, b, 1)),
                          ("fp32", np.matmul)):
             err[name] = max(
-                np.abs(_attention(q[i], k[i], v[i], hd ** -0.5, bias[i], mm)
+                np.abs(_attention(q[i], k[i], v[i], hd ** -0.5, bias[i], mm, tile)
                        - _attention(q[i].astype(np.float64), k[i].astype(np.float64),
                                     v[i].astype(np.float64), hd ** -0.5,
                                     bias[i].astype(np.float64), np.matmul)).max()
                 for i in range(heads))
         if mag == 1.0:
             assert err["tf32x3"] <= ATTENTION_ATOL and err["fp32"] <= ATTENTION_ATOL
-            assert err["tf32"] > 10 * ATTENTION_ATOL
+            # over K8's 1025 keys one pass's rounding averages out further
+            # (7.6x ATTENTION_ATOL on this draw), so its margin is 5x
+            assert err["tf32"] > (5 if kernel == "K8" else 10) * ATTENTION_ATOL
         else:
             assert err["fp32"] > ATTENTION_ATOL
 
