@@ -16,9 +16,10 @@ Phases, in order; any failure raises and exits non-zero:
      its rel-pos tables itself, and the plain version's two table einsums
      are timed alone), K1 and K5 also at large scores, beside both bounds
      (fp32 units; three-pass TF32) and their ptxas registers and spills
-     (none allowed), and the three
-     factored kernels (K2-K4) on states captured from one 128-prompt chunk
-     of the iou pass of the ViT-H SAM built first;
+     (none allowed), and the three factored kernels (K2-K4) on states
+     captured from one 128-prompt chunk of the iou pass of the ViT-H SAM
+     built first (K2, whose product runs in three-pass TF32, also beside
+     that bound, with its registers and no spills);
   4. PEM slice: writes a synthetic RGB-D job (480x640 frame, box mesh, 42
      point-splatted template views, 16 detections), runs
      `sam6d_torch.cli.main pem` at the full-width PEM-base config with seeded
@@ -219,10 +220,11 @@ def phase_build():
     return ptxas
 
 
-def ptxas_record(ptxas, kernel, hd):
-    """(registers, spill bytes) of `kernel`<hd> from phase_build's table."""
+def ptxas_record(ptxas, kernel, hd=None):
+    """(registers, spill bytes) of `kernel`<hd> (`kernel` alone: its one
+    instantiation) from phase_build's table."""
     for name, rec in ptxas.items():
-        if kernel in name and f"ILi{hd}E" in name:
+        if kernel in name and (hd is None or f"ILi{hd}E" in name):
             return rec
     raise AssertionError(f"ptxas reported nothing for {kernel}<{hd}>")
 
@@ -342,7 +344,7 @@ def phase_kernels(cfg, seg, ptxas):
         _check_attention(rng, ptxas),
         *_check_head_major_attention(rng, ptxas),
         _check_relpos(rng, ptxas),
-        *_check_factored(capture_factored(seg, rng)),
+        *_check_factored(capture_factored(seg, rng), ptxas),
     ]
 
 
@@ -662,15 +664,21 @@ def _blocks_bytes(blocks):
     return 4 * sum(pd.numel() + (0 if s is None else s.numel()) for pd, s in blocks)
 
 
+def _ln_stats_work(args):
+    """(FLOP of the rank-R product that forms x, FLOP of a*S, the sum and
+    the square, bytes) of one factored_ln_stats call."""
+    blocks, Uc, S, a, _ = args
+    (B, R, C), N = Uc.shape, S.shape[0]
+    nbytes = _blocks_bytes(blocks) + 4 * (Uc.numel() + S.numel() + 2 * B * N) \
+        + (0 if a is None else 4 * a.numel())
+    return 2 * B * N * R * C, 4 * B * N * C, nbytes
+
+
 def _factored_bound(name, args):
     """(least ms, bound_by) of one factored call on its own arguments."""
     if name == "factored_ln_stats":
-        blocks, Uc, S, a, _ = args
-        (B, R, C), N = Uc.shape, S.shape[0]
-        # the rank-R product that forms x, then a*S, the sum and the square
-        flops = 2 * B * N * R * C + 4 * B * N * C
-        nbytes = _blocks_bytes(blocks) + 4 * (Uc.numel() + S.numel() + 2 * B * N) \
-            + (0 if a is None else 4 * a.numel())
+        product, other, nbytes = _ln_stats_work(args)
+        flops = product + other
     elif name == "factored_t2i_attention":
         qp, UK, UV, blocks, a, KS, KC, VS, heads = args
         (B, T, d), R, N = qp.shape, UK.shape[1], KS.shape[0]
@@ -692,13 +700,19 @@ def _factored_bound(name, args):
     return bound(flops, nbytes)
 
 
-def _check_factored(calls):
+def _check_factored(calls, ptxas):
     """K2-K4 against their plain versions on the captured chunk states;
     each record is timed at the larger (second) call, the first call's
-    numbers kept beside it."""
+    numbers kept beside it. K2 runs its product on the tensor cores: its
+    record adds the three-pass TF32 bound and its ptxas registers (a spill
+    fails)."""
     import torch
     from sam6d_torch.kernels import factored as fk
 
+    regs, spills = ptxas_record(ptxas, "ln_stats_tc_kernel")
+    log(f"factored_ln_stats: ptxas {regs} registers, {spills} bytes spilled")
+    if spills:
+        raise AssertionError(f"factored_ln_stats spills {spills} bytes")
     records = []
     for n, line in zip(FACTORED, (296, 350, 167)):
         cuda_fn, plain_fn = getattr(fk, n + "_cuda"), getattr(fk, n + "_plain")
@@ -720,17 +734,23 @@ def _check_factored(calls):
                 ms = cuda_ms(lambda: cuda_fn(*args), reps=10)
                 plain_ms = cuda_ms(lambda: plain_fn(*args), reps=3)
             b_ms, b_by = _factored_bound(n, args)
+            tc_ms = tc_bound(*_ln_stats_work(args)) if n == "factored_ln_stats" else None
             blocks = args[{"factored_ln_stats": 0, "factored_t2i_attention": 3,
                            "factored_i2t_scores": 2}[n]]
             ranks = "+".join(str(pd.shape[1]) for pd, _ in blocks) or "0"
             B = (args[1] if n == "factored_ln_stats" else args[0]).shape[0]
+            tc = "" if tc_ms is None else f", three-pass TF32 bound {tc_ms:.4f} ms"
             log(f"{n}[B={B}, ranks {ranks}]: {desc}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){tc}")
             if not ok:
                 raise AssertionError(f"{n} kernel differs from its plain version")
             rows.append(dict(err=err if n != "factored_ln_stats" else max(err, rel), ms=ms,
-                             plain_ms=plain_ms, b_ms=b_ms, b_by=b_by, ranks=ranks))
+                             plain_ms=plain_ms, b_ms=b_ms, b_by=b_by, tc_ms=tc_ms,
+                             ranks=ranks))
         first, last = rows[0], rows[-1]
+        extra = {} if n != "factored_ln_stats" else dict(
+            tc_bound_ms=last["tc_ms"], first_call_tc_bound_ms=first["tc_ms"],
+            ptxas_registers=regs, ptxas_spill_bytes=spills)
         records.append(dict(
             name=n + "_cuda", route="cuda", source="sam6d_torch/csrc/factored.cu",
             replaces=f"sam6d_tpu/kernels/factored_t2i.py:{line}",
@@ -743,7 +763,8 @@ def _check_factored(calls):
             first_call_ms=first["ms"], first_call_plain_ms=first["plain_ms"],
             first_call_bound_ms=first["b_ms"],
             shapes=f"B=128, N=4096, ranks {last['ranks']} (ms); ranks {first['ranks']} "
-                   f"(first_call_ms); states captured from one chunk of the iou pass"))
+                   f"(first_call_ms); states captured from one chunk of the iou pass",
+            **extra))
     return records
 
 

@@ -19,19 +19,30 @@
 //
 // What bounds them (fp32, TF32 off, H100 SXM 67 TFLOP/s, 3.35 TB/s):
 //  - ln_stats: 2*B*R*C*N FLOP for the low-rank part of x (31 GFLOP at
-//    R = 116), compute-bound (~0.46 ms);
+//    R = 116), compute-bound (~0.47 ms on the fp32 units; 0.197 ms with the
+//    product in three-pass TF32 at 165 TFLOP/s); P_eff (243 MB at R = 116)
+//    is read once (~0.08 ms);
 //  - t2i: ~4*B*HT*R*N FLOP (14 GFLOP at R = 118), compute-bound (~0.2 ms);
 //  - i2t: writes B*(HT+1)*N floats (120 MB), 2*B*HT*R*N FLOP (3.5 GFLOP at
 //    R = 59); bytes and operations about even (~0.05 ms).
 //
-// Designs (simple and right first; tensor cores are later work):
-//  - ln_stats: one block per (prompt, 64 positions). It forms the tile of
-//    x itself, 64 positions x C channels in registers (8 x C/32 per
-//    thread), from 16-row chunks of P_eff and U staged in shared memory,
-//    adds a * S, and reduces the channel sum and sum of squares with warp
-//    shuffles: mu = E[x], var = E[x^2] - mu^2 (the TPU kernel's fast-variance
-//    form). This folds the TPU kernel's gram (R x R), mean(U) and S-cross
-//    (R x N) terms into one product; none of them, and no x, reaches memory.
+// Designs (t2i and i2t simple and right first, on the fp32 units):
+//  - ln_stats: one block of 8 warps per (prompt, 64 positions), two
+//    blocks an SM, forms its tile of x (64 positions x 256 channels) on the
+//    tensor cores as the three-pass TF32 product of the P_eff tile and U
+//    (tf32x3.cuh), adds a * S on the fp32 units and reduces the channel sum
+//    and sum of squares: mu = E[x], var = E[x^2] - mu^2 (the TPU kernel's
+//    fast-variance form). This folds the TPU kernel's gram (R x R),
+//    mean(U) and S-cross (R x N) terms into one product; none of them, and
+//    no x, reaches memory. Each block reads its P_eff tile once with
+//    16-byte cp.async and splits it once into shared memory; U, shared by
+//    the 64 position tiles of a prompt, comes from L2 in fp32 and each warp
+//    splits its B fragments: U split once per call into TF32 pairs (a
+//    pre-pass) doubled the bytes every block pulls from L2, and measured
+//    slower on an H100 (PERF.md). The chain on one accumulator is at most
+//    3 ceil(R / 8) HMMAs (45 at R = 116), short enough that the tensor
+//    cores' truncating accumulation stays far below the tolerance (the
+//    U x 4 card test checks it).
 //  - t2i: one block per prompt, one warp per head (the query is
 //    block-diagonal over heads, so head h needs only its 16 channels). The
 //    low-rank query factor T1 = q_h U_K^T (R x 7 per head) is formed first;
@@ -48,7 +59,16 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using sam6d::cp_async16;
+using sam6d::cp_async_commit;
+using sam6d::cp_async_wait;
+using sam6d::mma_tf32x3;
+using sam6d::quad_sum;
+using sam6d::split_tf32;
 
 constexpr int kMaxBlocks = 4;
 constexpr int kThreads = 256;
@@ -157,75 +177,232 @@ __device__ __forceinline__ void head_scores(float* s, const float* tok, int h,
 }
 
 // ------------------------------------------------------------ ln_stats
+//
+// x tile = P_eff tile^T U by three-pass TF32 mma.sync m16n8k8 (tf32x3.cuh):
+// M = positions, N = the 256 channels, K = the ranks zero-padded to 8.
 
-constexpr int kLnBN = 64;   // positions per block (8 per warp)
-constexpr int kLnRC = 16;   // factor rows per staged chunk
+constexpr int kLnC = 256;         // channels (the only C the kernel takes)
+constexpr int kLnKC = 16;         // ranks a stage: two k8 steps
+constexpr int kLnLdu = kLnC + 4;  // words a staged U row: B fragment reads conflict-free
+constexpr int kLnWM = 2;          // warps along positions (four along channels)
+constexpr int kLnStages = 3;      // stages of the cp.async rings
 
-template <int CPL>  // channels per lane, C = 32 * CPL
-__global__ void __launch_bounds__(kThreads)
-    ln_stats_kernel(Blocks bl, const float* __restrict__ uc,
-                    const float* __restrict__ smat, const float* __restrict__ a,
-                    float* __restrict__ out, int npos, int rtot, float eps) {
-  constexpr int C = 32 * CPL;
-  __shared__ float ts[kLnRC][kLnBN];
-  __shared__ float us[kLnRC][C];
+constexpr int kLnThreads = 128 * kLnWM;
+constexpr int kLnBM = 32 * kLnWM;      // positions a block
+constexpr int kLnLdp = kLnBM + 4;      // words a P plane row
+// The rings of U rows, P_eff values and their scales, two P planes (big,
+// small) for each of two stages, and the cross-warp row sums: 94 KB.
+constexpr size_t kLnSmemBytes =
+    sizeof(float) * kLnStages * kLnKC * (kLnLdu + 2 * kLnBM) +
+    sizeof(uint32_t) * 2 * 2 * kLnKC * kLnLdp + sizeof(float2) * 4 * kLnBM;
+
+// One block per (prompt, kLnBM positions); warp (wm, wn) owns positions
+// 32 wm.. (two m16 tiles) and channels 64 wn.. (eight n8 tiles), 64 fp32
+// accumulators a lane. Ranks go in stages of two k8 steps, their operands
+// copied by cp.async kLnStages - 1 stages ahead (ranks past rtot
+// zero-filled):
+//  - U's fp32 rows; each warp splits its B fragments as it reads them;
+//  - the P_eff tile, 16 ranks x kLnBM positions, one 16-byte chunk a
+//    thread (a warp reads whole rows), and the chunk's scale; the thread
+//    that copied a chunk scales it, splits it once and stores it as a big
+//    and a small plane [rank][position] (rows of kLnBM + 4 words: the
+//    stores and every A fragment read are conflict-free) while the block
+//    still computes the stage before;
+// then one barrier a stage. The epilogue stays on the fp32 units.
+__global__ void __launch_bounds__(kLnThreads, 4 / kLnWM)
+    ln_stats_tc_kernel(Blocks bl, const float* __restrict__ uc,
+                       const float* __restrict__ smat, const float* __restrict__ a,
+                       float* __restrict__ out, int npos, int rtot, float eps) {
+  constexpr int T = kLnThreads, BM = kLnBM, LDP = kLnLdp, NS = kLnStages;
+  constexpr int kStage = kLnKC * kLnLdu;  // words of U a stage
+  constexpr int kTile = kLnKC * BM;       // words of P_eff (or scales) a stage
+  constexpr int kPlane = kLnKC * LDP;     // words of one P plane
+  extern __shared__ uint4 smem_u4[];
+  float* us = reinterpret_cast<float*>(smem_u4);                 // [NS][kLnKC][kLnLdu]
+  float* pr = us + NS * kStage;                                  // [NS][kLnKC][BM]
+  float* sr = pr + NS * kTile;                                   // [NS][kLnKC][BM]
+  uint32_t* ps = reinterpret_cast<uint32_t*>(sr + NS * kTile);   // [2][2][kLnKC][LDP]
+  float2* red = reinterpret_cast<float2*>(ps + 2 * 2 * kPlane);  // [4][BM]
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y, n0 = blockIdx.x * kLnBN;
-  float x[8][CPL];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) x[i][j] = 0.f;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int b = blockIdx.y, n0 = blockIdx.x * BM;
+  const int steps = (rtot + 7) / 8;
+  const int nst = (steps + 1) / 2;
 
-  for (int r0 = 0; r0 < rtot; r0 += kLnRC) {
-    __syncthreads();  // the previous chunk is read
-    for (int e = threadIdx.x; e < kLnRC * kLnBN; e += kThreads) {
-      const int rr = e / kLnBN, j = e % kLnBN;
-      ts[rr][j] = (r0 + rr < rtot && n0 + j < npos)
-                      ? p_eff(bl, b, r0 + rr, n0 + j, npos) : 0.f;
+  const float* ub = uc + static_cast<size_t>(b) * rtot * kLnC;
+  auto issue_u = [&](int s) {  // stage s into ring slot s % NS
+    float* dst = us + (s % NS) * kStage;
+    for (int e = threadIdx.x; e < kLnKC * kLnC / 4; e += T) {
+      const int rr = e / (kLnC / 4), c = 4 * (e % (kLnC / 4)), r = kLnKC * s + rr;
+      cp_async16(dst + rr * kLnLdu + c, ub + static_cast<size_t>(r < rtot ? r : 0) * kLnC + c,
+                 r < rtot);
     }
-    for (int e = threadIdx.x; e < kLnRC * C; e += kThreads) {
-      const int rr = e / C;
-      us[rr][e % C] = r0 + rr < rtot
-                          ? uc[(static_cast<size_t>(b) * rtot + r0) * C + e] : 0.f;
+  };
+
+  // this thread's P_eff chunk: rank 16 s + prr, positions ppos..ppos+3; the
+  // scaled-block descriptor is resolved once a stage
+  const int prr = threadIdx.x / (BM / 4), pq = threadIdx.x % (BM / 4);
+  const int ppos = n0 + 4 * pq;
+  const int chunk = prr * BM + 4 * pq;
+  const bool vec = (npos & 3) == 0;  // rows and scales 16-byte aligned
+  auto issue_p = [&](int s) {
+    float* pd = pr + (s % NS) * kTile + chunk;
+    float* sd = sr + (s % NS) * kTile + chunk;
+    const int r = kLnKC * s + prr;
+    const float* row = nullptr;
+    const float* sc = nullptr;
+    if (r < rtot && ppos < npos) {
+      int off = 0;
+#pragma unroll
+      for (int i = 0; i < kMaxBlocks; ++i) {
+        if (!row && i < bl.n && r < off + bl.r[i]) {
+          row = bl.pd[i] + (static_cast<size_t>(b) * bl.r[i] + (r - off)) * npos + ppos;
+          if (bl.s[i]) sc = bl.s[i] + static_cast<size_t>(b) * npos + ppos;
+        }
+        off += bl.r[i];
+      }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < kLnRC; ++rr) {
-      float tv[8], uv[CPL];
+    if (vec) {
+      cp_async16(pd, row ? row : smat, row != nullptr);
+      if (sc)
+        cp_async16(sd, sc, true);
+      else
+        *reinterpret_cast<float4*>(sd) = make_float4(1.f, 1.f, 1.f, 1.f);
+    } else {  // 4-byte loads, stored as they arrive
 #pragma unroll
-      for (int i = 0; i < 8; ++i) tv[i] = ts[rr][warp * 8 + i];
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = row && ppos + j < npos;
+        pd[j] = ok ? __ldg(row + j) : 0.f;
+        sd[j] = ok && sc ? __ldg(sc + j) : 1.f;
+      }
+    }
+  };
+  // the chunk of stage s, landed: the scaled values (the fp32 product
+  // pd * s), split once into the planes
+  auto split_p = [&](int s) {
+    const float4 x = *reinterpret_cast<const float4*>(pr + (s % NS) * kTile + chunk);
+    const float4 w = *reinterpret_cast<const float4*>(sr + (s % NS) * kTile + chunk);
+    uint32_t* dst = ps + (s & 1) * 2 * kPlane + prr * LDP + 4 * pq;
+    uint4 big, small;
+    split_tf32(x.x * w.x, big.x, small.x);
+    split_tf32(x.y * w.y, big.y, small.y);
+    split_tf32(x.z * w.z, big.z, small.z);
+    split_tf32(x.w * w.w, big.w, small.w);
+    *reinterpret_cast<uint4*>(dst) = big;
+    *reinterpret_cast<uint4*>(dst + kPlane) = small;
+  };
+
+  float acc[2][8][4];
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) uv[j] = us[rr][lane * CPL + j];
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) x[i][j] = fmaf(tv[i], uv[j], x[i][j]);
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // k = t is rank 2t and k = t + 4 rank 2t + 1 in both fragments. A: rows
+  // (positions) g, g + 8, from the planes; B: channel g, split here
+  auto compute = [&](int s) {
+    const uint32_t* pb = ps + (s & 1) * 2 * kPlane + 32 * wm + g;
+    const float* ust = us + (s % NS) * kStage + 2 * t * kLnLdu + 64 * wn + g;
+    const int nk = min(2, steps - 2 * s);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (kk < nk) {
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint32_t* p = pb + (8 * kk + 2 * t) * LDP + 16 * mt;
+          ab[mt][0] = p[0];
+          ab[mt][1] = p[8];
+          ab[mt][2] = p[LDP];
+          ab[mt][3] = p[LDP + 8];
+          as[mt][0] = p[kPlane];
+          as[mt][1] = p[kPlane + 8];
+          as[mt][2] = p[kPlane + LDP];
+          as[mt][3] = p[kPlane + LDP + 8];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* u = ust + 8 * kk * kLnLdu + 8 * nt;
+          uint32_t bb[2], bs[2];
+          split_tf32(u[0], bb[0], bs[0]);
+          split_tf32(u[kLnLdu], bb[1], bs[1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_tf32x3(acc[mt][nt], ab[mt], as[mt], bb, bs);
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nst) {
+      issue_u(s);
+      issue_p(s);
+    }
+    cp_async_commit();
+  }
+  if (nst > 0) {
+    cp_async_wait<NS - 2>();
+    split_p(0);
+  }
+  for (int s = 0; s < nst; ++s) {
+    __syncthreads();  // stage s is in place; stage s - 1's slots are free
+    if (s + NS - 1 < nst) {
+      issue_u(s + NS - 1);
+      issue_p(s + NS - 1);
+    }
+    cp_async_commit();
+    compute(s);
+    if (s + 1 < nst) {  // this thread's copies of stage s + 1 have landed
+      cp_async_wait<NS - 2>();
+      split_p(s + 1);
     }
   }
 
+  // v = a S + x; the channel sum and sum of squares by quad shuffles, then
+  // across the four channel warps in shared memory
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int pos = n0 + warp * 8 + i;  // warp-uniform
-    float sum = 0.f, sq = 0.f;
-    if (pos < npos) {
-      const float av = a ? a[static_cast<size_t>(b) * npos + pos] : 1.f;
-      const float* srow = smat + static_cast<size_t>(pos) * C + lane * CPL;
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const float v = fmaf(av, srow[j], x[i][j]);
-        sum += v;
-        sq = fmaf(v, v, sq);
+    for (int h = 0; h < 2; ++h) {
+      const int lp = 32 * wm + 16 * mt + 8 * h + g, pos = n0 + lp;
+      float sum = 0.f, sq = 0.f;
+      if (pos < npos) {
+        const float av = a ? a[static_cast<size_t>(b) * npos + pos] : 1.f;
+        const float* srow = smat + static_cast<size_t>(pos) * kLnC + 64 * wn + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 s2 = __ldg(reinterpret_cast<const float2*>(srow + 8 * nt));
+          const float v0 = fmaf(av, s2.x, acc[mt][nt][2 * h]);
+          const float v1 = fmaf(av, s2.y, acc[mt][nt][2 * h + 1]);
+          sum += v0 + v1;
+          sq = fmaf(v0, v0, sq);
+          sq = fmaf(v1, v1, sq);
+        }
       }
+      sum = quad_sum(sum);
+      sq = quad_sum(sq);
+      if (t == 0) red[wn * BM + lp] = make_float2(sum, sq);
     }
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
-    if (lane == 0 && pos < npos) {
-      const float mu = sum / C;
-      const float var = sq / C - mu * mu;
-      out[static_cast<size_t>(b) * 2 * npos + pos] = mu;
-      out[(static_cast<size_t>(b) * 2 + 1) * npos + pos] = 1.f / sqrtf(var + eps);
+  }
+  __syncthreads();
+  for (int lp = threadIdx.x; lp < BM; lp += T) {
+    const int pos = n0 + lp;
+    if (pos >= npos) continue;
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      sum += red[w * BM + lp].x;
+      sq += red[w * BM + lp].y;
     }
+    const float mu = sum / kLnC;
+    const float var = sq / kLnC - mu * mu;
+    out[static_cast<size_t>(b) * 2 * npos + pos] = mu;
+    out[(static_cast<size_t>(b) * 2 + 1) * npos + pos] = 1.f / sqrtf(var + eps);
   }
 }
 
@@ -512,17 +689,22 @@ extern "C" {
 // blocks: nblocks (<= 4) descriptors: pd[i] (b, r[i], n), s[i] (b, n) or
 // null, sum(r) == rtot. uc: (b, rtot, c); smat: (n, c); a: (b, n) or null;
 // out: (b, 2, n) = (mean, 1/sqrt(var + eps)) over the c channels of
-// x = a * S + P_eff^T uc. c must be 256.
+// x = a * S + P_eff^T uc. c must be 256; every pointer 16-byte aligned.
 int sam6d_factored_ln_stats(const float* const* pd, const float* const* s,
                             const int* r, int nblocks, const float* uc,
                             const float* smat, const float* a, float* out, int b,
                             int n, int c, int rtot, float eps,
                             cudaStream_t stream) {
-  if (!blocks_ok(r, nblocks, rtot, 1 << 20)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!blocks_ok(r, nblocks, rtot, 1 << 20) || c != kLnC)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Blocks bl = make_blocks(pd, s, r, nblocks);
-  const dim3 grid((n + kLnBN - 1) / kLnBN, b);
-  if (c != 256) return static_cast<int>(cudaErrorInvalidValue);
-  ln_stats_kernel<8><<<grid, kThreads, 0, stream>>>(bl, uc, smat, a, out, n, rtot, eps);
+  const cudaError_t err =
+      cudaFuncSetAttribute(ln_stats_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kLnSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kLnBM - 1) / kLnBM, b);
+  ln_stats_tc_kernel<<<grid, kLnThreads, kLnSmemBytes, stream>>>(bl, uc, smat, a, out, n,
+                                                                 rtot, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

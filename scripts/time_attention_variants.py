@@ -1,10 +1,11 @@
 """Time the head-major attention kernel (K8, K9) built from a given copy of
-`sam6d_torch/csrc/`, beside K5 on the same qkv projection, on one GPU.
+`sam6d_torch/csrc/`, beside K5 on the same qkv projection, K1, and the
+factored LayerNorm statistics (K2) beside K3 and K4, on one GPU.
 
 Used to compare kernel variants: copy `sam6d_torch/csrc/` to a directory,
 edit the copy, and run
 
-    python3 scripts/time_attention_variants.py DIR [DIR ...]
+    python3 scripts/time_attention_variants.py [--sam] DIR [DIR ...]
 
 Each directory is built into `DIR/_build/` and timed in its own process (the
 library is bound once a process), in the order given; pass the unedited
@@ -14,7 +15,12 @@ directory: its ptxas registers and spills, K8 at 16x16x1025x64 and K9 at
 16x16x257x64 on the (B, H, N, hd) views of a qkv projection (CUDA-event
 medians of 20 runs, `chip_smoke.cuda_ms`), K5 on the same qkv at both
 lengths, K1 at SAM's global (1x4096) and windowed (25x196) shapes, 16
-heads of 80, and each kernel's max |diff| from its plain version.
+heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
+116 (layer 2), K3 at ranks 59 and 118 and K4 at rank 59 as controls, and
+each kernel's max |diff| from its plain version (K2: mu's, and 1/sigma's
+relative). With `--sam`, also the ViT-H SAM's iou pass and
+`generate_masks_device` on a random 480x640 frame (random weights, the load
+pinned as `chip_smoke.py` pins it; CUDA-event medians of 3 runs).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def time_one(csrc: Path) -> str:
+def time_one(csrc: Path, sam: bool) -> str:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -58,7 +64,8 @@ def time_one(csrc: Path) -> str:
     fields = [f"head-major<64> {regs('head_major_attention_kernel', 64)}",
               f"<128> {regs('head_major_attention_kernel', 128)}",
               f"K5<64> {regs('attention_qkv_kernel', 64)}",
-              f"K1<80> {regs('attention_relpos_kernel', 80)}"]
+              f"K1<80> {regs('attention_relpos_kernel', 80)}",
+              f"K2 {[rec for name, rec in ptxas.items() if 'ln_stats' in name]}"]
     for name, fn, plain, n in (
             ("K8", att.fused_attention_cuda, att.fused_attention_plain, 1025),
             ("K9", att.fused_attention_small_cuda, att.fused_attention_small_plain, 257)):
@@ -78,13 +85,92 @@ def time_one(csrc: Path) -> str:
                      - relpos.flash_attention_relpos_plain(*args)).abs().max())
         ms = cs.cuda_ms(lambda: relpos.flash_attention_relpos_cuda(*args), reps=20)
         fields.append(f"{name} {ms:.4f} ms, max |diff| {err:.2e}")
+    fields += factored_fields(rng, cs)
+    if sam:
+        fields += sam_fields(cs)
     return f"{csrc.name}: " + "; ".join(fields)
 
 
+def sam_fields(cs):
+    import numpy as np
+    import torch
+    from sam6d_torch import use_strict_fp32
+    from sam6d_torch.core.config import SAMConfig
+    from sam6d_torch.pipelines.sam_amg import SAMSegmentor
+    use_strict_fp32()
+    seg = SAMSegmentor(SAMConfig(pred_iou_thresh=-10.0, stability_score_thresh=0.0,
+                                 max_proposals=128), seed=0, device="cuda")
+    rgb = (np.random.RandomState(1).rand(480, 640, 3) * 255).astype(np.uint8)
+    resized, _, (hs, ws), (h_in, w_in) = seg.preprocess_frame_u8(rgb)
+    _, _, pts = seg.frame_constants(hs, ws, h_in, w_in)
+    with torch.inference_mode():
+        emb = seg._encode_u8(torch.as_tensor(resized, device=seg.device))
+        pe = seg.sam.prompt_encoder.dense_pe()
+        iou = cs.cuda_ms(lambda: seg._iou_all_impl(emb, pe, pts), reps=3)
+    dev = cs.cuda_ms(lambda: seg.generate_masks_device(rgb), reps=3)
+    return [f"iou pass {iou:.2f} ms", f"generate_masks_device {dev:.2f} ms"]
+
+
+def factored_state(rng, ranks, scaled, with_a, B=128, N=4096, C=256, d=128):
+    """The iou pass's factor state at its main-path size: blocks of raw rows
+    in [0, 1) with positive per-position scales, S, U, UK/UV, a and the
+    token/position operands of K3 and K4, made on the card."""
+    import torch
+
+    def t(*shape, lo=0.0, scale=1.0, normal=True):
+        x = torch.randn(*shape, device="cuda") if normal else torch.rand(*shape, device="cuda")
+        return x * scale + lo
+
+    torch.manual_seed(int(rng.randint(1 << 30)))
+    blocks = tuple((t(B, r, N, normal=False), t(B, N, lo=0.5, normal=False) if s else None)
+                   for r, s in zip(ranks, scaled))
+    R = sum(ranks)
+    return dict(blocks=blocks, S=t(N, C), U=t(B, R, C, scale=0.3), UK=t(B, R, d, scale=0.3),
+                UV=t(B, R, d, scale=0.3),
+                a=t(B, N, lo=0.5, normal=False) if with_a else None,
+                q=t(B, 7, d, scale=0.25), KS=t(N, d, scale=0.25), KC=t(N, d, scale=0.25),
+                VS=t(N, d))
+
+
+def factored_fields(rng, cs):
+    from sam6d_torch.kernels import factored as fk
+    fields = []
+    for ranks, scaled, with_a in (((57,), (False,), False), ((57, 2, 57), (True, True, False), True)):
+        st = factored_state(rng, ranks, scaled, with_a)
+        args = (st["blocks"], st["U"], st["S"], st["a"])
+        mu, inv = fk.factored_ln_stats_cuda(*args)
+        mu_p, inv_p = fk.factored_ln_stats_plain(*args)
+        err = float((mu - mu_p).abs().max())
+        rel = float(((inv - inv_p).abs() / inv_p.abs()).max())
+        del mu, inv, mu_p, inv_p
+        ms = cs.cuda_ms(lambda: fk.factored_ln_stats_cuda(*args), reps=20)
+        fields.append(f"K2 rank {sum(ranks)} {ms:.4f} ms, mu |diff| {err:.2e}, "
+                      f"1/sigma rel {rel:.2e}")
+        del st, args
+    for ranks, scaled in (((57, 2), (True, False)), ((57, 2, 57, 2), (True, True, True, False))):
+        st = factored_state(rng, ranks, scaled, True)
+        args = (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
+                st["VS"], 8)
+        err = float((fk.factored_t2i_attention_cuda(*args)
+                     - fk.factored_t2i_attention_plain(*args)).abs().max())
+        ms = cs.cuda_ms(lambda: fk.factored_t2i_attention_cuda(*args), reps=20)
+        fields.append(f"K3 rank {sum(ranks)} {ms:.4f} ms, max |diff| {err:.2e}")
+        if len(ranks) == 2:
+            args = (st["q"], st["UK"], st["blocks"], st["a"], st["KS"], st["KC"], 8)
+            err = float((fk.factored_i2t_scores_cuda(*args)
+                         - fk.factored_i2t_scores_plain(*args)).abs().max())
+            ms = cs.cuda_ms(lambda: fk.factored_i2t_scores_cuda(*args), reps=20)
+            fields.append(f"K4 rank 59 {ms:.4f} ms, max |diff| {err:.2e}")
+        del st, args
+    return fields
+
+
 def main(argv):
-    if len(argv) == 2 and argv[0] == "--one":
-        print(time_one(Path(argv[1]).resolve()), flush=True)
+    if argv[:1] == ["--one"]:
+        print(time_one(Path(argv[1]).resolve(), "--sam" in argv[2:]), flush=True)
         return 0
+    sam = "--sam" in argv
+    argv = [a for a in argv if a != "--sam"]
     if not argv:
         print(__doc__)
         return 2
@@ -92,7 +178,8 @@ def main(argv):
                          capture_output=True, text=True).stdout.strip(), flush=True)
     rc = 0
     for d in argv:
-        rc |= subprocess.run([sys.executable, __file__, "--one", d]).returncode
+        rc |= subprocess.run([sys.executable, __file__, "--one", d]
+                             + (["--sam"] if sam else [])).returncode
     return rc
 
 

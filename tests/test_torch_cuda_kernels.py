@@ -277,16 +277,31 @@ FACTORED_ATOL, LN_INV_RTOL = 1e-4, 1e-3
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ranks,scaled,with_a", [
-    ((57,), (False,), False),                         # layer 1 LayerNorm
-    ((57, 2, 57), (True, True, False), True),         # layer 2 LayerNorm
+@pytest.mark.parametrize("ranks,scaled,with_a,B,N,u_mag", [
+    # layer 1 and layer 2 LayerNorm (the ids the two cases had before)
+    pytest.param((57,), (False,), False, 16, 4096, 1.0, id="ranks0-scaled0-False"),
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 4096, 1.0,
+                 id="ranks1-scaled1-True"),
+    pytest.param((1,), (True,), True, 16, 4096, 1.0, id="rank1"),
+    pytest.param((30, 2, 20, 9), (True, False, True, True), True, 16, 4096, 1.0,
+                 id="four-blocks-mixed-scales"),
+    pytest.param((5, 2, 3), (True, True, False), True, 16, 4096, 1.0, id="ranks-5+2+3"),
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 100, 1.0, id="ragged-N100"),
+    pytest.param((57, 2, 57), (True, True, False), True, 128, 4096, 1.0,
+                 id="main-path-B128-116"),
+    # the tensor cores' truncating accumulation over the longest chain, at
+    # four times the rank term's magnitude
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 4096, 4.0, id="stress-Ux4"),
 ])
-def test_factored_ln_stats_kernel_matches_plain(cuda_device, ranks, scaled, with_a):
-    st = factored_state(np.random.RandomState(11), 16, 4096, 256, 128, ranks, scaled,
+def test_factored_ln_stats_kernel_matches_plain(cuda_device, ranks, scaled, with_a, B, N,
+                                                u_mag):
+    st = factored_state(np.random.RandomState(11), B, N, 256, 128, ranks, scaled,
                         with_a, cuda_device)
-    mu, inv = factored.factored_ln_stats_cuda(st["blocks"], st["U"], st["S"], st["a"])
-    mu_p, inv_p = factored.factored_ln_stats_plain(st["blocks"], st["U"], st["S"], st["a"])
+    U = st["U"] * u_mag
+    mu, inv = factored.factored_ln_stats_cuda(st["blocks"], U, st["S"], st["a"])
+    mu_p, inv_p = factored.factored_ln_stats_plain(st["blocks"], U, st["S"], st["a"])
     torch.cuda.synchronize()
+    assert mu.shape == inv.shape == (B, N)
     assert float((mu - mu_p).abs().max()) <= FACTORED_ATOL
     assert float(((inv - inv_p).abs() / inv_p.abs()).max()) <= LN_INV_RTOL
 

@@ -352,3 +352,71 @@ def test_library_name_follows_header_bytes(tmp_path):
     assert edited != _build.library_path()
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.library_path(csrc) not in (edited, _build.library_path())
+
+
+def _ln_stats_emulated(P, U, S, a, mode, eps=1e-6):
+    """K2's arithmetic for one prompt: x = P^T U (P (R, N) the scaled factor
+    rows, U (R, C)), v = a S + x, then mu = E[v] and 1/sqrt(E[v^2] - mu^2 +
+    eps) over the C channels. "tf32x3" / "tf32" form x as the kernel does:
+    ranks zero-padded to 8, each k8 step's passes added to a float32 x (the
+    tensor cores' accumulator); "fp32" a float32 matmul; "fp64" the
+    reference, all in float64."""
+    if mode == "fp64":
+        x = P.astype(np.float64).T @ U.astype(np.float64)
+        v = a.astype(np.float64)[:, None] * S + x
+        mu = v.mean(-1)
+        return mu, 1.0 / np.sqrt((v * v).mean(-1) - mu * mu + eps)
+    if mode == "fp32":
+        x = P.T @ U
+    else:
+        R = P.shape[0]
+        Rp = -(-R // 8) * 8
+        Pp = np.zeros((Rp, P.shape[1]), np.float32)
+        Up = np.zeros((Rp, U.shape[1]), np.float32)
+        Pp[:R], Up[:R] = P, U
+        pb, ub = _tf32_rna(Pp), _tf32_rna(Up)
+        terms = [(pb, ub)]
+        if mode == "tf32x3":
+            terms = [(_tf32_rna(Pp - pb), ub), (pb, _tf32_rna(Up - ub)), (pb, ub)]
+        x = np.zeros((P.shape[1], U.shape[1]), np.float32)
+        for k0 in range(0, Rp, 8):
+            for pa, ua in terms:
+                x = (x + pa[k0:k0 + 8].T.astype(np.float64)
+                     @ ua[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+    v = (a.astype(np.float64)[:, None] * S + x).astype(np.float32)  # fmaf
+    C = np.float32(U.shape[1])
+    mu = v.sum(-1, dtype=np.float32) / C
+    var = (v * v).sum(-1, dtype=np.float32) / C - mu * mu
+    return mu, np.float32(1.0) / np.sqrt(var + np.float32(eps))
+
+
+@pytest.mark.parametrize("ranks,scaled", [
+    ((57,), (True,)),                     # layer 1's rank
+    ((57, 2, 57), (True, False, False)),  # layer 2's rank, 116
+])
+def test_three_pass_tf32_ln_stats_is_fp32_accurate(ranks, scaled):
+    """K2 forms each prompt's x tile as a three-pass TF32 product of the
+    P_eff tile and U. Emulated here on the factored state's distributions:
+    mu and 1/sigma lie within 1e-6 of float64, as with a float32 product,
+    while one TF32 pass is at least 100x worse (~1e-4, FACTORED_ATOL's
+    size, on mu); and the emulation agrees with factored_ln_stats_plain within the card's
+    tolerances."""
+    from test_torch_cuda_kernels import FACTORED_ATOL, LN_INV_RTOL
+    st = factored_state(np.random.RandomState(20), 2, 320, 256, 128, ranks, scaled, True)
+    P = factored.blocks_concat(st["blocks"]).numpy()
+    U, S, a = st["U"].numpy(), st["S"].numpy(), st["a"].numpy()
+    mu_p, inv_p = (t.numpy() for t in factored.factored_ln_stats_plain(
+        st["blocks"], st["U"], st["S"], st["a"]))
+    for i in range(len(P)):
+        mu64, inv64 = _ln_stats_emulated(P[i], U[i], S, a[i], "fp64")
+        err = {}
+        for mode in ("tf32x3", "tf32", "fp32"):
+            mu, inv = _ln_stats_emulated(P[i], U[i], S, a[i], mode)
+            err[mode] = (np.abs(mu - mu64).max(), (np.abs(inv - inv64) / inv64).max())
+        for mode in ("tf32x3", "fp32"):
+            assert max(err[mode]) <= 1e-6, (mode, err[mode])
+        assert err["tf32"][0] >= 100 * err["tf32x3"][0], err
+        assert err["tf32"][1] >= 100 * err["tf32x3"][1], err
+        mu, inv = _ln_stats_emulated(P[i], U[i], S, a[i], "tf32x3")
+        assert np.abs(mu - mu_p[i]).max() <= FACTORED_ATOL
+        assert (np.abs(inv - inv_p[i]) / inv_p[i]).max() <= LN_INV_RTOL
