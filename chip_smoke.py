@@ -674,6 +674,21 @@ def _ln_stats_work(args):
     return 2 * B * N * R * C, 4 * B * N * C, nbytes
 
 
+def _i2t_work(args):
+    """(FLOP of the products K4 runs on the tensor cores: the rank-R score
+    term and the 16-channel head-score term; FLOP of a QS + QC, the low-rank
+    factor T1 and the softmax; bytes) of one factored_i2t_scores call."""
+    kt, UQ, blocks, a, QS, QC, heads = args
+    (B, T, d), N = kt.shape, QS.shape[0]
+    R = 0 if UQ is None else UQ.shape[1]
+    hd, HT = d // heads, heads * T
+    nbytes = _blocks_bytes(blocks) + 4 * (kt.numel() + (0 if UQ is None else UQ.numel())
+                                          + (0 if a is None else a.numel())
+                                          + 2 * QS.numel() + B * (HT + 1) * N)
+    return (2 * B * HT * N * (R + hd), 2 * B * N * d + 2 * B * HT * R * hd + 5 * B * HT * N,
+            nbytes)
+
+
 def _factored_bound(name, args):
     """(least ms, bound_by) of one factored call on its own arguments."""
     if name == "factored_ln_stats":
@@ -689,30 +704,32 @@ def _factored_bound(name, args):
         nbytes = _blocks_bytes(blocks) + 4 * (2 * qp.numel() + UK.numel() + UV.numel()
                                               + a.numel() + 3 * KS.numel())
     else:
-        kt, UQ, blocks, a, QS, QC, heads = args
+        kt, UQ, _, _, QS, _, heads = args
         (B, T, d), N = kt.shape, QS.shape[0]
         R = 0 if UQ is None else UQ.shape[1]
         hd, HT = d // heads, heads * T
         flops = B * HT * N * (4 * hd + 2 * R + 5) + 2 * B * HT * R * hd
-        nbytes = _blocks_bytes(blocks) + 4 * (kt.numel() + (0 if UQ is None else UQ.numel())
-                                              + (0 if a is None else a.numel())
-                                              + 2 * QS.numel() + B * (HT + 1) * N)
+        nbytes = _i2t_work(args)[2]
     return bound(flops, nbytes)
 
 
 def _check_factored(calls, ptxas):
     """K2-K4 against their plain versions on the captured chunk states;
     each record is timed at the larger (second) call, the first call's
-    numbers kept beside it. K2 runs its product on the tensor cores: its
-    record adds the three-pass TF32 bound and its ptxas registers (a spill
-    fails)."""
+    numbers kept beside it. K2 and K4 run their products on the tensor
+    cores: their records add the three-pass TF32 bound and their ptxas
+    registers (a spill fails)."""
     import torch
     from sam6d_torch.kernels import factored as fk
 
-    regs, spills = ptxas_record(ptxas, "ln_stats_tc_kernel")
-    log(f"factored_ln_stats: ptxas {regs} registers, {spills} bytes spilled")
-    if spills:
-        raise AssertionError(f"factored_ln_stats spills {spills} bytes")
+    tc = {"factored_ln_stats": ("ln_stats_tc_kernel", _ln_stats_work),
+          "factored_i2t_scores": ("i2t_tc_kernel", _i2t_work)}
+    ptx = {}
+    for n, (kernel, _) in tc.items():
+        regs, spills = ptx[n] = ptxas_record(ptxas, kernel)
+        log(f"{n}: ptxas {regs} registers, {spills} bytes spilled")
+        if spills:
+            raise AssertionError(f"{n} spills {spills} bytes")
     records = []
     for n, line in zip(FACTORED, (296, 350, 167)):
         cuda_fn, plain_fn = getattr(fk, n + "_cuda"), getattr(fk, n + "_plain")
@@ -734,23 +751,23 @@ def _check_factored(calls, ptxas):
                 ms = cuda_ms(lambda: cuda_fn(*args), reps=10)
                 plain_ms = cuda_ms(lambda: plain_fn(*args), reps=3)
             b_ms, b_by = _factored_bound(n, args)
-            tc_ms = tc_bound(*_ln_stats_work(args)) if n == "factored_ln_stats" else None
+            tc_ms = tc_bound(*tc[n][1](args)) if n in tc else None
             blocks = args[{"factored_ln_stats": 0, "factored_t2i_attention": 3,
                            "factored_i2t_scores": 2}[n]]
             ranks = "+".join(str(pd.shape[1]) for pd, _ in blocks) or "0"
             B = (args[1] if n == "factored_ln_stats" else args[0]).shape[0]
-            tc = "" if tc_ms is None else f", three-pass TF32 bound {tc_ms:.4f} ms"
+            tc_desc = "" if tc_ms is None else f", three-pass TF32 bound {tc_ms:.4f} ms"
             log(f"{n}[B={B}, ranks {ranks}]: {desc}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){tc}")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){tc_desc}")
             if not ok:
                 raise AssertionError(f"{n} kernel differs from its plain version")
             rows.append(dict(err=err if n != "factored_ln_stats" else max(err, rel), ms=ms,
                              plain_ms=plain_ms, b_ms=b_ms, b_by=b_by, tc_ms=tc_ms,
                              ranks=ranks))
         first, last = rows[0], rows[-1]
-        extra = {} if n != "factored_ln_stats" else dict(
+        extra = {} if n not in tc else dict(
             tc_bound_ms=last["tc_ms"], first_call_tc_bound_ms=first["tc_ms"],
-            ptxas_registers=regs, ptxas_spill_bytes=spills)
+            ptxas_registers=ptx[n][0], ptxas_spill_bytes=ptx[n][1])
         records.append(dict(
             name=n + "_cuda", route="cuda", source="sam6d_torch/csrc/factored.cu",
             replaces=f"sam6d_tpu/kernels/factored_t2i.py:{line}",

@@ -23,10 +23,11 @@
 //    product in three-pass TF32 at 165 TFLOP/s); P_eff (243 MB at R = 116)
 //    is read once (~0.08 ms);
 //  - t2i: ~4*B*HT*R*N FLOP (14 GFLOP at R = 118), compute-bound (~0.2 ms);
-//  - i2t: writes B*(HT+1)*N floats (120 MB), 2*B*HT*R*N FLOP (3.5 GFLOP at
-//    R = 59); bytes and operations about even (~0.05 ms).
+//  - i2t: writes B*(HT+1)*N floats (120 MB) and reads P_eff (126 MB at
+//    R = 59), 2*B*HT*R*N FLOP (3.5 GFLOP at R = 59): bytes-bound once the
+//    products run in three-pass TF32 (~0.076 ms at R = 59, ~0.037 at R = 0).
 //
-// Designs (t2i and i2t simple and right first, on the fp32 units):
+// Designs (t2i simple and right first, on the fp32 units):
 //  - ln_stats: one block of 8 warps per (prompt, 64 positions), two
 //    blocks an SM, forms its tile of x (64 positions x 256 channels) on the
 //    tensor cores as the three-pass TF32 product of the P_eff tile and U
@@ -51,11 +52,15 @@
 //    value part accumulated per lane (4 outputs) and the low-rank value
 //    factor T2 = p P_eff^T (8 rows x 4 ranks per lane). Only the head-diagonal
 //    output blocks are written: (B, T, d).
-//  - i2t: one block per (prompt, 128 positions), one warp per head, 4
-//    positions per lane: T = U_Q k_h^T first, scores in registers, the
-//    softmax over the T tokens of each head is per position (no reduction
-//    across lanes), and the (HT + 1) x 128 probability tile is written once,
-//    with the trailing row of ones.
+//  - i2t: one block of 8 warps per (prompt, 64 positions), warp h = head
+//    h, its score tile (64 positions x 8 token rows) on the tensor cores in
+//    three-pass TF32: the head-score term (a QS + QC) k_h^T as 2 k8 steps,
+//    then the rank term P_eff^T T1 (T1 = U_Q k_h^T, formed first on the fp32
+//    units) with the P_eff tile staged by cp.async and split once into
+//    shared memory (PeffStage, written to serve t2i too); the softmax over
+//    each head's tokens is a quad reduction, and the (HT + 1) x 64
+//    probability tile, with the trailing row of ones, leaves through shared
+//    memory as whole rows.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -67,6 +72,7 @@ using sam6d::cp_async16;
 using sam6d::cp_async_commit;
 using sam6d::cp_async_wait;
 using sam6d::mma_tf32x3;
+using sam6d::quad_max;
 using sam6d::quad_sum;
 using sam6d::split_tf32;
 
@@ -574,93 +580,330 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------- P_eff staging
+//
+// One stage of a P_eff tile: KR ranks x W positions of prompt b, from rank
+// r0 and position p0, through a ring slot of raw values and their scales
+// into a pair of TF32 planes. A thread owns the same 16-byte chunks (4
+// positions of one rank row) in both steps:
+//  - issue: resolves the scaled-block descriptor once for the chunk's rank
+//    row and copies the values, and that block's scales (ones where the
+//    block has none), by cp.async; ranks past rtot and positions past npos
+//    are zero-filled. With npos % 4 != 0 (rows not 16-byte aligned) it
+//    takes 4-byte loads, stored as they arrive;
+//  - split: once the stage has landed, scales the chunk (the fp32 product
+//    value * scale), splits it into TF32 big/small and stores both into
+//    planes [rank][W + 4 words]: a warp's 16-byte stores cover whole rows,
+//    and the A-fragment reads of ranks (2t, 2t + 1) at positions g, g + 8
+//    fall in 32 different banks.
+template <int KR, int W, int T>
+struct PeffStage {
+  static constexpr int kLd = W + 4;        // words a plane row
+  static constexpr int kWords = KR * W;    // words of a ring slot (values or scales)
+  static constexpr int kPlane = KR * kLd;  // words of one plane
+  static constexpr int kChunks = KR * W / 4;
+  static constexpr int kPer = (kChunks + T - 1) / T;  // chunks a thread
+  static_assert(W % 16 == 0 && (kChunks % T == 0 || kChunks < T), "whole chunks");
+
+  // `fill`: any valid global address, the source of the zero-filled copies
+  __device__ __forceinline__ static void issue(float* val, float* scl, const Blocks& bl,
+                                               int b, int r0, int p0, int npos, int rtot,
+                                               const float* fill) {
+    const bool vec = (npos & 3) == 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * T;
+      if (kChunks < T && c >= kChunks) break;
+      const int rr = c / (W / 4), q = 4 * (c % (W / 4));
+      const int r = r0 + rr, pos = p0 + q;
+      const float* row = nullptr;
+      const float* sc = nullptr;
+      if (r < rtot && pos < npos) {
+        int off = 0;
+#pragma unroll
+        for (int k = 0; k < kMaxBlocks; ++k) {
+          if (!row && k < bl.n && r < off + bl.r[k]) {
+            row = bl.pd[k] + (static_cast<size_t>(b) * bl.r[k] + (r - off)) * npos + pos;
+            if (bl.s[k]) sc = bl.s[k] + static_cast<size_t>(b) * npos + pos;
+          }
+          off += bl.r[k];
+        }
+      }
+      float* vd = val + rr * W + q;
+      float* sd = scl + rr * W + q;
+      if (vec) {
+        cp_async16(vd, row ? row : fill, row != nullptr);
+        if (sc)
+          cp_async16(sd, sc, true);
+        else
+          *reinterpret_cast<float4*>(sd) = make_float4(1.f, 1.f, 1.f, 1.f);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = row && pos + j < npos;
+          vd[j] = ok ? __ldg(row + j) : 0.f;
+          sd[j] = ok && sc ? __ldg(sc + j) : 1.f;
+        }
+      }
+    }
+  }
+
+  // this thread's chunks of a landed slot into the planes: big at `planes`,
+  // small at planes + kPlane
+  __device__ __forceinline__ static void split(const float* val, const float* scl,
+                                               uint32_t* planes) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * T;
+      if (kChunks < T && c >= kChunks) break;
+      const int rr = c / (W / 4), q = 4 * (c % (W / 4));
+      const float4 x = *reinterpret_cast<const float4*>(val + rr * W + q);
+      const float4 w = *reinterpret_cast<const float4*>(scl + rr * W + q);
+      uint4 big, small;
+      split_tf32(x.x * w.x, big.x, small.x);
+      split_tf32(x.y * w.y, big.y, small.y);
+      split_tf32(x.z * w.z, big.z, small.z);
+      split_tf32(x.w * w.w, big.w, small.w);
+      *reinterpret_cast<uint4*>(planes + rr * kLd + q) = big;
+      *reinterpret_cast<uint4*>(planes + kPlane + rr * kLd + q) = small;
+    }
+  }
+};
+
 // ----------------------------------------------------------------- i2t
+//
+// Scores (positions x head h's 8 token rows) by three-pass TF32 mma.sync
+// m16n8k8: M = positions, N = tokens (rows past t zero), K = 16 channels
+// for the head-score term, then the ranks zero-padded to 8.
 
-constexpr int kI2tBN = 128;  // positions per block (4 per lane)
-constexpr int kI2tRC = 32;   // factor rows per staged chunk
+constexpr int kI2tBN = 64;           // positions a block: 4 m16 tiles a warp
+constexpr int kI2tKR = 8;            // ranks a stage: one k8 step
+constexpr int kI2tStages = 3;        // stages of the cp.async ring
+constexpr int kI2tMinBlocks = 4;     // blocks an SM: at most 64 registers a thread
+constexpr int kI2tLdo = kI2tBN + 4;  // words a probability row
+using I2tStage = PeffStage<kI2tKR, kI2tBN, kThreads>;
+// The ring of values and scales and two plane pairs, which the probability
+// tile replaces after the loop (20.5 KB), then T1 [head][token][ldt] (18 KB
+// at rank 59)
+constexpr size_t kI2tLoopBytes =
+    sizeof(float) * (2 * kI2tStages * I2tStage::kWords + 2 * 2 * I2tStage::kPlane);
+constexpr size_t kI2tOutBytes = sizeof(float) * kHeads * kRows * kI2tLdo;
+constexpr size_t kI2tTileBytes = kI2tLoopBytes > kI2tOutBytes ? kI2tLoopBytes : kI2tOutBytes;
 
-size_t i2t_smem_bytes() {
-  return sizeof(float) * (kHeads * kHd * kRows + kMaxRank * kHeads * kRows +
-                          kI2tRC * kI2tBN);
+// Words a T1 row: the ranks padded to a stage, then to 32, plus 8, so the
+// float2 B-fragment reads are conflict-free; 0 without ranks.
+int i2t_t1_ld(int rtot) {
+  const int rp = (rtot + kI2tKR - 1) / kI2tKR * kI2tKR;
+  return rp == 0 ? 0 : (rp + 31) / 32 * 32 + 8;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    i2t_kernel(const float* __restrict__ kt, const float* __restrict__ uq,
-               Blocks bl, const float* __restrict__ a,
-               const float* __restrict__ qs, const float* __restrict__ qc,
-               float* __restrict__ out, int t_tok, int npos, int rtot) {
-  extern __shared__ float4 smem4[];
-  float* ksm = reinterpret_cast<float*>(smem4);  // [head][channel][row]
-  float* low = ksm + kHeads * kHd * kRows;       // [rank][(head, row)]
-  float* ts = low + kMaxRank * kHeads * kRows;   // [kI2tRC][kI2tBN] P_eff chunk
+// One block per (prompt, kI2tBN positions), warp h = head h, four blocks an
+// SM. Each warp owns the n8 tile of its head's tokens and the block's
+// positions as 4 m16 tiles: 16 fp32 accumulators a lane. (128 positions in
+// 8 m16 tiles, 118 registers and two blocks an SM, measured 0.17 / 0.35 ms
+// against 0.12 / 0.32 at ranks 0 / 59 on an H100: PERF.md.)
+//  - T1_h = UQ_h k_h^T (R x 8) on the fp32 units into shared memory, lanes
+//    (rank g of 8, channels 4t..4t+3): a quad reads a row's 64-byte head
+//    slice, so every sector a float4 load touches is used; the partial dots
+//    are reduced and scattered over the quad;
+//  - the head-score term (a QS + QC)_h k_h^T as 2 k8 steps: each lane reads
+//    its positions' 16-byte QS and QC slices (a quad covers a 64-byte row
+//    slice; every element is used by one lane once, so it is not staged),
+//    forms fmaf(a, QS, QC) and splits it; k = t is channel 4t + 2kk and k =
+//    t + 4 channel 4t + 2kk + 1, so the B fragment is one float4 of k_h;
+//  - the rank term P_eff^T T1 in stages of one k8 step (k = t is rank 2t, k =
+//    t + 4 rank 2t + 1), P_eff staged by PeffStage kI2tStages - 1 stages
+//    ahead, T1's B fragment one float2 a step, split as read;
+//  - the softmax over the head's tokens per position: each lane holds tokens
+//    2t, 2t + 1 of positions g, g + 8, so it is a quad reduction, tokens
+//    past t at -inf (__expf, one reciprocal a position). The probabilities
+//    go into a tile [(h, token)][position] over the ring, and every row,
+//    then the row of ones, is written as 256-byte runs of float4.
+__global__ void __launch_bounds__(kThreads, kI2tMinBlocks)
+    i2t_tc_kernel(const float* __restrict__ kt, const float* __restrict__ uq, Blocks bl,
+                  const float* __restrict__ a, const float* __restrict__ qs,
+                  const float* __restrict__ qc, float* __restrict__ out, int t_tok,
+                  int npos, int rtot, int ldt) {
+  using St = I2tStage;
+  constexpr int NS = kI2tStages, BN = kI2tBN, KR = kI2tKR, LDO = kI2tLdo;
+  constexpr int LD = St::kLd, MT = BN / 16;
+  static_assert(KR == 8, "one k8 step a stage");
+  extern __shared__ uint4 smem_u4[];
+  float* vr = reinterpret_cast<float*>(smem_u4);                     // [NS][KR][BN]
+  float* sr = vr + NS * St::kWords;                                  // [NS][KR][BN]
+  uint32_t* ps = reinterpret_cast<uint32_t*>(sr + NS * St::kWords);  // [2][2][KR][LD]
+  float* ot = vr;                                                    // [(h, token)][LDO]
+  float* t1 = vr + kI2tTileBytes / sizeof(float);                    // [head][token][ldt]
+
   const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y, n0 = blockIdx.x * kI2tBN;
-  const int ht = kHeads * t_tok;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y, n0 = blockIdx.x * BN;
+  const int nst = (rtot + KR - 1) / KR;
 
-  load_heads(ksm, kt, b, t_tok);
-  __syncthreads();
-  if (rtot > 0) low_rank_factor(low, ksm, uq, b, rtot);
-
-  float s[kRows][4];
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int pos = n0 + lane * 4 + jj;
-    float sj[kRows];
-    if (pos < npos) {
-      head_scores(sj, ksm, h, qs + static_cast<size_t>(pos) * kD + h * kHd,
-                  qc + static_cast<size_t>(pos) * kD + h * kHd,
-                  a ? a[static_cast<size_t>(b) * npos + pos] : 1.f);
-    } else {
-#pragma unroll
-      for (int tt = 0; tt < kRows; ++tt) sj[tt] = 0.f;
-    }
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt) s[tt][jj] = sj[tt];
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nst)
+      St::issue(vr + s * St::kWords, sr + s * St::kWords, bl, b, KR * s, n0, npos, rtot, qs);
+    cp_async_commit();
   }
-  for (int r0 = 0; r0 < rtot; r0 += kI2tRC) {
-    __syncthreads();  // the low-rank factor is written; the previous chunk is read
-    for (int e = threadIdx.x; e < kI2tRC * kI2tBN; e += kThreads) {
-      const int rr = e / kI2tBN, j = e % kI2tBN;
-      ts[e] = (r0 + rr < rtot && n0 + j < npos) ? p_eff(bl, b, r0 + rr, n0 + j, npos)
-                                                : 0.f;
-    }
-    __syncthreads();
-    const int rn = min(kI2tRC, rtot - r0);
-    for (int rr = 0; rr < rn; ++rr) {
-      const float* lr = &low[(r0 + rr) * kHeads * kRows + h * kRows];
-      const float4 ta = *reinterpret_cast<const float4*>(lr);
-      const float4 tb = *reinterpret_cast<const float4*>(lr + 4);
-      const float tv[kRows] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
-      const float4 p4 = *reinterpret_cast<const float4*>(&ts[rr * kI2tBN + lane * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+
+  const float* kh = kt + static_cast<size_t>(b) * t_tok * kD + h * kHd;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (nst > 0) {
+    float4 kv[kRows];
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt)
+      kv[tt] = tt < t_tok ? __ldg(reinterpret_cast<const float4*>(kh + tt * kD + 4 * t))
+                          : zero4;
+    const float* ub = uq + static_cast<size_t>(b) * rtot * kD + h * kHd + 4 * t;
+    const bool hi = t & 2, lo = t & 1;
+    for (int r0 = 0; r0 < KR * nst; r0 += 8) {
+      const int r = r0 + g;
+      const float4 u = r < rtot ? __ldg(reinterpret_cast<const float4*>(ub + r * kD)) : zero4;
+      float v[kRows];
 #pragma unroll
       for (int tt = 0; tt < kRows; ++tt)
+        v[tt] = fmaf(u.w, kv[tt].w, fmaf(u.z, kv[tt].z, fmaf(u.y, kv[tt].y, u.x * kv[tt].x)));
+      // over the quad: lanes t ^ 2 swap halves, then t ^ 1 quarters; lane t
+      // ends with tokens 2t, 2t + 1
+      float w[4], z[2];
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[tt][jj] = fmaf(tv[tt], pv[jj], s[tt][jj]);
+      for (int i = 0; i < 4; ++i)
+        w[i] = (hi ? v[4 + i] : v[i]) +
+               __shfl_xor_sync(0xffffffffu, hi ? v[i] : v[4 + i], 2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        z[i] = (lo ? w[2 + i] : w[i]) +
+               __shfl_xor_sync(0xffffffffu, lo ? w[i] : w[2 + i], 1);
+      t1[(h * kRows + 2 * t) * ldt + r] = z[0];
+      t1[(h * kRows + 2 * t + 1) * ldt + r] = z[1];
     }
   }
 
+  float acc[MT][4];
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int pos = n0 + lane * 4 + jj;
-    if (pos >= npos) continue;
-    float mx = -CUDART_INF_F;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int tt = 0; tt < kRows; ++tt)
-      if (tt < t_tok) mx = fmaxf(mx, s[tt][jj]);
-    float e[kRows], sum = 0.f;
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+
+  {  // the head-score term
+    const float4 kg =
+        g < t_tok ? __ldg(reinterpret_cast<const float4*>(kh + g * kD + 4 * t)) : zero4;
+    uint32_t kb[2][2], ksm[2][2];
+    split_tf32(kg.x, kb[0][0], ksm[0][0]);
+    split_tf32(kg.y, kb[0][1], ksm[0][1]);
+    split_tf32(kg.z, kb[1][0], ksm[1][0]);
+    split_tf32(kg.w, kb[1][1], ksm[1][1]);
 #pragma unroll
-    for (int tt = 0; tt < kRows; ++tt) {
-      e[tt] = tt < t_tok ? expf(s[tt][jj] - mx) : 0.f;
-      sum += e[tt];
+    for (int mt = 0; mt < MT; ++mt) {
+      float x[2][4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pos = n0 + 16 * mt + 8 * hh + g;
+        float4 q4 = zero4, c4 = zero4;
+        float av = 1.f;
+        if (pos < npos) {
+          const size_t o = static_cast<size_t>(pos) * kD + h * kHd + 4 * t;
+          q4 = __ldg(reinterpret_cast<const float4*>(qs + o));
+          c4 = __ldg(reinterpret_cast<const float4*>(qc + o));
+          if (a) av = __ldg(a + static_cast<size_t>(b) * npos + pos);
+        }
+        x[hh][0] = fmaf(av, q4.x, c4.x);
+        x[hh][1] = fmaf(av, q4.y, c4.y);
+        x[hh][2] = fmaf(av, q4.z, c4.z);
+        x[hh][3] = fmaf(av, q4.w, c4.w);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const float af[4] = {x[0][2 * kk], x[1][2 * kk], x[0][2 * kk + 1], x[1][2 * kk + 1]};
+        uint32_t ab[4], as[4];
+        sam6d::split_a(af, ab, as);
+        mma_tf32x3(acc[mt], ab, as, kb[kk], ksm[kk]);
+      }
     }
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt)
-      if (tt < t_tok)
-        out[(static_cast<size_t>(b) * (ht + 1) + h * t_tok + tt) * npos + pos] = e[tt] / sum;
   }
-  if (threadIdx.x < kI2tBN && n0 + threadIdx.x < npos)
-    out[(static_cast<size_t>(b) * (ht + 1) + ht) * npos + n0 + threadIdx.x] = 1.f;
+
+  // the rank term
+  if (nst > 0) {
+    cp_async_wait<NS - 2>();
+    St::split(vr, sr, ps);
+  }
+  for (int s = 0; s < nst; ++s) {
+    __syncthreads();  // stage s is in place (and T1); stage s - 1's slots are free
+    if (s + NS - 1 < nst) {
+      const int slot = (s + NS - 1) % NS;
+      St::issue(vr + slot * St::kWords, sr + slot * St::kWords, bl, b, KR * (s + NS - 1),
+                n0, npos, rtot, qs);
+    }
+    cp_async_commit();
+    const float2 tv =
+        *reinterpret_cast<const float2*>(t1 + (h * kRows + g) * ldt + KR * s + 2 * t);
+    uint32_t bb[2], bs[2];
+    split_tf32(tv.x, bb[0], bs[0]);
+    split_tf32(tv.y, bb[1], bs[1]);
+    const uint32_t* pb = ps + (s & 1) * 2 * St::kPlane + 2 * t * LD + g;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint32_t* p = pb + 16 * mt;
+      const uint32_t ab[4] = {p[0], p[8], p[LD], p[LD + 8]};
+      const uint32_t as[4] = {p[St::kPlane], p[St::kPlane + 8], p[St::kPlane + LD],
+                              p[St::kPlane + LD + 8]};
+      mma_tf32x3(acc[mt], ab, as, bb, bs);
+    }
+    if (s + 1 < nst) {  // this thread's copies of stage s + 1 have landed
+      cp_async_wait<NS - 2>();
+      const int slot = (s + 1) % NS;
+      St::split(vr + slot * St::kWords, sr + slot * St::kWords,
+                ps + ((s + 1) & 1) * 2 * St::kPlane);
+    }
+  }
+
+  // softmax over the head's tokens: c0/c1 (position g, tokens 2t, 2t + 1),
+  // c2/c3 (position g + 8)
+  const bool v0 = 2 * t < t_tok, v1 = 2 * t + 1 < t_tok;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float x0 = v0 ? acc[mt][2 * hh] : -CUDART_INF_F;
+      const float x1 = v1 ? acc[mt][2 * hh + 1] : -CUDART_INF_F;
+      const float mx = quad_max(fmaxf(x0, x1));  // token 0 is always there
+      const float e0 = v0 ? __expf(x0 - mx) : 0.f;
+      const float e1 = v1 ? __expf(x1 - mx) : 0.f;
+      const float inv = 1.f / quad_sum(e0 + e1);
+      acc[mt][2 * hh] = e0 * inv;
+      acc[mt][2 * hh + 1] = e1 * inv;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring and the planes
+  float* orow = ot + (h * t_tok + 2 * t) * LDO + g;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (v0) orow[16 * mt + 8 * hh] = acc[mt][2 * hh];
+      if (v1) orow[LDO + 16 * mt + 8 * hh] = acc[mt][2 * hh + 1];
+    }
+  }
+  __syncthreads();
+  const int ht = kHeads * t_tok;
+  const bool vec = (npos & 3) == 0;
+  float* ob = out + static_cast<size_t>(b) * (ht + 1) * npos + n0;
+  for (int e = threadIdx.x; e < (ht + 1) * (BN / 4); e += kThreads) {
+    const int row = e / (BN / 4), q = 4 * (e % (BN / 4)), pos = n0 + q;
+    const float4 v = row < ht ? *reinterpret_cast<const float4*>(ot + row * LDO + q)
+                              : make_float4(1.f, 1.f, 1.f, 1.f);
+    float* dst = ob + static_cast<size_t>(row) * npos + q;
+    if (vec) {
+      if (pos < npos) *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (pos + j < npos) dst[j] = vv[j];
+    }
+  }
 }
 
 Blocks make_blocks(const float* const* pd, const float* const* s, const int* r,
@@ -742,12 +985,14 @@ int sam6d_factored_i2t_scores(const float* kt, const float* uq,
   if (!blocks_ok(r, nblocks, rtot, kMaxRank) || t < 1 || t > kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   const Blocks bl = make_blocks(pd, s, r, nblocks);
-  const size_t bytes = i2t_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      i2t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  const int ldt = i2t_t1_ld(rtot);
+  const size_t bytes = kI2tTileBytes + sizeof(float) * kHeads * kRows * ldt;
+  const cudaError_t err = cudaFuncSetAttribute(
+      i2t_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kI2tBN - 1) / kI2tBN, b);
-  i2t_kernel<<<grid, kThreads, bytes, stream>>>(kt, uq, bl, a, qs, qc, out, t, n, rtot);
+  i2t_tc_kernel<<<grid, kThreads, bytes, stream>>>(kt, uq, bl, a, qs, qc, out, t, n, rtot,
+                                                   ldt);
   return static_cast<int>(cudaGetLastError());
 }
 

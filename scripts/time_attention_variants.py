@@ -5,7 +5,7 @@ factored LayerNorm statistics (K2) beside K3 and K4, on one GPU.
 Used to compare kernel variants: copy `sam6d_torch/csrc/` to a directory,
 edit the copy, and run
 
-    python3 scripts/time_attention_variants.py [--sam] DIR [DIR ...]
+    python3 scripts/time_attention_variants.py [--sam] [--factored] DIR [DIR ...]
 
 Each directory is built into `DIR/_build/` and timed in its own process (the
 library is bound once a process), in the order given; pass the unedited
@@ -16,11 +16,14 @@ directory: its ptxas registers and spills, K8 at 16x16x1025x64 and K9 at
 medians of 20 runs, `chip_smoke.cuda_ms`), K5 on the same qkv at both
 lengths, K1 at SAM's global (1x4096) and windowed (25x196) shapes, 16
 heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
-116 (layer 2), K3 at ranks 59 and 118 and K4 at rank 59 as controls, and
-each kernel's max |diff| from its plain version (K2: mu's, and 1/sigma's
-relative). With `--sam`, also the ViT-H SAM's iou pass and
-`generate_masks_device` on a random 480x640 frame (random weights, the load
-pinned as `chip_smoke.py` pins it; CUDA-event medians of 3 runs).
+116 (layer 2), K3 at ranks 59 and 118, K4 at ranks 0 (layer 1) and 59
+(layer 2; also over runs of 10 launches, which hide the host's dispatch),
+and each kernel's max |diff| from its plain version (K2: mu's,
+and 1/sigma's relative); `--factored` keeps only K2-K4. With `--sam`, also
+the ViT-H SAM's iou pass and `generate_masks_device` on a random 480x640
+frame (random weights, the load pinned as `chip_smoke.py` pins it;
+CUDA-event medians of 3 runs), and the iou pass's kernel split on the card
+(one run under torch.profiler).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def time_one(csrc: Path, sam: bool) -> str:
+def time_one(csrc: Path, sam: bool, factored_only: bool) -> str:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -65,8 +68,9 @@ def time_one(csrc: Path, sam: bool) -> str:
               f"<128> {regs('head_major_attention_kernel', 128)}",
               f"K5<64> {regs('attention_qkv_kernel', 64)}",
               f"K1<80> {regs('attention_relpos_kernel', 80)}",
-              f"K2 {[rec for name, rec in ptxas.items() if 'ln_stats' in name]}"]
-    for name, fn, plain, n in (
+              f"K2 {[rec for name, rec in ptxas.items() if 'ln_stats' in name]}",
+              f"K4 {[rec for name, rec in ptxas.items() if 'i2t' in name]}"]
+    for name, fn, plain, n in () if factored_only else (
             ("K8", att.fused_attention_cuda, att.fused_attention_plain, 1025),
             ("K9", att.fused_attention_small_cuda, att.fused_attention_small_plain, 257)):
         qkv = torch.from_numpy(rng.randn(16, n, 3 * 1024).astype(np.float32)).cuda()
@@ -75,7 +79,8 @@ def time_one(csrc: Path, sam: bool) -> str:
         ms = cs.cuda_ms(lambda: fn(q, k, v, 0.125), reps=20)
         k5 = cs.cuda_ms(lambda: attention_qkv.fused_attention_qkv_cuda(qkv, 16, 0.125), reps=20)
         fields.append(f"{name} {ms:.4f} ms (K5 {k5:.4f}), max |diff| {err:.2e}")
-    for name, B, (H, W) in (("K1 global", 1, (64, 64)), ("K1 windowed", 25, (14, 14))):
+    for name, B, (H, W) in () if factored_only else (
+            ("K1 global", 1, (64, 64)), ("K1 windowed", 25, (14, 14))):
         N = H * W
         qkv = torch.from_numpy(rng.randn(B, N, 3 * 1280).astype(np.float32)).cuda()
         rh, rw = (torch.from_numpy(rng.randn(2 * n - 1, 80).astype(np.float32) * 0.1).cuda()
@@ -107,8 +112,32 @@ def sam_fields(cs):
         emb = seg._encode_u8(torch.as_tensor(resized, device=seg.device))
         pe = seg.sam.prompt_encoder.dense_pe()
         iou = cs.cuda_ms(lambda: seg._iou_all_impl(emb, pe, pts), reps=3)
+        split = device_split(lambda: seg._iou_all_impl(emb, pe, pts))
     dev = cs.cuda_ms(lambda: seg.generate_masks_device(rgb), reps=3)
-    return [f"iou pass {iou:.2f} ms", f"generate_masks_device {dev:.2f} ms"]
+    return [f"iou pass {iou:.2f} ms", f"iou pass on the card {split}",
+            f"generate_masks_device {dev:.2f} ms"]
+
+
+def device_split(fn, top=8):
+    """One run of fn() under torch.profiler: the card's summed kernel time
+    and the kernels that took most of it (name, launches, ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    ops.sort(key=dev_us, reverse=True)
+    names = [e.key.replace("(anonymous namespace)::", "").split("(")[0][:40] for e in ops]
+    return f"{sum(map(dev_us, ops)) / 1e3:.2f} ms: " + ", ".join(
+        f"{n} x{e.count} {dev_us(e) / 1e3:.2f}" for n, e in zip(names[:top], ops))
 
 
 def factored_state(rng, ranks, scaled, with_a, B=128, N=4096, C=256, d=128):
@@ -155,22 +184,29 @@ def factored_fields(rng, cs):
                      - fk.factored_t2i_attention_plain(*args)).abs().max())
         ms = cs.cuda_ms(lambda: fk.factored_t2i_attention_cuda(*args), reps=20)
         fields.append(f"K3 rank {sum(ranks)} {ms:.4f} ms, max |diff| {err:.2e}")
-        if len(ranks) == 2:
-            args = (st["q"], st["UK"], st["blocks"], st["a"], st["KS"], st["KC"], 8)
-            err = float((fk.factored_i2t_scores_cuda(*args)
-                         - fk.factored_i2t_scores_plain(*args)).abs().max())
-            ms = cs.cuda_ms(lambda: fk.factored_i2t_scores_cuda(*args), reps=20)
-            fields.append(f"K4 rank 59 {ms:.4f} ms, max |diff| {err:.2e}")
+        if len(ranks) == 2:  # K4's two launches: layer 1 (rank 0, no a), layer 2
+            for name, args in (
+                    ("K4 rank 0", (st["q"], None, (), None, st["KS"], st["KC"], 8)),
+                    ("K4 rank 59", (st["q"], st["UK"], st["blocks"], st["a"], st["KS"],
+                                    st["KC"], 8))):
+                err = float((fk.factored_i2t_scores_cuda(*args)
+                             - fk.factored_i2t_scores_plain(*args)).abs().max())
+                ms = cs.cuda_ms(lambda: fk.factored_i2t_scores_cuda(*args), reps=20)
+                runs = cs.cuda_ms(lambda: fk.factored_i2t_scores_cuda(*args), reps=10,
+                                  launches=10)
+                fields.append(f"{name} {ms:.4f} ms ({runs:.4f} over runs of 10), "
+                              f"max |diff| {err:.2e}")
         del st, args
     return fields
 
 
 def main(argv):
     if argv[:1] == ["--one"]:
-        print(time_one(Path(argv[1]).resolve(), "--sam" in argv[2:]), flush=True)
+        print(time_one(Path(argv[1]).resolve(), "--sam" in argv[2:], "--factored" in argv[2:]),
+              flush=True)
         return 0
-    sam = "--sam" in argv
-    argv = [a for a in argv if a != "--sam"]
+    flags = [a for a in argv if a in ("--sam", "--factored")]
+    argv = [a for a in argv if a not in flags]
     if not argv:
         print(__doc__)
         return 2
@@ -179,7 +215,7 @@ def main(argv):
     rc = 0
     for d in argv:
         rc |= subprocess.run([sys.executable, __file__, "--one", d]
-                             + (["--sam"] if sam else [])).returncode
+                             + flags).returncode
     return rc
 
 

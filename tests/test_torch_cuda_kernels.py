@@ -341,3 +341,29 @@ def test_factored_i2t_scores_kernel_matches_plain(cuda_device, ranks, scaled, wi
     assert got.shape == want.shape == (16, 57, N)
     assert float((got - want).abs().max()) <= FACTORED_ATOL
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,ranks,scaled,with_a,N,T", [
+    pytest.param(128, (57, 2), (True, False), True, 4096, 7, id="main-path-rank-59"),
+    pytest.param(4, (64, 64), (True, False), True, 4096, 7, id="rank-128"),
+    pytest.param(4, (5, 16, 3, 9), (True, False, True, False), True, 1024, 7,
+                 id="four-blocks-mixed-scales"),
+    pytest.param(4, (57, 2), (True, False), True, 1024, 1, id="one-token"),
+    pytest.param(4, (57, 2), (True, False), False, 1024, 8, id="eight-tokens"),
+    pytest.param(4, (), (), False, 1024, 8, id="eight-tokens-rank-0"),
+    pytest.param(4, (17, 2), (True, False), True, 98, 7, id="n98-4-byte-staging"),
+])
+def test_factored_i2t_scores_kernel_covers_ranks_tokens_and_edges(cuda_device, B, ranks,
+                                                                   scaled, with_a, N, T):
+    """K4's tensor-core kernel at the main path's launch, its largest rank,
+    four scaled blocks, 1 and 8 tokens, and N = 98 (rows not 16-byte
+    aligned: the 4-byte staging path and a ragged position tile)."""
+    rng = np.random.RandomState(14)
+    st = factored_state(rng, B, N, 256, 128, ranks, scaled, with_a, cuda_device)
+    kt = torch.from_numpy(rng.randn(B, T, 128).astype(np.float32) * 0.25).to(cuda_device)
+    args = (kt, st["UK"] if ranks else None, st["blocks"], st["a"], st["KS"], st["KC"], 8)
+    got = factored.factored_i2t_scores_cuda(*args)
+    want = factored.factored_i2t_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, 8 * T + 1, N)
+    assert float((got - want).abs().max()) <= FACTORED_ATOL

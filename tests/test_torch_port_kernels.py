@@ -420,3 +420,90 @@ def test_three_pass_tf32_ln_stats_is_fp32_accurate(ranks, scaled):
         mu, inv = _ln_stats_emulated(P[i], U[i], S, a[i], "tf32x3")
         assert np.abs(mu - mu_p[i]).max() <= FACTORED_ATOL
         assert (np.abs(inv - inv_p[i]) / inv_p[i]).max() <= LN_INV_RTOL
+
+
+def _i2t_emulated(kt, UQ, P, a, QS, QC, mode, heads=8):
+    """K4's score tile and softmax for one prompt: kt (T, d) token keys, UQ
+    (R, d), P (R, N) the scaled factor rows, a (N,) or None, QS/QC (N, d).
+    Returns the probabilities (heads*T, N), row h*T + t. "tf32x3" / "tf32"
+    sum each head's scores as the kernel does: the head-score term (a QS +
+    QC) k_h^T (a QS + QC one fmaf) in two k8 steps of channels (4t + 2kk,
+    4t + 2kk + 1), then the rank term P^T T1 (T1 = UQ_h k_h^T in float32)
+    in k8 steps of ranks zero-padded to 8, each step's passes added to a
+    float32 score (the tensor cores' accumulator); "fp32" float32 matmuls;
+    "fp64" the reference, all in float64. The softmax over the T tokens is
+    taken in float32 (float64 for "fp64")."""
+    T, d = kt.shape
+    hd = d // heads
+    av = np.ones(QS.shape[0]) if a is None else a.astype(np.float64)
+    out = []
+    for h in range(heads):
+        sl = slice(h * hd, (h + 1) * hd)
+        k = kt[:, sl]
+        if mode == "fp64":
+            k64 = k.astype(np.float64)
+            s = av[:, None] * (QS[:, sl] @ k64.T) + QC[:, sl] @ k64.T
+            if len(P):
+                s = s + P.astype(np.float64).T @ (UQ[:, sl].astype(np.float64) @ k64.T)
+            e = np.exp(s - s.max(-1, keepdims=True))
+            out.append((e / e.sum(-1, keepdims=True)).T)
+            continue
+        if mode == "fp32":
+            s = (a[:, None] if a is not None else np.float32(1)) * (QS[:, sl] @ k.T) \
+                + QC[:, sl] @ k.T
+            if len(P):
+                s = s + P.T @ (UQ[:, sl] @ k.T)
+        else:
+            aq = (av[:, None] * QS[:, sl] + QC[:, sl]).astype(np.float32)
+            t1 = (UQ[:, sl].astype(np.float64) @ k.T).astype(np.float32) if len(P) \
+                else np.zeros((0, T), np.float32)
+            R = len(P)
+            Rp = -(-R // 8) * 8
+            Pp = np.zeros((Rp, P.shape[1] if R else QS.shape[0]), np.float32)
+            Tp = np.zeros((Rp, T), np.float32)
+            Pp[:R], Tp[:R] = P, t1
+            steps = [(aq[:, c], k[:, c].T) for c in
+                     ([0, 1, 4, 5, 8, 9, 12, 13], [2, 3, 6, 7, 10, 11, 14, 15])]
+            steps += [(Pp[r0:r0 + 8].T, Tp[r0:r0 + 8]) for r0 in range(0, Rp, 8)]
+            s = np.zeros((QS.shape[0], T), np.float32)
+            for x, y in steps:
+                xb, yb = _tf32_rna(x), _tf32_rna(y)
+                passes = [(xb, yb)]
+                if mode == "tf32x3":
+                    passes = [(_tf32_rna(x - xb), yb), (xb, _tf32_rna(y - yb)), (xb, yb)]
+                for u, v in passes:
+                    s = (s + u.astype(np.float64) @ v.astype(np.float64)).astype(np.float32)
+        e = np.exp(s - s.max(-1, keepdims=True))
+        out.append((e * (np.float32(1) / e.sum(-1, keepdims=True))).T)
+    return np.concatenate(out, axis=0)
+
+
+@pytest.mark.parametrize("ranks,scaled,with_a", [
+    ((), (), False),                   # layer 1's launch: rank 0, no a
+    ((57, 2), (True, False), True),    # layer 2's launch: rank 59
+])
+def test_three_pass_tf32_i2t_scores_are_fp32_accurate(ranks, scaled, with_a):
+    """K4 sums each head's scores on the tensor cores in three-pass TF32:
+    the head-score term, then the rank term in k8 steps. Emulated here on
+    the factored state's distributions, its probabilities lie within 1e-6 of
+    float64, as with float32 products, while one TF32 pass is at least 100x
+    worse (~1e-4 to 5e-4: FACTORED_ATOL's size); and they agree with
+    factored_i2t_scores_plain within FACTORED_ATOL."""
+    from test_torch_cuda_kernels import FACTORED_ATOL
+    st = factored_state(np.random.RandomState(21), 2, 320, 256, 128, ranks, scaled, with_a)
+    kt, UQ, QS, QC = (st[k].numpy() for k in ("q", "UK", "KS", "KC"))
+    a = None if st["a"] is None else st["a"].numpy()
+    P = factored.blocks_concat(st["blocks"]).numpy() if ranks else np.zeros((2, 0, 320))
+    want = factored.factored_i2t_scores_plain(st["q"], st["UK"] if ranks else None,
+                                              st["blocks"], st["a"], st["KS"], st["KC"],
+                                              8).numpy()
+    for i in range(2):
+        ai = None if a is None else a[i]
+        p64 = _i2t_emulated(kt[i], UQ[i], P[i], ai, QS, QC, "fp64")
+        err = {m: np.abs(_i2t_emulated(kt[i], UQ[i], P[i], ai, QS, QC, m) - p64).max()
+               for m in ("tf32x3", "tf32", "fp32")}
+        assert err["tf32x3"] <= 1e-6 and err["fp32"] <= 1e-6, err
+        assert err["tf32"] >= 100 * err["tf32x3"], err
+        got = _i2t_emulated(kt[i], UQ[i], P[i], ai, QS, QC, "tf32x3")
+        assert np.abs(got - want[i, :-1]).max() <= FACTORED_ATOL
+        assert (want[i, -1] == 1).all()
