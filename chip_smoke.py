@@ -689,20 +689,30 @@ def _i2t_work(args):
             nbytes)
 
 
+def _t2i_work(args):
+    """(FLOP of the products K3 runs on the tensor cores: the score terms,
+    q against KS, KC and the rank-R factor; FLOP of the value part, T2,
+    the softmax and the two low-rank factors T1 and T2 UV; bytes) of one
+    factored_t2i_attention call."""
+    qp, UK, UV, blocks, a, KS, KC, VS, heads = args
+    (B, T, d), R, N = qp.shape, UK.shape[1], KS.shape[0]
+    hd, HT = d // heads, heads * T
+    nbytes = _blocks_bytes(blocks) + 4 * (2 * qp.numel() + UK.numel() + UV.numel()
+                                          + a.numel() + 3 * KS.numel())
+    return (B * HT * N * (4 * hd + 2 * R),
+            B * HT * N * (2 * hd + 2 * R + 5) + 4 * B * HT * R * hd, nbytes)
+
+
 def _factored_bound(name, args):
     """(least ms, bound_by) of one factored call on its own arguments."""
     if name == "factored_ln_stats":
         product, other, nbytes = _ln_stats_work(args)
         flops = product + other
     elif name == "factored_t2i_attention":
-        qp, UK, UV, blocks, a, KS, KC, VS, heads = args
-        (B, T, d), R, N = qp.shape, UK.shape[1], KS.shape[0]
-        hd, HT = d // heads, heads * T
         # per (row, position): scores (KS, KC, the rank-R term), the value
         # part and the rank-R value factor; the two low-rank factors
-        flops = B * HT * N * (6 * hd + 4 * R + 5) + 4 * B * HT * R * hd
-        nbytes = _blocks_bytes(blocks) + 4 * (2 * qp.numel() + UK.numel() + UV.numel()
-                                              + a.numel() + 3 * KS.numel())
+        product, other, nbytes = _t2i_work(args)
+        flops = product + other
     else:
         kt, UQ, _, _, QS, _, heads = args
         (B, T, d), N = kt.shape, QS.shape[0]
@@ -716,20 +726,23 @@ def _factored_bound(name, args):
 def _check_factored(calls, ptxas):
     """K2-K4 against their plain versions on the captured chunk states;
     each record is timed at the larger (second) call, the first call's
-    numbers kept beside it. K2 and K4 run their products on the tensor
-    cores: their records add the three-pass TF32 bound and their ptxas
-    registers (a spill fails)."""
+    numbers kept beside it. All three run their products on the tensor
+    cores: their records add the three-pass TF32 bound and the ptxas
+    registers of their kernels (K3: the position chunks' kernel, then the
+    merge kernel; a spill fails)."""
     import torch
     from sam6d_torch.kernels import factored as fk
 
-    tc = {"factored_ln_stats": ("ln_stats_tc_kernel", _ln_stats_work),
-          "factored_i2t_scores": ("i2t_tc_kernel", _i2t_work)}
+    tc = {"factored_ln_stats": (("ln_stats_tc_kernel",), _ln_stats_work),
+          "factored_t2i_attention": (("t2i_tc_kernel", "t2i_merge_kernel"), _t2i_work),
+          "factored_i2t_scores": (("i2t_tc_kernel",), _i2t_work)}
     ptx = {}
-    for n, (kernel, _) in tc.items():
-        regs, spills = ptx[n] = ptxas_record(ptxas, kernel)
-        log(f"{n}: ptxas {regs} registers, {spills} bytes spilled")
-        if spills:
-            raise AssertionError(f"{n} spills {spills} bytes")
+    for n, (kernels, _) in tc.items():
+        ptx[n] = [ptxas_record(ptxas, kernel) for kernel in kernels]
+        for kernel, (regs, spills) in zip(kernels, ptx[n]):
+            log(f"{n}: {kernel} ptxas {regs} registers, {spills} bytes spilled")
+            if spills:
+                raise AssertionError(f"{n}: {kernel} spills {spills} bytes")
     records = []
     for n, line in zip(FACTORED, (296, 350, 167)):
         cuda_fn, plain_fn = getattr(fk, n + "_cuda"), getattr(fk, n + "_plain")
@@ -751,23 +764,25 @@ def _check_factored(calls, ptxas):
                 ms = cuda_ms(lambda: cuda_fn(*args), reps=10)
                 plain_ms = cuda_ms(lambda: plain_fn(*args), reps=3)
             b_ms, b_by = _factored_bound(n, args)
-            tc_ms = tc_bound(*tc[n][1](args)) if n in tc else None
+            tc_ms = tc_bound(*tc[n][1](args))
             blocks = args[{"factored_ln_stats": 0, "factored_t2i_attention": 3,
                            "factored_i2t_scores": 2}[n]]
             ranks = "+".join(str(pd.shape[1]) for pd, _ in blocks) or "0"
             B = (args[1] if n == "factored_ln_stats" else args[0]).shape[0]
-            tc_desc = "" if tc_ms is None else f", three-pass TF32 bound {tc_ms:.4f} ms"
             log(f"{n}[B={B}, ranks {ranks}]: {desc}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){tc_desc}")
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), three-pass TF32 "
+                f"bound {tc_ms:.4f} ms")
             if not ok:
                 raise AssertionError(f"{n} kernel differs from its plain version")
             rows.append(dict(err=err if n != "factored_ln_stats" else max(err, rel), ms=ms,
                              plain_ms=plain_ms, b_ms=b_ms, b_by=b_by, tc_ms=tc_ms,
                              ranks=ranks))
         first, last = rows[0], rows[-1]
-        extra = {} if n not in tc else dict(
-            tc_bound_ms=last["tc_ms"], first_call_tc_bound_ms=first["tc_ms"],
-            ptxas_registers=ptx[n][0], ptxas_spill_bytes=ptx[n][1])
+        extra = dict(tc_bound_ms=last["tc_ms"], first_call_tc_bound_ms=first["tc_ms"],
+                     ptxas_registers=ptx[n][0][0], ptxas_spill_bytes=ptx[n][0][1])
+        if len(ptx[n]) > 1:
+            extra.update(merge_ptxas_registers=ptx[n][1][0],
+                         merge_ptxas_spill_bytes=ptx[n][1][1])
         records.append(dict(
             name=n + "_cuda", route="cuda", source="sam6d_torch/csrc/factored.cu",
             replaces=f"sam6d_tpu/kernels/factored_t2i.py:{line}",

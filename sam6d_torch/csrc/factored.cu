@@ -22,12 +22,15 @@
 //    R = 116), compute-bound (~0.47 ms on the fp32 units; 0.197 ms with the
 //    product in three-pass TF32 at 165 TFLOP/s); P_eff (243 MB at R = 116)
 //    is read once (~0.08 ms);
-//  - t2i: ~4*B*HT*R*N FLOP (14 GFLOP at R = 118), compute-bound (~0.2 ms);
+//  - t2i: B*HT*N*(6 hd + 4R + 5) FLOP (17 GFLOP at R = 118), compute-bound
+//    (~0.25 ms on the fp32 units); with the scores (8.8 GFLOP) in
+//    three-pass TF32 and the value part, T2 and the softmax (8.0 GFLOP) on
+//    the fp32 units, ~0.17 ms; P_eff is read once (~0.075 ms);
 //  - i2t: writes B*(HT+1)*N floats (120 MB) and reads P_eff (126 MB at
 //    R = 59), 2*B*HT*R*N FLOP (3.5 GFLOP at R = 59): bytes-bound once the
 //    products run in three-pass TF32 (~0.076 ms at R = 59, ~0.037 at R = 0).
 //
-// Designs (t2i simple and right first, on the fp32 units):
+// Designs:
 //  - ln_stats: one block of 8 warps per (prompt, 64 positions), two
 //    blocks an SM, forms its tile of x (64 positions x 256 channels) on the
 //    tensor cores as the three-pass TF32 product of the P_eff tile and U
@@ -44,20 +47,25 @@
 //    3 ceil(R / 8) HMMAs (45 at R = 116), short enough that the tensor
 //    cores' truncating accumulation stays far below the tolerance (the
 //    U x 4 card test checks it).
-//  - t2i: one block per prompt, one warp per head (the query is
-//    block-diagonal over heads, so head h needs only its 16 channels). The
-//    low-rank query factor T1 = q_h U_K^T (R x 7 per head) is formed first;
-//    then an online softmax over 64-position tiles: scores in registers
-//    (8 rows x 2 positions per lane), the P_eff tile in shared memory, the
-//    value part accumulated per lane (4 outputs) and the low-rank value
-//    factor T2 = p P_eff^T (8 rows x 4 ranks per lane). Only the head-diagonal
-//    output blocks are written: (B, T, d).
+//  - t2i: each prompt's 64-position tiles are cut into 8 chunks of whole
+//    tiles, one block of 8 warps each (grid (8, B): 1024 blocks, two an SM,
+//    ~4 waves on 132 SMs), warp h = head h (the query is block-diagonal
+//    over heads, so head h needs only its 16 channels). A block forms T1 =
+//    U_K q_h^T once, then keeps an online softmax over its chunk: each
+//    tile's scores on the tensor cores as in i2t (the head-score term, then
+//    the rank term with P_eff staged by PeffStage, every stage's planes
+//    left resident), the softmax over positions on the C fragments, and on
+//    the fp32 units the value part p (a VS) and T2 = p P_eff^T, read back
+//    from the planes. Each chunk writes its unnormalised partial (m, l,
+//    value part, T2); a merge kernel, one block per prompt, weighs them by
+//    exp(m - max m), adds (sum w T2) U_V and writes only the head-diagonal
+//    output blocks: (B, T, d).
 //  - i2t: one block of 8 warps per (prompt, 64 positions), warp h = head
 //    h, its score tile (64 positions x 8 token rows) on the tensor cores in
 //    three-pass TF32: the head-score term (a QS + QC) k_h^T as 2 k8 steps,
 //    then the rank term P_eff^T T1 (T1 = U_Q k_h^T, formed first on the fp32
 //    units) with the P_eff tile staged by cp.async and split once into
-//    shared memory (PeffStage, written to serve t2i too); the softmax over
+//    shared memory (PeffStage, which t2i shares); the softmax over
 //    each head's tokens is a quad reduction, and the (HT + 1) x 64
 //    probability tile, with the trailing row of ones, leaves through shared
 //    memory as whole rows.
@@ -90,97 +98,6 @@ struct Blocks {
   int r[kMaxBlocks];            // 0 past the last block
   int n;
 };
-
-// Row `row` of P_eff for prompt b at position pos: the scaled factor value.
-__device__ __forceinline__ float p_eff(const Blocks& bl, int b, int row, int pos,
-                                       int npos) {
-  int off = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxBlocks; ++i) {
-    if (i < bl.n && row < off + bl.r[i]) {
-      const float v =
-          bl.pd[i][(static_cast<size_t>(b) * bl.r[i] + (row - off)) * npos + pos];
-      return bl.s[i] ? v * bl.s[i][static_cast<size_t>(b) * npos + pos] : v;
-    }
-    off += bl.r[i];
-  }
-  return 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// The per-head token vectors of prompt b, [head][channel][row], rows past
-// t_tok zero.
-__device__ __forceinline__ void load_heads(float* dst, const float* src, int b,
-                                           int t_tok) {
-  for (int e = threadIdx.x; e < kHeads * kHd * kRows; e += kThreads) {
-    const int hh = e / (kHd * kRows), cc = (e / kRows) % kHd, tt = e % kRows;
-    dst[e] = tt < t_tok ? src[(static_cast<size_t>(b) * t_tok + tt) * kD + hh * kHd + cc]
-                        : 0.f;
-  }
-}
-
-// low[r][(h, tt)] = u[b, r, head h] . tok[h][.][tt] for r < rtot; warp h,
-// lanes over r.
-__device__ __forceinline__ void low_rank_factor(float* low, const float* tok,
-                                                const float* u, int b, int rtot) {
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = lane; r < rtot; r += 32) {
-    float acc[kRows];
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt) acc[tt] = 0.f;
-    const float* ur = u + (static_cast<size_t>(b) * rtot + r) * kD + h * kHd;
-#pragma unroll
-    for (int cc = 0; cc < kHd; ++cc) {
-      const float uv = ur[cc];
-#pragma unroll
-      for (int tt = 0; tt < kRows; ++tt)
-        acc[tt] = fmaf(tok[(h * kHd + cc) * kRows + tt], uv, acc[tt]);
-    }
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt) low[r * (kHeads * kRows) + h * kRows + tt] = acc[tt];
-  }
-}
-
-// s[tt] = av * (tok_h[tt] . a_row) + tok_h[tt] . c_row over head h's channels.
-__device__ __forceinline__ void head_scores(float* s, const float* tok, int h,
-                                            const float* a_row, const float* c_row,
-                                            float av) {
-  float x[kHd], y[kHd];
-#pragma unroll
-  for (int q = 0; q < kHd / 4; ++q) {
-    const float4 u = reinterpret_cast<const float4*>(a_row)[q];
-    const float4 v = reinterpret_cast<const float4*>(c_row)[q];
-    x[4 * q] = u.x; x[4 * q + 1] = u.y; x[4 * q + 2] = u.z; x[4 * q + 3] = u.w;
-    y[4 * q] = v.x; y[4 * q + 1] = v.y; y[4 * q + 2] = v.z; y[4 * q + 3] = v.w;
-  }
-  float sa[kRows], sc[kRows];
-#pragma unroll
-  for (int tt = 0; tt < kRows; ++tt) sa[tt] = sc[tt] = 0.f;
-#pragma unroll
-  for (int cc = 0; cc < kHd; ++cc) {
-    const float4 t0 = *reinterpret_cast<const float4*>(&tok[(h * kHd + cc) * kRows]);
-    const float4 t1 = *reinterpret_cast<const float4*>(&tok[(h * kHd + cc) * kRows + 4]);
-    const float tv[kRows] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt) {
-      sa[tt] = fmaf(tv[tt], x[cc], sa[tt]);
-      sc[tt] = fmaf(tv[tt], y[cc], sc[tt]);
-    }
-  }
-#pragma unroll
-  for (int tt = 0; tt < kRows; ++tt) s[tt] = fmaf(av, sa[tt], sc[tt]);
-}
 
 // ------------------------------------------------------------ ln_stats
 //
@@ -412,174 +329,6 @@ __global__ void __launch_bounds__(kLnThreads, 4 / kLnWM)
   }
 }
 
-// ----------------------------------------------------------------- t2i
-
-constexpr int kT2iBN = 64;            // positions per tile (2 per lane)
-constexpr int kTsStride = kT2iBN + 1;
-
-size_t t2i_smem_bytes() {
-  return sizeof(float) * (kHeads * kHd * kRows + kMaxRank * kHeads * kRows +
-                          kMaxRank * kTsStride + kHeads * kT2iBN * kRows + kT2iBN);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    t2i_kernel(const float* __restrict__ q, const float* __restrict__ uk,
-               const float* __restrict__ uv, Blocks bl, const float* __restrict__ a,
-               const float* __restrict__ ks, const float* __restrict__ kc,
-               const float* __restrict__ vs, float* __restrict__ out, int t_tok,
-               int npos, int rtot) {
-  extern __shared__ float4 smem4[];
-  float* qsm = reinterpret_cast<float*>(smem4);   // [head][channel][row]
-  float* low = qsm + kHeads * kHd * kRows;        // [rank][(head, row)]: T1, then T2
-  float* ts = low + kMaxRank * kHeads * kRows;    // [rank][kTsStride] P_eff tile
-  float* psm = ts + kMaxRank * kTsStride;         // [head][position][row] probs
-  float* at = psm + kHeads * kT2iBN * kRows;      // [position] a
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x;
-
-  load_heads(qsm, q, b, t_tok);
-  __syncthreads();
-  low_rank_factor(low, qsm, uk, b, rtot);
-
-  float m[kRows], l[kRows], t2[kRows][4], accv[4];
-#pragma unroll
-  for (int tt = 0; tt < kRows; ++tt) {
-    m[tt] = -CUDART_INF_F;
-    l[tt] = 0.f;
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq) t2[tt][qq] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) accv[e] = 0.f;
-  const int my_t = lane / 4, my_c = (lane % 4) * 4;  // value outputs of the lane
-
-  for (int n0 = 0; n0 < npos; n0 += kT2iBN) {
-    __syncthreads();  // T1 is written; the previous tile is read
-    for (int e = threadIdx.x; e < rtot * kT2iBN; e += kThreads) {
-      const int r = e / kT2iBN, j = e % kT2iBN;
-      ts[r * kTsStride + j] = n0 + j < npos ? p_eff(bl, b, r, n0 + j, npos) : 0.f;
-    }
-    if (threadIdx.x < kT2iBN)
-      at[threadIdx.x] = n0 + threadIdx.x < npos
-                            ? a[static_cast<size_t>(b) * npos + n0 + threadIdx.x] : 0.f;
-    __syncthreads();
-
-    float s[kRows][2];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int j = lane * 2 + jj, pos = n0 + j;
-      float sj[kRows];
-      if (pos < npos) {
-        head_scores(sj, qsm, h, ks + static_cast<size_t>(pos) * kD + h * kHd,
-                    kc + static_cast<size_t>(pos) * kD + h * kHd, at[j]);
-      } else {
-#pragma unroll
-        for (int tt = 0; tt < kRows; ++tt) sj[tt] = -CUDART_INF_F;
-      }
-#pragma unroll
-      for (int tt = 0; tt < kRows; ++tt) s[tt][jj] = sj[tt];
-    }
-    for (int r = 0; r < rtot; ++r) {
-      const float4 ta = *reinterpret_cast<const float4*>(&low[r * kHeads * kRows + h * kRows]);
-      const float4 tb = *reinterpret_cast<const float4*>(&low[r * kHeads * kRows + h * kRows + 4]);
-      const float tv[kRows] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
-      const float p0 = ts[r * kTsStride + lane * 2];
-      const float p1 = ts[r * kTsStride + lane * 2 + 1];
-#pragma unroll
-      for (int tt = 0; tt < kRows; ++tt) {
-        s[tt][0] = fmaf(tv[tt], p0, s[tt][0]);
-        s[tt][1] = fmaf(tv[tt], p1, s[tt][1]);
-      }
-    }
-
-    float corr[kRows];
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt) {
-      const float m_new = fmaxf(m[tt], warp_max(fmaxf(s[tt][0], s[tt][1])));
-      corr[tt] = expf(m[tt] - m_new);  // 0 on the first tile
-      s[tt][0] = expf(s[tt][0] - m_new);
-      s[tt][1] = expf(s[tt][1] - m_new);
-      l[tt] = l[tt] * corr[tt] + warp_sum(s[tt][0] + s[tt][1]);
-      m[tt] = m_new;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      float* dst = &psm[(h * kT2iBN + lane * 2 + jj) * kRows];
-      *reinterpret_cast<float4*>(dst) = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
-    }
-    __syncwarp();  // the head's probabilities are read by its own warp only
-
-    float my_corr = corr[0];
-#pragma unroll
-    for (int tt = 1; tt < kRows; ++tt)
-      if (tt == my_t) my_corr = corr[tt];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) accv[e] *= my_corr;
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt)
-#pragma unroll
-      for (int qq = 0; qq < 4; ++qq) t2[tt][qq] *= corr[tt];
-
-    const int nj = min(kT2iBN, npos - n0);
-    for (int j = 0; j < nj; ++j) {
-      const float pa = psm[(h * kT2iBN + j) * kRows + my_t] * at[j];
-      const float4 v4 = *reinterpret_cast<const float4*>(
-          vs + static_cast<size_t>(n0 + j) * kD + h * kHd + my_c);
-      accv[0] = fmaf(pa, v4.x, accv[0]);
-      accv[1] = fmaf(pa, v4.y, accv[1]);
-      accv[2] = fmaf(pa, v4.z, accv[2]);
-      accv[3] = fmaf(pa, v4.w, accv[3]);
-    }
-    for (int j = 0; j < nj; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(&psm[(h * kT2iBN + j) * kRows]);
-      const float4 pb = *reinterpret_cast<const float4*>(&psm[(h * kT2iBN + j) * kRows + 4]);
-      const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int qq = 0; qq < 4; ++qq) {
-        const int r = lane + 32 * qq;
-        if (r < rtot) {
-          const float tv = ts[r * kTsStride + j];
-#pragma unroll
-          for (int tt = 0; tt < kRows; ++tt) t2[tt][qq] = fmaf(pv[tt], tv, t2[tt][qq]);
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // every warp is done with T1
-#pragma unroll
-  for (int qq = 0; qq < 4; ++qq) {
-    const int r = lane + 32 * qq;
-    if (r < rtot) {
-#pragma unroll
-      for (int tt = 0; tt < kRows; ++tt) low[r * kHeads * kRows + h * kRows + tt] = t2[tt][qq];
-    }
-  }
-  __syncwarp();
-  float o[4] = {accv[0], accv[1], accv[2], accv[3]};
-  for (int r = 0; r < rtot; ++r) {
-    const float w = low[r * kHeads * kRows + h * kRows + my_t];
-    const float4 u4 = *reinterpret_cast<const float4*>(
-        uv + (static_cast<size_t>(b) * rtot + r) * kD + h * kHd + my_c);
-    o[0] = fmaf(w, u4.x, o[0]);
-    o[1] = fmaf(w, u4.y, o[1]);
-    o[2] = fmaf(w, u4.z, o[2]);
-    o[3] = fmaf(w, u4.w, o[3]);
-  }
-  float my_l = l[0];
-#pragma unroll
-  for (int tt = 1; tt < kRows; ++tt)
-    if (tt == my_t) my_l = l[tt];
-  if (my_t < t_tok) {
-    const float inv = 1.f / my_l;
-    float* orow = out + (static_cast<size_t>(b) * t_tok + my_t) * kD + h * kHd + my_c;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) orow[e] = o[e] * inv;
-  }
-}
-
 // ------------------------------------------------------- P_eff staging
 //
 // One stage of a P_eff tile: KR ranks x W positions of prompt b, from rank
@@ -670,11 +419,100 @@ struct PeffStage {
   }
 };
 
-// ----------------------------------------------------------------- i2t
+// ------------------------------------------------------ score tiles (K3, K4)
 //
-// Scores (positions x head h's 8 token rows) by three-pass TF32 mma.sync
-// m16n8k8: M = positions, N = tokens (rows past t zero), K = 16 channels
-// for the head-score term, then the ranks zero-padded to 8.
+// A tile's scores (positions x head h's 8 token rows) by three-pass TF32
+// mma.sync m16n8k8: M = positions, N = tokens (rows past t zero), K = 16
+// channels for the head-score term, then the ranks zero-padded to 8. Warp
+// h, lane (g, t).
+
+// T1_h = U_h k_h^T (ranks past rtot zero, up to nr) on the fp32 units into
+// t1[(h, row)][ldt], rows < `rows`: lanes (rank g of 8, channels
+// 4t..4t+3), so that a quad reads a U row's 64-byte head slice and every
+// sector a float4 load touches is used; the partial dots are reduced and
+// scattered over the quad. kh: head h's token rows (t_tok of them); ub:
+// the prompt's U rows at head h (row stride kD).
+__device__ __forceinline__ void t1_factor(float* t1, int rows, int ldt, const float* kh,
+                                          const float* ub, int t_tok, int rtot, int nr) {
+  const int h = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 kv[kRows];
+#pragma unroll
+  for (int tt = 0; tt < kRows; ++tt)
+    kv[tt] = tt < t_tok ? __ldg(reinterpret_cast<const float4*>(kh + tt * kD + 4 * t)) : zero4;
+  ub += 4 * t;
+  const bool hi = t & 2, lo = t & 1;
+  for (int r0 = 0; r0 < nr; r0 += 8) {
+    const int r = r0 + g;
+    const float4 u = r < rtot ? __ldg(reinterpret_cast<const float4*>(ub + r * kD)) : zero4;
+    float v[kRows];
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt)
+      v[tt] = fmaf(u.w, kv[tt].w, fmaf(u.z, kv[tt].z, fmaf(u.y, kv[tt].y, u.x * kv[tt].x)));
+    // over the quad: lanes t ^ 2 swap halves, then t ^ 1 quarters; lane t
+    // ends with tokens 2t, 2t + 1
+    float w[4], z[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (hi ? v[4 + i] : v[i]) + __shfl_xor_sync(0xffffffffu, hi ? v[i] : v[4 + i], 2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      z[i] = (lo ? w[2 + i] : w[i]) + __shfl_xor_sync(0xffffffffu, lo ? w[i] : w[2 + i], 1);
+    if (2 * t < rows) t1[(h * rows + 2 * t) * ldt + r] = z[0];
+    if (2 * t + 1 < rows) t1[(h * rows + 2 * t + 1) * ldt + r] = z[1];
+  }
+}
+
+// acc += (a S + C)_h k_h^T for the tile's MT m16 tiles from position n0, as
+// 2 k8 steps: each lane reads its positions' 16-byte S and C slices (a
+// quad covers a 64-byte row slice; every element is used by one lane once,
+// so it is not staged), forms fmaf(a, S, C) and splits it; k = t is channel
+// 4t + 2kk and k = t + 4 channel 4t + 2kk + 1, so the B fragment is one
+// float4 of k_h. Positions past npos score 0 here; a may be null (ones).
+template <int MT>
+__device__ __forceinline__ void head_score_term(float (&acc)[MT][4], const float* kh,
+                                                const float* sm, const float* cm,
+                                                const float* a, int b, int n0, int npos,
+                                                int t_tok) {
+  const int h = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 kg =
+      g < t_tok ? __ldg(reinterpret_cast<const float4*>(kh + g * kD + 4 * t)) : zero4;
+  uint32_t kb[2][2], ksm[2][2];
+  split_tf32(kg.x, kb[0][0], ksm[0][0]);
+  split_tf32(kg.y, kb[0][1], ksm[0][1]);
+  split_tf32(kg.z, kb[1][0], ksm[1][0]);
+  split_tf32(kg.w, kb[1][1], ksm[1][1]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float x[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int pos = n0 + 16 * mt + 8 * hh + g;
+      float4 q4 = zero4, c4 = zero4;
+      float av = 1.f;
+      if (pos < npos) {
+        const size_t o = static_cast<size_t>(pos) * kD + h * kHd + 4 * t;
+        q4 = __ldg(reinterpret_cast<const float4*>(sm + o));
+        c4 = __ldg(reinterpret_cast<const float4*>(cm + o));
+        if (a) av = __ldg(a + static_cast<size_t>(b) * npos + pos);
+      }
+      x[hh][0] = fmaf(av, q4.x, c4.x);
+      x[hh][1] = fmaf(av, q4.y, c4.y);
+      x[hh][2] = fmaf(av, q4.z, c4.z);
+      x[hh][3] = fmaf(av, q4.w, c4.w);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float af[4] = {x[0][2 * kk], x[1][2 * kk], x[0][2 * kk + 1], x[1][2 * kk + 1]};
+      uint32_t ab[4], as[4];
+      sam6d::split_a(af, ab, as);
+      mma_tf32x3(acc[mt], ab, as, kb[kk], ksm[kk]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- i2t
 
 constexpr int kI2tBN = 64;           // positions a block: 4 m16 tiles a warp
 constexpr int kI2tKR = 8;            // ranks a stage: one k8 step
@@ -702,15 +540,8 @@ int i2t_t1_ld(int rtot) {
 // positions as 4 m16 tiles: 16 fp32 accumulators a lane. (128 positions in
 // 8 m16 tiles, 118 registers and two blocks an SM, measured 0.17 / 0.35 ms
 // against 0.12 / 0.32 at ranks 0 / 59 on an H100: PERF.md.)
-//  - T1_h = UQ_h k_h^T (R x 8) on the fp32 units into shared memory, lanes
-//    (rank g of 8, channels 4t..4t+3): a quad reads a row's 64-byte head
-//    slice, so every sector a float4 load touches is used; the partial dots
-//    are reduced and scattered over the quad;
-//  - the head-score term (a QS + QC)_h k_h^T as 2 k8 steps: each lane reads
-//    its positions' 16-byte QS and QC slices (a quad covers a 64-byte row
-//    slice; every element is used by one lane once, so it is not staged),
-//    forms fmaf(a, QS, QC) and splits it; k = t is channel 4t + 2kk and k =
-//    t + 4 channel 4t + 2kk + 1, so the B fragment is one float4 of k_h;
+//  - T1_h = UQ_h k_h^T (R x 8) into shared memory (t1_factor);
+//  - the head-score term (a QS + QC)_h k_h^T (head_score_term);
 //  - the rank term P_eff^T T1 in stages of one k8 step (k = t is rank 2t, k =
 //    t + 4 rank 2t + 1), P_eff staged by PeffStage kI2tStages - 1 stages
 //    ahead, T1's B fragment one float2 a step, split as read;
@@ -748,37 +579,9 @@ __global__ void __launch_bounds__(kThreads, kI2tMinBlocks)
   }
 
   const float* kh = kt + static_cast<size_t>(b) * t_tok * kD + h * kHd;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (nst > 0) {
-    float4 kv[kRows];
-#pragma unroll
-    for (int tt = 0; tt < kRows; ++tt)
-      kv[tt] = tt < t_tok ? __ldg(reinterpret_cast<const float4*>(kh + tt * kD + 4 * t))
-                          : zero4;
-    const float* ub = uq + static_cast<size_t>(b) * rtot * kD + h * kHd + 4 * t;
-    const bool hi = t & 2, lo = t & 1;
-    for (int r0 = 0; r0 < KR * nst; r0 += 8) {
-      const int r = r0 + g;
-      const float4 u = r < rtot ? __ldg(reinterpret_cast<const float4*>(ub + r * kD)) : zero4;
-      float v[kRows];
-#pragma unroll
-      for (int tt = 0; tt < kRows; ++tt)
-        v[tt] = fmaf(u.w, kv[tt].w, fmaf(u.z, kv[tt].z, fmaf(u.y, kv[tt].y, u.x * kv[tt].x)));
-      // over the quad: lanes t ^ 2 swap halves, then t ^ 1 quarters; lane t
-      // ends with tokens 2t, 2t + 1
-      float w[4], z[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        w[i] = (hi ? v[4 + i] : v[i]) +
-               __shfl_xor_sync(0xffffffffu, hi ? v[i] : v[4 + i], 2);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        z[i] = (lo ? w[2 + i] : w[i]) +
-               __shfl_xor_sync(0xffffffffu, lo ? w[i] : w[2 + i], 1);
-      t1[(h * kRows + 2 * t) * ldt + r] = z[0];
-      t1[(h * kRows + 2 * t + 1) * ldt + r] = z[1];
-    }
-  }
+  if (nst > 0)
+    t1_factor(t1, kRows, ldt, kh, uq + static_cast<size_t>(b) * rtot * kD + h * kHd, t_tok,
+              rtot, KR * nst);
 
   float acc[MT][4];
 #pragma unroll
@@ -786,42 +589,7 @@ __global__ void __launch_bounds__(kThreads, kI2tMinBlocks)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
 
-  {  // the head-score term
-    const float4 kg =
-        g < t_tok ? __ldg(reinterpret_cast<const float4*>(kh + g * kD + 4 * t)) : zero4;
-    uint32_t kb[2][2], ksm[2][2];
-    split_tf32(kg.x, kb[0][0], ksm[0][0]);
-    split_tf32(kg.y, kb[0][1], ksm[0][1]);
-    split_tf32(kg.z, kb[1][0], ksm[1][0]);
-    split_tf32(kg.w, kb[1][1], ksm[1][1]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float x[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int pos = n0 + 16 * mt + 8 * hh + g;
-        float4 q4 = zero4, c4 = zero4;
-        float av = 1.f;
-        if (pos < npos) {
-          const size_t o = static_cast<size_t>(pos) * kD + h * kHd + 4 * t;
-          q4 = __ldg(reinterpret_cast<const float4*>(qs + o));
-          c4 = __ldg(reinterpret_cast<const float4*>(qc + o));
-          if (a) av = __ldg(a + static_cast<size_t>(b) * npos + pos);
-        }
-        x[hh][0] = fmaf(av, q4.x, c4.x);
-        x[hh][1] = fmaf(av, q4.y, c4.y);
-        x[hh][2] = fmaf(av, q4.z, c4.z);
-        x[hh][3] = fmaf(av, q4.w, c4.w);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const float af[4] = {x[0][2 * kk], x[1][2 * kk], x[0][2 * kk + 1], x[1][2 * kk + 1]};
-        uint32_t ab[4], as[4];
-        sam6d::split_a(af, ab, as);
-        mma_tf32x3(acc[mt], ab, as, kb[kk], ksm[kk]);
-      }
-    }
-  }
+  head_score_term(acc, kh, qs, qc, a, b, n0, npos, t_tok);
 
   // the rank term
   if (nst > 0) {
@@ -906,6 +674,345 @@ __global__ void __launch_bounds__(kThreads, kI2tMinBlocks)
   }
 }
 
+// ----------------------------------------------------------------- t2i
+
+constexpr int kT2iBN = 64;  // positions a tile: 4 m16 tiles a warp (32: slower, PERF.md)
+// Position chunks a prompt, one block each: 8 x 128 prompts = 1024 blocks,
+// ~4 waves of two blocks on each of 132 SMs. Each chunk forms T1 again and
+// adds a partial to merge, so more chunks add work, and fewer leave the
+// SMs fewer blocks to hide latency with (4 and 16 measured level or slower
+// on an H100, PERF.md).
+constexpr int kT2iChunks = 8;
+
+// A prompt's position tiles are cut into `chunks` chunks of `per` whole
+// tiles, none empty.
+struct T2iSplit {
+  int chunks, per;
+};
+T2iSplit t2i_split(int npos) {
+  const int tiles = (npos + kT2iBN - 1) / kT2iBN;
+  const int per = (tiles + kT2iChunks - 1) / kT2iChunks;
+  return {(tiles + per - 1) / per, per};
+}
+
+// Floats of one (prompt, chunk) partial: m [(head, row)], l [(head, row)],
+// the value part [(head, row)][channel], T2 [head][rank][row].
+__host__ __device__ constexpr int t2i_record(int rtot) {
+  return kHeads * kRows * (2 + kHd + rtot);
+}
+constexpr int kRecAcc = 2 * kHeads * kRows;
+constexpr int kRecT2 = kRecAcc + kHeads * kRows * kHd;
+
+constexpr int kT2iStages = 3;         // stages of the cp.async ring
+using T2iStage = PeffStage<kI2tKR, kT2iBN, kThreads>;
+// The ring of values and scales, which the probability tile [head][position]
+// [row] replaces after the score loop (16 KB)
+constexpr int kT2iTileWords = 2 * kT2iStages * T2iStage::kWords > kHeads * kT2iBN * kRows
+                                  ? 2 * kT2iStages * T2iStage::kWords
+                                  : kHeads * kT2iBN * kRows;
+
+// The P_eff tile's planes, one (big, small) pair a stage, all resident
+// (65 KB at rank 118), the ring / probability tile, T1 [head][token][ldt]
+// (30 KB at rank 118, 7 tokens), a and the tile's rescale factors: 110 KB
+// at rank 118, two blocks an SM.
+size_t t2i_smem_bytes(int t_tok, int rtot, int ldt) {
+  const int nst = (rtot + kI2tKR - 1) / kI2tKR;
+  return sizeof(float) * (nst * 2 * T2iStage::kPlane + kT2iTileWords + kHeads * t_tok * ldt +
+                          kT2iBN + kHeads * kRows);
+}
+
+// One block per (prompt, chunk of `per` position tiles), warp h = head h,
+// each warp keeping the online softmax of its head's 8 token rows over the
+// chunk. T1 = UK_h q_h^T is formed once a block (t1_factor). A tile's
+// scores as in i2t (4 m16 tiles x the n8 token tile, 16 accumulators a
+// lane): the head-score term (a KS + KC)_h q_h^T (head_score_term), then
+// the rank term P_eff^T T1 with P_eff staged by PeffStage two stages
+// ahead; each stage's planes stay resident, for T2 to read back. Then, per
+// tile:
+//  - the softmax over positions on the C fragments: lane (g, t) holds
+//    tokens 2t, 2t + 1 at 8 positions; the row max and sum are reduced in
+//    the lane, then over g (xor 4, 8, 16); positions past npos score -inf;
+//  - the probabilities leave through shared memory [head][position][row];
+//  - on the fp32 units, the value part p (a VS_h) (lane: token, 4 channels;
+//    VS rows read as 64-byte head slices) and T2 = p P_eff^T (lane: ranks
+//    lane + 32 qq, 4 positions a step as 16-byte plane reads, big + small).
+// The chunk's partial (m, l, value part, T2), unnormalised, goes to ws.
+__global__ void __launch_bounds__(kThreads, 2)
+    t2i_tc_kernel(const float* __restrict__ q, const float* __restrict__ uk, Blocks bl,
+                  const float* __restrict__ a, const float* __restrict__ ks,
+                  const float* __restrict__ kc, const float* __restrict__ vs,
+                  float* __restrict__ ws, int t_tok, int npos, int rtot, int ldt, int per) {
+  using St = T2iStage;
+  constexpr int NS = kT2iStages, BN = kT2iBN, KR = kI2tKR;
+  constexpr int LD = St::kLd, MT = BN / 16, kPair = 2 * St::kPlane;
+  extern __shared__ uint4 smem_u4[];
+  const int nst = (rtot + KR - 1) / KR;
+  uint32_t* ps = reinterpret_cast<uint32_t*>(smem_u4);  // [nst][big, small][KR][LD]
+  float* vr = reinterpret_cast<float*>(ps + nst * kPair);  // [NS][KR][BN]
+  float* sr = vr + NS * St::kWords;                         // [NS][KR][BN]
+  float* psm = vr;                                          // [head][position][row]
+  float* t1 = vr + kT2iTileWords;                           // [head][token][ldt]
+  float* at = t1 + kHeads * t_tok * ldt;                    // [position] a
+  float* csm = at + BN;                                     // [head][row] rescale
+
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * per * BN, c1 = min(npos, c0 + per * BN);
+
+  // T1_h = UK_h q_h^T
+  const float* qh = q + static_cast<size_t>(b) * t_tok * kD + h * kHd;
+  t1_factor(t1, t_tok, ldt, qh, uk + static_cast<size_t>(b) * rtot * kD + h * kHd, t_tok, rtot,
+            KR * nst);
+
+  // the running max and sum of tokens 2t, 2t + 1 (the same in all 8 g
+  // lanes); T2 of ranks lane + 32 qq; the value part of (token lane / 4,
+  // channels 4 (lane % 4)..)
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float t2[kRows][4], accv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int tt = 0; tt < kRows; ++tt)
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) t2[tt][qq] = 0.f;
+  const int my_t = lane / 4, my_c = (lane % 4) * 4;
+
+  for (int n0 = c0; n0 < c1; n0 += BN) {
+    __syncthreads();  // T1 is written; the previous tile's probabilities and planes are read
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      if (s < nst)
+        St::issue(vr + s * St::kWords, sr + s * St::kWords, bl, b, KR * s, n0, npos, rtot, ks);
+      cp_async_commit();
+    }
+    if (threadIdx.x < BN)
+      at[threadIdx.x] = n0 + threadIdx.x < npos
+                            ? __ldg(a + static_cast<size_t>(b) * npos + n0 + threadIdx.x) : 0.f;
+
+    float acc[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+
+    head_score_term(acc, qh, ks, kc, a, b, n0, npos, t_tok);
+
+    // the rank term; stage s's planes stay at ps + s kPair
+    cp_async_wait<NS - 2>();
+    St::split(vr, sr, ps);
+    for (int s = 0; s < nst; ++s) {
+      __syncthreads();  // stage s is in place; stage s - 1's ring slots are free
+      if (s + NS - 1 < nst) {
+        const int slot = (s + NS - 1) % NS;
+        St::issue(vr + slot * St::kWords, sr + slot * St::kWords, bl, b, KR * (s + NS - 1),
+                  n0, npos, rtot, ks);
+      }
+      cp_async_commit();
+      const float2 tv =
+          g < t_tok ? *reinterpret_cast<const float2*>(t1 + (h * t_tok + g) * ldt + KR * s + 2 * t)
+                    : make_float2(0.f, 0.f);
+      uint32_t bb[2], bs[2];
+      split_tf32(tv.x, bb[0], bs[0]);
+      split_tf32(tv.y, bb[1], bs[1]);
+      const uint32_t* pb = ps + s * kPair + 2 * t * LD + g;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t* p = pb + 16 * mt;
+        const uint32_t ab[4] = {p[0], p[8], p[LD], p[LD + 8]};
+        const uint32_t as[4] = {p[St::kPlane], p[St::kPlane + 8], p[St::kPlane + LD],
+                                p[St::kPlane + LD + 8]};
+        mma_tf32x3(acc[mt], ab, as, bb, bs);
+      }
+      if (s + 1 < nst) {  // this thread's copies of stage s + 1 have landed
+        cp_async_wait<NS - 2>();
+        const int slot = (s + 1) % NS;
+        St::split(vr + slot * St::kWords, sr + slot * St::kWords, ps + (s + 1) * kPair);
+      }
+    }
+
+    // the online softmax over positions: c0/c1 (position g, tokens 2t,
+    // 2t + 1), c2/c3 (position g + 8) of each m16 tile
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (n0 + 16 * mt + 8 * hh + g >= npos) acc[mt][2 * hh] = acc[mt][2 * hh + 1] = -CUDART_INF_F;
+        mx[0] = fmaxf(mx[0], acc[mt][2 * hh]);
+        mx[1] = fmaxf(mx[1], acc[mt][2 * hh + 1]);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+      mx[i] = fmaxf(m[i], mx[i]);       // every tile holds a position below npos
+      corr[i] = __expf(m[i] - mx[i]);   // 0 on the first tile
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[mt][e] = __expf(acc[mt][e] - m[e & 1]);
+        sum[e & 1] += acc[mt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], o);
+      l[i] = fmaf(l[i], corr[i], sum[i]);
+    }
+
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is done with the ring
+    float* prow = psm + h * BN * kRows + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(prow + (16 * mt + 8 * hh + g) * kRows) =
+            make_float2(acc[mt][2 * hh], acc[mt][2 * hh + 1]);
+    if (g == 0) *reinterpret_cast<float2*>(csm + h * kRows + 2 * t) = make_float2(corr[0], corr[1]);
+    __syncwarp();  // the head's probabilities and factors are read by its own warp only
+
+    const float4 ca = *reinterpret_cast<const float4*>(csm + h * kRows);
+    const float4 cb = *reinterpret_cast<const float4*>(csm + h * kRows + 4);
+    const float cr[kRows] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+    float my_corr = cr[0];
+#pragma unroll
+    for (int tt = 1; tt < kRows; ++tt)
+      if (tt == my_t) my_corr = cr[tt];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accv[e] *= my_corr;
+#pragma unroll
+    for (int tt = 0; tt < kRows; ++tt)
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) t2[tt][qq] *= cr[tt];
+
+    // positions past npos have p = 0 and zero planes
+    const int nj = min(BN, npos - n0);
+    const float* ph = psm + h * BN * kRows;
+    for (int j = 0; j < nj; ++j) {
+      const float pa = ph[j * kRows + my_t] * at[j];
+      const float4 v4 = __ldg(reinterpret_cast<const float4*>(
+          vs + static_cast<size_t>(n0 + j) * kD + h * kHd + my_c));
+      accv[0] = fmaf(pa, v4.x, accv[0]);
+      accv[1] = fmaf(pa, v4.y, accv[1]);
+      accv[2] = fmaf(pa, v4.z, accv[2]);
+      accv[3] = fmaf(pa, v4.w, accv[3]);
+    }
+    for (int j = 0; j < nj; j += 4) {
+      float pv[4][kRows];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 pa = *reinterpret_cast<const float4*>(ph + (j + jj) * kRows);
+        const float4 pb = *reinterpret_cast<const float4*>(ph + (j + jj) * kRows + 4);
+        pv[jj][0] = pa.x; pv[jj][1] = pa.y; pv[jj][2] = pa.z; pv[jj][3] = pa.w;
+        pv[jj][4] = pb.x; pv[jj][5] = pb.y; pv[jj][6] = pb.z; pv[jj][7] = pb.w;
+      }
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int r = lane + 32 * qq;
+        if (r < rtot) {
+          const uint32_t* pr = ps + (r / KR) * kPair + (r % KR) * LD + j;
+          const uint4 bg = *reinterpret_cast<const uint4*>(pr);
+          const uint4 sm = *reinterpret_cast<const uint4*>(pr + St::kPlane);
+          const float pe[4] = {__uint_as_float(bg.x) + __uint_as_float(sm.x),
+                               __uint_as_float(bg.y) + __uint_as_float(sm.y),
+                               __uint_as_float(bg.z) + __uint_as_float(sm.z),
+                               __uint_as_float(bg.w) + __uint_as_float(sm.w)};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int tt = 0; tt < kRows; ++tt) t2[tt][qq] = fmaf(pv[jj][tt], pe[jj], t2[tt][qq]);
+        }
+      }
+    }
+  }
+
+  // the chunk's partial, unnormalised
+  float* rec = ws + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * t2i_record(rtot);
+  if (g == 0) {
+    *reinterpret_cast<float2*>(rec + h * kRows + 2 * t) = make_float2(m[0], m[1]);
+    *reinterpret_cast<float2*>(rec + kHeads * kRows + h * kRows + 2 * t) =
+        make_float2(l[0], l[1]);
+  }
+  *reinterpret_cast<float4*>(rec + kRecAcc + (h * kRows + my_t) * kHd + my_c) =
+      make_float4(accv[0], accv[1], accv[2], accv[3]);
+#pragma unroll
+  for (int qq = 0; qq < 4; ++qq) {
+    const int r = lane + 32 * qq;
+    if (r < rtot) {
+      float* dst = rec + kRecT2 + (h * rtot + r) * kRows;
+      *reinterpret_cast<float4*>(dst) = make_float4(t2[0][qq], t2[1][qq], t2[2][qq], t2[3][qq]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(t2[4][qq], t2[5][qq], t2[6][qq], t2[7][qq]);
+    }
+  }
+}
+
+// One block per prompt: the chunks' partials per (head, token row),
+// weighted by w = exp(m - M) (0 for m = -inf), M the largest m:
+// out = (sum w acc + (sum w T2) UV_h) / sum w l. Only the head-diagonal
+// output blocks are written: (B, T, d).
+__global__ void __launch_bounds__(kThreads)
+    t2i_merge_kernel(const float* __restrict__ ws, const float* __restrict__ uv,
+                     float* __restrict__ out, int t_tok, int rtot, int chunks) {
+  __shared__ float wt[kHeads * kRows][kT2iChunks];
+  __shared__ float linv[kHeads * kRows];
+  extern __shared__ float4 smem4[];
+  float* t2s = reinterpret_cast<float*>(smem4);  // [head][rank][row]: sum w T2
+  const int b = blockIdx.x, rec = t2i_record(rtot);
+  const float* wb = ws + static_cast<size_t>(b) * chunks * rec;
+
+  if (threadIdx.x < kHeads * kRows) {
+    const int row = threadIdx.x;
+    float big = -CUDART_INF_F;
+    for (int c = 0; c < chunks; ++c) big = fmaxf(big, wb[c * rec + row]);
+    float sum = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const float mc = wb[c * rec + row];
+      const float w = mc == -CUDART_INF_F ? 0.f : __expf(mc - big);
+      wt[row][c] = w;
+      sum = fmaf(w, wb[c * rec + kHeads * kRows + row], sum);
+    }
+    linv[row] = __fdividef(1.f, sum);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kHeads * rtot * kRows; e += kThreads) {
+    const int row = e / (rtot * kRows) * kRows + e % kRows;
+    float sum = 0.f;
+    for (int c = 0; c < chunks; ++c) sum = fmaf(wt[row][c], wb[c * rec + kRecT2 + e], sum);
+    t2s[e] = sum;
+  }
+  __syncthreads();
+  const int h = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int my_t = lane / 4, my_c = (lane % 4) * 4, row = h * kRows + my_t;
+  float o[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; c < chunks; ++c) {
+    const float w = wt[row][c];
+    const float4 v = *reinterpret_cast<const float4*>(wb + c * rec + kRecAcc + row * kHd + my_c);
+    o[0] = fmaf(w, v.x, o[0]);
+    o[1] = fmaf(w, v.y, o[1]);
+    o[2] = fmaf(w, v.z, o[2]);
+    o[3] = fmaf(w, v.w, o[3]);
+  }
+  for (int r = 0; r < rtot; ++r) {
+    const float w = t2s[(h * rtot + r) * kRows + my_t];
+    const float4 u4 = *reinterpret_cast<const float4*>(
+        uv + (static_cast<size_t>(b) * rtot + r) * kD + h * kHd + my_c);
+    o[0] = fmaf(w, u4.x, o[0]);
+    o[1] = fmaf(w, u4.y, o[1]);
+    o[2] = fmaf(w, u4.z, o[2]);
+    o[3] = fmaf(w, u4.w, o[3]);
+  }
+  if (my_t < t_tok) {
+    const float inv = linv[row];
+    float* orow = out + (static_cast<size_t>(b) * t_tok + my_t) * kD + h * kHd + my_c;
+    *reinterpret_cast<float4*>(orow) = make_float4(o[0] * inv, o[1] * inv, o[2] * inv, o[3] * inv);
+  }
+}
+
 Blocks make_blocks(const float* const* pd, const float* const* s, const int* r,
                    int nblocks) {
   Blocks bl;
@@ -951,25 +1058,39 @@ int sam6d_factored_ln_stats(const float* const* pd, const float* const* s,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Floats of the workspace sam6d_factored_t2i_attention takes for each
+// prompt: one partial per position chunk.
+int sam6d_factored_t2i_workspace(int n, int rtot) {
+  return t2i_split(n).chunks * t2i_record(rtot);
+}
+
 // q: (b, t, 128) pre-scaled token queries, 8 heads of 16; uk, uv: (b, rtot,
-// 128); a: (b, n); ks, kc, vs: (n, 128). out: (b, t, 128), head h's
-// attention output at channels h*16 (the head-diagonal blocks), without the
-// value bias. t <= 8, 1 <= rtot <= 128, every pointer 16-byte aligned.
+// 128); a: (b, n); ks, kc, vs: (n, 128); ws: b *
+// sam6d_factored_t2i_workspace(n, rtot) floats of scratch. out: (b, t,
+// 128), head h's attention output at channels h*16 (the head-diagonal
+// blocks), without the value bias. t <= 8, 1 <= rtot <= 128, every pointer
+// 16-byte aligned. Two launches: the chunks' partials, then their merge.
 int sam6d_factored_t2i_attention(const float* q, const float* uk, const float* uv,
                                  const float* const* pd, const float* const* s,
                                  const int* r, int nblocks, const float* a,
                                  const float* ks, const float* kc, const float* vs,
-                                 float* out, int b, int t, int n, int rtot,
+                                 float* ws, float* out, int b, int t, int n, int rtot,
                                  cudaStream_t stream) {
   if (!blocks_ok(r, nblocks, rtot, kMaxRank) || rtot < 1 || t < 1 || t > kRows)
     return static_cast<int>(cudaErrorInvalidValue);
   const Blocks bl = make_blocks(pd, s, r, nblocks);
-  const size_t bytes = t2i_smem_bytes();
+  const T2iSplit sp = t2i_split(n);
+  const int ldt = i2t_t1_ld(rtot);
+  const size_t bytes = t2i_smem_bytes(t, rtot, ldt);
   cudaError_t err = cudaFuncSetAttribute(
-      t2i_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      t2i_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  t2i_kernel<<<b, kThreads, bytes, stream>>>(q, uk, uv, bl, a, ks, kc, vs, out, t, n,
-                                             rtot);
+  t2i_tc_kernel<<<dim3(sp.chunks, b), kThreads, bytes, stream>>>(q, uk, bl, a, ks, kc, vs, ws,
+                                                                 t, n, rtot, ldt, sp.per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  t2i_merge_kernel<<<b, kThreads, sizeof(float) * kHeads * rtot * kRows, stream>>>(
+      ws, uv, out, t, rtot, sp.chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

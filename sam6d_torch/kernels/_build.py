@@ -45,8 +45,9 @@ _SIGNATURES = {
                                      _F, _P],
     "sam6d_factored_ln_stats": [_PP, _PP, _IP, _I, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _F, _P],
+    "sam6d_factored_t2i_workspace": [_I, _I],
     "sam6d_factored_t2i_attention": [_P, _P, _P, _PP, _PP, _IP, _I, _P, _P, _P,
-                                     _P, _P, _I, _I, _I, _I, _P],
+                                     _P, _P, _P, _I, _I, _I, _I, _P],
     "sam6d_factored_i2t_scores": [_P, _P, _PP, _PP, _IP, _I, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
 }

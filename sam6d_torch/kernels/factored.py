@@ -222,10 +222,14 @@ def factored_t2i_attention_cuda(qp, UK, UV, blocks, a, KS, KC, VS,
     args = (_f32("qp", qp), _f32("UK", UK, (B, R, d)), _f32("UV", UV, (B, R, d)))
     tail = (_f32("a", a, (B, N)), _f32("KS", KS, (N, d)), _f32("KC", KC, (N, d)),
             _f32("VS", VS, (N, d)))
+    lib = load_library()
+    # the partials of the position chunks, merged by the second launch
+    ws = torch.empty(B * lib.sam6d_factored_t2i_workspace(N, R), dtype=torch.float32,
+                     device=qp.device)
     out = torch.empty((B, T, d), dtype=torch.float32, device=qp.device)
     stream = torch.cuda.current_stream(qp.device).cuda_stream
-    err = load_library().sam6d_factored_t2i_attention(
-        *args, pd, sc, ranks, nb, *tail, out.data_ptr(), B, T, N, R, stream)
+    err = lib.sam6d_factored_t2i_attention(
+        *args, pd, sc, ranks, nb, *tail, ws.data_ptr(), out.data_ptr(), B, T, N, R, stream)
     factored_t2i_attention_cuda.launches += 1
     check(err, "factored_t2i_attention_cuda")
     return out

@@ -19,11 +19,13 @@ heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
 116 (layer 2), K3 at ranks 59 and 118, K4 at ranks 0 (layer 1) and 59
 (layer 2; also over runs of 10 launches, which hide the host's dispatch),
 and each kernel's max |diff| from its plain version (K2: mu's,
-and 1/sigma's relative); `--factored` keeps only K2-K4. With `--sam`, also
+and 1/sigma's relative), K3 beside its plain version's time (5 runs);
+`--factored` keeps only K2-K4. With `--sam`, also
 the ViT-H SAM's iou pass and `generate_masks_device` on a random 480x640
 frame (random weights, the load pinned as `chip_smoke.py` pins it;
 CUDA-event medians of 3 runs), and the iou pass's kernel split on the card
-(one run under torch.profiler).
+(one run under torch.profiler: the largest kernels, and K2, K3's position
+chunks and their merge, and K4 by name).
 """
 from __future__ import annotations
 
@@ -69,7 +71,9 @@ def time_one(csrc: Path, sam: bool, factored_only: bool) -> str:
               f"K5<64> {regs('attention_qkv_kernel', 64)}",
               f"K1<80> {regs('attention_relpos_kernel', 80)}",
               f"K2 {[rec for name, rec in ptxas.items() if 'ln_stats' in name]}",
-              f"K4 {[rec for name, rec in ptxas.items() if 'i2t' in name]}"]
+              f"K4 {[rec for name, rec in ptxas.items() if 'i2t' in name]}",
+              "K3 " + ", ".join(f"{re.search(r't2i_\w*?kernel', name)[0]} {rec}"
+                                for name, rec in ptxas.items() if "t2i" in name)]
     for name, fn, plain, n in () if factored_only else (
             ("K8", att.fused_attention_cuda, att.fused_attention_plain, 1025),
             ("K9", att.fused_attention_small_cuda, att.fused_attention_small_plain, 257)):
@@ -120,7 +124,9 @@ def sam_fields(cs):
 
 def device_split(fn, top=8):
     """One run of fn() under torch.profiler: the card's summed kernel time
-    and the kernels that took most of it (name, launches, ms)."""
+    and the kernels that took most of it, and K2, K3's two kernels and K4
+    wherever they rank (name, launches, ms)."""
+    keep = ("ln_stats", "t2i", "i2t")
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,9 +141,10 @@ def device_split(fn, top=8):
 
     ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     ops.sort(key=dev_us, reverse=True)
-    names = [e.key.replace("(anonymous namespace)::", "").split("(")[0][:40] for e in ops]
+    shown = [(e.key.replace("(anonymous namespace)::", "").split("(")[0][:40], e)
+             for i, e in enumerate(ops) if i < top or any(k in e.key for k in keep)]
     return f"{sum(map(dev_us, ops)) / 1e3:.2f} ms: " + ", ".join(
-        f"{n} x{e.count} {dev_us(e) / 1e3:.2f}" for n, e in zip(names[:top], ops))
+        f"{n} x{e.count} {dev_us(e) / 1e3:.2f}" for n, e in shown)
 
 
 def factored_state(rng, ranks, scaled, with_a, B=128, N=4096, C=256, d=128):
@@ -183,7 +190,9 @@ def factored_fields(rng, cs):
         err = float((fk.factored_t2i_attention_cuda(*args)
                      - fk.factored_t2i_attention_plain(*args)).abs().max())
         ms = cs.cuda_ms(lambda: fk.factored_t2i_attention_cuda(*args), reps=20)
-        fields.append(f"K3 rank {sum(ranks)} {ms:.4f} ms, max |diff| {err:.2e}")
+        plain = cs.cuda_ms(lambda: fk.factored_t2i_attention_plain(*args), reps=5)
+        fields.append(f"K3 rank {sum(ranks)} {ms:.4f} ms (plain {plain:.4f}), "
+                      f"max |diff| {err:.2e}")
         if len(ranks) == 2:  # K4's two launches: layer 1 (rank 0, no a), layer 2
             for name, args in (
                     ("K4 rank 0", (st["q"], None, (), None, st["KS"], st["KC"], 8)),

@@ -307,20 +307,40 @@ def test_factored_ln_stats_kernel_matches_plain(cuda_device, ranks, scaled, with
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ranks,scaled,N", [
-    ((57, 2), (True, False), 4096),                   # layer 2 t2i
-    ((57, 2, 57, 2), (True, True, True, False), 4096),  # final attention
-    ((5, 2), (True, False), 100),                     # ragged position tile
+@pytest.mark.parametrize("ranks,scaled,N,B,T,q_mag", [
+    # the three cases (and ids) the test had before
+    pytest.param((57, 2), (True, False), 4096, 16, 7, 1.0, id="ranks0-scaled0-4096"),
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 16, 7, 1.0,
+                 id="ranks1-scaled1-4096"),                 # final attention
+    pytest.param((5, 2), (True, False), 100, 16, 7, 1.0, id="ranks2-scaled2-100"),
+    # the main path's two launches
+    pytest.param((57, 2), (True, False), 4096, 128, 7, 1.0, id="main-path-B128-rank-59"),
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 128, 7, 1.0,
+                 id="main-path-B128-rank-118"),
+    # the kernel's limits of rank and tokens
+    pytest.param((1,), (True,), 4096, 4, 7, 1.0, id="rank-1"),
+    pytest.param((64, 64), (True, False), 4096, 4, 7, 1.0, id="rank-128"),
+    pytest.param((57, 2), (True, False), 4096, 4, 1, 1.0, id="one-token"),
+    pytest.param((57, 2), (True, False), 4096, 4, 8, 1.0, id="eight-tokens"),
+    # rows not 16-byte aligned (4-byte staging), a ragged tile, fewer tiles
+    # than position chunks
+    pytest.param((17, 2), (True, False), 98, 4, 7, 1.0, id="n98-4-byte-staging"),
+    # four times the scores: the chunks' maxima differ widely in the merge
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 16, 7, 4.0,
+                 id="stress-scores-x4"),
 ])
-def test_factored_t2i_attention_kernel_matches_plain(cuda_device, ranks, scaled, N):
-    st = factored_state(np.random.RandomState(12), 16, N, 256, 128, ranks, scaled,
-                        True, cuda_device)
-    args = (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
+def test_factored_t2i_attention_kernel_matches_plain(cuda_device, ranks, scaled, N, B, T,
+                                                    q_mag):
+    rng = np.random.RandomState(12)
+    st = factored_state(rng, B, N, 256, 128, ranks, scaled, True, cuda_device)
+    q = st["q"] if T == 7 else torch.from_numpy(
+        rng.randn(B, T, 128).astype(np.float32) * 0.25).to(cuda_device)
+    args = (q * q_mag, st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
             st["VS"], 8)
     got = factored.factored_t2i_attention_cuda(*args)
     want = factored.factored_t2i_attention_plain(*args)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (16, 7, 128)
+    assert got.shape == want.shape == (B, T, 128)
     assert float((got - want).abs().max()) <= FACTORED_ATOL
 
 

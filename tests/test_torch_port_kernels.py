@@ -422,59 +422,67 @@ def test_three_pass_tf32_ln_stats_is_fp32_accurate(ranks, scaled):
         assert (np.abs(inv - inv_p[i]) / inv_p[i]).max() <= LN_INV_RTOL
 
 
+def _scores_emulated(k, U, P, a, S, C, mode):
+    """One head's scores (N, T) of the factored operands as K3 and K4 sum
+    them: k (T, hd) the head's tokens, U (R, hd), P (R, N) the scaled factor
+    rows, a (N,) or None, S/C (N, hd): a (S k^T) + C k^T + P^T (U k^T).
+    "tf32x3" / "tf32" as the kernels' tensor cores: the head-score term
+    (a S + C) k^T (a S + C one fmaf) in two k8 steps of channels (4t + 2kk,
+    4t + 2kk + 1), then the rank term P^T T1 (T1 = U k^T in float32) in k8
+    steps of ranks zero-padded to 8, each step's passes added to a float32
+    score (the tensor cores' accumulator); "fp32" float32 matmuls; "fp64"
+    all in float64."""
+    T = k.shape[0]
+    N = S.shape[0]
+    av = np.ones(N) if a is None else a.astype(np.float64)
+    if mode == "fp64":
+        k64 = k.astype(np.float64)
+        s = av[:, None] * (S @ k64.T) + C @ k64.T
+        if len(P):
+            s = s + P.astype(np.float64).T @ (U.astype(np.float64) @ k64.T)
+        return s
+    if mode == "fp32":
+        s = (a[:, None] if a is not None else np.float32(1)) * (S @ k.T) + C @ k.T
+        return s + P.T @ (U @ k.T) if len(P) else s
+    aq = (av[:, None] * S + C).astype(np.float32)
+    t1 = (U.astype(np.float64) @ k.T).astype(np.float32) if len(P) \
+        else np.zeros((0, T), np.float32)
+    R = len(P)
+    Rp = -(-R // 8) * 8
+    Pp = np.zeros((Rp, P.shape[1] if R else N), np.float32)
+    Tp = np.zeros((Rp, T), np.float32)
+    Pp[:R], Tp[:R] = P, t1
+    steps = [(aq[:, c], k[:, c].T) for c in
+             ([0, 1, 4, 5, 8, 9, 12, 13], [2, 3, 6, 7, 10, 11, 14, 15])]
+    steps += [(Pp[r0:r0 + 8].T, Tp[r0:r0 + 8]) for r0 in range(0, Rp, 8)]
+    s = np.zeros((N, T), np.float32)
+    for x, y in steps:
+        xb, yb = _tf32_rna(x), _tf32_rna(y)
+        passes = [(xb, yb)]
+        if mode == "tf32x3":
+            passes = [(_tf32_rna(x - xb), yb), (xb, _tf32_rna(y - yb)), (xb, yb)]
+        for u, v in passes:
+            s = (s + u.astype(np.float64) @ v.astype(np.float64)).astype(np.float32)
+    return s
+
+
 def _i2t_emulated(kt, UQ, P, a, QS, QC, mode, heads=8):
     """K4's score tile and softmax for one prompt: kt (T, d) token keys, UQ
     (R, d), P (R, N) the scaled factor rows, a (N,) or None, QS/QC (N, d).
-    Returns the probabilities (heads*T, N), row h*T + t. "tf32x3" / "tf32"
-    sum each head's scores as the kernel does: the head-score term (a QS +
-    QC) k_h^T (a QS + QC one fmaf) in two k8 steps of channels (4t + 2kk,
-    4t + 2kk + 1), then the rank term P^T T1 (T1 = UQ_h k_h^T in float32)
-    in k8 steps of ranks zero-padded to 8, each step's passes added to a
-    float32 score (the tensor cores' accumulator); "fp32" float32 matmuls;
-    "fp64" the reference, all in float64. The softmax over the T tokens is
-    taken in float32 (float64 for "fp64")."""
+    Returns the probabilities (heads*T, N), row h*T + t: each head's scores
+    as `_scores_emulated` sums them in `mode`, the softmax over the T tokens
+    in float32 (float64 for "fp64")."""
     T, d = kt.shape
     hd = d // heads
-    av = np.ones(QS.shape[0]) if a is None else a.astype(np.float64)
     out = []
     for h in range(heads):
         sl = slice(h * hd, (h + 1) * hd)
-        k = kt[:, sl]
-        if mode == "fp64":
-            k64 = k.astype(np.float64)
-            s = av[:, None] * (QS[:, sl] @ k64.T) + QC[:, sl] @ k64.T
-            if len(P):
-                s = s + P.astype(np.float64).T @ (UQ[:, sl].astype(np.float64) @ k64.T)
-            e = np.exp(s - s.max(-1, keepdims=True))
-            out.append((e / e.sum(-1, keepdims=True)).T)
-            continue
-        if mode == "fp32":
-            s = (a[:, None] if a is not None else np.float32(1)) * (QS[:, sl] @ k.T) \
-                + QC[:, sl] @ k.T
-            if len(P):
-                s = s + P.T @ (UQ[:, sl] @ k.T)
-        else:
-            aq = (av[:, None] * QS[:, sl] + QC[:, sl]).astype(np.float32)
-            t1 = (UQ[:, sl].astype(np.float64) @ k.T).astype(np.float32) if len(P) \
-                else np.zeros((0, T), np.float32)
-            R = len(P)
-            Rp = -(-R // 8) * 8
-            Pp = np.zeros((Rp, P.shape[1] if R else QS.shape[0]), np.float32)
-            Tp = np.zeros((Rp, T), np.float32)
-            Pp[:R], Tp[:R] = P, t1
-            steps = [(aq[:, c], k[:, c].T) for c in
-                     ([0, 1, 4, 5, 8, 9, 12, 13], [2, 3, 6, 7, 10, 11, 14, 15])]
-            steps += [(Pp[r0:r0 + 8].T, Tp[r0:r0 + 8]) for r0 in range(0, Rp, 8)]
-            s = np.zeros((QS.shape[0], T), np.float32)
-            for x, y in steps:
-                xb, yb = _tf32_rna(x), _tf32_rna(y)
-                passes = [(xb, yb)]
-                if mode == "tf32x3":
-                    passes = [(_tf32_rna(x - xb), yb), (xb, _tf32_rna(y - yb)), (xb, yb)]
-                for u, v in passes:
-                    s = (s + u.astype(np.float64) @ v.astype(np.float64)).astype(np.float32)
+        s = _scores_emulated(kt[:, sl], UQ[:, sl], P, a, QS[:, sl], QC[:, sl], mode)
         e = np.exp(s - s.max(-1, keepdims=True))
-        out.append((e * (np.float32(1) / e.sum(-1, keepdims=True))).T)
+        if mode == "fp64":
+            out.append((e / e.sum(-1, keepdims=True)).T)
+        else:
+            out.append((e * (np.float32(1) / e.sum(-1, keepdims=True))).T)
     return np.concatenate(out, axis=0)
 
 
@@ -507,3 +515,88 @@ def test_three_pass_tf32_i2t_scores_are_fp32_accurate(ranks, scaled, with_a):
         got = _i2t_emulated(kt[i], UQ[i], P[i], ai, QS, QC, "tf32x3")
         assert np.abs(got - want[i, :-1]).max() <= FACTORED_ATOL
         assert (want[i, -1] == 1).all()
+
+
+def _t2i_emulated(q, UK, UV, P, a, KS, KC, VS, mode, heads=8, tile=64, chunks=8):
+    """K3 for one prompt: q (T, d) pre-scaled queries, UK/UV (R, d), P (R, N)
+    the scaled factor rows, a (N,), KS/KC/VS (N, d); returns the head-diagonal
+    output (T, d). Each head's scores as `_scores_emulated` sums them in
+    `mode`; then, in float32, K3's online softmax over its position chunks
+    (`chunks` chunks of whole `tile`-position tiles, as the kernel cuts them):
+    per tile the running max m, the rescale exp(m_old - m_new), the sum l,
+    the value part p (a VS) and T2 = p P^T; then the merge of the chunks'
+    partials, with one empty chunk (m = -inf) added, weighted 0:
+    (sum w acc + (sum w T2) UV) / sum w l, w = exp(m - max m). "fp64": the
+    exact softmax attention in float64."""
+    T, d = q.shape
+    hd, N, R = d // heads, KS.shape[0], len(P)
+    f = np.float64 if mode == "fp64" else np.float32
+    out = np.zeros((T, d), f)
+    tiles = -(-N // tile)
+    per = -(-tiles // chunks)
+    for h in range(heads):
+        sl = slice(h * hd, (h + 1) * hd)
+        s = _scores_emulated(q[:, sl], UK[:, sl], P, a, KS[:, sl], KC[:, sl], mode)
+        av = a.astype(f)[:, None] * VS[:, sl].astype(f)
+        if mode == "fp64":
+            e = np.exp(s - s.max(0))
+            p = e / e.sum(0)
+            out[:, sl] = p.T @ av + (p.T @ P.T.astype(f)) @ UV[:, sl].astype(f)
+            continue
+        parts = []
+        for c0 in range(0, N, per * tile):
+            m, l = np.full(T, -np.inf, f), np.zeros(T, f)
+            acc, t2 = np.zeros((T, hd), f), np.zeros((T, R), f)
+            for n0 in range(c0, min(N, c0 + per * tile), tile):
+                st = s[n0:n0 + tile]
+                mx = np.maximum(m, st.max(0))
+                corr = np.exp(m - mx)
+                e = np.exp(st - mx)
+                l = l * corr + e.sum(0)
+                acc = acc * corr[:, None] + e.T @ av[n0:n0 + tile]
+                t2 = t2 * corr[:, None] + e.T @ P[:, n0:n0 + tile].T
+                m = mx
+            parts.append((m, l, acc, t2))
+        parts.append((np.full(T, -np.inf, f), np.zeros(T, f), np.zeros((T, hd), f),
+                      np.zeros((T, R), f)))
+        M = np.max([m for m, _, _, _ in parts], axis=0)
+        w = [np.where(m == -np.inf, f(0), np.exp(m - M)) for m, _, _, _ in parts]
+        L = sum(wc * l for wc, (_, l, _, _) in zip(w, parts))
+        o = sum(wc[:, None] * acc for wc, (_, _, acc, _) in zip(w, parts))
+        o = o + sum(wc[:, None] * t2 for wc, (_, _, _, t2) in zip(w, parts)) @ UV[:, sl]
+        out[:, sl] = o / L[:, None]
+    return out
+
+
+@pytest.mark.parametrize("ranks,scaled", [
+    ((57, 2), (True, False)),                           # layer 2's launch: rank 59
+    ((57, 2, 57, 2), (True, True, True, False)),        # the final attention: rank 118
+])
+def test_three_pass_tf32_t2i_attention_is_fp32_accurate(ranks, scaled):
+    """K3 sums each head's scores on the tensor cores in three-pass TF32 and
+    takes the softmax over positions online, per chunk of 64-position
+    tiles, merging the chunks' partials. Emulated here at N = 1000 (8
+    chunks of two tiles, the last one ragged): its output lies within 1e-6
+    of float64 relative to the output's largest magnitude (~2e-6 absolute
+    on outputs up to ~6), as with float32 products, while one TF32 pass is
+    at least 100x worse; an empty chunk (m = -inf) weighs 0; and the
+    emulation agrees with factored_t2i_attention_plain within
+    FACTORED_ATOL."""
+    from test_torch_cuda_kernels import FACTORED_ATOL
+    st = factored_state(np.random.RandomState(22), 2, 1000, 256, 128, ranks, scaled, True)
+    q, UK, UV, a, KS, KC, VS = (st[k].numpy() for k in ("q", "UK", "UV", "a", "KS", "KC", "VS"))
+    P = factored.blocks_concat(st["blocks"]).numpy()
+    want = factored.factored_t2i_attention_plain(st["q"], st["UK"], st["UV"], st["blocks"],
+                                                 st["a"], st["KS"], st["KC"], st["VS"],
+                                                 8).numpy()
+    for i in range(2):
+        args = (q[i], UK[i], UV[i], P[i], a[i], KS, KC, VS)
+        ref = _t2i_emulated(*args, "fp64")
+        scale = np.abs(ref).max()
+        err = {m: np.abs(_t2i_emulated(*args, m) - ref).max() / scale
+               for m in ("tf32x3", "tf32", "fp32")}
+        assert err["tf32x3"] <= 1e-6 and err["fp32"] <= 1e-6, err
+        assert err["tf32"] >= 100 * err["tf32x3"], err
+        got = _t2i_emulated(*args, "tf32x3")
+        assert np.isfinite(got).all()
+        assert np.abs(got - want[i]).max() <= FACTORED_ATOL
