@@ -10,7 +10,11 @@ Phases, in order; any failure raises and exits non-zero:
      path's shapes (indices exactly equal; ball-query rows may differ only
      where a pair lies within 1e-6 of r^2), timed with CUDA events beside
      its bound and, where one exists, one PyTorch call computing the same
-     function: FPS, ball query, the fused attentions (K5; K8 and K9 on
+     function: FPS (the frame's clouds on its block path, the onboarding
+     cloud on its 16-block cluster path, each beside its bound and its
+     latency floor from the measured step synchronisation), ball query
+     (its lanes path per frame, its warps path at onboarding), with their
+     ptxas registers and shared memory, the fused attentions (K5; K8 and K9 on
      head-major operands, K9 with no caller on any path), the SAM rel-pos
      attention (K1, a global and a windowed ViT-H block; the kernel forms
      its rel-pos tables itself, and the plain version's two table einsums
@@ -198,7 +202,8 @@ def phase_device():
 
 def phase_build():
     """Builds the kernels with `-Xptxas -v`; returns {mangled kernel name:
-    (registers, spill store bytes + spill load bytes)}."""
+    (registers, spill store bytes + spill load bytes, static shared memory
+    bytes)}."""
     from sam6d_torch.kernels import _build
     t0 = time.perf_counter()
     so, out = _build.build(verbose=True)
@@ -211,12 +216,13 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         used = re.search(r"Used (\d+) registers", line)
+        smem = re.search(r"(\d+) bytes smem", line)
         if "Compiling entry" in line:
             entry = line.split("'")[1]
         elif spill:
             spills = int(spill[1]) + int(spill[2])
         elif used and entry:
-            ptxas[entry] = (int(used[1]), spills)
+            ptxas[entry] = (int(used[1]), spills, int(smem[1]) if smem else 0)
     return ptxas
 
 
@@ -225,14 +231,29 @@ def ptxas_record(ptxas, kernel, hd=None):
     instantiation) from phase_build's table."""
     for name, rec in ptxas.items():
         if kernel in name and (hd is None or f"ILi{hd}E" in name):
-            return rec
+            return rec[:2]
     raise AssertionError(f"ptxas reported nothing for {kernel}<{hd}>")
+
+
+def ptxas_table(ptxas, kernels):
+    """{kernel<template argument>: {registers, spill_bytes, smem_bytes}} of
+    every instantiation of the named kernels (static shared memory; the FPS
+    kernels add their x/y/z planes as dynamic shared memory)."""
+    table = {}
+    for name, (regs, spills, smem) in ptxas.items():
+        for kernel in kernels:
+            m = re.search(kernel + r"(?:IL[ib](\d+)E)?", name)
+            if m and re.search(r"\d" + kernel, name):
+                key = f"{kernel}<{m[1]}>" if m[1] else kernel
+                table[key] = dict(registers=regs, spill_bytes=spills, smem_bytes=smem)
+    return dict(sorted(table.items()))
 
 
 # ------------------------------------------------------------------ phase 3
 
 def _check_fps(name, pts, npoint, fps):
     import torch
+    log(f"{name}: {fps.fps_path(pts.shape[1])} path")
     got = fps.farthest_point_sample_cuda(pts, npoint)
     want = fps.farthest_point_sample_plain(pts, npoint)
     torch.cuda.synchronize()
@@ -249,6 +270,8 @@ def _check_fps(name, pts, npoint, fps):
 def _check_ball_query(name, pts, args, bq):
     import torch
     from sam6d_torch.ops.geometry import pairwise_sq_distance
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"{name}: {bq.ball_query_path(pts.shape[0], pts.shape[1], sms)} path")
     got = bq.two_scale_ball_query_cuda(pts, pts, *args)
     want = bq.two_scale_ball_query_plain(pts, pts, *args)
     d2 = pairwise_sq_distance(pts, pts)
@@ -314,13 +337,28 @@ def phase_kernels(cfg, seg, ptxas):
         f"ball_query[1x{n_fine}x{n_fine}]", pts[:1].contiguous(), args, bq)
     # bounds from this run's inputs. FPS: each of the M-1 steps updates N
     # running distances (3 sub, 3 mul, 2 add, min, argmax compare: 10 ops).
-    # Ball query: the warps walk 32-candidate slices until both quotas are
-    # full; each scanned pair costs 15 ops (two dot products, the expanded
-    # distance, two compares).
+    # Its latency floor: M chained picks, each at least one step's
+    # synchronisation (fps.step_sync_us, measured here). Ball query: the
+    # candidates are walked until both quotas are full; each scanned pair
+    # costs 15 ops (two dot products, the expanded distance, two compares).
     f_bound = bound(16 * (n_coarse - 1) * n_obs * 10,
                     4 * 16 * n_obs * 3 + 4 * 16 * n_coarse)
+    o_bound = bound((n_fine - 1) * n_onb * 10, 4 * n_onb * 3 + 4 * n_fine)
+    if fps.fps_path(n_onb) != "cluster":
+        raise AssertionError(f"fps[1x{n_onb}] takes the {fps.fps_path(n_onb)} path")
+    step_us = {path: fps.step_sync_us(path, n) for path, n in
+               (("block", n_obs), ("cluster", n_onb))}
+    log(f"fps step synchronisation alone: block {step_us['block']:.4f} us, "
+        f"cluster {step_us['cluster']:.4f} us")
     b_bound = bound(15 * _ball_query_scanned_pairs(pts, args),
                     2 * 4 * 16 * n_fine * 3 + 4 * 16 * n_fine * (args[1] + args[3]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f_ptx = ptxas_table(ptxas, ("fps_block_kernel", "fps_cluster_kernel",
+                                "fps_latency_kernel", "fps_multi_step_kernel"))
+    b_ptx = ptxas_table(ptxas, ("ball_query_lanes_kernel", "ball_query_warps_kernel"))
+    for k, rec in {**f_ptx, **b_ptx}.items():
+        log(f"{k}: ptxas {rec['registers']} registers, {rec['spill_bytes']} bytes "
+            f"spilled, {rec['smem_bytes']} bytes static shared memory")
     return [
         dict(name="farthest_point_sample_cuda", route="cuda",
              source="sam6d_torch/csrc/fps.cu",
@@ -328,6 +366,14 @@ def phase_kernels(cfg, seg, ptxas):
              max_abs_err=max(f_err, t_err, o_err), tolerance="exact indices",
              ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0], bound_by=f_bound[1],
              library_ms=None, onboard_ms=o_ms, onboard_plain_ms=o_plain,
+             onboard_bound_ms=o_bound[0], onboard_bound_by=o_bound[1],
+             latency_floor_ms=n_coarse * step_us["block"] / 1e3,
+             onboard_latency_floor_ms=n_fine * step_us["cluster"] / 1e3,
+             step_sync_us=step_us,
+             paths={f"16x{n_obs}->{n_coarse}": fps.fps_path(n_obs),
+                    f"1x{n_fine}->{n_coarse}": fps.fps_path(n_fine),
+                    f"1x{n_onb}->{n_fine}": fps.fps_path(n_onb)},
+             ptxas=f_ptx,
              shapes=f"16x{n_obs}->{n_coarse} (ms); 1x{n_onb}->{n_fine} "
                     f"(onboard_ms); 1x{n_fine}->{n_coarse} checked"),
         dict(name="two_scale_ball_query_cuda", route="cuda",
@@ -338,6 +384,9 @@ def phase_kernels(cfg, seg, ptxas):
                        f"{NEAR_R2} of r^2",
              ms=b_ms, plain_ms=b_plain, bound_ms=b_bound[0], bound_by=b_bound[1],
              library_ms=None,
+             paths={f"16x{n_fine}x{n_fine}": bq.ball_query_path(16, n_fine, sms),
+                    f"1x{n_fine}x{n_fine}": bq.ball_query_path(1, n_fine, sms)},
+             ptxas=b_ptx,
              shapes=f"16x{n_fine}x{n_fine} (ms); 1x{n_fine}x{n_fine} checked; "
                     f"r {fm.pe_radius1}/{fm.pe_radius2}, "
                     f"s {fm.pe_nsample1}/{fm.pe_nsample2}"),

@@ -32,10 +32,13 @@ _PP = ctypes.POINTER(ctypes.c_void_p)   # host array of device pointers
 _IP = ctypes.POINTER(ctypes.c_int)      # host array of ints
 _LP = ctypes.POINTER(ctypes.c_longlong)  # host array of 64-bit strides
 _SIGNATURES = {
-    "sam6d_fps_single_block": [_P, _P, _I, _I, _I, _P, _P],
+    "sam6d_fps_block": [_P, _P, _I, _I, _I, _P, _P],
+    "sam6d_fps_cluster": [_P, _P, _I, _I, _I, _P, _P],
+    "sam6d_fps_cluster_occupancy": [_I, _IP, _IP, _IP],
     "sam6d_fps_multi_block": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "sam6d_two_scale_ball_query": [_P, _P, _I, _I, _I, _F, _I, _F, _I, _P, _P,
-                                   _P],
+    "sam6d_fps_latency": [_I, _I, _I, _P, _P],
+    "sam6d_two_scale_ball_query": [_P, _P, _I, _I, _I, _F, _I, _F, _I, _I, _P,
+                                   _P, _P],
     "sam6d_fused_attention_qkv": [_P, _P, _I, _I, _I, _I, _F, _P],
     "sam6d_fused_attention": [_P, _P, _P, _P, _LP, _LP, _LP, _LP, _I, _I, _I, _I,
                               _I, _F, _P],

@@ -10,9 +10,15 @@ the first hit (0 if none).
 What bounds it on the card: the plain version materialises the (B, M, N)
 distance matrix and an index tensor of the same size and runs a top-k over
 both (16 x 2048 x 2048 per frame: ~0.5 GB of memory traffic per scale). The
-kernel keeps everything in registers: one warp per query sweeps N in 32-wide
-slices, turns ballot/popc prefix counts into slot positions, and stops when
-both quotas are full, so the work scales with neighbourhood density, not N.
+kernel forms no matrix. `ball_query_path` picks one of two paths from the
+shape: "lanes" (the frame's 16 clouds) stages a cloud's candidates in
+shared memory once (1024 at a time) for a warp of 32 queries, one a lane,
+which tests 32 staged candidates at a time into hit masks and writes the
+hits to its query's next slots in index order; "warps" (one cloud at
+onboarding, too few queries for that to fill the card) walks the
+candidates with one warp a query, turning ballot/popc prefix counts into
+slot positions. Both stop when every quota is full, so the work scales
+with neighbourhood density, not N.
 """
 from __future__ import annotations
 
@@ -54,6 +60,14 @@ def two_scale_ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
             _fill_tail(first_k_hits(d2 < r2 * r2, s2), N))
 
 
+def ball_query_path(B: int, M: int, sms: int) -> str:
+    """The kernel path for B clouds of M queries on a card of `sms`
+    multiprocessors: "lanes" (a block of 32 queries, one a lane, on staged
+    candidates) when that gives every multiprocessor a block, else "warps"
+    (one warp a query)."""
+    return "lanes" if B * -(-M // 32) >= sms else "warps"
+
+
 def two_scale_ball_query_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
                               r1: float, s1: int, r2: float, s2: int):
     """The CUDA kernel: same contract as two_scale_ball_query_plain."""
@@ -77,8 +91,9 @@ def two_scale_ball_query_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
     # radii squared in float32, as the plain version's comparison sees them
     r1sq = float(np.float32(r1 * r1))
     r2sq = float(np.float32(r2 * r2))
+    path = ball_query_path(B, M, torch.cuda.get_device_properties(dev).multi_processor_count)
     err = lib.sam6d_two_scale_ball_query(
-        xt.data_ptr(), qt.data_ptr(), B, N, M, r1sq, s1, r2sq, s2,
+        xt.data_ptr(), qt.data_ptr(), B, N, M, r1sq, s1, r2sq, s2, int(path == "lanes"),
         out1.data_ptr(), out2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     two_scale_ball_query_cuda.launches += 1
     check(err, "two_scale_ball_query_cuda")

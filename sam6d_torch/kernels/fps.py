@@ -5,30 +5,50 @@ Replaces `sam6d_tpu/kernels/fps.py::farthest_point_sample_pallas` (and the
 XLA loop `sam6d_tpu/ops/sampling.py::farthest_point_sample`, which the JAX
 package runs on every path).
 
-What bounds it on the card: M-1 strictly dependent steps, each a sweep over
+What bounds it on the card: M strictly dependent steps, each a sweep over
 N points plus an argmax. Written as torch ops that is ~8 launches per step,
 so the plain version is launch-bound (195 steps per frame, 2047 at
-onboarding). The kernel keeps each cloud's points, running min-distance and
-valid flags in one block's shared memory and runs all steps in one launch
-(N <= FPS_SINGLE_BLOCK_MAX_N: the per-frame 16 x 2048 -> 196 and trunk
-shapes). The onboarding cloud (42 views x 5000 = 210 000 points -> 2048) is
-too large for one SM to sweep 2047 times quickly, so it takes a multi-block
-path: one launch per step over ~100 blocks, each reducing the previous
-step's per-block partials itself (no atomics, no grid barrier) — see the
-header of `csrc/fps.cu`.
+onboarding). The kernel runs all steps in one launch, and a step is one
+sweep, a warp reduction of packed (score, index) keys and one barrier, plus
+on the cluster path a wait for the other blocks' winners (`csrc/fps.cu`'s
+header). `fps_path` picks the path from N alone:
 
-Semantics shared by both versions: start at the first valid index, invalid
+* ``"block"`` (N <= FPS_BLOCK_MAX_N: the per-frame 16 x 2048 -> 196 and
+  trunk shapes): one block a cloud, points in registers;
+* ``"cluster"`` (N <= FPS_CLUSTER_MAX_N: the onboarding cloud, 42 views x
+  5000 = 210 000 points -> 2048): one 16-block thread block cluster a
+  cloud, which agrees on each pick through distributed shared memory;
+* ``"multi"`` (larger N): one launch per step over many blocks.
+
+Semantics shared by every version: start at the first valid index, invalid
 points score -1 and are never picked, ties go to the lowest index (like
 `argmax`), distance = dx*dx + dy*dy + dz*dz in that order.
 """
 from __future__ import annotations
 
+import ctypes
+import statistics
+
 import torch
 
 from ._build import check, load_library
 
-FPS_SINGLE_BLOCK_MAX_N = 8192   # 17 bytes of shared memory per point
+# as in csrc/fps.cu: 256 threads x 16 points a thread; 16 blocks x 896
+# threads x 16 points a thread
+FPS_BLOCK_MAX_N = 256 * 16
+FPS_CLUSTER_BLOCKS = 16
+FPS_CLUSTER_MAX_N = FPS_CLUSTER_BLOCKS * 896 * 16
 FPS_MULTI_BLOCK_CHUNK = 2048    # points per block in the multi-block path
+
+
+def fps_path(n: int) -> str:
+    """The kernel path for clouds of `n` points: "block", "cluster" or
+    "multi"."""
+    if n <= FPS_BLOCK_MAX_N:
+        return "block"
+    if n <= FPS_CLUSTER_MAX_N:
+        return "cluster"
+    return "multi"
 
 
 def farthest_point_sample_plain(points: torch.Tensor, npoint: int,
@@ -79,9 +99,14 @@ def farthest_point_sample_cuda(points: torch.Tensor, npoint: int,
              else valid_mask.to(torch.uint8).contiguous())
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if N <= FPS_SINGLE_BLOCK_MAX_N:
-        err = lib.sam6d_fps_single_block(planar.data_ptr(), valid.data_ptr(),
-                                         B, N, npoint, out.data_ptr(), stream)
+    path = fps_path(N)
+    if path == "block":
+        err = lib.sam6d_fps_block(planar.data_ptr(), valid.data_ptr(), B, N,
+                                  npoint, out.data_ptr(), stream)
+    elif path == "cluster":
+        check_cluster_resident(N)
+        err = lib.sam6d_fps_cluster(planar.data_ptr(), valid.data_ptr(), B, N,
+                                    npoint, out.data_ptr(), stream)
     else:
         nblk = -(-N // FPS_MULTI_BLOCK_CHUNK)
         mindist = torch.full((B, N), 1e10, dtype=torch.float32, device=dev)
@@ -97,6 +122,59 @@ def farthest_point_sample_cuda(points: torch.Tensor, npoint: int,
 
 
 farthest_point_sample_cuda.launches = 0
+
+_resident_clusters: dict[int, int] = {}
+
+
+def check_cluster_resident(n: int) -> int:
+    """How many 16-block clusters of the cluster path's shape for `n` points
+    the card holds at once (cudaOccupancyMaxActiveClusters, queried once a
+    cloud size); raises, with the shape, if not even one fits."""
+    if n not in _resident_clusters:
+        clusters, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        check(load_library().sam6d_fps_cluster_occupancy(
+            n, ctypes.byref(clusters), ctypes.byref(threads), ctypes.byref(smem)),
+            "cudaOccupancyMaxActiveClusters")
+        if clusters.value < 1:
+            raise RuntimeError(
+                f"FPS cluster path for N={n}: a cluster of {FPS_CLUSTER_BLOCKS} "
+                f"blocks of {threads.value} threads and {smem.value} bytes of "
+                f"shared memory a block cannot be resident "
+                f"(cudaOccupancyMaxActiveClusters = {clusters.value})")
+        _resident_clusters[n] = clusters.value
+    return _resident_clusters[n]
+
+
+def step_sync_us(path: str, n: int, steps: tuple[int, int] = (256, 2304),
+                 reps: int = 5) -> float:
+    """The least latency of one FPS step's synchronisation on the card, in
+    µs, with no sweep: `path` "block" times the block path's redux pair,
+    barrier and redux pair over its 256 threads; "cluster" adds, at the
+    cluster path's shape for `n` points, the winner sent to the 16 blocks'
+    mailboxes through distributed shared memory, the mbarrier wait and the
+    16-slot reduction. The median over `reps` of the difference between two
+    chained runs of `steps`, over their difference, so the launch cancels.
+    Counts no launch of `farthest_point_sample_cuda`."""
+    if path not in ("block", "cluster"):
+        raise ValueError(f"no step probe for path {path!r}")
+    lib = load_library()
+    scratch = torch.empty(FPS_CLUSTER_BLOCKS, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_ms(k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        check(lib.sam6d_fps_latency(int(path == "cluster"), n, k,
+                                    scratch.data_ptr(), stream), "sam6d_fps_latency")
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    run_ms(steps[0])
+    per_step = [(run_ms(steps[1]) - run_ms(steps[0])) / (steps[1] - steps[0])
+                for _ in range(reps)]
+    return 1e3 * statistics.median(per_step)
 
 
 def farthest_point_sample(points: torch.Tensor, npoint: int,

@@ -6,6 +6,7 @@ Used to compare kernel variants: copy `sam6d_torch/csrc/` to a directory,
 edit the copy, and run
 
     python3 scripts/time_attention_variants.py [--sam] [--factored] DIR [DIR ...]
+    python3 scripts/time_attention_variants.py --points ROOT [ROOT ...]
 
 Each directory is built into `DIR/_build/` and timed in its own process (the
 library is bound once a process), in the order given; pass the unedited
@@ -20,7 +21,20 @@ heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
 (layer 2; also over runs of 10 launches, which hide the host's dispatch),
 and each kernel's max |diff| from its plain version (K2: mu's,
 and 1/sigma's relative), K3 beside its plain version's time (5 runs);
-`--factored` keeps only K2-K4. With `--sam`, also
+`--factored` keeps only K2-K4. With `--points`, each argument is instead
+the root of a checkout (a directory holding `sam6d_torch/`, e.g. a parent
+commit unpacked with `git archive`, or a copy of the package with edited
+`csrc/`), built and imported from there, and the line times its FPS (K7)
+at 16x2048->196, 1x2048->196 and 1x210000->2048 and its two-scale ball
+query (K6) at 16x2048x2048 and 1x2048x2048 on `chip_smoke.py`'s clouds
+(CUDA-event medians of 20 one-launch runs, 5 at 210 000 points, and
+below 2048 picks also over runs of 10 launches, which hide the host's
+dispatch), each checked
+against its plain version, with the ptxas registers, spills and shared
+memory of those kernels, the FPS path each shape takes, and the latency of
+one FPS step's synchronisation alone (`fps.step_sync_us`: a redux pair +
+one block barrier; plus a cluster barrier and a 16-slot DSMEM read) where
+the checkout has it. With `--sam`, also
 the ViT-H SAM's iou pass and `generate_masks_device` on a random 480x640
 frame (random weights, the load pinned as `chip_smoke.py` pins it;
 CUDA-event medians of 3 runs), and the iou pass's kernel split on the card
@@ -98,6 +112,75 @@ def time_one(csrc: Path, sam: bool, factored_only: bool) -> str:
     if sam:
         fields += sam_fields(cs)
     return f"{csrc.name}: " + "; ".join(fields)
+
+
+def time_points(root: Path) -> str:
+    """K7 and K6 from the checkout at `root` (see the module docstring)."""
+    import importlib.util
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+    from sam6d_torch.kernels import _build
+    from sam6d_torch.kernels import ball_query as bq
+    from sam6d_torch.kernels import fps
+    from sam6d_torch.ops.geometry import pairwise_sq_distance
+    if not Path(fps.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {fps.__file__}, not the checkout at {root}")
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    _, out = _build.build(verbose=True)
+    _build.load_library()
+    fields, entry, spill = [], None, 0
+    for line in out.splitlines():
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        u = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif s:
+            spill = int(s[1]) + int(s[2])
+        elif u and entry and ("fps_" in entry or "ball_query" in entry):
+            name = re.search(r"\d+((?:fps|ball_query)\w*?_kernel)(?:IL[ib](\d+)E)?", entry)
+            fields.append(f"{name[1] if name else entry}<{name[2] or '' if name else ''}> "
+                          f"{u[1]} regs {spill} spilled "
+                          f"{u[2]} B smem")
+
+    rng = np.random.RandomState(0)
+    frame = rng.randn(16, 2048, 3).astype(np.float32) * 0.3
+    frame[:, 1000:1100] = frame[:, :100]
+    base = rng.randn(60000, 3).astype(np.float32) * 0.05
+    onb = base[rng.randint(0, len(base), 210000)][None]
+    for name, pts, m, reps in (("16x2048->196", frame, 196, 20),
+                               ("1x2048->196", frame[:1], 196, 20),
+                               ("1x210000->2048", onb, 2048, 5)):
+        p = torch.from_numpy(np.ascontiguousarray(pts)).cuda()
+        exact = torch.equal(fps.farthest_point_sample_cuda(p, m),
+                            fps.farthest_point_sample_plain(p, m))
+        ms = cs.cuda_ms(lambda: fps.farthest_point_sample_cuda(p, m), reps=reps)
+        runs = (cs.cuda_ms(lambda: fps.farthest_point_sample_cuda(p, m), reps=5, launches=10)
+                if m < 2048 else ms)
+        path = fps.fps_path(p.shape[1]) if hasattr(fps, "fps_path") else "-"
+        fields.append(f"K7 {name} {ms:.4f} ms ({runs:.4f} over runs of 10; {path}, "
+                      f"{'exact' if exact else 'DIFFERS'})")
+    pts = torch.from_numpy(rng.randn(16, 2048, 3).astype(np.float32) * 0.3).cuda()
+    args = (0.1, 32, 0.2, 64)
+    d2 = pairwise_sq_distance(pts, pts)
+    for name, x in (("16x2048x2048", pts), ("1x2048x2048", pts[:1].contiguous())):
+        bad = 0
+        for g, w, r in zip(bq.two_scale_ball_query_cuda(x, x, *args),
+                           bq.two_scale_ball_query_plain(x, x, *args), (args[0], args[2])):
+            near = ((d2[:len(x)] - float(np.float32(r * r))).abs() < cs.NEAR_R2).any(-1)
+            bad += int(((g != w).any(-1) & ~near).sum())
+        ms = cs.cuda_ms(lambda: bq.two_scale_ball_query_cuda(x, x, *args), reps=20)
+        runs = cs.cuda_ms(lambda: bq.two_scale_ball_query_cuda(x, x, *args), reps=5,
+                          launches=10)
+        fields.append(f"K6 {name} {ms:.4f} ms ({runs:.4f} over runs of 10; "
+                      f"{bad} rows differ unexplained)")
+    if hasattr(fps, "step_sync_us"):
+        fields.append(f"step sync block {fps.step_sync_us('block', 2048):.4f} us, "
+                      f"cluster {fps.step_sync_us('cluster', 210000):.4f} us")
+    return f"{root.name}: " + "; ".join(fields)
 
 
 def sam_fields(cs):
@@ -211,10 +294,13 @@ def factored_fields(rng, cs):
 
 def main(argv):
     if argv[:1] == ["--one"]:
-        print(time_one(Path(argv[1]).resolve(), "--sam" in argv[2:], "--factored" in argv[2:]),
-              flush=True)
+        if "--points" in argv[2:]:
+            print(time_points(Path(argv[1]).resolve()), flush=True)
+        else:
+            print(time_one(Path(argv[1]).resolve(), "--sam" in argv[2:],
+                           "--factored" in argv[2:]), flush=True)
         return 0
-    flags = [a for a in argv if a in ("--sam", "--factored")]
+    flags = [a for a in argv if a in ("--sam", "--factored", "--points")]
     argv = [a for a in argv if a not in flags]
     if not argv:
         print(__doc__)

@@ -36,6 +36,46 @@ def _fps_case(rng, case):
     return base[rng.randint(0, 30, (3, 90))], None, 40
 
 
+# Edges of the kernel's paths (csrc/fps.cu): the block path holds 8 points a
+# thread at N = 2048 (256 threads); the cluster path splits N over 16 blocks
+# of ceil(N / 16) points (1250 at N = 20000, so block 15 starts at 18750)
+FPS_EDGE_CASES = {
+    # name: (B, N, npoint, path the kernel takes)
+    "ragged_block": (3, 2047, 100, "block"),
+    "ragged_cluster": (2, 20001, 64, "cluster"),
+    "all_invalid_block": (2, 1000, 8, "block"),
+    "all_invalid_cluster": (1, 20000, 8, "cluster"),
+    "first_valid_in_last_cluster_block": (1, 20000, 32, "cluster"),
+    "tie_across_cluster_blocks": (1, 20000, 8, "cluster"),
+    "block_capacity": (1, 4096, 32, "block"),
+    "cluster_floor": (1, 4097, 32, "cluster"),
+    "cluster_capacity": (1, 229376, 8, "cluster"),
+    "multi_floor": (1, 229377, 8, "multi"),
+}
+
+
+def _fps_edge_case(rng, case):
+    """(points (B, N, 3), valid mask or None, npoint) of FPS_EDGE_CASES."""
+    B, N, m, _ = FPS_EDGE_CASES[case]
+    pts = (rng.randn(B, N, 3) * 0.1).astype(np.float32)
+    mask = None
+    if case == "ragged_block":
+        # duplicated points (ties) and a mask, on a ragged last thread
+        pts = pts[:, rng.randint(0, N // 3, N)][0][None].repeat(B, 0)
+        mask = rng.rand(B, N) < 0.9
+    elif case.startswith("all_invalid"):
+        mask = np.zeros((B, N), bool)
+    elif case == "first_valid_in_last_cluster_block":
+        mask = np.zeros((B, N), bool)
+        mask[:, 19500:] = True
+    elif case == "tie_across_cluster_blocks":
+        # equal scores in blocks 0 and 15, then in blocks 3 and 8: the lower
+        # index must win each tie
+        pts[:, [10, 19990]] = 50.0
+        pts[:, [4000, 11000]] = -5.0
+    return pts, mask, m
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -58,8 +98,9 @@ def test_fps_kernel_matches_plain_small(cuda_device, case):
 @pytest.mark.parametrize("B,N,M", [(16, 2048, 196), (1, 2048, 196),
                                    (1, 210000, 2048), (2, 9000, 64)])
 def test_fps_kernel_matches_plain_main_path_shapes(cuda_device, B, N, M):
-    """Single-block path (N <= 8192) and multi-block path (larger N), with
-    duplicated points as template sampling with replacement makes them."""
+    """Block path (N <= 4096) and cluster path (larger N, the onboarding
+    cloud of 210 000 points among them), with duplicated points as template
+    sampling with replacement makes them."""
     rng = np.random.RandomState(6)
     base = rng.randn(max(N // 3, 1), 3).astype(np.float32)
     pts = torch.from_numpy(base[rng.randint(0, len(base), (B, N))]).to(cuda_device)
@@ -67,6 +108,55 @@ def test_fps_kernel_matches_plain_main_path_shapes(cuda_device, B, N, M):
     for vm in (None, mask):
         assert torch.equal(fps.farthest_point_sample_cuda(pts, M, vm),
                            fps.farthest_point_sample_plain(pts, M, vm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FPS_EDGE_CASES))
+def test_fps_kernel_matches_plain_at_path_edges(cuda_device, case):
+    """Each path of the kernel at its edges, exact: a ragged last thread or
+    cluster block, all-invalid clouds, the first valid index in the
+    cluster's last block, ties across cluster blocks, and N at the block
+    and cluster capacities and one past them."""
+    pts, mask, m = _fps_edge_case(np.random.RandomState(12), case)
+    assert fps.fps_path(pts.shape[1]) == FPS_EDGE_CASES[case][3]
+    p = torch.from_numpy(pts).to(cuda_device)
+    vm = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    got = fps.farthest_point_sample_cuda(p, m, vm)
+    want = fps.farthest_point_sample_plain(p, m, vm)
+    assert torch.equal(got, want)
+    if case == "tie_across_cluster_blocks":
+        assert got[0, 1:3].tolist() == [10, 4000]
+
+
+@pytest.mark.cuda
+def test_fps_step_probe_times_both_paths(cuda_device):
+    """The step-synchronisation probe runs on both paths and the cluster's
+    step (barrier + DSMEM read on top of the block's) is the slower."""
+    block = fps.step_sync_us("block", 2048)
+    cluster = fps.step_sync_us("cluster", 210000)
+    assert 0 < block < cluster < 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,scales", [
+    # paths as an H100 (132 SMs) takes them
+    (2, 5000, 102, (0.1, 32, 0.2, 64)),     # warps, N over 4 staged chunks
+    (12, 3000, 1000, (0.1, 32, 0.2, 64)),   # lanes, ragged last chunk, M % 32 != 0
+    (2, 5000, 96, (0.02, 64, 0.04, 128)),   # warps, quotas never fill
+    (8, 5000, 600, (0.02, 64, 0.04, 128)),  # lanes, quotas never fill: every chunk
+    (4, 700, 1100, (0.2, 4, 0.4, 8)),       # lanes, quotas fill within a group
+])
+def test_ball_query_kernel_matches_plain_on_other_queries(cuda_device, B, N, M, scales):
+    """Queries that are not the candidates, at the staging and block edges."""
+    r1, s1, r2, s2 = scales
+    rng = np.random.RandomState(8)
+    xyz = torch.from_numpy(rng.randn(B, N, 3).astype(np.float32) * 0.3).to(cuda_device)
+    q = torch.from_numpy(rng.randn(B, M, 3).astype(np.float32) * 0.3).to(cuda_device)
+    d2 = pairwise_sq_distance(q, xyz)
+    for g, w, r in zip(bq.two_scale_ball_query_cuda(xyz, q, *scales),
+                       bq.two_scale_ball_query_plain(xyz, q, *scales), (r1, r2)):
+        near = ((d2 - float(np.float32(r * r))).abs() < 1e-6).any(dim=-1)
+        assert not ((g != w).any(dim=-1) & ~near).any()
 
 
 @pytest.mark.cuda

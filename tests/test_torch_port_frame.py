@@ -361,6 +361,43 @@ def test_render_demo_and_stream_subcommands(tmp_path, monkeypatch):
                for i in range(2))
 
 
+def test_stream_subcommand_onboards_model_points_in_metres(tmp_path, monkeypatch):
+    """`stream` hands MultiObjectStream.onboard_object the mesh's millimetre
+    samples / 1000 for both the PEM model cloud and the ISM cloud, as its
+    contract (metres) asks. The JAX CLI passes millimetres (PERF.md /
+    ROADMAP Queue 3); the port does not copy that."""
+    from sam6d_torch.cli.main import main
+    from sam6d_torch.data.mesh import load_mesh
+    from sam6d_torch.data.synthetic import write_pem_job
+    _, pcfg = _configs(image_size=32)
+    monkeypatch.setattr(pc, "default_config", lambda: pcfg)
+    job = write_pem_job(str(tmp_path), np.random.RandomState(10), n_det=1, n_views=2)
+    out = tmp_path / "s"
+    (out / "obj_0" / "templates").mkdir(parents=True)   # no render
+
+    class Onboarded(Exception):
+        pass
+
+    seen = {}
+
+    def onboard(self, obj_id, template_dir, model_points, ism_points=None, **kw):
+        seen.update(obj_id=obj_id, model=model_points, ism=ism_points)
+        raise Onboarded
+
+    monkeypatch.setattr(MultiObjectStream, "onboard_object", onboard)
+    with pytest.raises(Onboarded):
+        main(["stream", "--cad_paths", job["cad"], "--frames_dir", str(tmp_path),
+              "--cam_path", job["cam"], "--output_dir", str(out), "--device", "cpu"])
+    mesh, rng = load_mesh(job["cad"]), np.random.RandomState(0)
+    model_mm = mesh.sample(pcfg.pem.n_sample_model_point, rng)
+    ism_mm = mesh.sample(pcfg.ism.matching.pointcloud_sample_num, rng)
+    assert seen["obj_id"] == 0
+    np.testing.assert_array_equal(seen["model"], model_mm / 1000.0)
+    np.testing.assert_array_equal(seen["ism"], ism_mm / 1000.0)
+    # the 80 x 60 x 40 mm box: metres, not millimetres
+    assert 0.01 < np.abs(seen["model"]).max() < 0.1
+
+
 # ------------------------------------------------------------- BOP writers
 
 def test_bop_writers_match_jax(tmp_path):

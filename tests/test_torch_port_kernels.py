@@ -23,7 +23,8 @@ from sam6d_torch.kernels import fps
 from sam6d_torch.ops import sampling
 from sam6d_torch.ops.ball_query import group_points
 
-from test_torch_cuda_kernels import _fps_case, factored_state
+from test_torch_cuda_kernels import (FPS_EDGE_CASES, _fps_case, _fps_edge_case,
+                                     factored_state)
 from torch_port_common import separated_cloud
 
 
@@ -41,6 +42,83 @@ def test_fps_plain_matches_jax_and_pallas(case):
     np.testing.assert_array_equal(got.numpy(), pallas)
     if mask is not None:
         assert mask[np.arange(len(mask))[:, None], got.numpy()].all()
+
+
+@pytest.mark.parametrize("case", sorted(FPS_EDGE_CASES))
+def test_fps_plain_matches_jax_and_pallas_at_kernel_path_edges(case):
+    """The plain version against JAX's XLA loop and the Pallas kernel
+    (interpret mode) on the clouds that probe the CUDA kernel's path edges
+    (test_torch_cuda_kernels.py holds the kernel to the plain version on
+    them)."""
+    pts, mask, m = _fps_edge_case(np.random.RandomState(12), case)
+    jmask = None if mask is None else jnp.asarray(mask)
+    want = np.asarray(jsampling.farthest_point_sample(jnp.asarray(pts), m, jmask))
+    pallas = np.asarray(farthest_point_sample_pallas(jnp.asarray(pts), m, jmask,
+                                                     interpret=True))
+    got = fps.farthest_point_sample(
+        torch.from_numpy(pts), m, None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    if case.startswith("all_invalid"):
+        assert (got.numpy() == 0).all()
+    if case == "first_valid_in_last_cluster_block":
+        assert got[0, 0] == 19500 and (got.numpy() >= 19500).all()
+    if case == "tie_across_cluster_blocks":
+        assert got[0, 1:3].tolist() == [10, 4000]
+
+
+@pytest.mark.parametrize("n,path", [
+    (1, "block"), (2048, "block"), (4096, "block"), (4097, "cluster"),
+    (210000, "cluster"), (229376, "cluster"), (229377, "multi")])
+def test_fps_path_follows_n_alone(n, path):
+    assert fps.fps_path(n) == path
+
+
+@pytest.mark.parametrize("B,M,sms,path", [
+    (16, 2048, 132, "lanes"), (1, 2048, 132, "warps"), (1, 4193, 132, "lanes"),
+    (1, 4192, 132, "warps"), (2, 2112, 132, "lanes"), (2, 2080, 132, "warps"),
+    (1, 1, 1, "lanes"), (12, 1000, 132, "lanes")])
+def test_ball_query_path_follows_the_shape(B, M, sms, path):
+    assert bq.ball_query_path(B, M, sms) == path
+
+
+def _separated_queries(rng, B, N, M, radii, scale=0.3, margin=1e-5):
+    """Candidates (B, N, 3) and other queries (B, M, 3) with no
+    (query, candidate) pair within `margin` of any r^2: candidates in such a
+    pair are drawn again until none is left."""
+    r2 = np.float32(np.asarray(radii, np.float64) ** 2)
+    xyz = (rng.randn(B, N, 3) * scale).astype(np.float32)
+    q = (rng.randn(B, M, 3) * scale).astype(np.float32)
+    while True:
+        d2 = ((q.astype(np.float64)[:, :, None] - xyz[:, None]) ** 2).sum(-1)
+        near = np.zeros((B, N), bool)
+        for r in r2:
+            near |= (np.abs(d2 - r) <= margin).any(axis=1)
+        if not near.any():
+            return xyz, q
+        xyz[near] = (rng.randn(int(near.sum()), 3) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,N,M,scales", [
+    (2, 5000, 96, (0.1, 32, 0.2, 64)),      # N over the kernel's staged chunks
+    (1, 5000, 64, (0.02, 64, 0.04, 128)),   # quotas never fill
+])
+def test_ball_query_plain_matches_jax_and_pallas_on_other_queries(B, N, M, scales):
+    """Queries that are not the candidates, at the CUDA kernel's staging
+    edge (N > 1024) and with quotas that never fill."""
+    r1, s1, r2, s2 = scales
+    xyz, q = _separated_queries(np.random.RandomState(9), B, N, M, (r1, r2))
+    w1, w2 = jax_two_scale_ball_query(r1, s1, r2, s2, jnp.asarray(xyz), jnp.asarray(q))
+    p1, p2 = two_scale_ball_query_pallas(jnp.asarray(xyz), jnp.asarray(q),
+                                         r1, s1, r2, s2, block_m=32, interpret=True)
+    g1, g2 = bq.two_scale_ball_query(torch.from_numpy(xyz), torch.from_numpy(q),
+                                     r1, s1, r2, s2)
+    for g, w, p in ((g1, w1, p1), (g2, w2, p2)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+    if s1 == 64:   # never full: every row ends in its fill
+        d2 = ((q[:, :, None].astype(np.float64) - xyz[:, None]) ** 2).sum(-1)
+        assert ((d2 < np.float32(r2 * r2)).sum(-1) < s2).all()
 
 
 @pytest.mark.parametrize("shape,scales", [
