@@ -50,10 +50,22 @@ Phases, in order; any failure raises and exits non-zero:
      launched), MultiObjectStream with two objects over 4 frames,
      synchronous and pipelined, with equal poses, and the ISM describe at
      DINOv2 img_size 448 (1025 tokens: K8 launched 24 times, held to the
-     plain attention on the card).
+     plain attention on the card);
+  8. BOP evaluation through the CLI, at full width: write_bop_job (lmo's
+     layout: two boxes, 2 test frames at 480x640, a train_pbr scene, 16
+     detections a frame), `render-bop` (2 objects x 42 views at 512^2),
+     `bop-eval --stage ism --onboarding pbr` (ViT-H SAM, DINOv2-L: K1 32
+     and K2-K4 16 times a frame, K5 at the onboarding and the describe),
+     `bop-eval --stage pem` on the job's detections (PEM-base, 16 instances
+     a frame: K6, K7, K7's cluster path at the onboarding); the files, the
+     records and the rows checked, one PEM chunk held to the plain CPU path;
+  9. SAMPredictor on the ViT-H segmentor: set_image on a BOP frame (K1 32
+     times), a point, a box and a mask-fed prompt, each decode held to the
+     CPU decode of the same embedding.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. Prints the card's name and power limit, one JSON line of
+read just after; each kernel's record carries its launches on its own
+path (`launches`) and on phases 8 and 9 (`path_launches`). Prints the card's name and power limit, one JSON line of
 kernel records (times, launches, errors, bounds), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1633,6 +1645,293 @@ def phase_frame(seg, ism_cfg, job):
     return phase_describe_448(job, fns)
 
 
+# ------------------------------------------------------------------ phase 8
+
+BOP_DATASET = "lmo"
+BOP_FRAMES = 2
+
+
+class timed_calls:
+    """Within the block, every call of `cls.name` (a method, or a function of
+    a module) is timed (wall ms, the card synchronized before and after)
+    into `self.ms`, with the launch counts of `fns` it made into
+    `self.launches`; `self.calls` holds (first argument, other arguments)
+    of each."""
+
+    def __init__(self, cls, name, fns=None, device="cuda"):
+        self.cls, self.name, self.fns, self.device = cls, name, fns or {}, device
+        self.ms, self.launches, self.calls = [], [], []
+
+    def _sync(self):
+        import torch
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+        rec = self
+
+        def wrapper(inst, *args, **kwargs):
+            rec._sync()
+            before = read_counts(rec.fns)
+            t0 = time.perf_counter()
+            out = orig(inst, *args, **kwargs)
+            rec._sync()
+            rec.ms.append(1e3 * (time.perf_counter() - t0))
+            after = read_counts(rec.fns)
+            rec.launches.append({k: after[k] - before[k] for k in after})
+            rec.calls.append((inst, args))
+            return out
+
+        setattr(self.cls, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def bop_config():
+    """default_config() with the AMG and ISM loads pinned as bench.py pins
+    them (random weights make SAM's predicted IoU and the semantic scores
+    meaningless): ViT-H SAM, DINOv2-L, PEM-base at full width."""
+    from sam6d_torch.core.config import (Config, ISMConfig, ISMMatchingConfig,
+                                         SAMConfig)
+    return Config(ism=ISMConfig(sam=SAMConfig(pred_iou_thresh=-10.0, stability_score_thresh=0.0,
+                                              max_proposals=128),
+                                matching=ISMMatchingConfig(confidence_thresh=-1.0)))
+
+
+def check_bop_launches(ism_frames, ism_total, pem_total, paths):
+    """K1 32 and K2-K4 16 times a BOP frame, K5 on the ISM stage, K6 and K7
+    on the PEM stage, K7's cluster path at the PEM onboarding."""
+    for i, per in enumerate(ism_frames):
+        want = {"flash_attention_relpos_cuda": 32, "factored_ln_stats_cuda": 16,
+                "factored_t2i_attention_cuda": 16, "factored_i2t_scores_cuda": 16}
+        bad = {k: per[k] for k, n in want.items() if per[k] != n}
+        if bad or per["fused_attention_qkv_cuda"] < 1:
+            raise AssertionError(f"bop-eval ISM frame {i}: launches {per}, expected {want} "
+                                 "and K5 > 0")
+    if ism_total["fused_attention_qkv_cuda"] <= sum(
+            f["fused_attention_qkv_cuda"] for f in ism_frames):
+        raise AssertionError("K5 was not launched at the PBR onboarding")
+    for k in ("farthest_point_sample_cuda", "two_scale_ball_query_cuda"):
+        if pem_total[k] < 1:
+            raise AssertionError(f"{k} was not launched on the bop-eval PEM stage")
+    if "cluster" not in paths:
+        raise AssertionError(f"K7's cluster path was not taken at onboarding: {paths}")
+
+
+def check_bop_outputs(job, troot, out, frames):
+    """The files exist; the ISM records parse (BOP-23: ids, xywh box, RLE at
+    the frame's size, finite score); the BOP19 rows parse, R orthonormal
+    and t.z inside the frame's depth range widened by the largest object
+    radius (an object's centre lies at most that far behind its visible
+    surface). Returns (records, rows)."""
+    from sam6d_torch.data.rle import rle_decode_coco
+    for oid in job["obj_ids"]:
+        d = os.path.join(troot, BOP_DATASET, f"obj_{oid:06d}")
+        names = set(os.listdir(d))
+        want = {f"{n}_{i}.{e}" for i in range(42) for n, e in (("rgb", "png"),
+                                                               ("mask", "png"), ("xyz", "npy"))}
+        if names != want:
+            raise AssertionError(f"render-bop wrote {sorted(names - want)} and missed "
+                                 f"{sorted(want - names)} in {d}")
+    paths = [os.path.join(out, n) for n in (f"ism_{BOP_DATASET}.json", "descriptors_pbr.npz",
+                                            f"sam6dtpu_{BOP_DATASET}-test.csv")]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"bop-eval did not write {missing}")
+    with open(paths[0]) as f:
+        records = json.load(f)
+    H, W = frames[0]["depth"].shape
+    for r in records:
+        m = rle_decode_coco(r["segmentation"])
+        if not (r["scene_id"] == 1 and r["image_id"] in range(BOP_FRAMES)
+                and r["category_id"] in job["obj_ids"] and len(r["bbox"]) == 4
+                and np.isfinite(r["score"]) and m.shape == (H, W) and m.any()):
+            raise AssertionError(f"bad ISM record {dict(r, segmentation='...')}")
+    if not records:
+        raise AssertionError("bop-eval ISM wrote no record")
+    with open(paths[2]) as f:
+        lines = f.read().splitlines()
+    if lines[0] != "scene_id,im_id,obj_id,score,R,t,time":
+        raise AssertionError(f"bad BOP19 header {lines[0]}")
+    r_mm = max(0.5 * float(v) for v in job["diameters"])
+    rows = []
+    for line in lines[1:]:
+        scene, im, obj, score, R, t, secs = line.split(",")
+        R = np.array(R.split(), float).reshape(3, 3)
+        t = np.array(t.split(), float)
+        depth = frames[int(im)]["depth"]
+        lo, hi = depth[depth > 0].min() - r_mm, depth.max() + r_mm
+        if not (int(scene) == 1 and int(obj) in job["obj_ids"]
+                and np.allclose(R @ R.T, np.eye(3), atol=1e-3) and np.isfinite(float(score))
+                and t.shape == (3,) and lo <= t[2] <= hi and float(secs) >= 0):
+            raise AssertionError(f"bad BOP19 row {line} (t.z range {lo:.0f}-{hi:.0f} mm)")
+        rows.append(line)
+    return records, rows
+
+
+def phase_bop(job_root, device="cuda"):
+    """Phase 8: the BOP evaluation path through the CLI at full width on a
+    write_bop_job tree (lmo's layout, two boxes, 2 test frames at 480x640,
+    a train_pbr scene, 16 detections a frame): `render-bop` (2 objects x 42
+    views at 512^2), `bop-eval --stage ism --onboarding pbr` (ViT-H SAM,
+    DINOv2-L), `bop-eval --stage pem` on the job's detections (PEM-base, 16
+    instances a frame); launches read around each stage, one PEM chunk held
+    to the plain CPU path. Returns {kernel: launches} of the two stages."""
+    import torch
+    from sam6d_torch.cli.main import main as cli_main
+    from sam6d_torch.core import config as port_config
+    from sam6d_torch.data.bop import discover_test_scenes
+    from sam6d_torch.data.synthetic import write_bop_job
+    from sam6d_torch.kernels import fps
+    import sam6d_torch.pipelines.bop_eval as bop_eval
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    from sam6d_torch.pipelines.pem import PEMPipeline
+
+    root = os.path.join(job_root, "bop")
+    t0 = time.perf_counter()
+    job = write_bop_job(root, np.random.RandomState(SEED + 5), n_test_frames=BOP_FRAMES)
+    with open(os.path.join(root, "models", "models_info.json")) as f:
+        job["diameters"] = [v["diameter"] for v in json.load(f).values()]
+    frames = [discover_test_scenes(root)[0].load_frame(i) for i in range(BOP_FRAMES)]
+    log(f"bop: write_bop_job ({len(job['obj_ids'])} objects, {BOP_FRAMES} test frames at "
+        f"{frames[0]['depth'].shape}, {len(job['dets'])} detections) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fns = frame_counters()
+    troot, out = os.path.join(root, "templates"), os.path.join(root, "out")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    cli_main(["render-bop", "--dataset_dir", root, "--dataset_name", BOP_DATASET,
+              "--output_dir", troot, "--device", device])
+    sync()
+    render_s = time.perf_counter() - t0
+
+    common = ["bop-eval", "--dataset_dir", root, "--dataset_name", BOP_DATASET,
+              "--template_dir", troot, "--output_dir", out, "--device", device]
+    orig_cfg = port_config.default_config
+    port_config.default_config = bop_config
+    paths = []
+    orig_path = fps.fps_path
+
+    def recorded_path(n):
+        paths.append(orig_path(n))
+        return paths[-1]
+
+    try:
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        with timed_calls(ISMPipeline, "onboard_bop_objects_pbr", fns, device) as onb, \
+                timed_calls(ISMPipeline, "match_frame", fns, device) as frm, \
+                timed_calls(bop_eval, "run_ism_bop_eval", device=device) as ism_drv:
+            cli_main(common + ["--stage", "ism", "--onboarding", "pbr",
+                               "--max_frames", str(BOP_FRAMES)])
+        sync()
+        ism_s = time.perf_counter() - t0
+        ism_total = read_counts(fns)
+
+        reset_counts(fns)
+        fps.fps_path = recorded_path
+        t0 = time.perf_counter()
+        with timed_calls(PEMPipeline, "onboard_templates", fns, device) as pon, \
+                timed_calls(PEMPipeline, "infer_batch", fns, device) as inf, \
+                timed_calls(bop_eval, "run_pem_bop_eval", device=device) as pem_drv:
+            cli_main(common + ["--stage", "pem", "--seg_path", job["seg_path"]])
+        sync()
+        pem_s = time.perf_counter() - t0
+        pem_total = read_counts(fns)
+    finally:
+        port_config.default_config = orig_cfg
+        fps.fps_path = orig_path
+
+    records, rows = check_bop_outputs(job, troot, out, frames)
+    n_obj = len(job["obj_ids"])
+    log(f"bop: `render-bop` CLI, {n_obj} objects x 42 views at 512^2 in {render_s:.2f} s "
+        f"({1e3 * render_s / n_obj:.0f} ms an object, cold)")
+    log(f"bop: `bop-eval --stage ism --onboarding pbr` in {ism_s:.2f} s (cold: ViT-H + "
+        f"DINOv2-L set-up), run_ism_bop_eval {ism_drv.ms[0]:.1f} ms; PBR onboarding {onb.ms[0]:.1f} ms ({onb.ms[0] / n_obj:.1f} ms an "
+        f"object); ISM frame wall ms {', '.join(f'{m:.1f}' for m in frm.ms)}; "
+        f"{len(records)} records; launches per frame {frm.launches}; stage {ism_total}")
+    csv_s = [float(r.rsplit(",", 1)[1]) for r in rows]
+    per_frame = [max(s for s, r in zip(csv_s, rows) if int(r.split(",")[1]) == i)
+                 for i in range(BOP_FRAMES)]
+    log(f"bop: `bop-eval --stage pem` in {pem_s:.2f} s (cold: PEM-base set-up), "
+        f"run_pem_bop_eval {pem_drv.ms[0]:.1f} ms; onboarding "
+        f"ms an object {', '.join(f'{m:.1f}' for m in pon.ms)}; infer_batch wall ms "
+        f"{', '.join(f'{m:.1f}' for m in inf.ms)} at B={[int(c[1][0]['rgb'].shape[0]) for c in inf.calls]}; "
+        f"BOP19 time column a frame (s) {', '.join(f'{s:.4f}' for s in per_frame)}; {len(rows)} rows "
+        f"(R R^T = I within 1e-3, t.z inside the depth range); launches {pem_total}; "
+        f"FPS paths {sorted(set(paths))}")
+    check_bop_launches(frm.launches, ism_total, pem_total, paths)
+    if len(rows) != len(job["dets"]):
+        raise AssertionError(f"{len(rows)} BOP19 rows for {len(job['dets'])} detections")
+    pem, (inputs, *_) = inf.calls[0]
+    check_against_plain(pem, {k: v[:2] for k, v in inputs.items()})
+    return dict(ism_frame=frm.launches[0], ism_stage=ism_total, pem_stage=pem_total), \
+        frames[0]["rgb"], job
+
+
+# ------------------------------------------------------------------ phase 9
+
+# card vs the plain CPU decode of one prompt from the same embedding: the
+# two-way transformer and the upscaling summed in another order
+PREDICTOR_ATOL = 1e-3
+
+def phase_predictor(seg, rgb, job, device="cuda"):
+    """Phase 9: SAMPredictor on the ViT-H segmentor: set_image on a BOP frame
+    (K1 32 times), a point, a box and a mask-fed prompt, each decode held
+    to the CPU decode of the same embedding. Returns set_image's launches."""
+    import copy
+    import types
+    import torch
+    from sam6d_torch.pipelines.predictor import SAMPredictor, decode_prompts
+    fns = frame_counters()
+    pred = SAMPredictor(seg)
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    pred.set_image(rgb)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    set_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts(fns)
+    det = job["dets"][0]
+    x, y, w, h = det["bbox"]
+    point = dict(point_coords=np.array([[x + w / 2.0, y + h / 2.0]]), point_labels=np.array([1]))
+    box = dict(box=np.array([x, y, x + w, y + h], np.float32))
+    first = pred.predict(**point, multimask_output=False)
+    prompts = [("point", point), ("box", box),
+               ("point + mask input", dict(point, mask_input=first[2],
+                                           multimask_output=False))]
+    cpu_sam = types.SimpleNamespace(
+        prompt_encoder=copy.deepcopy(seg.sam.prompt_encoder).cpu(),
+        mask_decoder=copy.deepcopy(seg.sam.mask_decoder).cpu())
+    emb_cpu = pred.embedding.cpu()
+    report = []
+    for name, kw in prompts:
+        t0 = time.perf_counter()
+        masks, iou, low = pred.predict(**kw)
+        ms = 1e3 * (time.perf_counter() - t0)
+        args = {k: v for k, v in kw.items() if k != "multimask_output"}
+        tens = pred.prompt_tensors(**args)
+        got = decode_prompts(seg.sam, pred.embedding, **tens)
+        want = decode_prompts(cpu_sam, emb_cpu, **{k: None if v is None else v.cpu()
+                                                   for k, v in tens.items()})
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        report.append(f"{name}: {ms:.1f} ms, masks {tuple(masks.shape)} ({int(masks.sum())} px), "
+                      f"iou {np.round(iou, 3).tolist()}, card vs CPU decode max |diff| {err:.2e}")
+        if not (np.isfinite(iou).all() and np.isfinite(low).all() and err <= PREDICTOR_ATOL):
+            raise AssertionError(f"predictor {name}: card decode disagrees with the CPU "
+                                 f"decode ({err:.2e} > {PREDICTOR_ATOL}) or is not finite")
+    log(f"predictor: set_image {set_ms:.1f} ms (wall, the ViT-H embedding), launches "
+        f"{launches}; " + "; ".join(report) + f" (atol {PREDICTOR_ATOL})")
+    if launches["flash_attention_relpos_cuda"] != 32:
+        raise AssertionError("set_image did not launch K1 32 times")
+    return launches
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -1673,6 +1972,10 @@ def main():
         sam_launches = phase_sam(seg, ism_cfg, job_dir, job)
         torch.cuda.empty_cache()
         describe_launches = phase_frame(seg, ism_cfg, dict(job, dir=job_dir))
+        torch.cuda.empty_cache()
+        bop_launches, bop_rgb, bop_job = phase_bop(job_dir)
+        torch.cuda.empty_cache()
+        predictor_launches = phase_predictor(seg, bop_rgb, bop_job)
     # each kernel's count from the run of its own path: K6/K7 from the `pem`
     # CLI run of phase 4, K5 from match_frame in phase 5, K1-K4 from
     # generate_masks in phase 6, K8 (and K9, which no path calls) from the
@@ -1681,8 +1984,17 @@ def main():
     launches.update({k: sam_launches[k] for k in SAM_KERNELS})
     launches.update({k: describe_launches[k]
                      for k in ("fused_attention_cuda", "fused_attention_small_cuda")})
+    # and each kernel's launches on the BOP path (phase 8: one ISM frame,
+    # the ISM stage with the PBR onboarding, the PEM stage) and the
+    # predictor's set_image (phase 9)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["path_launches"] = {
+            "bop-eval ism, one frame": bop_launches["ism_frame"][k["name"]],
+            f"bop-eval ism, {BOP_FRAMES} frames + pbr onboarding":
+                bop_launches["ism_stage"][k["name"]],
+            "bop-eval pem": bop_launches["pem_stage"][k["name"]],
+            "SAMPredictor.set_image": predictor_launches[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Command line of the PyTorch port: the JAX CLI's `render`, `demo`, `stream`
-and `pem` subcommands, with its flags plus `--device` (default cuda):
+"""Command line of the PyTorch port: the JAX CLI's `render`, `render-bop`,
+`demo`, `stream`, `pem` and `bop-eval` subcommands, with its flags plus
+`--device` (default cuda):
 
   python -m sam6d_torch.cli.main render --cad_path obj.ply --output_dir OUT
   python -m sam6d_torch.cli.main demo --cad_path obj.ply --rgb_path rgb.png \
@@ -9,13 +10,23 @@ and `pem` subcommands, with its flags plus `--device` (default cuda):
   python -m sam6d_torch.cli.main pem --output_dir OUT --cad_path obj.ply \
       --rgb_path rgb.png --depth_path depth.png --cam_path camera.json \
       --seg_path OUT/sam6d_results/detection_ism.json
+  python -m sam6d_torch.cli.main render-bop --dataset_dir BOP/lmo \
+      --dataset_name lmo --output_dir TEMPLATES
+  python -m sam6d_torch.cli.main bop-eval --dataset_dir BOP/lmo \
+      --dataset_name lmo --template_dir TEMPLATES --output_dir OUT
 
 `render` writes OUT/templates (42 views of rgb_i.png, mask_i.png,
 xyz_i.npy); `demo` renders, segments and matches (detection_ism.json,
 vis_ism.png) and poses (detection_pem.json, vis_pem.png) under
 OUT/sam6d_results; `stream` onboards every CAD and poses every
 rgb*/depth* frame pair of FRAMES into OUT/results.jsonl; `pem` is demo.sh's
-stage 3 on a given detection json. --sam_ckpt, --dinov2_ckpt and --pem_ckpt
+stage 3 on a given detection json; `render-bop` writes the 42 views of every
+object of a BOP dataset to TEMPLATES/{dataset}/obj_{id:06d}; `bop-eval`
+runs ISM over the dataset's test frames into OUT/ism_{dataset}.json
+(BOP-23) and PEM on those detections (or --seg_path) into
+OUT/sam6dtpu_{dataset}-test.csv (BOP19), the file names the JAX package
+writes; with --num_shards N each --shard writes a rank file and
+--merge_shards joins them. --sam_ckpt, --dinov2_ckpt and --pem_ckpt
 take the reference checkpoint files; without them the networks run seeded
 random weights (a smoke of the data path, not an estimate).
 """
@@ -55,6 +66,15 @@ def _pem_state_dict(path, cfg):
     return net.state_dict()
 
 
+def _require_device(device: str) -> None:
+    """Fail at once, and say why, when a CUDA device is asked for and there
+    is none: the entry points never fall back to the CPU on their own."""
+    import torch
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {device}: no CUDA device is available "
+                         "(pass --device cpu to run on the CPU)")
+
+
 def cmd_render(args):
     from ..core.config import default_config
     from ..render.templates import render_custom_templates
@@ -63,6 +83,15 @@ def cmd_render(args):
                                   level=cfg.render.template_level,
                                   image_size=cfg.render.image_size, device=args.device)
     print(f"templates written to {out}")
+
+
+def cmd_render_bop(args):
+    from ..render.templates import render_bop_templates
+    _require_device(args.device)
+    obj_ids = [int(x) for x in args.obj_ids] if args.obj_ids else None
+    dirs = render_bop_templates(args.dataset_dir, args.output_dir, args.dataset_name,
+                                level=args.level, obj_ids=obj_ids, device=args.device)
+    print(f"{len(dirs)} objects -> {os.path.join(args.output_dir, args.dataset_name)}")
 
 
 def cmd_demo(args):
@@ -185,6 +214,65 @@ def cmd_pem(args):
           f"{os.path.join(args.output_dir, 'sam6d_results', 'detection_pem.json')}")
 
 
+def cmd_bop_eval(args):
+    """BOP evaluation (reference run_inference.py + test_bop.py)."""
+    ism_json = os.path.join(args.output_dir, f"ism_{args.dataset_name}.json")
+    pem_csv = os.path.join(args.output_dir, f"sam6dtpu_{args.dataset_name}-test.csv")
+    if args.merge_shards:
+        from ..pipelines.bop_eval import merge_ism_shards, merge_pem_shards
+        if args.stage in ("ism", "all"):
+            merge_ism_shards(ism_json, args.num_shards)
+            print(f"merged {args.num_shards} ISM shards -> {ism_json}")
+        if args.stage in ("pem", "all"):
+            merge_pem_shards(pem_csv, args.num_shards)
+            print(f"merged {args.num_shards} PEM shards -> {pem_csv}")
+        return
+    import json
+
+    from ..core.config import default_config
+    from ..data.bop import load_bop_objects
+    from ..pipelines.bop_eval import run_ism_bop_eval, run_pem_bop_eval
+    from ..pipelines.ism import ISMPipeline
+    from ..pipelines.pem import PEMPipeline
+    from ..pipelines.sam_amg import SAMSegmentor
+
+    _require_device(args.device)
+    cfg = default_config()
+    dev = args.device
+    objects = load_bop_objects(os.path.join(args.dataset_dir, args.models_dir),
+                               template_root=args.template_dir,
+                               dataset_name=args.dataset_name)
+    os.makedirs(args.output_dir, exist_ok=True)
+    shards = dict(shard=args.shard, num_shards=args.num_shards)
+    if args.stage in ("ism", "all"):
+        seg = SAMSegmentor(cfg.ism.sam, state_dict=_sam_state_dict(args.sam_ckpt, cfg.ism.sam),
+                           device=dev)
+        ism = ISMPipeline(cfg.ism, state_dict=_dinov2_state_dict(args.dinov2_ckpt,
+                                                                 cfg.ism.dinov2),
+                          device=dev, segmentor=seg)
+        if args.onboarding == "pbr":
+            ism.onboard_bop_objects_pbr(
+                args.dataset_dir, [o.obj_id for o in objects],
+                cache_path=os.path.join(args.output_dir, "descriptors_pbr.npz"),
+                reset_descriptors=args.reset_descriptors)
+        else:
+            ism.onboard_bop_objects(
+                objects, cache_path=os.path.join(args.output_dir, "descriptors.npz"),
+                reset_descriptors=args.reset_descriptors)
+        run_ism_bop_eval(ism, args.dataset_dir, objects, ism_json,
+                         dataset_name=args.dataset_name, max_frames=args.max_frames,
+                         **shards)
+        print(f"ISM results -> {ism_json}")
+    if args.stage in ("pem", "all"):
+        with open(args.seg_path or ism_json) as f:
+            detections = json.load(f)
+        pem = PEMPipeline(cfg.pem, state_dict=_pem_state_dict(args.pem_ckpt, cfg.pem),
+                          device=dev)
+        run_pem_bop_eval(pem, args.dataset_dir, objects, detections, pem_csv,
+                         max_frames=args.max_frames, **shards)
+        print(f"PEM results -> {pem_csv}")
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="sam6d_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -208,6 +296,15 @@ def build_parser():
     pr = sub.add_parser("render", parents=[common, device],
                         help="CAD -> 42 template views (rgb, mask, xyz)")
     pr.set_defaults(fn=cmd_render)
+
+    prb = sub.add_parser("render-bop", parents=[device],
+                         help="the 42 template views of every object of a BOP dataset")
+    prb.add_argument("--dataset_dir", required=True)
+    prb.add_argument("--dataset_name", required=True)
+    prb.add_argument("--output_dir", required=True)
+    prb.add_argument("--level", type=int, default=0)
+    prb.add_argument("--obj_ids", nargs="*", default=None)
+    prb.set_defaults(fn=cmd_render_bop)
 
     pd = sub.add_parser("demo", parents=[common, io, device],
                         help="render -> ISM -> PEM on one RGB-D frame")
@@ -236,6 +333,30 @@ def build_parser():
                     help="override the AMG proposal capacity")
     ps.add_argument("--det_score_thresh", type=float, default=0.2)
     ps.set_defaults(fn=cmd_stream)
+
+    pb = sub.add_parser("bop-eval", parents=[ckpts, device],
+                        help="BOP evaluation: ISM over the test frames (BOP-23 json), "
+                             "PEM on its detections (BOP19 csv)")
+    pb.add_argument("--dataset_dir", required=True)
+    pb.add_argument("--dataset_name", required=True)
+    pb.add_argument("--template_dir", default=None,
+                    help="render-bop's output dir (the PEM stage and --onboarding "
+                         "render read the templates there)")
+    pb.add_argument("--models_dir", default="models")
+    pb.add_argument("--output_dir", default="outputs/bop")
+    pb.add_argument("--stage", default="all", choices=["ism", "pem", "all"])
+    pb.add_argument("--seg_path", default=None,
+                    help="detections for the PEM stage (default: the ISM stage's json)")
+    pb.add_argument("--max_frames", type=int, default=None)
+    pb.add_argument("--shard", type=int, default=0)
+    pb.add_argument("--num_shards", type=int, default=1)
+    pb.add_argument("--merge_shards", action="store_true",
+                    help="merge existing rank files instead of evaluating")
+    pb.add_argument("--onboarding", default="pbr", choices=["pbr", "render"],
+                    help="ISM template source: mined train_pbr crops (the reference "
+                         "default, ISM_sam.yaml:28) or rendered templates")
+    pb.add_argument("--reset_descriptors", action="store_true")
+    pb.set_defaults(fn=cmd_bop_eval)
     return p
 
 

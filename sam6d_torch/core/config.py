@@ -77,6 +77,9 @@ class PEMConfig:
     n_template_view: int = 42
     rgb_mask_flag: bool = True
     dis_thres: float = 0.15       # fine pose-score inlier threshold
+    # BOP test-time detection filter (reference bop_test_dataset.py:24-60)
+    seg_filter_score: float = 0.25
+    minimum_n_point: int = 8
 
 
 # --------------------------------------------------------------------- ISM

@@ -6,8 +6,11 @@ surface under random rotations), one 480x640 RGB-D frame with the box at
 0.6 m, camera.json and detection_ism.json (COCO-RLE masks over valid depth).
 `write_ism_job` adds the fixed-capacity proposal buffer the ISM matching
 stage reads; `write_stream_frames` a second box of other extents and frames
-in which both boxes have moved, for the `stream` entry point. Used by
-`chip_smoke.py` and the port's tests; no released data is needed.
+in which both boxes have moved, for the `stream` entry point;
+`write_bop_job` a BOP dataset tree of two boxes (models, a test scene, a
+train_pbr scene and a BOP-23 detections json) for `render-bop` and
+`bop-eval`. Used by `chip_smoke.py` and the port's tests; no released data
+is needed.
 """
 from __future__ import annotations
 
@@ -186,3 +189,138 @@ def write_stream_frames(job_dir: str, rng: np.random.RandomState, n_moved: int =
         Image.fromarray(rgb).save(os.path.join(fdir, f"rgb_{k:03d}.png"))
         Image.fromarray(depth).save(os.path.join(fdir, f"depth_{k:03d}.png"))
     return cad2, fdir, [(rgb, depth.astype(np.float32)) for rgb, depth in frames]
+
+
+LMO_K = K_CAM      # the LineMOD camera (BOP lmo scene_camera.json)
+
+
+def _write_ply_box(path: str, half) -> float:
+    """A box PLY of half extents `half` (mm); returns its diameter (the
+    box's diagonal, as BOP's models_info.json gives it)."""
+    box_ply(path, half)
+    return float(2.0 * np.linalg.norm(half))
+
+
+def _splat_scene(surfs, poses, K, hw, colours):
+    """Several objects (mm surface samples, (R, t) each) splatted into one
+    frame. Returns (depth (H, W) mm, rgb uint8, visible masks (n, H, W),
+    visible fractions (n,)): a pixel belongs to the nearest object."""
+    depths, pays, hits = [], [], []
+    for surf, (R, t), col in zip(surfs, poses, colours):
+        d, pay, hit = _splat(surf @ R.T + t, K, hw, col)
+        depths.append(np.where(hit, d, np.inf))
+        pays.append(pay)
+        hits.append(hit)
+    depths = np.stack(depths)
+    owner = depths.argmin(axis=0)
+    any_hit = np.isfinite(depths.min(axis=0))
+    visible = np.stack([(owner == i) & any_hit for i in range(len(surfs))])
+    rgb = np.zeros(hw + (3,), np.float32)
+    for i, pay in enumerate(pays):
+        rgb[visible[i]] = pay[visible[i]]
+    depth = np.where(any_hit, depths.min(axis=0), 0.0)
+    fract = np.array([v.sum() / max(h.sum(), 1) for v, h in zip(visible, hits)])
+    return depth, rgb.astype(np.uint8), visible, fract
+
+
+def write_bop_job(root: str, rng: np.random.RandomState, obj_ids=(1, 5),
+                  n_test_frames: int = 2, n_pbr_images: int = 24, n_det: int = 16,
+                  hw=(480, 640), n_surface: int = 100000):
+    """A BOP dataset tree under `root` (lmo's layout and camera, scaled to
+    `hw`):
+
+    - models/obj_{id:06d}.ply: two boxes in mm (the job's box and a box of
+      SECOND_BOX_HALF extents), models_info.json with their diameters;
+    - test/000001: `n_test_frames` RGB-D frames at `hw` with both boxes
+      under random rotations side by side (rgb/*.png, uint16 mm depth/*.png,
+      scene_camera.json);
+    - train_pbr/000000: `n_pbr_images` frames (rgb/*.jpg, depth/*.png,
+      mask_visib/*_*.png, scene_gt.json, scene_gt_info.json with the
+      visible fractions, scene_camera.json), each with two instances of
+      each box, so each object has 2 x n_pbr_images candidates;
+    - detections.json: BOP-23 records, `n_det` a test frame (half on each
+      box): rectangles cut from the box's visible pixels, RLE-encoded,
+      scores 0.5-0.95.
+
+    Returns dict(dataset_dir, seg_path, obj_ids, n_test_frames, dets)."""
+    H, W = hw
+    mdir = os.path.join(root, "models")
+    os.makedirs(mdir, exist_ok=True)
+    halves = [(40.0, 30.0, 20.0), SECOND_BOX_HALF]
+    info, surfs, colours = {}, [], []
+    for oid, half in zip(obj_ids, halves):
+        path = os.path.join(mdir, f"obj_{oid:06d}.ply")
+        info[str(oid)] = {"diameter": _write_ply_box(path, half),
+                          "min_x": -half[0], "min_y": -half[1], "min_z": -half[2],
+                          "size_x": 2 * half[0], "size_y": 2 * half[1], "size_z": 2 * half[2]}
+        surf = load_ply(path).sample(n_surface, rng)
+        surfs.append(surf)
+        colours.append((surf / (2.0 * max(half)) + 0.5).clip(0, 1) * 255.0)
+    with open(os.path.join(mdir, "models_info.json"), "w") as f:
+        json.dump(info, f)
+    # lmo's camera, scaled when the frames are smaller than lmo's 480x640
+    K = LMO_K * np.array([[W / 640.0], [H / 480.0], [1.0]], np.float32)
+    cam = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0}
+
+    def write_frames(scene_dir, n, offsets, rgb_ext):
+        for sub in ("rgb", "depth"):
+            os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+        frames = []
+        for k in range(n):
+            poses = [(random_rotation(rng), np.array(o, np.float32)
+                      + rng.uniform(-10, 10, 3).astype(np.float32)) for o in offsets]
+            inst_surfs = [surfs[i % 2] for i in range(len(offsets))]
+            inst_cols = [colours[i % 2] for i in range(len(offsets))]
+            depth, rgb, visible, fract = _splat_scene(inst_surfs, poses, K, hw, inst_cols)
+            Image.fromarray(rgb).save(os.path.join(scene_dir, "rgb", f"{k:06d}.{rgb_ext}"))
+            Image.fromarray(np.round(depth).astype(np.uint16)).save(
+                os.path.join(scene_dir, "depth", f"{k:06d}.png"))
+            frames.append((poses, visible, fract))
+        with open(os.path.join(scene_dir, "scene_camera.json"), "w") as f:
+            json.dump({str(k): cam for k in range(n)}, f)
+        return frames
+
+    # test scene: the two boxes side by side
+    test_dir = os.path.join(root, "test", "000001")
+    test = write_frames(test_dir, n_test_frames,
+                        [(-60.0, 0.0, 600.0), (70.0, 10.0, 620.0)], "png")
+    dets = []
+    for k, (_, visible, _) in enumerate(test):
+        for j in range(n_det):
+            obj = j % 2
+            rows, cols = np.nonzero(visible[obj])
+            r0, r1, c0, c1 = rows.min(), rows.max(), cols.min(), cols.max()
+            dr, dc = rng.randint(0, max(2, (r1 - r0) // 6), 2)
+            m = np.zeros((H, W), bool)
+            m[r0 + dr:r1 - dr // 2 + 1, c0 + dc:c1 - dc // 2 + 1] = True
+            m &= visible[obj]
+            ys, xs = np.nonzero(m)
+            dets.append(dict(scene_id=1, image_id=k, category_id=int(obj_ids[obj]),
+                             bbox=[int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                                   int(ys.max() - ys.min() + 1)],
+                             score=float(0.5 + 0.45 * j / max(n_det - 1, 1)), time=0.0,
+                             segmentation=rle_encode_coco(m.astype(np.uint8))))
+    seg_path = os.path.join(root, "detections.json")
+    with open(seg_path, "w") as f:
+        json.dump(dets, f)
+
+    # train_pbr scene: two instances of each box a frame, in four corners
+    pbr_dir = os.path.join(root, "train_pbr", "000000")
+    os.makedirs(os.path.join(pbr_dir, "mask_visib"), exist_ok=True)
+    pbr = write_frames(pbr_dir, n_pbr_images,
+                       [(-80.0, -60.0, 620.0), (80.0, -60.0, 650.0),
+                        (80.0, 60.0, 640.0), (-80.0, 60.0, 610.0)], "jpg")
+    gt, gt_info = {}, {}
+    for k, (poses, visible, fract) in enumerate(pbr):
+        gt[str(k)] = [dict(obj_id=int(obj_ids[i % 2]), cam_R_m2c=R.reshape(-1).tolist(),
+                           cam_t_m2c=t.tolist()) for i, (R, t) in enumerate(poses)]
+        gt_info[str(k)] = [dict(visib_fract=float(v), px_count_visib=int(m.sum()))
+                           for v, m in zip(fract, visible)]
+        for i, m in enumerate(visible):
+            Image.fromarray((m * 255).astype(np.uint8)).save(
+                os.path.join(pbr_dir, "mask_visib", f"{k:06d}_{i:06d}.png"))
+    for name, obj in (("scene_gt.json", gt), ("scene_gt_info.json", gt_info)):
+        with open(os.path.join(pbr_dir, name), "w") as f:
+            json.dump(obj, f)
+    return dict(dataset_dir=root, seg_path=seg_path, obj_ids=list(obj_ids),
+                n_test_frames=n_test_frames, dets=dets)

@@ -45,10 +45,12 @@ class GeometricStructureEmbedding(nn.Module):
         out = self.proj_d(torch.sin(dist[..., None] * div_d + phase))
 
         # k nearest neighbours excluding self, selected on the matmul-form
-        # distance (the reference's near-tie ordering)
+        # distance (the reference's near-tie ordering); a stable sort gives
+        # equal distances to the lower index, as jax.lax.top_k does
+        # (torch.topk promises no order among ties)
         k = self.angle_k
         d2_sel = pairwise_sq_distance(points, points)
-        knn = torch.topk(d2_sel, k + 1, dim=-1, largest=False, sorted=True).indices
+        knn = torch.sort(d2_sel, dim=-1, stable=True).indices[..., :k + 1]
         flat = knn[..., 1:].reshape(B, N * k)
         px, py, pz = points[..., 0], points[..., 1], points[..., 2]
         rx = torch.gather(px, 1, flat).reshape(B, N, k) - px[..., None]

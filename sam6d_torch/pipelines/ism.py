@@ -10,8 +10,11 @@ DINOv2 attention goes through the fused-attention dispatch (the CUDA kernel
 of `csrc/attention_qkv.cu` on the card). With a `segmentor`
 (`pipelines/sam_amg.SAMSegmentor`), `match_frame(detections=None)` takes
 its proposals from SAM on the same device; the masks never leave it.
+BOP onboarding (rendered templates or mined train_pbr crops) describes every
+object's views once and keeps them in an npz cache whose keys are the JAX
+package's.
 
-Not ported yet: BOP onboarding and its npz cache, bf16.
+Not ported yet: bf16.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from PIL import Image
 
 from .. import use_strict_fp32
+from ..core.checkpoint import load_template_cache, save_template_cache
 from ..core.config import ISMConfig
 from ..data.rle import rle_encode_coco
 from ..models import ism_scoring
@@ -154,7 +158,7 @@ class ISMPipeline:
         normalization for templates; replicated), crop-resize-pad.
         `poses`: (T, 4, 4) object poses of the views; default the level-0
         icosphere poses."""
-        rgbs, masks, boxes = [], [], []
+        views = []
         for i in range(num_templates):
             rgb = np.array(Image.open(
                 os.path.join(template_dir, f"rgb_{i}.png")).convert("RGB"),
@@ -162,25 +166,13 @@ class ISMPipeline:
             m = np.array(Image.open(
                 os.path.join(template_dir, f"mask_{i}.png")).convert("L"),
                 np.float32) / 255.0
-            ys, xs = np.where(m > 0)
-            boxes.append([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
-            rgbs.append(rgb * m[:, :, None])
-            masks.append(m)
-        dev = self.device
-        rgbs = torch.as_tensor(np.stack(rgbs), device=dev)
-        masks = torch.as_tensor(np.stack(masks), device=dev)
-        boxes = torch.as_tensor(np.array(boxes, np.float32), device=dev)
-        S = self.cfg.dinov2.img_size
-        crops = crop_resize_pad_nearest_stack(rgbs, boxes, S)
-        mask_crops = crop_resize_pad_nearest_stack(masks[..., None], boxes, S)[..., 0]
-        cls, patch = self._describe_templates_impl(crops, mask_crops)
+            views.append((rgb * m[:, :, None], m))
+        cls, patch = self._describe_template_stack(*self._masked_views(views),
+                                                   normalize=False)
         if poses is None:
             poses = template_obj_poses(0)
-        self.ref_data = {
-            "descriptors": cls[None],         # (1 object, T, C)
-            "appe_descriptors": patch[None],  # (1, T, P, C)
-            "poses_R": torch.as_tensor(poses[:, :3, :3].astype(np.float32), device=dev),
-        }
+        # one object: descriptors (1, T, C), appe_descriptors (1, T, P, C)
+        self.set_reference_data(cls[None], patch[None], poses[:, :3, :3].astype(np.float32))
         return self.ref_data
 
     def set_reference_data(self, descriptors, appe_descriptors, poses_R,
@@ -193,6 +185,109 @@ class ISMPipeline:
                              poses_R=torch.as_tensor(poses_R, device=dev))
         if pointclouds is not None:
             self.ref_data["pointcloud"] = torch.as_tensor(pointclouds, device=dev)
+
+    @torch.inference_mode()
+    def _describe_template_stack(self, rgbs: np.ndarray, masks: np.ndarray,
+                                 boxes: np.ndarray, normalize: bool):
+        """Masked template views (T, H, W, 3) in [0, 1], masks (T, H, W),
+        boxes (T, 4) xyxy -> (cls (T, C), patch (T, P, C)) on the device.
+        `normalize` applies the ImageNet transform to the crops: the
+        reference BOP providers normalize after CropResizePad (bop.py:43-46,
+        80), so the zero background becomes -mean/std; the custom path
+        (onboard_templates_from_dir) skips it."""
+        dev = self.device
+        S = self.cfg.dinov2.img_size
+        boxes = torch.as_tensor(boxes, dtype=torch.float32, device=dev)
+        crops = crop_resize_pad_nearest_stack(torch.as_tensor(rgbs, device=dev), boxes, S)
+        mask_crops = crop_resize_pad_nearest_stack(
+            torch.as_tensor(masks, device=dev)[..., None], boxes, S)[..., 0]
+        if normalize:
+            crops = normalize_imagenet(crops)
+        return self._describe_templates_impl(crops, mask_crops)
+
+    def _finish_onboarding(self, all_cls, all_patch, cache_path):
+        """Stack the objects' descriptors into ref_data (O, T, ...), with the
+        level-0 template poses, and write the cache, if a path is given."""
+        self.set_reference_data(torch.stack(all_cls), torch.stack(all_patch),
+                                template_obj_poses(0)[:, :3, :3].astype(np.float32))
+        if cache_path:
+            save_template_cache(cache_path, **self.ref_data)
+        return self.ref_data
+
+    def _load_onboarding_cache(self, cache_path, reset_descriptors):
+        """ref_data from the cache, or None (no path, no file, or
+        `reset_descriptors`)."""
+        cached = (load_template_cache(cache_path)
+                  if cache_path and not reset_descriptors else None)
+        if cached is None:
+            return None
+        self.set_reference_data(cached["descriptors"], cached["appe_descriptors"],
+                                cached["poses_R"])
+        return self.ref_data
+
+    @staticmethod
+    def _masked_views(views):
+        """[(rgb01 (H, W, 3) with the mask applied, mask bool)] -> stacked
+        (rgbs, masks float32, tight xyxy boxes)."""
+        rgbs, masks, boxes = [], [], []
+        for rgb01, mask in views:
+            ys, xs = np.where(mask)
+            boxes.append([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+            rgbs.append(rgb01)
+            masks.append(mask.astype(np.float32))
+        return np.stack(rgbs), np.stack(masks), np.array(boxes, np.float32)
+
+    @torch.inference_mode()
+    def onboard_bop_objects(self, objects, cache_path: Optional[str] = None,
+                            n_template_view: int = 42, reset_descriptors: bool = False):
+        """Onboard every object of a BOP dataset from its rendered template
+        directory (data/bop.BOPObject), with an npz cache (reference
+        detector.set_reference_objects :65-134; `reset_descriptors`
+        recomputes). Returns ref_data: descriptors (O, T, C),
+        appe_descriptors (O, T, P, C), poses_R (T, 3, 3)."""
+        cached = self._load_onboarding_cache(cache_path, reset_descriptors)
+        if cached is not None:
+            return cached
+        all_cls, all_patch = [], []
+        for obj in objects:
+            views = []
+            for v in range(n_template_view):
+                rgb, mask, _ = obj.load_template(v)
+                views.append((rgb.astype(np.float32) / 255.0 * mask[..., None], mask))
+            cls, patch = self._describe_template_stack(*self._masked_views(views),
+                                                       normalize=True)
+            all_cls.append(cls)
+            all_patch.append(patch)
+        return self._finish_onboarding(all_cls, all_patch, cache_path)
+
+    @torch.inference_mode()
+    def onboard_bop_objects_pbr(self, dataset_dir: str, obj_ids,
+                                cache_path: Optional[str] = None,
+                                reset_descriptors: bool = False):
+        """PBR onboarding, the reference's default BOP operating point
+        (configs/model/ISM_sam.yaml:28 `rendering_type: pbr`,
+        provider/bop_pbr.py:28-248): per object, the train_pbr crops nearest
+        to the 42 level-0 viewpoints (data/bop_pbr.PBRTemplateMiner), the
+        masked RGB, the tight mask box, CropResizePad, ImageNet
+        normalization. Cache as onboard_bop_objects."""
+        from ..data.bop_pbr import PBRTemplateMiner
+
+        cached = self._load_onboarding_cache(cache_path, reset_descriptors)
+        if cached is not None:
+            return cached
+        miner = PBRTemplateMiner(dataset_dir)
+        mined = miner.mine(list(obj_ids))
+        all_cls, all_patch = [], []
+        for obj_id in obj_ids:
+            views = []
+            for rec in mined[obj_id]:
+                masked, mask = miner.load_template_crop(rec)
+                views.append((masked.astype(np.float32) / 255.0, mask))
+            cls, patch = self._describe_template_stack(*self._masked_views(views),
+                                                       normalize=True)
+            all_cls.append(cls)
+            all_patch.append(patch)
+        return self._finish_onboarding(all_cls, all_patch, cache_path)
 
     # -------------------------------------------------------------- matching
 

@@ -1,8 +1,9 @@
 """Offline template generation: CAD -> 42-view rgb/mask/xyz assets.
 
-Port of `sam6d_tpu/render/templates.py` (the custom-object path; the BOP
-and training-set renders are not ported). Equivalent of the reference
-`Render/render_custom_templates.py` without Blender: icosphere level-0
+Port of `sam6d_tpu/render/templates.py` (the custom-object and BOP paths;
+the training-set renders are not ported). Equivalent of the reference
+`Render/render_custom_templates.py` and `render_bop_templates.py` without
+Blender: icosphere level-0
 camera poses (the canonical order of `render/poses.py`), the rasterizer of
 `render/rasterizer.py` on the device, Lambertian headlight shading on the
 host. Output contract of the reference consumers: rgb_i.png, mask_i.png
@@ -12,12 +13,15 @@ CAD's units; consumers divide by 1000 for mm CADs, see
 """
 from __future__ import annotations
 
+import json
 import os
+from typing import Optional
+
 import numpy as np
 import torch
 from PIL import Image
 
-from ..data.mesh import Mesh, load_mesh
+from ..data.mesh import Mesh, load_mesh, load_ply
 from .poses import template_cam_poses
 from .rasterizer import interpolate_split_attrs, rasterize, split_large_triangles
 
@@ -61,20 +65,23 @@ def _intrinsics(image_size: int) -> np.ndarray:
 
 
 def render_view(mesh: Mesh, pose: np.ndarray, image_size: int = RENDER_SIZE,
-                device="cuda"):
+                device="cuda", vertex_colors: Optional[np.ndarray] = None,
+                base_color: float = BASE_COLOR):
     """Rasterize one view of `mesh` from the camera `pose` (4x4 camera to
     object) on `device`. Returns the host arrays (attr_img (S, S, 6):
     shaded rgb, or (shade, u, v) for a textured mesh, then the local xyz;
-    mask (S, S) bool; textured). Appearance: the mesh's texture map, else
-    its vertex colors, else flat BASE_COLOR gray, as BlenderProc keeps CAD
-    materials (reference Render/render_bop_templates.py:33-47)."""
+    mask (S, S) bool; textured). Appearance: `vertex_colors` (V, 3) if
+    given, else the mesh's texture map, else its vertex colors, else flat
+    `base_color` gray, as BlenderProc keeps CAD materials unless told
+    otherwise (reference Render/render_bop_templates.py:33-47)."""
     dev = torch.device(device)
     verts = mesh.vertices.astype(np.float64)
     K = _intrinsics(image_size)
-    textured = mesh.texture is not None and mesh.uv is not None
-    if not textured:
+    textured = (vertex_colors is None and mesh.texture is not None
+                and mesh.uv is not None)
+    if not textured and vertex_colors is None:
         vertex_colors = (mesh.colors.astype(np.float32) if mesh.colors is not None
-                         else np.full((len(verts), 3), BASE_COLOR, np.float32))
+                         else np.full((len(verts), 3), base_color, np.float32))
     # world->camera: x_cam = R^T (x - t); the camera looks along +z (forward
     # column of the look-at pose)
     t = pose[:3, 3]
@@ -115,19 +122,27 @@ def render_view(mesh: Mesh, pose: np.ndarray, image_size: int = RENDER_SIZE,
 
 
 def render_templates(mesh: Mesh, output_dir: str, level: int = 0,
-                     image_size: int = RENDER_SIZE, views=None, device="cuda") -> str:
-    """Render the level-`level` icosphere views (camera at 4x the mesh
-    radius, the reference custom distance: a Blender camera at 2 units with
-    the object scaled by 1/(2r)) into `{output_dir}/templates` with the
-    rasterizer on `device`; `views` optionally restricts to a subset of
-    view indices (files keep their canonical view index in the name).
+                     image_size: int = RENDER_SIZE, views=None, device="cuda",
+                     vertex_colors: Optional[np.ndarray] = None,
+                     base_color: float = BASE_COLOR,
+                     cam_distance: Optional[float] = None,
+                     subdir: str = "templates") -> str:
+    """Render the level-`level` icosphere views into `{output_dir}/{subdir}`
+    (`output_dir` itself when `subdir` is empty) with the rasterizer on
+    `device`. The camera sits at `cam_distance`, by default 4x the mesh
+    radius (the reference custom distance: a Blender camera at 2 units with
+    the object scaled by 1/(2r)); `views` optionally restricts to a subset
+    of view indices (files keep their canonical view index in the name).
     Appearance as in render_view. Returns the template dir."""
-    save_dir = os.path.join(output_dir, "templates")
+    save_dir = os.path.join(output_dir, subdir) if subdir else output_dir
     os.makedirs(save_dir, exist_ok=True)
-    radius = float(np.linalg.norm(mesh.vertices.astype(np.float64), axis=1).max())
-    cam_poses = template_cam_poses(level, radius=4.0 * radius)
+    if cam_distance is None:
+        cam_distance = 4.0 * float(np.linalg.norm(mesh.vertices.astype(np.float64),
+                                                  axis=1).max())
+    cam_poses = template_cam_poses(level, radius=cam_distance)
     for i in (range(len(cam_poses)) if views is None else views):
-        attr_img, mask, textured = render_view(mesh, cam_poses[i], image_size, device)
+        attr_img, mask, textured = render_view(mesh, cam_poses[i], image_size, device,
+                                               vertex_colors, base_color)
         if textured:
             texel = _sample_texture(mesh.texture, attr_img[..., 1], attr_img[..., 2])
             shaded_px = np.clip(texel * attr_img[..., 0:1], 0, 1)
@@ -149,3 +164,34 @@ def render_custom_templates(cad_path: str, output_dir: str, level: int = 0,
     mm-unit CAD in PLY or OBJ)."""
     return render_templates(load_mesh(cad_path), output_dir, level=level,
                             image_size=image_size, device=device)
+
+
+def render_bop_templates(dataset_dir: str, output_root: str, dataset_name: str,
+                         level: int = 0, obj_ids=None, image_size: int = RENDER_SIZE,
+                         device="cuda"):
+    """Template sets of every object of one BOP dataset (reference
+    Render/render_bop_templates.py:28-47), written straight into
+    `{output_root}/{dataset_name}/obj_{id:06d}/`: the camera at 2x the
+    diameter (the reference scales the CAD by 1/diameter with the camera at
+    2 Blender units); tless renders `models_cad` in the reference's gray 0.4
+    material, the other datasets keep the CAD's own appearance. xyz_i.npy
+    holds local mm coordinates, as BOPObject.load_template and the
+    reference's PEM consumer (bop_object_utils.py:57) expect. Returns the
+    object directories."""
+    model_path = os.path.join(dataset_dir, "models_cad" if dataset_name == "tless" else "models")
+    with open(os.path.join(model_path, "models_info.json")) as f:
+        info = json.load(f)
+    out_dirs = []
+    for key in sorted(info.keys(), key=int):
+        obj_id = int(key)
+        if obj_ids is not None and obj_id not in obj_ids:
+            continue
+        mesh = load_ply(os.path.join(model_path, f"obj_{obj_id:06d}.ply"))
+        out_dir = os.path.join(output_root, dataset_name, f"obj_{obj_id:06d}")
+        gray = (np.full((len(mesh.vertices), 3), 0.4, np.float32)
+                if dataset_name == "tless" else None)
+        render_templates(mesh, out_dir, level=level, image_size=image_size, device=device,
+                         vertex_colors=gray, base_color=0.4,
+                         cam_distance=2.0 * float(info[key]["diameter"]), subdir="")
+        out_dirs.append(out_dir)
+    return out_dirs
