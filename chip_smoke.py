@@ -61,16 +61,30 @@ Phases, in order; any failure raises and exits non-zero:
      records and the rows checked, one PEM chunk held to the plain CPU path;
   9. SAMPredictor on the ViT-H segmentor: set_image on a BOP frame (K1 32
      times), a point, a box and a mask-fed prompt, each decode held to the
-     CPU decode of the same embedding.
+     CPU decode of the same embedding;
+ 10. PEM training through the CLI, at full width: write_megapose_job (a
+     MegaPose-GSO tree of two boxes, 8 frames at 480x640), `render-training`
+     (2 views an object at 512^2; files, masks, xyz in the unit NOCS ball),
+     `train` at PEMConfig() and batch 28 for 4 steps with 2 loader threads
+     (step wall ms, the StageTimer data / step split, peak memory, K7 3 and
+     K6 2 launches a step, K7 once on its cluster path), the checkpoint
+     loaded back equal, the busy share over one step, K7's cluster path at
+     28x10000->2048 and K6 at 28x2048x2048 on the batch's clouds against
+     their plain versions, and one card step at batch 2 against the same
+     step on the plain CPU path (loss terms, metrics, every gradient,
+     BatchNorm statistics).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; each kernel's record carries its launches on its own
-path (`launches`) and on phases 8 and 9 (`path_launches`). Prints the card's name and power limit, one JSON line of
+path (`launches`), on phases 8-10 (`path_launches`) and in a training step
+(`train_launches`; K6 and K7 also their times at the training shapes,
+`train_ms` and the rest). Prints the card's name and power limit, one JSON line of
 kernel records (times, launches, errors, bounds), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -1932,6 +1946,303 @@ def phase_predictor(seg, rgb, job, device="cuda"):
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+TRAIN_STEPS = 4
+TRAIN_CHECK_BATCH = 2
+# card vs the plain CPU path through one PEM-base training step at batch 2,
+# from the same weights, batch and pose-noise draws: the loss terms and the
+# BatchNorm running statistics within TRAIN_ATOL (as the other card-vs-CPU
+# checks); each gradient within TRAIN_GRAD_REL of its tensor's largest |g|
+# (the backward through 12 ViT-B and 3 + 3 matching blocks sums in another
+# order on the two devices; the tiny CPU parity test against JAX sees 1.6e-4
+# of scale at 1 + 1 blocks), plus TRAIN_GRAD_FLOOR for gradients that are 0
+# in exact arithmetic (a key bias under the softmax). An argmax metric
+# (accuracy, foreground count and distance) may move only through rows
+# whose two best similarities lie within NEAR_TIE on the CPU.
+TRAIN_ATOL = 1e-3
+TRAIN_GRAD_REL = 1e-2
+TRAIN_GRAD_FLOOR = 1e-6
+NEAR_TIE = 1e-3
+
+
+def train_config():
+    """default_config() with a log line at every step: PEM-base, the
+    reference batch (28), remat off."""
+    from sam6d_torch.core.config import Config, TrainConfig
+    return Config(train=TrainConfig(log_every=1))
+
+
+def check_training_templates(root, gso_ids):
+    """render-training's two views an object: the files, non-empty masks,
+    xyz inside the unit NOCS ball on the mask and 0 off it."""
+    from PIL import Image
+    for gso_id in gso_ids:
+        d = os.path.join(root, "MegaPose-GSO", "templates", gso_id)
+        want = {f"{n}_{i}.{e}" for i in range(2)
+                for n, e in (("rgb", "png"), ("mask", "png"), ("xyz", "npy"))}
+        if set(os.listdir(d)) != want:
+            raise AssertionError(f"render-training wrote {sorted(os.listdir(d))} in {d}")
+        for i in range(2):
+            m = np.array(Image.open(os.path.join(d, f"mask_{i}.png"))) == 255
+            xyz = np.load(os.path.join(d, f"xyz_{i}.npy")).astype(np.float32)
+            r = np.linalg.norm(xyz, axis=-1)
+            if m.sum() < 1000 or r[m].max() > 1.0 + 1e-3 or np.abs(xyz[~m]).max() > 0:
+                raise AssertionError(f"{d} view {i}: {int(m.sum())} mask pixels, |xyz| up to "
+                                     f"{r[m].max():.4f} on the mask")
+
+
+class recorded_losses:
+    """Within the block, the attentions the trainer hands
+    compute_correspondence_loss are kept (detached) by prefix."""
+
+    def __enter__(self):
+        import sam6d_torch.train.trainer as trainer_mod
+        self.mod, self.orig = trainer_mod, trainer_mod.compute_correspondence_loss
+        self.attens = {}
+
+        sig = inspect.signature(self.orig)
+
+        def wrapper(attens, *args, **kwargs):
+            bound_args = sig.bind(attens, *args, **kwargs)
+            bound_args.apply_defaults()
+            self.attens[bound_args.arguments["prefix"]] = [a.detach() for a in attens]
+            return self.orig(attens, *args, **kwargs)
+
+        trainer_mod.compute_correspondence_loss = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compute_correspondence_loss = self.orig
+
+
+def check_step_against_plain(cfg, batch):
+    """One training step on the card against the same step on the plain CPU
+    path (the kernels' plain versions, CPU GEMMs) at batch
+    TRAIN_CHECK_BATCH: the same seeded weights, batch and pose-noise draws.
+    Compares the loss terms, the argmax metrics, every gradient and the
+    BatchNorm running statistics after the step; returns a report."""
+    import torch
+    from sam6d_torch.train.trainer import PEMTrainer, draw_pose_noise
+    b = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
+    noise = draw_pose_noise(TRAIN_CHECK_BATCH, torch.Generator().manual_seed(SEED))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        trainer = PEMTrainer(cfg, seed=SEED, device=dev)
+        state = trainer.init_state()
+        t0 = time.perf_counter()
+        with recorded_losses() as rec:
+            state, metrics = trainer.step(state, {k: v.to(dev) for k, v in b.items()},
+                                          noise=noise)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = dict(state=state, metrics={k: float(v) for k, v in metrics.items()},
+                         attens={k: [a.cpu() for a in v] for k, v in rec.attens.items()},
+                         s=time.perf_counter() - t0)
+    card, cpu = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(card["metrics"][k] - cpu["metrics"][k])
+                   for k in cpu["metrics"] if "loss" in k)
+    if loss_err > TRAIN_ATOL:
+        raise AssertionError(f"training step: card loss terms differ from the CPU's by "
+                             f"{loss_err:.2e} > {TRAIN_ATOL}: {card['metrics']} vs {cpu['metrics']}")
+    flips, metric_err = {}, 0.0
+    for prefix, atts in cpu["attens"].items():
+        last_cpu, last_card = atts[-1][:, 1:, :], card["attens"][prefix][-1][:, 1:, :]
+        diff = last_cpu.argmax(dim=2) != last_card.argmax(dim=2)
+        top2 = last_cpu.topk(2, dim=2).values
+        gap = top2[..., 0] - top2[..., 1]
+        if (diff & (gap >= NEAR_TIE)).any():
+            raise AssertionError(f"training step: {prefix} predictions differ from the CPU's "
+                                 f"at rows whose best two similarities are {NEAR_TIE} apart")
+        flips[prefix] = int(diff.sum())
+        if not flips[prefix]:
+            for k in (f"{prefix}_acc", f"{prefix}_fg_num", f"{prefix}_dis"):
+                metric_err = max(metric_err, abs(card["metrics"][k] - cpu["metrics"][k]))
+    if metric_err > TRAIN_ATOL:
+        raise AssertionError(f"training step: argmax metrics differ by {metric_err:.2e}")
+    grad_rel, worst, tiny = 0.0, "", []
+    cpu_params = dict(cpu["state"].net.named_parameters())
+    for n, p in card["state"].net.named_parameters():
+        g, w = p.grad.detach().cpu().double(), cpu_params[n].grad.detach().double()
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        if err > TRAIN_GRAD_REL * scale + TRAIN_GRAD_FLOOR:
+            raise AssertionError(f"training step: gradient of {n} differs from the CPU's by "
+                                 f"{err:.2e} (its largest |g| {scale:.2e})")
+        if scale < 100 * TRAIN_GRAD_FLOOR:
+            tiny.append(scale)
+        elif err / scale > grad_rel:
+            grad_rel, worst = err / scale, n
+    cpu_bufs = dict(cpu["state"].net.named_buffers())
+    stats_err = max(float((buf.cpu() - cpu_bufs[n]).abs().max())
+                    for n, buf in card["state"].net.named_buffers() if "running" in n)
+    if stats_err > TRAIN_ATOL:
+        raise AssertionError(f"training step: BatchNorm statistics differ by {stats_err:.2e}")
+    return (f"card vs CPU step at B={TRAIN_CHECK_BATCH}: loss terms {loss_err:.2e}, argmax "
+            f"metrics {metric_err:.2e} (rows flipped at near-ties {flips}), gradients up to "
+            f"{grad_rel:.2e} of their scale ({worst}; besides, {len(tiny)} tensors of largest "
+            f"|g| under {100 * TRAIN_GRAD_FLOOR:.0e}, up to {max(tiny, default=0):.1e}, most of "
+            f"them 0 in exact arithmetic: key and position biases under the softmax), "
+            f"BatchNorm statistics {stats_err:.2e}; "
+            f"CPU step {cpu['s']:.1f} s, loss {cpu['metrics']['loss']:.4f}")
+
+
+def check_checkpoint(trainer, state, ckpt_dir):
+    """latest_checkpoint -> load_train_state into a fresh state equals the
+    trained one: model (BatchNorm buffers included), Adam state, schedule,
+    step."""
+    import torch
+    from sam6d_torch.core.checkpoint import latest_checkpoint, load_train_state
+    path = latest_checkpoint(ckpt_dir)
+    if os.path.basename(path) != f"step_{TRAIN_STEPS:08d}.pt":
+        raise AssertionError(f"latest checkpoint is {path}")
+    fresh = load_train_state(path, trainer.init_state())
+    sd, fsd = state.net.state_dict(), fresh.net.state_dict()
+    bad = [k for k in sd if not torch.equal(sd[k], fsd[k])]
+    for p, q in zip(state.net.parameters(), fresh.net.parameters()):
+        a, b = state.optimizer.state[p], fresh.optimizer.state[q]
+        bad += [k for k in a if not torch.equal(torch.as_tensor(a[k]).cpu(),
+                                                torch.as_tensor(b[k]).cpu())]
+    if bad or fresh.step != TRAIN_STEPS or state.step != TRAIN_STEPS or \
+            fresh.scheduler.state_dict() != state.scheduler.state_dict():
+        raise AssertionError(f"checkpoint round trip: {len(bad)} entries differ, step "
+                             f"{fresh.step} vs {state.step}")
+    return path
+
+
+def phase_train(job_root, device="cuda"):
+    """Phase 10: PEM training through the CLI at full width on a
+    write_megapose_job tree (two boxes, 8 frames at 480x640): `render-training`
+    (2 objects x 2 views at 512^2), `train` at PEMConfig() and batch 28 for
+    TRAIN_STEPS steps with 2 loader threads and a checkpoint at the end; the
+    step split, peak memory and busy share; K6 and K7 per step; K7's cluster
+    path and K6 at the training shapes against their plain versions; a card
+    step against the CPU step; the checkpoint round trip. Returns (per-step
+    launches, the K6 / K7 records at the training shapes)."""
+    import torch
+    from sam6d_torch.cli.main import main as cli_main
+    from sam6d_torch.core import config as port_config
+    from sam6d_torch.core.profiling import StageTimer
+    from sam6d_torch.data.megapose import MegaPoseDataset
+    from sam6d_torch.data.prefetch import PrefetchLoader
+    from sam6d_torch.data.synthetic import write_megapose_job
+    from sam6d_torch.kernels import ball_query as bq
+    from sam6d_torch.kernels import fps
+    from sam6d_torch.models import fine_matching
+    from sam6d_torch.ops import sampling
+    from sam6d_torch.train.trainer import PEMTrainer
+
+    root = os.path.join(job_root, "megapose")
+    t0 = time.perf_counter()
+    job = write_megapose_job(root, np.random.RandomState(SEED + 7), n_samples=8)
+    log(f"train: write_megapose_job ({len(job['gso_ids'])} objects, {len(job['keys'])} "
+        f"frames at 480x640) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_main(["render-training", "--data_dir", root, "--source", "gso", "--device", device])
+    torch.cuda.synchronize()
+    check_training_templates(root, job["gso_ids"])
+    log(f"train: `render-training` CLI, {len(job['gso_ids'])} objects x 2 views at 512^2 in "
+        f"{time.perf_counter() - t0:.2f} s; masks non-empty, |xyz| <= 1 on them, 0 off them")
+
+    cfg = train_config()
+    fns = frame_counters()
+    ckpt = os.path.join(root, "ckpt")
+    log(f"train: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated on the card "
+        f"before the run")
+    paths = []
+    orig_path, orig_cfg = fps.fps_path, port_config.default_config
+
+    def recorded_path(n):
+        paths.append(orig_path(n))
+        return paths[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fns)
+    port_config.default_config = train_config
+    fps.fps_path = recorded_path
+    try:
+        t0 = time.perf_counter()
+        with timed_calls(PEMTrainer, "step", fns, device) as stp, \
+                timed_calls(PrefetchLoader, "get", device=device) as dat, \
+                timed_calls(MegaPoseDataset, "sample_batch", device="cpu") as asm, \
+                timed_calls(StageTimer, "summary", device=device) as tim:
+            cli_main(["train", "--data_dir", root, "--ckpt_dir", ckpt, "--iters",
+                      str(TRAIN_STEPS), "--data_workers", "2", "--device", device])
+        cli_s = time.perf_counter() - t0
+    finally:
+        port_config.default_config = orig_cfg
+        fps.fps_path = orig_path
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = tim.calls[0][0].summary()
+    later = stp.ms[1:]
+    log(f"train: `train` CLI, {TRAIN_STEPS} steps at PEMConfig(), batch "
+        f"{cfg.train.batch_size}, remat {cfg.pem.vit.remat}, 2 loader threads, in {cli_s:.2f} s "
+        f"(cold: weights, first batch); step wall ms {', '.join(f'{m:.1f}' for m in stp.ms)} "
+        f"(after the first: median {statistics.median(later):.1f}, range "
+        f"{min(later):.1f}-{max(later):.1f}); StageTimer means: data "
+        f"{1e3 * split['data']:.1f} ms, step {1e3 * split['step']:.1f} ms; loader get wall ms "
+        f"{', '.join(f'{m:.1f}' for m in dat.ms)}; batch assembly in the loader threads "
+        f"(MegaPoseDataset.sample_batch, {len(asm.ms)} calls) ms "
+        f"{', '.join(f'{m:.0f}' for m in asm.ms)}; peak memory allocated {peak_gb:.2f} GiB; "
+        f"launches a step {stp.launches}; FPS paths {paths}")
+    for i, per in enumerate(stp.launches):
+        if per["farthest_point_sample_cuda"] != 3 or per["two_scale_ball_query_cuda"] != 2 \
+                or any(n for k, n in per.items() if k not in ("farthest_point_sample_cuda",
+                                                              "two_scale_ball_query_cuda")):
+            raise AssertionError(f"train step {i}: launches {per}, expected K7 3, K6 2, no other")
+    if paths.count("cluster") != TRAIN_STEPS or paths.count("block") != 2 * TRAIN_STEPS:
+        raise AssertionError(f"K7 paths over {TRAIN_STEPS} steps: {paths}")
+
+    trainer, (state, batch, *_) = stp.calls[-1]
+    path = check_checkpoint(trainer, state, ckpt)
+    log(f"train: {os.path.basename(path)} loaded by latest_checkpoint + load_train_state "
+        f"equals the trained state (model and BatchNorm buffers, Adam state, schedule, step)")
+
+    # one step, counted alone, with the kernels' inputs kept; then the
+    # card's busy share over one step
+    reset_counts(fns)
+    with timed_calls(sampling, "farthest_point_sample", device=device) as fcalls, \
+            timed_calls(fine_matching, "two_scale_ball_query", device=device) as bcalls:
+        trainer.step(state, batch)
+    one = read_counts(fns)
+    log(f"train: launches in one step {one}")
+    if one["farthest_point_sample_cuda"] != 3 or one["two_scale_ball_query_cuda"] != 2:
+        raise AssertionError(f"one training step launched {one}")
+    device_busy(lambda: trainer.step(state, batch), f"train: step B={cfg.train.batch_size}")
+
+    # K7 and K6 on the inputs this step gave them: K7's cluster call (the
+    # per-sample template onboarding), both ball queries (the posed
+    # observed cloud, the template cloud)
+    tem_n, n_fine = next((pts, args[0]) for pts, args in fcalls.calls
+                         if fps.fps_path(pts.shape[1]) == "cluster")
+    B, n_tem = tem_n.shape[:2]
+    if fps.fps_path(n_tem) != "cluster":
+        raise AssertionError(f"fps[{B}x{n_tem}] takes the {fps.fps_path(n_tem)} path")
+    log(f"fps cluster path at {B}x{n_tem}: {fps.check_cluster_resident(n_tem)} clusters "
+        f"resident at once")
+    f_err, f_ms, f_plain = _check_fps(f"fps[{B}x{n_tem}->{n_fine}]", tem_n.detach(), n_fine, fps)
+    (pe1, (_, *args)), (pe2, _) = bcalls.calls
+    pe1, pe2 = pe1.detach(), pe2.detach()
+    n_obs = pe1.shape[1]
+    b_err, b_ms, b_plain = _check_ball_query(f"ball_query[{B}x{n_obs}x{n_obs}] posed observed",
+                                             pe1, args, bq)
+    b2_err, _, _ = _check_ball_query(f"ball_query[{B}x{n_obs}x{n_obs}] template", pe2, args, bq)
+    f_bound = bound((n_fine - 1) * B * n_tem * 10, 4 * B * n_tem * 3 + 4 * B * n_fine)
+    b_bound = bound(15 * _ball_query_scanned_pairs(pe1, args),
+                    2 * 4 * B * n_obs * 3 + 4 * B * n_obs * (args[1] + args[3]))
+    log(f"train: {check_step_against_plain(cfg, batch)}")
+    records = {
+        "farthest_point_sample_cuda": dict(
+            train_ms=f_ms, train_plain_ms=f_plain, train_bound_ms=f_bound[0],
+            train_bound_by=f_bound[1], train_max_abs_err=f_err,
+            train_shape=f"{B}x{n_tem}->{n_fine} (cluster path)"),
+        "two_scale_ball_query_cuda": dict(
+            train_ms=b_ms, train_plain_ms=b_plain, train_bound_ms=b_bound[0],
+            train_bound_by=b_bound[1], train_max_abs_err=max(b_err, b2_err),
+            train_shape=f"{B}x{n_obs}x{n_obs} (lanes path; the posed observed cloud timed, "
+                        f"the template cloud checked)")}
+    return stp.launches[0], records
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -1976,6 +2287,9 @@ def main():
         bop_launches, bop_rgb, bop_job = phase_bop(job_dir)
         torch.cuda.empty_cache()
         predictor_launches = phase_predictor(seg, bop_rgb, bop_job)
+        del seg
+        torch.cuda.empty_cache()
+        train_launches, train_records = phase_train(job_dir)
     # each kernel's count from the run of its own path: K6/K7 from the `pem`
     # CLI run of phase 4, K5 from match_frame in phase 5, K1-K4 from
     # generate_masks in phase 6, K8 (and K9, which no path calls) from the
@@ -1985,16 +2299,19 @@ def main():
     launches.update({k: describe_launches[k]
                      for k in ("fused_attention_cuda", "fused_attention_small_cuda")})
     # and each kernel's launches on the BOP path (phase 8: one ISM frame,
-    # the ISM stage with the PBR onboarding, the PEM stage) and the
-    # predictor's set_image (phase 9)
+    # the ISM stage with the PBR onboarding, the PEM stage), the predictor's
+    # set_image (phase 9) and a PEM training step (phase 10)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["train_launches"] = train_launches[k["name"]]
+        k.update(train_records.get(k["name"], {}))
         k["path_launches"] = {
             "bop-eval ism, one frame": bop_launches["ism_frame"][k["name"]],
             f"bop-eval ism, {BOP_FRAMES} frames + pbr onboarding":
                 bop_launches["ism_stage"][k["name"]],
             "bop-eval pem": bop_launches["pem_stage"][k["name"]],
-            "SAMPredictor.set_image": predictor_launches[k["name"]]}
+            "SAMPredictor.set_image": predictor_launches[k["name"]],
+            "PEM training step": train_launches[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

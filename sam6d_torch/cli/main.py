@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: the JAX CLI's `render`, `render-bop`,
-`demo`, `stream`, `pem` and `bop-eval` subcommands, with its flags plus
-`--device` (default cuda):
+`render-training`, `demo`, `stream`, `pem`, `bop-eval` and `train`
+subcommands, with its flags plus `--device` (default cuda):
 
   python -m sam6d_torch.cli.main render --cad_path obj.ply --output_dir OUT
   python -m sam6d_torch.cli.main demo --cad_path obj.ply --rgb_path rgb.png \
@@ -14,6 +14,8 @@
       --dataset_name lmo --output_dir TEMPLATES
   python -m sam6d_torch.cli.main bop-eval --dataset_dir BOP/lmo \
       --dataset_name lmo --template_dir TEMPLATES --output_dir OUT
+  python -m sam6d_torch.cli.main render-training --data_dir MEGAPOSE --source gso
+  python -m sam6d_torch.cli.main train --data_dir MEGAPOSE --ckpt_dir CKPT
 
 `render` writes OUT/templates (42 views of rgb_i.png, mask_i.png,
 xyz_i.npy); `demo` renders, segments and matches (detection_ism.json,
@@ -26,7 +28,14 @@ runs ISM over the dataset's test frames into OUT/ism_{dataset}.json
 (BOP-23) and PEM on those detections (or --seg_path) into
 OUT/sam6dtpu_{dataset}-test.csv (BOP19), the file names the JAX package
 writes; with --num_shards N each --shard writes a rank file and
---merge_shards joins them. --sam_ckpt, --dinov2_ckpt and --pem_ckpt
+--merge_shards joins them; `render-training` writes the two training
+views of every GSO (or ShapeNetCore) model of a MegaPose tree to
+MEGAPOSE/MegaPose-GSO/templates/{gso_id}; `train` trains PEM on the tree's
+shards (PEMTrainer, batch TrainConfig.batch_size, --data_workers loader
+threads), logs the running metric means every TrainConfig.log_every steps
+and writes CKPT/step_{step:08d}.pt (every checkpoint_every steps and at the
+end), starting the backbone from --mae_ckpt when given; it exits with 2 when
+the tree holds no shard. --sam_ckpt, --dinov2_ckpt and --pem_ckpt
 take the reference checkpoint files; without them the networks run seeded
 random weights (a smoke of the data path, not an estimate).
 """
@@ -92,6 +101,67 @@ def cmd_render_bop(args):
     dirs = render_bop_templates(args.dataset_dir, args.output_dir, args.dataset_name,
                                 level=args.level, obj_ids=obj_ids, device=args.device)
     print(f"{len(dirs)} objects -> {os.path.join(args.output_dir, args.dataset_name)}")
+
+
+def cmd_render_training(args):
+    from ..render.templates import render_gso_templates, render_shapenet_templates
+    _require_device(args.device)
+    idx = [int(x) for x in args.obj_indices] if args.obj_indices else None
+    fn = render_gso_templates if args.source == "gso" else render_shapenet_templates
+    dirs = fn(args.data_dir, obj_indices=idx, device=args.device)
+    print(f"{len(dirs)} template dirs rendered ({args.source})")
+
+
+def cmd_train(args):
+    import sys
+
+    import torch
+
+    from ..core import config
+    from ..core.checkpoint import save_train_state
+    from ..core.profiling import LogBuffer, StageTimer
+    from ..data.megapose import MegaPoseDataset
+    from ..data.prefetch import PrefetchLoader
+    from ..train.trainer import PEMTrainer, batch_to_device
+    from ..weights.pem import mae_vit_state_dict
+
+    _require_device(args.device)
+    cfg = config.default_config()
+    t = cfg.train
+    ds = MegaPoseDataset(args.data_dir, img_size=cfg.pem.img_size,
+                         n_sample_observed=cfg.pem.n_sample_observed_point,
+                         n_sample_template=cfg.pem.n_sample_template_point)
+    if len(ds) == 0:
+        print(f"no MegaPose shards found under {args.data_dir}", file=sys.stderr)
+        raise SystemExit(2)
+    trainer = PEMTrainer(cfg, seed=t.seed, device=args.device)
+    pretrained = (mae_vit_state_dict(args.mae_ckpt, cfg.pem.vit.depth)
+                  if args.mae_ckpt else None)
+    state = trainer.init_state(pretrained_vit=pretrained)
+    noise = torch.Generator().manual_seed(t.seed)
+    buf, timer = LogBuffer(), StageTimer(args.device)
+    # batch assembly in worker threads overlaps the device step
+    loader = PrefetchLoader(lambda r: ds.sample_batch(t.batch_size, r),
+                            num_workers=args.data_workers, depth=2 * args.data_workers,
+                            seed=t.seed + 1)
+    try:
+        for it in range(args.iters):
+            with timer.stage("data"):
+                batch = batch_to_device(loader.get(), args.device)
+            with timer.stage("step"):
+                state, metrics = trainer.step(state, batch, generator=noise)
+            buf.update({k: float(v) for k, v in metrics.items()})
+            if (it + 1) % t.log_every == 0:
+                print(f"iter {it + 1}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(buf.average().items())), flush=True)
+                buf.clear()
+            if (it + 1) % t.checkpoint_every == 0:
+                save_train_state(args.ckpt_dir, it + 1, state)
+    finally:
+        loader.close()
+    path = save_train_state(args.ckpt_dir, args.iters, state)
+    print("stage means (ms): " + ", ".join(
+        f"{k} {1e3 * v:.1f}" for k, v in timer.summary().items()) + f"; checkpoint -> {path}")
 
 
 def cmd_demo(args):
@@ -306,6 +376,14 @@ def build_parser():
     prb.add_argument("--obj_ids", nargs="*", default=None)
     prb.set_defaults(fn=cmd_render_bop)
 
+    prt = sub.add_parser("render-training", parents=[device],
+                         help="the two training views of every model of a MegaPose tree")
+    prt.add_argument("--data_dir", required=True,
+                     help="MegaPose root (contains MegaPose-GSO / MegaPose-ShapeNetCore)")
+    prt.add_argument("--source", choices=["gso", "shapenet"], required=True)
+    prt.add_argument("--obj_indices", nargs="*", default=None)
+    prt.set_defaults(fn=cmd_render_training)
+
     pd = sub.add_parser("demo", parents=[common, io, device],
                         help="render -> ISM -> PEM on one RGB-D frame")
     pd.add_argument("--skip_render", action="store_true")
@@ -357,6 +435,15 @@ def build_parser():
                          "default, ISM_sam.yaml:28) or rendered templates")
     pb.add_argument("--reset_descriptors", action="store_true")
     pb.set_defaults(fn=cmd_bop_eval)
+
+    pt = sub.add_parser("train", parents=[device],
+                        help="PEM training on MegaPose shards")
+    pt.add_argument("--data_dir", required=True)
+    pt.add_argument("--ckpt_dir", default="checkpoints/pem")
+    pt.add_argument("--iters", type=int, default=600_000)
+    pt.add_argument("--mae_ckpt", default=os.environ.get("MAE_CKPT"))
+    pt.add_argument("--data_workers", type=int, default=8)
+    pt.set_defaults(fn=cmd_train)
     return p
 
 

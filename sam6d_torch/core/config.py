@@ -5,9 +5,11 @@ The port's own copy of the part of `sam6d_tpu/core/config.py` it runs: the
 PEM tree (reference `Pose_Estimation_Model/config/base.yaml`), the SAM
 segmentor and the ISM matching tree (reference
 `Instance_Segmentation_Model/configs/model/ISM_sam.yaml`), template
-rendering, and the root `Config` that `run_demo` and the CLI take. Names and
-defaults are the JAX package's; fields no ported code reads (the training
-tree, the compute dtype) are left out.
+rendering, the PEM training tree (reference `config/base.yaml:3-13`), and
+the root `Config` that `run_demo` and the CLI take. Names and defaults are
+the JAX package's; fields no ported code reads (the compute dtype, the
+TPU-only lowering knobs, the training tree's weight_decay and epochs) are
+left out.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ class ViTConfig:
     img_size: int = 224
     out_dim: int = 256            # per-pixel feature dim after upscaling
     use_pyramid_feat: bool = True  # concat features of 4 blocks
+    remat: bool = False            # recompute each block in the backward pass
+    #   (training-memory lever: torch.utils.checkpoint per block instead of
+    #   storing all `depth` blocks' activations; no effect on inference)
 
 
 @dataclass(frozen=True)
@@ -49,6 +54,7 @@ class PointMatchingConfig:
     out_dim: int = 256
     temp: float = 0.1
     normalize_feat: bool = True
+    loss_dis_thres: float = 0.15   # correspondence label radius (training)
     num_heads: int = 4
     # coarse only
     nproposal1: int = 6000
@@ -161,6 +167,25 @@ class ISMConfig:
     template_level: int = 0         # 42 views
 
 
+# ---------------------------------------------------------------- training
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """PEM training (reference config/base.yaml:3-13, 58-77, 102-105)."""
+    lr: float = 1e-4
+    betas: Tuple[float, float] = (0.5, 0.999)
+    eps: float = 1e-6
+    max_iters: int = 600_000
+    warmup_iters: int = 1000
+    warmup_factor: float = 1e-3
+    batch_size: int = 28
+    loss_clamp: float = 100.0
+    seed: int = 1
+    log_every: int = 50
+    checkpoint_every: int = 10_000
+
+
 # ------------------------------------------------------------------ render
 
 
@@ -176,6 +201,7 @@ class Config:
     """Root config."""
     ism: ISMConfig = field(default_factory=ISMConfig)
     pem: PEMConfig = field(default_factory=PEMConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
 
 

@@ -9,8 +9,9 @@ stage reads; `write_stream_frames` a second box of other extents and frames
 in which both boxes have moved, for the `stream` entry point;
 `write_bop_job` a BOP dataset tree of two boxes (models, a test scene, a
 train_pbr scene and a BOP-23 detections json) for `render-bop` and
-`bop-eval`. Used by `chip_smoke.py` and the port's tests; no released data
-is needed.
+`bop-eval`; `write_megapose_job` a MegaPose-GSO training tree of two boxes
+(normalized meshes, web shards) for `render-training` and `train`. Used by
+`chip_smoke.py` and the port's tests; no released data is needed.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import numpy as np
 from PIL import Image
 
 from .mesh import load_ply
-from .rle import rle_decode_coco, rle_encode_coco
+from .rle import mask_to_rle_counts, rle_decode_coco, rle_encode_coco
 
 K_CAM = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
                   [0.0, 0.0, 1.0]], np.float32)
@@ -324,3 +325,81 @@ def write_bop_job(root: str, rng: np.random.RandomState, obj_ids=(1, 5),
             json.dump(obj, f)
     return dict(dataset_dir=root, seg_path=seg_path, obj_ids=list(obj_ids),
                 n_test_frames=n_test_frames, dets=dets)
+
+
+# a normalized GSO model (corner radius 1) is 0.1 m across its radius in the
+# MegaPose scenes: the reader scales template xyz by 0.1
+# (training_dataset.py:294)
+MEGAPOSE_SCENE_MM = 100.0
+
+
+def write_megapose_job(root: str, rng: np.random.RandomState, n_samples: int = 4,
+                       n_shards: int = 2, hw=(480, 640), n_surface: int = 100000):
+    """A MegaPose-GSO tree under `root` in the layout MegaPoseDataset reads:
+
+    - MegaPose-GSO/google_scanned_objects/models_info.json listing two
+      boxes (gso_id box_00, box_01), each a
+      models_normalized/{gso_id}/meshes/model.ply of corner radius 1 (the
+      half extents of write_pem_job's box and of SECOND_BOX_HALF, scaled),
+      for `render-training` to render into MegaPose-GSO/templates/{gso_id};
+    - MegaPose-GSO/train_pbr_web/key_to_shard.json and gso_models.json
+      (obj_id = the position in the list);
+    - `n_samples` frames spread over `n_shards` shards
+      (train_pbr_web/shard-{s:06d}/{key}.rgb.jpg, .depth.png (uint16 mm),
+      .camera.json, .gt.json (mm), .gt_info.json, .mask_visib.json (BOP
+      uncompressed RLE by instance)), each with both boxes at
+      MEGAPOSE_SCENE_MM per model unit under random rotations, splatted as
+      write_bop_job splats its scenes, with the camera of write_pem_job
+      scaled to `hw`.
+
+    Returns dict(data_dir, keys, gso_ids)."""
+    H, W = hw
+    base = os.path.join(root, "MegaPose-GSO")
+    gso = os.path.join(base, "google_scanned_objects")
+    web = os.path.join(base, "train_pbr_web")
+    halves = [np.array(h, np.float32) for h in ((40.0, 30.0, 20.0), SECOND_BOX_HALF)]
+    gso_ids, surfs, colours = [], [], []
+    for i, half in enumerate(halves):
+        gso_id = f"box_{i:02d}"
+        mdir = os.path.join(gso, "models_normalized", gso_id, "meshes")
+        os.makedirs(mdir, exist_ok=True)
+        path = os.path.join(mdir, "model.ply")
+        box_ply(path, tuple(half / np.linalg.norm(half)))
+        surf = load_ply(path).sample(n_surface, rng) * MEGAPOSE_SCENE_MM
+        gso_ids.append(gso_id)
+        surfs.append(surf)
+        colours.append((surf / (2.0 * MEGAPOSE_SCENE_MM) + 0.5).clip(0, 1) * 255.0)
+    with open(os.path.join(gso, "models_info.json"), "w") as f:
+        json.dump([{"obj_id": i, "gso_id": g} for i, g in enumerate(gso_ids)], f)
+    os.makedirs(web, exist_ok=True)
+    with open(os.path.join(web, "gso_models.json"), "w") as f:
+        json.dump([{"obj_id": i, "gso_id": g} for i, g in enumerate(gso_ids)], f)
+
+    K = K_CAM * np.array([[W / 640.0], [H / 480.0], [1.0]], np.float32)
+    keys = {}
+    for k in range(n_samples):
+        key, shard = f"{k:08d}", k % n_shards
+        sdir = os.path.join(web, f"shard-{shard:06d}")
+        os.makedirs(sdir, exist_ok=True)
+        head = os.path.join(sdir, key)
+        poses = [(random_rotation(rng), np.array(o, np.float32)
+                  + rng.uniform(-15, 15, 3).astype(np.float32))
+                 for o in ((-90.0, 0.0, 650.0), (90.0, 10.0, 620.0))]
+        depth, rgb, visible, fract = _splat_scene(surfs, poses, K, hw, colours)
+        Image.fromarray(rgb).save(head + ".rgb.jpg")
+        Image.fromarray(np.round(depth).astype(np.uint16)).save(head + ".depth.png")
+        records = {
+            "camera": {"cam_K": K.reshape(-1).tolist(), "depth_scale": 1.0},
+            "gt": [dict(obj_id=i, cam_R_m2c=R.reshape(-1).tolist(), cam_t_m2c=t.tolist())
+                   for i, (R, t) in enumerate(poses)],
+            "gt_info": [dict(visib_fract=float(v), px_count_valid=int(m.sum()),
+                             px_count_visib=int(m.sum())) for v, m in zip(fract, visible)],
+            "mask_visib": {str(i): mask_to_rle_counts(m) for i, m in enumerate(visible)},
+        }
+        for name, obj in records.items():
+            with open(f"{head}.{name}.json", "w") as f:
+                json.dump(obj, f)
+        keys[key] = shard
+    with open(os.path.join(web, "key_to_shard.json"), "w") as f:
+        json.dump(keys, f)
+    return dict(data_dir=root, keys=sorted(keys), gso_ids=gso_ids)

@@ -54,7 +54,7 @@ def two_scale_ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
                                r1: float, s1: int, r2: float, s2: int):
     """xyz (B, N, 3) candidates, new_xyz (B, M, 3) queries ->
     (idx1 (B, M, s1), idx2 (B, M, s2)) int32."""
-    d2 = pairwise_sq_distance(new_xyz, xyz)
+    d2 = pairwise_sq_distance(new_xyz.detach(), xyz.detach())
     N = xyz.shape[1]
     return (_fill_tail(first_k_hits(d2 < r1 * r1, s1), N),
             _fill_tail(first_k_hits(d2 < r2 * r2, s2), N))
@@ -84,8 +84,9 @@ def two_scale_ball_query_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
         raise ValueError(f"sample counts must be positive: {s1}, {s2}")
     lib = load_library()
     dev = xyz.device
-    xt = xyz.permute(0, 2, 1).contiguous()       # (B, 3, N)
-    qt = new_xyz.permute(0, 2, 1).contiguous()   # (B, 3, M)
+    # indices carry no gradient: the kernel reads the values only
+    xt = xyz.detach().permute(0, 2, 1).contiguous()       # (B, 3, N)
+    qt = new_xyz.detach().permute(0, 2, 1).contiguous()   # (B, 3, M)
     out1 = torch.empty((B, M, s1), dtype=torch.int32, device=dev)
     out2 = torch.empty((B, M, s2), dtype=torch.int32, device=dev)
     # radii squared in float32, as the plain version's comparison sees them

@@ -55,6 +55,7 @@ def farthest_point_sample_plain(points: torch.Tensor, npoint: int,
                                 valid_mask: torch.Tensor | None = None
                                 ) -> torch.Tensor:
     """points (B, N, 3) float32, valid_mask (B, N) bool -> (B, npoint) int32."""
+    points = points.detach()
     B, N, _ = points.shape
     dev = points.device
     valid = (torch.ones((B, N), dtype=torch.bool, device=dev)
@@ -93,7 +94,8 @@ def farthest_point_sample_cuda(points: torch.Tensor, npoint: int,
         raise ValueError("valid_mask must be (B, N) on the points' device")
     lib = load_library()
     dev = points.device
-    planar = points.permute(0, 2, 1).contiguous()          # (B, 3, N)
+    # indices carry no gradient: the kernel reads the values only
+    planar = points.detach().permute(0, 2, 1).contiguous()  # (B, 3, N)
     valid = (torch.ones((B, N), dtype=torch.uint8, device=dev)
              if valid_mask is None
              else valid_mask.to(torch.uint8).contiguous())

@@ -14,17 +14,37 @@ from ..ops.ball_query import group_points, two_scale_ball_query
 
 
 class _BNLayer(nn.Module):
-    """Holds the reference `normlayer.bn` BatchNorm2d (eval mode only)."""
+    """Holds the reference `normlayer.bn` BatchNorm2d, applied channels-last
+    in flax's order of operations.
+
+    In train mode the statistics reduce over every axis but the channels
+    (B, N and the samples, the ball query's repeated slots included), the
+    variance is flax's biased E[x^2] - E[x]^2 clipped at 0, and the running
+    buffers move as flax's BatchNorm(momentum=0.9) moves them: 0.9 of the
+    old value plus 0.1 of the batch's, the variance biased (torch's own
+    BatchNorm2d would take the unbiased one)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, channels: int):
         super().__init__()
         self.bn = nn.BatchNorm2d(channels, eps=1e-5)
 
-    def forward(self, x):
-        """Channels-last eval-mode BN, in flax's order of operations."""
+    def forward(self, x, train: bool = False):
         bn = self.bn
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        return (x - bn.running_mean) * mul + bn.bias
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                bn.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+                bn.running_var.mul_(m).add_((1.0 - m) * var.detach())
+                bn.num_batches_tracked.add_(1)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (x - mean) * mul + bn.bias
 
 
 class _ConvBNReLU(nn.Module):
@@ -59,15 +79,15 @@ class SharedMLP(nn.Module):
     def first_linear(self, x):
         return self._layer(0).linear(x)
 
-    def after_first(self, h):
-        x = F.relu(self._layer(0).normlayer(h))
+    def after_first(self, h, train: bool = False):
+        x = F.relu(self._layer(0).normlayer(h, train))
         for i in range(1, self.n):
             layer = self._layer(i)
-            x = F.relu(layer.normlayer(layer.linear(x)))
+            x = F.relu(layer.normlayer(layer.linear(x), train))
         return x
 
-    def forward(self, x):
-        return self.after_first(self.first_linear(x))
+    def forward(self, x, train: bool = False):
+        return self.after_first(self.first_linear(x), train)
 
 
 class _Conv1d(nn.Module):
@@ -90,7 +110,9 @@ class PositionalEncoding(nn.Module):
     The ball query runs the CUDA kernel on a CUDA tensor (plain version on
     CPU). conv_0 is linear and bias-free, so the cloud is projected BEFORE
     the gather: conv0([p_j - p_i, p_j]) = conv0([p_j, p_j]) - conv0([p_i, 0]),
-    and 32-wide rows are gathered instead of grouped 6-wide coordinates."""
+    and 32-wide rows are gathered instead of grouped 6-wide coordinates.
+    `train` normalizes with the batch's statistics and moves the running
+    ones (_BNLayer)."""
 
     def __init__(self, out_dim: int = 256, r1: float = 0.1, r2: float = 0.2,
                  nsample1: int = 32, nsample2: int = 64):
@@ -101,7 +123,7 @@ class PositionalEncoding(nn.Module):
         self.mlp2 = SharedMLP(6, (32, 64, 128))
         self.mlp3 = _Conv1d(256, out_dim)
 
-    def forward(self, pts):
+    def forward(self, pts, train: bool = False):
         idx1, idx2 = two_scale_ball_query(pts, pts, self.r1, self.nsample1,
                                           self.r2, self.nsample2)
         pp = torch.cat([pts, pts], dim=-1)
@@ -111,7 +133,7 @@ class PositionalEncoding(nn.Module):
             u = mlp.first_linear(pp)                   # (B, N, 32)
             v = mlp.first_linear(p0)[:, :, None, :]    # centre part
             h = group_points(u, idx) - v               # (B, N, S, 32)
-            return mlp.after_first(h).amax(dim=2)
+            return mlp.after_first(h, train).amax(dim=2)
 
         f = torch.cat([scale_feats(self.mlp1, idx1),
                        scale_feats(self.mlp2, idx2)], dim=-1)
@@ -138,11 +160,14 @@ class FinePointMatching(nn.Module):
              for _ in range(nblock)])
 
     def forward(self, pe1, f1, geo1, fps_idx1, pe2, f2, geo2, fps_idx2,
-                all_blocks: bool = False):
+                all_blocks: bool = False, train: bool = False):
         """pe1/pe2 (B, N, hidden) positional encodings (pe2 may have batch
         1), f1/f2 (B, N, input_dim) dense features, geo* (B or 1, S+1, S+1,
         C) sparse embeddings, fps_idx* (B or 1, S). Returns a list of
-        (B, N1+1, N2+1) similarity matrices."""
+        (B, N1+1, N2+1) similarity matrices: every block's with
+        `all_blocks` (training), else the last one's. `train` is the JAX
+        signature's; the blocks hold no batch statistics (the positional
+        encodings, which do, are computed by the caller)."""
         B = f1.shape[0]
         bg = self.bg_token.expand(B, -1, -1)
         f1 = torch.cat([bg, self.in_proj(f1) + pe1], dim=1)

@@ -5,7 +5,9 @@ Port of `sam6d_tpu/models/pem.py` (reference `model/pose_estimation_model.py`
 reference `state_dict` (`feature_extraction.rgb_net`, `geo_embedding`,
 `coarse_point_matching`, `fine_point_matching` with its `PE`), so a reference
 checkpoint loads without conversion. `infer` is split into a coarse half
-(`infer_coarse`, returning init_R / init_t) and a fine half (`infer_fine`).
+(`infer_coarse`, returning init_R / init_t) and a fine half (`infer_fine`);
+`train_forward` is the training forward (every block's similarities, the
+positional encodings' BatchNorm in train mode).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ class PEMNet(nn.Module):
         v = cfg.vit
         self.feature_extraction = ViTEncoder(
             v.img_size, v.patch_size, v.embed_dim, v.depth, v.num_heads,
-            v.mlp_ratio, v.out_dim, v.use_pyramid_feat)
+            v.mlp_ratio, v.out_dim, v.use_pyramid_feat, v.remat)
         g = cfg.geo_embedding
         self.geo_embedding = GeometricStructureEmbedding(
             g.hidden_dim, g.sigma_d, g.sigma_a, g.angle_k, g.reduction_a)
@@ -172,6 +174,48 @@ class PEMNet(nn.Module):
         scale = tr["radius"][:, None] + 1e-6
         return dict(init_R=init_R, init_t=init_t * scale, pred_R=pred_R,
                     pred_t=pred_t * scale, pred_pose_score=score)
+
+    def train_forward(self, inputs: Dict[str, Any], init_R, init_t):
+        """Training forward (reference feature_extraction.py:144-163 +
+        pose_estimation_model.py): templates are onboarded per sample from
+        the two views tem1/tem2 (2 x P points -> FPS to fine_npoint), the
+        coarse and fine matchers return every block's similarities, and the
+        positional encodings run their BatchNorm in train mode (the running
+        statistics move twice: the posed observed cloud, then the template
+        cloud). `init_R` / `init_t` is the noisy GT pose (aug_pose_noise) in
+        normalized translation units. Returns (coarse_attens, fine_attens,
+        aux) with aux the normalized clouds and radius the loss needs."""
+        c = self.cfg
+        tem_pts = torch.cat([inputs["tem1_pts"], inputs["tem2_pts"]], dim=1)
+        radius = torch.linalg.vector_norm(tem_pts, dim=2).amax(dim=1)
+        denom = radius[:, None, None] + 1e-6
+
+        f1 = self.extract_img_feats(inputs["tem1_rgb"], inputs["tem1_choose"])
+        f2 = self.extract_img_feats(inputs["tem2_rgb"], inputs["tem2_choose"])
+        dense_po, dense_fo, _ = sample_pts_feats(
+            tem_pts / denom, torch.cat([f1, f2], dim=1), c.fine_npoint)
+
+        dense_fm = self.extract_img_feats(inputs["rgb"], inputs["rgb_choose"])
+        dense_pm = inputs["pts"] / denom
+        sparse_pm, sparse_fm, fps_idx_m = sample_pts_feats(
+            dense_pm, dense_fm, c.coarse_npoint)
+        geo_m = self._geo_with_bg(sparse_pm)
+        sparse_po, sparse_fo, fps_idx_o = sample_pts_feats(
+            dense_po, dense_fo, c.coarse_npoint)
+        geo_o = self._geo_with_bg(sparse_po)
+
+        coarse_attens = self.coarse_point_matching(
+            sparse_fm, geo_m, sparse_fo, geo_o, all_blocks=True)
+
+        pe = self.fine_point_matching.PE
+        pe1 = pe(inverse_transform_points(dense_pm, init_R, init_t), train=True)
+        pe2 = pe(dense_po, train=True)
+        fine_attens = self.fine_point_matching(
+            pe1, dense_fm, geo_m, fps_idx_m, pe2, dense_fo, geo_o, fps_idx_o,
+            all_blocks=True, train=True)
+        aux = dict(sparse_pm=sparse_pm, sparse_po=sparse_po,
+                   dense_pm=dense_pm, dense_po=dense_po, radius=radius)
+        return coarse_attens, fine_attens, aux
 
     def forward(self, inputs, generator=None):
         return self.infer(inputs, generator)

@@ -17,6 +17,7 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import fused_attention
 from ..kernels.attention_qkv import fused_attention_qkv
@@ -100,13 +101,17 @@ class Block(nn.Module):
 
 class ViT(nn.Module):
     """timm-style ViT returning the final-normed outputs of 4 pyramid blocks
-    (reference ViT.forward, feature_extraction.py:21-35)."""
+    (reference ViT.forward, feature_extraction.py:21-35). With `remat`, a
+    block run under autograd is checkpointed (torch.utils.checkpoint): its
+    activations are recomputed in the backward pass instead of stored, the
+    JAX package's `nn.remat` over the block scan."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, remat: bool = False):
         super().__init__()
         self.depth = depth
+        self.remat = remat
         grid = img_size // patch_size
         self.patch_embed = PatchEmbed(3, embed_dim, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -127,8 +132,9 @@ class ViT(nn.Module):
         x = x + self.pos_embed
         keep = set(self.pyramid_indices())
         outs = []
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if i in keep:
                 outs.append(self.norm(x))
         return outs
@@ -199,10 +205,10 @@ class ViTAE(nn.Module):
 
     def __init__(self, img_size=224, patch_size=16, embed_dim=768, depth=12,
                  num_heads=12, mlp_ratio=4.0, out_dim=256,
-                 use_pyramid_feat=True):
+                 use_pyramid_feat=True, remat=False):
         super().__init__()
         self.vit = ViT(img_size, patch_size, embed_dim, depth, num_heads,
-                       mlp_ratio)
+                       mlp_ratio, remat)
         self.output_upscaling = ViTPixelDecoder(embed_dim, out_dim,
                                                 use_pyramid_feat)
 
@@ -214,10 +220,10 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, img_size=224, patch_size=16, embed_dim=768, depth=12,
                  num_heads=12, mlp_ratio=4.0, out_dim=256,
-                 use_pyramid_feat=True):
+                 use_pyramid_feat=True, remat=False):
         super().__init__()
         self.rgb_net = ViTAE(img_size, patch_size, embed_dim, depth, num_heads,
-                             mlp_ratio, out_dim, use_pyramid_feat)
+                             mlp_ratio, out_dim, use_pyramid_feat, remat)
 
     def forward(self, x, full_res: bool = True):
         H, W = x.shape[1], x.shape[2]

@@ -188,6 +188,23 @@ def weighted_procrustes(src_points: torch.Tensor, ref_points: torch.Tensor,
     return R, torch.stack(tp, -1)
 
 
+def rotation_from_euler_zyx(a1, a2, a3):
+    """Rz(a1) @ Rx(a2) @ Ry(a3), the composition aug_pose_noise uses
+    (reference model_utils.py:150-172). Angles in radians, batched (...,)."""
+    c1, s1 = torch.cos(a1), torch.sin(a1)
+    c2, s2 = torch.cos(a2), torch.sin(a2)
+    c3, s3 = torch.cos(a3), torch.sin(a3)
+    z, o = torch.zeros_like(a1), torch.ones_like(a1)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    Rz = mat([(c1, -s1, z), (s1, c1, z), (z, z, o)])
+    Rx = mat([(o, z, z), (z, c2, -s2), (z, s2, c2)])
+    Ry = mat([(c3, z, s3), (z, o, z), (-s3, z, c3)])
+    return Rz @ Rx @ Ry
+
+
 def transform_points(points: torch.Tensor, R: torch.Tensor, t: torch.Tensor):
     """Model -> camera: p @ R^T + t. points (..., N, 3), R (..., 3, 3), t (..., 3)."""
     return points @ R.transpose(-1, -2) + t[..., None, :]

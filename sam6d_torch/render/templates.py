@@ -1,9 +1,10 @@
 """Offline template generation: CAD -> 42-view rgb/mask/xyz assets.
 
-Port of `sam6d_tpu/render/templates.py` (the custom-object and BOP paths;
-the training-set renders are not ported). Equivalent of the reference
-`Render/render_custom_templates.py` and `render_bop_templates.py` without
-Blender: icosphere level-0
+Port of `sam6d_tpu/render/templates.py`: the custom-object, BOP and
+training-set (MegaPose GSO / ShapeNetCore two-view) renders. Equivalent of
+the reference `Render/render_custom_templates.py`,
+`render_bop_templates.py`, `render_gso_templates.py` and
+`render_shapenet_templates.py` without Blender: icosphere level-0
 camera poses (the canonical order of `render/poses.py`), the rasterizer of
 `render/rasterizer.py` on the device, Lambertian headlight shading on the
 host. Output contract of the reference consumers: rgb_i.png, mask_i.png
@@ -22,7 +23,7 @@ import torch
 from PIL import Image
 
 from ..data.mesh import Mesh, load_mesh, load_ply
-from .poses import template_cam_poses
+from .poses import look_at, template_cam_poses
 from .rasterizer import interpolate_split_attrs, rasterize, split_large_triangles
 
 # Blender default camera: 512x512, 50mm lens on a 36mm sensor
@@ -126,20 +127,26 @@ def render_templates(mesh: Mesh, output_dir: str, level: int = 0,
                      vertex_colors: Optional[np.ndarray] = None,
                      base_color: float = BASE_COLOR,
                      cam_distance: Optional[float] = None,
+                     cam_poses: Optional[np.ndarray] = None, xyz_scale: float = 1.0,
+                     xyz_rot: Optional[np.ndarray] = None,
                      subdir: str = "templates") -> str:
     """Render the level-`level` icosphere views into `{output_dir}/{subdir}`
     (`output_dir` itself when `subdir` is empty) with the rasterizer on
     `device`. The camera sits at `cam_distance`, by default 4x the mesh
     radius (the reference custom distance: a Blender camera at 2 units with
-    the object scaled by 1/(2r)); `views` optionally restricts to a subset
-    of view indices (files keep their canonical view index in the name).
-    Appearance as in render_view. Returns the template dir."""
+    the object scaled by 1/(2r)); `cam_poses` (N, 4, 4) replaces the
+    icosphere set entirely (the training-template drivers); `views`
+    optionally restricts to a subset of view indices (files keep their
+    canonical view index in the name). The saved xyz is
+    `xyz_rot @ (local * xyz_scale)` (the ShapeNet rot90 / NOCS
+    conventions). Appearance as in render_view. Returns the template dir."""
     save_dir = os.path.join(output_dir, subdir) if subdir else output_dir
     os.makedirs(save_dir, exist_ok=True)
-    if cam_distance is None:
-        cam_distance = 4.0 * float(np.linalg.norm(mesh.vertices.astype(np.float64),
-                                                  axis=1).max())
-    cam_poses = template_cam_poses(level, radius=cam_distance)
+    if cam_poses is None:
+        if cam_distance is None:
+            cam_distance = 4.0 * float(np.linalg.norm(mesh.vertices.astype(np.float64),
+                                                      axis=1).max())
+        cam_poses = template_cam_poses(level, radius=cam_distance)
     for i in (range(len(cam_poses)) if views is None else views):
         attr_img, mask, textured = render_view(mesh, cam_poses[i], image_size, device,
                                                vertex_colors, base_color)
@@ -150,7 +157,9 @@ def render_templates(mesh: Mesh, output_dir: str, level: int = 0,
             rgb = (shaded_px * 255).astype(np.uint8)
         else:
             rgb = (np.clip(attr_img[..., :3], 0, 1) * 255).astype(np.uint8)
-        xyz = attr_img[..., 3:6].astype(np.float32)
+        xyz = attr_img[..., 3:6].astype(np.float32) * xyz_scale
+        if xyz_rot is not None:
+            xyz = xyz @ np.asarray(xyz_rot, np.float32).T
         Image.fromarray(rgb).save(os.path.join(save_dir, f"rgb_{i}.png"))
         Image.fromarray((mask * 255).astype(np.uint8)).save(
             os.path.join(save_dir, f"mask_{i}.png"))
@@ -195,3 +204,81 @@ def render_bop_templates(dataset_dir: str, output_root: str, dataset_name: str,
                          cam_distance=2.0 * float(info[key]["diameter"]), subdir="")
         out_dirs.append(out_dir)
     return out_dirs
+
+
+# ShapeNet NOCS frame fix (reference render_shapenet_templates.py:105-112)
+SHAPENET_ROT90 = np.array([[1, 0, 0], [0, 0, 1], [0, -1, 0]], np.float32)
+
+
+def _corner_radius(verts: np.ndarray) -> float:
+    """Reference get_norm_info convention (render_custom_templates.py:23-34):
+    the larger norm of the axis-wise min/max corner vectors."""
+    return float(max(np.linalg.norm(verts.max(0)), np.linalg.norm(verts.min(0))))
+
+
+def render_training_templates(mesh: Mesh, save_dir: str, shapenet: bool = False,
+                              image_size: int = RENDER_SIZE, device="cuda") -> str:
+    """Two-view training templates (reference render_gso_templates.py:61-68 /
+    render_shapenet_templates.py): cameras at -(1,1,1) and +(1,1,1) times 2r
+    (r the corner radius) looking at the origin; xyz saved in the
+    reference's NOCS convention local / r (range <= 1; the MegaPose reader
+    multiplies by 0.1, training_dataset.py:294), with the rot90 NOCS frame
+    fix for ShapeNetCore. Written straight into `save_dir`."""
+    r = _corner_radius(mesh.vertices)
+    locs = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]]) * 2.0 * r
+    cam_poses = np.stack([look_at(loc, np.zeros(3)) for loc in locs])
+    return render_templates(mesh, save_dir, image_size=image_size, device=device,
+                            cam_poses=cam_poses, xyz_scale=1.0 / max(r, 1e-12),
+                            xyz_rot=SHAPENET_ROT90 if shapenet else None, subdir="")
+
+
+def render_gso_templates(data_dir: str, obj_indices=None, image_size: int = RENDER_SIZE,
+                         device="cuda"):
+    """Every GSO training template set into the layout MegaPoseDataset
+    reads: {data_dir}/MegaPose-GSO/templates/{gso_id}/ (reference
+    render_gso_templates.py), the meshes from
+    google_scanned_objects/models_normalized/{gso_id}/meshes/model.ply as
+    listed in its models_info.json; `obj_indices` restricts to positions
+    in that list. Returns the template dirs."""
+    root = os.path.join(data_dir, "MegaPose-GSO")
+    with open(os.path.join(root, "google_scanned_objects", "models_info.json")) as f:
+        info = json.load(f)
+    out = []
+    for idx, rec in enumerate(info):
+        if obj_indices is not None and idx not in obj_indices:
+            continue
+        mesh_path = os.path.join(root, "google_scanned_objects", "models_normalized",
+                                 rec["gso_id"], "meshes", "model.ply")
+        if not os.path.exists(mesh_path):
+            continue
+        save_dir = os.path.join(root, "templates", rec["gso_id"])
+        render_training_templates(load_ply(mesh_path), save_dir, shapenet=False,
+                                  image_size=image_size, device=device)
+        out.append(save_dir)
+    return out
+
+
+def render_shapenet_templates(data_dir: str, obj_indices=None,
+                              image_size: int = RENDER_SIZE, device="cuda"):
+    """Every ShapeNetCore training template set into
+    {data_dir}/MegaPose-ShapeNetCore/templates/{synset}/{source}/, with the
+    rot90 NOCS fix (reference render_shapenet_templates.py:105-112).
+    Returns the template dirs."""
+    root = os.path.join(data_dir, "MegaPose-ShapeNetCore")
+    with open(os.path.join(root, "shapenetcorev2", "models_info.json")) as f:
+        info = json.load(f)
+    out = []
+    for idx, rec in enumerate(info):
+        if obj_indices is not None and idx not in obj_indices:
+            continue
+        mesh_path = os.path.join(root, "shapenetcorev2", "models_orig",
+                                 rec["shapenet_synset_id"], rec["shapenet_source_id"],
+                                 "models", "model_normalized.ply")
+        if not os.path.exists(mesh_path):
+            continue
+        save_dir = os.path.join(root, "templates", rec["shapenet_synset_id"],
+                                rec["shapenet_source_id"])
+        render_training_templates(load_ply(mesh_path), save_dir, shapenet=True,
+                                  image_size=image_size, device=device)
+        out.append(save_dir)
+    return out

@@ -4,6 +4,8 @@ The port's modules carry the reference `state_dict` names, so the released
 `sam-6d-pem-base.pth` loads as it is. `pem_state_dict_from_flax` turns the
 JAX package's PEM variables into a port `state_dict`; it is the exact inverse
 of `sam6d_tpu.weights.convert_pem.convert_pem_state_dict`.
+`mae_vit_state_dict` reads the MAE pre-training checkpoint that training
+starts the backbone from (the counterpart of `convert_mae_vit`).
 """
 from __future__ import annotations
 
@@ -30,6 +32,28 @@ def load_reference_checkpoint(path: str, net: PEMNet):
     net.load_state_dict({k: torch.as_tensor(np.asarray(sd[k])) for k in own},
                         strict=True)
     return sorted(set(sd) - set(own))
+
+
+def mae_vit_state_dict(sd, depth: int = 12) -> Dict[str, torch.Tensor]:
+    """The MAE pre-training checkpoint (`mae_pretrain_vit_base.pth`: a
+    'model' dict under plain timm ViT names, reference
+    feature_extraction.py:78-95) -> the `state_dict` of the port's `ViT`
+    (`PEMNet.feature_extraction.rgb_net.vit`): cls_token, pos_embed,
+    patch_embed, `depth` blocks and the final norm. Other entries (the MAE
+    decoder, the mask token) are not read. `sd` is a mapping of arrays or a
+    checkpoint path."""
+    if isinstance(sd, str):
+        sd = load_torch_checkpoint(sd)
+    names = ["cls_token", "pos_embed", "patch_embed.proj.weight", "patch_embed.proj.bias",
+             "norm.weight", "norm.bias"]
+    for i in range(depth):
+        names += [f"blocks.{i}.{m}.{p}" for m in ("norm1", "attn.qkv", "attn.proj", "norm2",
+                                                   "mlp.fc1", "mlp.fc2")
+                  for p in ("weight", "bias")]
+    missing = [n for n in names if n not in sd]
+    if missing:
+        raise KeyError(f"MAE checkpoint lacks {len(missing)} ViT keys, e.g. {missing[:5]}")
+    return {n: torch.from_numpy(np.array(sd[n], np.float32)) for n in names}
 
 
 def _transformer_layer(sd, prefix, d, rpe: bool):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels held to their plain PyTorch versions on the card
 (every test is marked `cuda` and skips without a GPU): FPS, two-scale ball
-query, the fused attentions (K5 off the qkv projection, K8 and K9 on
+query (also at the training shapes, on inputs that carry autograd
+history), the fused attentions (K5 off the qkv projection, K8 and K9 on
 head-major operands), SAM's rel-pos attention (K1) and the factored AMG
 kernels (K2-K4). The file imports torch, numpy, pytest and sam6d_torch only,
 so it runs where JAX is absent:
@@ -173,6 +174,45 @@ def test_ball_query_kernel_matches_plain(cuda_device, B, N, M, scales):
     d2 = pairwise_sq_distance(q, xyz)
     for g, w, r in zip(bq.two_scale_ball_query_cuda(xyz, q, *scales),
                        bq.two_scale_ball_query_plain(xyz, q, *scales), (r1, r2)):
+        near = ((d2 - float(np.float32(r * r))).abs() < 1e-6).any(dim=-1)
+        assert not ((g != w).any(dim=-1) & ~near).any()
+
+
+def _with_history(t):
+    """`t` as a leaf that requires grad, then scaled by 1: a tensor carrying
+    autograd history, as a training forward hands the kernels."""
+    return t.clone().requires_grad_(True) * 1.0
+
+
+@pytest.mark.cuda
+def test_fps_cluster_path_at_the_training_shape_with_autograd_history(cuda_device):
+    """PEM training onboards two 5000-point views a sample: 28 clouds of
+    10 000 points -> 2048 on the cluster path (28 clusters of 16 blocks),
+    with duplicates (views sampled with replacement), exact."""
+    rng = np.random.RandomState(21)
+    base = (rng.rand(28, 4000, 3).astype(np.float32) - 0.5) * 0.2
+    pts = torch.from_numpy(np.stack([b[rng.randint(0, len(b), 10000)] for b in base]))
+    pts = _with_history(pts.to(cuda_device))
+    assert pts.grad_fn is not None and fps.fps_path(10000) == "cluster"
+    assert fps.check_cluster_resident(10000) >= 1
+    got = fps.farthest_point_sample_cuda(pts, 2048)
+    assert torch.equal(got, fps.farthest_point_sample_plain(pts.detach(), 2048))
+    assert not got.requires_grad
+
+
+@pytest.mark.cuda
+def test_ball_query_at_the_training_shape_with_autograd_history(cuda_device):
+    """The training positional encodings: 28 clouds of 2048 points against
+    themselves (the lanes path), inputs carrying autograd history."""
+    rng = np.random.RandomState(22)
+    xyz = torch.from_numpy(rng.randn(28, 2048, 3).astype(np.float32) * 0.3).to(cuda_device)
+    q = _with_history(xyz)
+    scales = (0.1, 32, 0.2, 64)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert bq.ball_query_path(28, 2048, sms) == "lanes"
+    d2 = pairwise_sq_distance(xyz, xyz)
+    for g, w, r in zip(bq.two_scale_ball_query_cuda(q, q, *scales),
+                       bq.two_scale_ball_query_plain(xyz, xyz, *scales), (0.1, 0.2)):
         near = ((d2 - float(np.float32(r * r))).abs() < 1e-6).any(dim=-1)
         assert not ((g != w).any(dim=-1) & ~near).any()
 
