@@ -72,11 +72,24 @@ Phases, in order; any failure raises and exits non-zero:
      28x10000->2048 and K6 at 28x2048x2048 on the batch's clouds against
      their plain versions, and one card step at batch 2 against the same
      step on the plain CPU path (loss terms, metrics, every gradient,
-     BatchNorm statistics).
+     BatchNorm statistics);
+ 11. segmentation options, at full width: FastSAM-x (seeded random
+     weights, each conv rescaled on the job's frame) through
+     generate_masks_device at 640 (no kernel), held to the plain CPU run of
+     the same weights (the same top-200 anchors and kept set, scores and
+     boxes within tolerance, mask pixels differing only near the
+     threshold), its CUDA-event split (network; decode, top-k and NMS;
+     mask assembly) beside the fp32 bounds, busy share and NMS syncs;
+     run_demo(segmentor='fastsam') on phase 7's templates (skip_render;
+     the kept slots among the first 48 described, 16 records posed; every
+     output file; K5, K6, K7 launched, K1-K4 not); ViT-H SAM's
+     generate_masks with crop_n_layers=1 and min_mask_region_area=100
+     (boxes inside the frame, invalid slots empty, K1-K4 launched as often
+     as the crop boxes and per-layer grids predict).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; each kernel's record carries its launches on its own
-path (`launches`), on phases 8-10 (`path_launches`) and in a training step
+path (`launches`), on phases 8-11 (`path_launches`) and in a training step
 (`train_launches`; K6 and K7 also their times at the training shapes,
 `train_ms` and the rest). Prints the card's name and power limit, one JSON line of
 kernel records (times, launches, errors, bounds), then as the last line
@@ -2243,6 +2256,345 @@ def phase_train(job_root, device="cuda"):
     return stp.launches[0], records
 
 
+# ----------------------------------------------------------------- phase 11
+
+# card vs the plain CPU run of FastSAM-x on the same weights: ~100 fp32
+# convolutions summed in another order on the two devices. Scores and mask
+# values in [0, 1]; boxes in pixels of the 480x640 frame (stride-32 DFL
+# distances carry the rounding x32); a mask pixel may differ only where the
+# card's value before the threshold lies within FASTSAM_NEAR_MASK of it
+FASTSAM_SCORE_ATOL = 1e-4
+FASTSAM_BOX_ATOL = 1e-2
+FASTSAM_NEAR_MASK = 1e-4
+# the FastSAM demo's downstream load, pinned as bench.py pins SAM's: the kept
+# slots among the first 48 reach the describe, the first 16 records PEM
+FASTSAM_DESCRIBE_SLOTS = 48
+FASTSAM_PEM_DETECTIONS = 16
+
+
+def fastsam_conv_flops(net, x):
+    """Multiply-adds x 2 of every convolution of `net` on `x` (the
+    network's operations; BatchNorm, SiLU, pooling and the DFL softmax are
+    < 1% beside them), from the module shapes seen in one forward."""
+    import torch
+    total = [0]
+
+    def hook(m, inp, out):
+        k = m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            total[0] += 2 * inp[0].numel() * m.out_channels * k
+        else:
+            total[0] += 2 * out.numel() * (m.in_channels // m.groups) * k
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def fastsam_stages(seg, rgb):
+    """One frame through the segmentor's stages, keeping what
+    generate_masks_device discards: the top-k anchors and the mask values
+    before the threshold."""
+    import torch
+    from sam6d_torch.pipelines.sam_amg import stable_top_k
+    H0, W0 = rgb.shape[:2]
+    with torch.inference_mode():
+        resized, scale, (h_in, w_in) = seg.letterbox_u8(rgb)
+        x = seg.canvas(torch.as_tensor(resized, device=seg.device))
+        preds, protos = seg.net(x)
+        top = stable_top_k(preds[0, :, 4], seg.cfg.max_det)
+        boxes, scores, keep, coefs = seg.select(preds[0])
+        probs = seg.assemble(boxes, coefs, protos[0], h_in, w_in, H0, W0)
+        return dict(x=x, all_scores=preds[0, :, 4], top=top, scores=scores, keep=keep,
+                    coefs=coefs, protos=protos[0],
+                    boxes_in=boxes, boxes=seg.original_boxes(boxes, scale, H0, W0),
+                    probs=probs, geometry=(h_in, w_in, H0, W0), rounds=seg.last_nms_rounds)
+
+
+def check_fastsam_against_plain(seg, rgb, card):
+    """The card's FastSAM-x against the port's plain CPU run of the same
+    weights on the same frame."""
+    import torch
+    from sam6d_torch.pipelines.fastsam import FastSAMSegmentor
+    t0 = time.perf_counter()
+    cpu = FastSAMSegmentor(seg.cfg, device="cpu",
+                           state_dict={k: v.cpu() for k, v in seg.net.state_dict().items()})
+    plain = fastsam_stages(cpu, rgb)
+    cpu_s = time.perf_counter() - t0
+    g = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in card.items()}
+    same_top = torch.equal(g["top"], plain["top"])
+    same_keep = torch.equal(g["keep"], plain["keep"])
+    err_s = float((g["scores"] - plain["scores"]).abs().max())
+    err_b = float((g["boxes"] - plain["boxes"]).abs().max())
+    err_p = float((g["probs"] - plain["probs"]).abs().max())
+    thr = seg.cfg.mask_thresh
+    near = (g["probs"] - thr).abs() < FASTSAM_NEAR_MASK
+    differ = (g["probs"] > thr) != (plain["probs"] > thr)
+    unexplained = int((differ & ~near).sum())
+    # the margins that decide the selections on this frame
+    s = torch.sort(g["scores"]).values
+    ranked = torch.sort(g["all_scores"], descending=True).values
+    boundary = float(ranked[seg.cfg.max_det - 1] - ranked[seg.cfg.max_det])
+    log(f"fastsam: card vs plain CPU run (FastSAM-x, same weights, CPU {cpu_s:.1f} s): "
+        f"same top-{seg.cfg.max_det} anchors in order {same_top}, same kept set {same_keep} "
+        f"({int(g['keep'].sum())} kept), max |diff| scores {err_s:.2e} (atol "
+        f"{FASTSAM_SCORE_ATOL}), boxes {err_b:.2e} px (atol {FASTSAM_BOX_ATOL}), mask values "
+        f"{err_p:.2e}; mask pixels differing {int(differ.sum())}, within {FASTSAM_NEAR_MASK} of "
+        f"the threshold {int(near.sum())} of {near.numel()}, differing away from it "
+        f"{unexplained}; score gap at the top-k boundary {boundary:.2e}, least gap among "
+        f"the selected {float((s[1:] - s[:-1]).min()):.2e}")
+    if not (same_top and same_keep) or err_s > FASTSAM_SCORE_ATOL or err_b > FASTSAM_BOX_ATOL \
+            or unexplained:
+        raise AssertionError("FastSAM on the card disagrees with the plain CPU run")
+
+
+def fastsam_split(seg, rgb, st):
+    """CUDA-event split of one frame's FastSAM beside each part's fp32
+    bound: the network, decode + top-k + NMS, mask assembly + resize."""
+    import torch
+    h_in, w_in, H0, W0 = st["geometry"]
+    net, x = seg.net, st["x"]
+    D, nm = st["coefs"].shape
+    _, Hp, Wp = st["protos"].shape
+    with torch.inference_mode():
+        levels, protos = net.features(x)
+        t = {"network": cuda_ms(lambda: net.features(x), reps=5),
+             "decode_topk_nms": cuda_ms(lambda: seg.select(net.decode(levels)[0]), reps=5),
+             "masks": cuda_ms(lambda: seg.assemble(st["boxes_in"], st["coefs"], st["protos"],
+                                                   h_in, w_in, H0, W0) > seg.cfg.mask_thresh,
+                              reps=5),
+             "generate_masks_device": cuda_ms(lambda: seg.generate_masks_device(rgb), reps=5)}
+    letterbox = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        seg.letterbox_u8(rgb)
+        letterbox.append(1e3 * (time.perf_counter() - t0))
+    t["letterbox_host"] = statistics.median(letterbox)
+    n_params = sum(v.numel() for v in net.state_dict().values())
+    head = sum(sum(t_.numel() for t_ in lv) for lv in levels) + protos.numel()
+    A = sum(lv[0].shape[2] * lv[0].shape[3] for lv in levels)
+    hp, wp = max(int(round(h_in / 4)), 1), max(int(round(w_in / 4)), 1)
+    rounds = st["rounds"]
+    bounds = {
+        "network": bound(fastsam_conv_flops(net, x), 4 * (n_params + x.numel() + head)),
+        # DFL softmax and expectation (~12 operations a bin), sigmoid, top-k
+        # keys; box IoU (~20) and each NMS round's two (D, D) row sums
+        "decode_topk_nms": bound(A * (4 * 16 * 12 + 40) + D * D * (20 + 4 * rounds),
+                                 4 * (head - protos.numel()) + 4 * D * (4 + 1 + 1 + nm)),
+        "masks": bound(2 * D * nm * Hp * Wp + 2 * D * (H0 * hp * wp + H0 * wp * W0),
+                       4 * (D * (nm + 4) + nm * Hp * Wp) + D * H0 * W0)}
+    bounds["generate_masks_device"] = (sum(b[0] for b in bounds.values()), "sum of the parts")
+    # the host's resize reads the frame and writes the letterboxed image
+    bounds["letterbox_host"] = (0.0, "host, no device bound")
+    return t, bounds
+
+
+def phase_fastsam(job, device="cuda"):
+    """FastSAM-x (seeded random weights, each conv rescaled on the job's
+    frame) through generate_masks_device on the card, held to the plain CPU
+    run; its CUDA-event split beside the bounds, busy share, NMS syncs.
+    Returns (the segmentor, its port-named weights)."""
+    import torch
+    from sam6d_torch.pipelines.fastsam import FastSAMConfig, FastSAMSegmentor
+    from sam6d_torch.weights.fastsam import rescale_to_input
+    rgb = job["rgb_arr"]
+    H0, W0 = rgb.shape[:2]
+    fns = frame_counters()
+    t0 = time.perf_counter()
+    seg = FastSAMSegmentor(FastSAMConfig(), seed=SEED, device=device)
+    resized, _, _ = seg.letterbox_u8(rgb)
+    rescale_to_input(seg.net, seg.canvas(torch.as_tensor(resized, device=device)))
+    torch.cuda.synchronize()
+    log(f"fastsam: FastSAM-x ({sum(p.numel() for p in seg.net.parameters())} parameters) "
+        f"seeded random weights, rescaled on the frame's canvas, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    out = seg.generate_masks_device(rgb)
+    torch.cuda.synchronize()
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts(fns)
+    masks, boxes, valid = out["masks"], out["boxes"], out["valid"]
+    D = seg.cfg.max_det
+    if masks.shape != (D, H0, W0) or masks.dtype != torch.bool or boxes.shape != (D, 4) \
+            or out["orig_size"] != out["seg_size"] != (H0, W0):
+        raise AssertionError("FastSAM broke the device contract")
+    b = boxes.cpu().numpy()
+    if not np.isfinite(b).all() or (b < 0).any() or (b[:, [0, 2]] > W0 - 1).any() \
+            or (b[:, [1, 3]] > H0 - 1).any():
+        raise AssertionError("FastSAM boxes outside the frame")
+    n_valid = int(valid.sum())
+    if n_valid < 1 or any(launches.values()):
+        raise AssertionError(f"FastSAM kept {n_valid} or launched a kernel: {launches}")
+    st = fastsam_stages(seg, rgb)
+    if not (torch.equal(st["probs"] > seg.cfg.mask_thresh, masks)
+            and torch.equal(st["keep"], valid)):
+        raise AssertionError("the staged FastSAM run differs from generate_masks_device")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        seg.generate_masks_device(rgb)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    t, bounds = fastsam_split(seg, rgb, st)
+    log(f"fastsam: generate_masks_device on the {H0}x{W0} frame (FastSAM-x at "
+        f"{seg.cfg.imgsz}, {D} slots) cold {cold_ms:.1f} ms, then wall "
+        + ", ".join(f"{m:.1f}" for m in walls) + f" ms; {n_valid} of {D} slots valid; NMS "
+        f"{seg.last_nms_rounds} rounds ({seg.last_nms_rounds + 1} device->host syncs); no "
+        f"kernel launched; split on CUDA events (median of 5; the host letterbox on the "
+        f"host's clock) beside the fp32 bound: "
+        + "; ".join(f"{k} {v:.3f} ms (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
+                    for k, v in t.items()))
+    device_busy(lambda: seg.generate_masks_device(rgb), "fastsam: generate_masks_device")
+    check_fastsam_against_plain(seg, rgb, st)
+    return seg, {k: v.clone() for k, v in seg.net.state_dict().items()}
+
+
+def phase_fastsam_demo(job, fastsam_sd, device="cuda"):
+    """run_demo(segmentor='fastsam') at full width (FastSAM-x, DINOv2-L,
+    PEM-base) on phase 7's templates (skip_render): every output file, the
+    load pinned (FASTSAM_DESCRIBE_SLOTS slots to the describe,
+    FASTSAM_PEM_DETECTIONS records to PEM), K5, K6 and K7 launched, K1-K4
+    not. Returns the launches."""
+    import shutil
+    import torch
+    from sam6d_torch.core.config import Config, ISMConfig, ISMMatchingConfig
+    from sam6d_torch.pipelines.demo import run_demo
+    from sam6d_torch.pipelines.fastsam import FastSAMSegmentor
+    from sam6d_torch.pipelines.ism import needed_prefix
+    from sam6d_torch.pipelines.pem import PEMPipeline
+    fns = frame_counters()
+    out = os.path.join(job["dir"], "demo_fastsam")
+    shutil.copytree(os.path.join(job["dir"], "demo", "templates"), os.path.join(out, "templates"))
+    cfg = Config(ism=ISMConfig(segmentor="fastsam",
+                               matching=ISMMatchingConfig(confidence_thresh=-1.0)))
+    seg_orig, pem_orig = FastSAMSegmentor.generate_masks_device, PEMPipeline.run_frame
+    load = {}
+
+    def pinned_seg(self, image):
+        res = seg_orig(self, image)
+        kept = res["valid"]
+        load["kept"] = int(kept.sum())
+        res["valid"] = kept & (torch.arange(len(kept), device=kept.device)
+                               < FASTSAM_DESCRIBE_SLOTS)
+        load["described"] = int(res["valid"].sum())
+        load["prefix"] = needed_prefix(res["valid"].cpu().numpy())
+        return res
+
+    def pinned_pem(self, rgb, depth, K, depth_scale, detections, *a, **kw):
+        load["records"] = len(detections)
+        load["to_pem"] = len(detections[:FASTSAM_PEM_DETECTIONS])
+        return pem_orig(self, rgb, depth, K, depth_scale, detections[:FASTSAM_PEM_DETECTIONS],
+                        *a, **kw)
+
+    FastSAMSegmentor.generate_masks_device = pinned_seg
+    PEMPipeline.run_frame = pinned_pem
+    try:
+        reset_counts(fns)
+        res = run_demo(cfg, job["cad"], job["rgb"], job["depth"], job["cam"], out,
+                       sam_state_dict=fastsam_sd, det_score_thresh=-1.0, skip_render=True,
+                       device=device, seed=SEED)
+        torch.cuda.synchronize()
+        launches = read_counts(fns)
+    finally:
+        FastSAMSegmentor.generate_masks_device = seg_orig
+        PEMPipeline.run_frame = pem_orig
+    files = ["sam6d_results/detection_ism.json", "sam6d_results/vis_ism.png",
+             "sam6d_results/detection_pem.json", "sam6d_results/vis_pem.png"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    if missing or not res["pem"]:
+        raise AssertionError(f"run_demo fastsam: missing {missing} or no pose")
+    check_pose_records(res["pem"], "run_demo fastsam")
+    # K5: every DINOv2 block once a chunk, at the onboarding of the
+    # templates and at the describe of the pinned prefix
+    d = cfg.ism.dinov2
+    n_templates = len([f for f in os.listdir(os.path.join(out, "templates"))
+                       if f.startswith("rgb_")])
+    want_k5 = d.depth * (-(-n_templates // d.chunk_size) - (-load["prefix"] // d.chunk_size))
+    log(f"demo fastsam: run_demo(segmentor='fastsam') wrote {files}; FastSAM kept "
+        f"{load['kept']} of {cfg.ism.fastsam.max_det} slots, {load['described']} of the first "
+        f"{FASTSAM_DESCRIBE_SLOTS} reached the describe (prefix {load['prefix']}), "
+        f"{load['records']} ISM records, {load['to_pem']} reached PEM, "
+        f"{len(res['pem'])} poses (R R^T = I within 1e-3); split (wall ms, cold): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["split_ms"].items())
+        + f"; kernel launches {launches}")
+    for name in ("fused_attention_qkv_cuda", "two_scale_ball_query_cuda",
+                 "farthest_point_sample_cuda"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the FastSAM demo")
+    if launches["fused_attention_qkv_cuda"] != want_k5 or any(launches[k] for k in SAM_KERNELS):
+        raise AssertionError(f"unexpected launches on the FastSAM demo (K5 {want_k5} for "
+                             f"{n_templates} templates, K1-K4 0)")
+    return launches
+
+
+def phase_cascade(job, device="cuda"):
+    """ViT-H SAM with crop_n_layers=1 and min_mask_region_area=100 (the AMG
+    load pinned as in phase 6) through generate_masks on the job's frame:
+    boxes inside the frame, invalid slots empty, K1-K4 launched as often as
+    the crop boxes and the per-layer grids predict. Returns the launches."""
+    import torch
+    from sam6d_torch.core.config import SAMConfig
+    from sam6d_torch.pipelines.sam_amg import SAMSegmentor, generate_crop_boxes
+    rgb = job["rgb_arr"]
+    H0, W0 = rgb.shape[:2]
+    fns = frame_counters()
+    cfg = SAMConfig(pred_iou_thresh=-10.0, stability_score_thresh=0.0, max_proposals=128,
+                    crop_n_layers=1, min_mask_region_area=100)
+    seg = SAMSegmentor(cfg, seed=SEED, device=device)
+    crops, layers = generate_crop_boxes((H0, W0), cfg.crop_n_layers, cfg.crop_overlap_ratio)
+    want = dict.fromkeys(fns, 0)
+    want["flash_attention_relpos_cuda"] = cfg.encoder_depth * len(crops)
+    for layer in layers:
+        n = max(1, int(cfg.points_per_side // cfg.crop_n_points_downscale_factor ** layer))
+        if seg.prefix_length(n * n) < n * n:      # the iou pass runs: 2 launches a chunk
+            for k in FACTORED:
+                want[k + "_cuda"] += 2 * -(-n * n // cfg.points_per_batch)
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    out = seg.generate_masks(rgb)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts(fns)
+    valid, masks, boxes = out["valid"], out["masks"], out["boxes"]
+    K = cfg.max_proposals
+    n = int(valid.sum())
+    log(f"cascade: ViT-H generate_masks with crop_n_layers=1 ({len(crops)} crops: "
+        f"{crops}) and min_mask_region_area=100 on the {H0}x{W0} frame in {wall_ms:.1f} ms "
+        f"wall (cold); {n} of {K} slots valid; kernel launches {launches}, predicted {want}")
+    if masks.shape != (K, H0, W0) or not np.isfinite(masks).all() or masks.min() < 0 \
+            or masks.max() > 1 or n < 1:
+        raise AssertionError("cascade: bad masks or nothing kept")
+    b = boxes[valid]
+    if (b < 0).any() or (b[:, [0, 2]] > W0).any() or (b[:, [1, 3]] > H0).any() \
+            or (b[:, 2] < b[:, 0]).any() or (b[:, 3] < b[:, 1]).any():
+        raise AssertionError("cascade: boxes outside the frame")
+    if masks[~valid].any() or boxes[~valid].any() or out["iou_preds"][~valid].any():
+        raise AssertionError("cascade: an invalid slot is not empty")
+    if launches != want:
+        raise AssertionError("cascade: K1-K4 launched other than predicted")
+    del seg
+    return launches
+
+
+def phase_options(job, device="cuda"):
+    """Phase 11: the segmentation options at full width. Returns
+    {path: launches}."""
+    import torch
+    seg, sd = phase_fastsam(job, device)
+    del seg
+    torch.cuda.empty_cache()
+    demo = phase_fastsam_demo(job, sd, device)
+    torch.cuda.empty_cache()
+    return {"run_demo fastsam": demo,
+            "SAM crop cascade + small regions": phase_cascade(job, device)}
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -2290,6 +2642,8 @@ def main():
         del seg
         torch.cuda.empty_cache()
         train_launches, train_records = phase_train(job_dir)
+        torch.cuda.empty_cache()
+        option_launches = phase_options(dict(job, dir=job_dir))
     # each kernel's count from the run of its own path: K6/K7 from the `pem`
     # CLI run of phase 4, K5 from match_frame in phase 5, K1-K4 from
     # generate_masks in phase 6, K8 (and K9, which no path calls) from the
@@ -2312,6 +2666,7 @@ def main():
             "bop-eval pem": bop_launches["pem_stage"][k["name"]],
             "SAMPredictor.set_image": predictor_launches[k["name"]],
             "PEM training step": train_launches[k["name"]]}
+        k["path_launches"].update({p: n[k["name"]] for p, n in option_launches.items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,10 @@ threads), logs the running metric means every TrainConfig.log_every steps
 and writes CKPT/step_{step:08d}.pt (every checkpoint_every steps and at the
 end), starting the backbone from --mae_ckpt when given; it exits with 2 when
 the tree holds no shard. --sam_ckpt, --dinov2_ckpt and --pem_ckpt
-take the reference checkpoint files; without them the networks run seeded
-random weights (a smoke of the data path, not an estimate).
+take the reference checkpoint files (`demo --segmentor_model fastsam`
+reads --sam_ckpt as the FastSAM checkpoint, as the JAX CLI does); without
+them the networks run seeded random weights (a smoke of the data path, not
+an estimate).
 """
 from __future__ import annotations
 
@@ -62,6 +64,20 @@ def _dinov2_state_dict(path, cfg):
     from ..weights.dinov2 import load_reference_checkpoint
     net = DINOv2(cfg.img_size, cfg.patch_size, cfg.embed_dim, cfg.depth, cfg.num_heads)
     load_reference_checkpoint(path, net)
+    return net.state_dict()
+
+
+def _fastsam_state_dict(path):
+    """A FastSAM checkpoint (ultralytics names) -> port weights, the
+    network sized from the file (FastSAM-x for FastSAM-x.pt)."""
+    if not path:
+        return None
+    from ..models.fastsam import FastSAMNet
+    from ..weights.fastsam import fastsam_arch, load_reference_checkpoint, reference_state_dict
+    sd = reference_state_dict(path)
+    widths, depths = fastsam_arch(sd)
+    net = FastSAMNet(widths=widths, depths=depths)
+    load_reference_checkpoint(sd, net)
     return net.state_dict()
 
 
@@ -177,7 +193,9 @@ def cmd_demo(args):
         cfg, args.cad_path, args.rgb_path, args.depth_path, args.cam_path,
         args.output_dir,
         dinov2_state_dict=_dinov2_state_dict(args.dinov2_ckpt, cfg.ism.dinov2),
-        sam_state_dict=_sam_state_dict(args.sam_ckpt, cfg.ism.sam),
+        sam_state_dict=(_fastsam_state_dict(args.sam_ckpt)
+                        if cfg.ism.segmentor == "fastsam"
+                        else _sam_state_dict(args.sam_ckpt, cfg.ism.sam)),
         pem_state_dict=_pem_state_dict(args.pem_ckpt, cfg.pem),
         det_score_thresh=args.det_score_thresh,
         skip_render=args.skip_render,

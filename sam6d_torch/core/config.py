@@ -96,9 +96,8 @@ class SAMConfig:
     """SAM ViT image encoder + automatic mask generation (reference
     build_sam.py:55-107, configs/model/segmentor_model/sam.yaml).
 
-    Left out of the JAX package's tree: the crop cascade and the
-    small-region cleanup (both off at the reference operating point) and
-    the TPU-only `encoder_carry_windows`, `amg_prerank`, `amg_rank_chunk`."""
+    Left out of the JAX package's tree: the TPU-only
+    `encoder_carry_windows`, `amg_prerank` and `amg_rank_chunk`."""
     model_type: str = "vit_h"
     encoder_embed_dim: int = 1280
     encoder_depth: int = 32
@@ -115,6 +114,18 @@ class SAMConfig:
     stability_score_thresh: float = 0.85
     stability_score_offset: float = 1.0
     box_nms_thresh: float = 0.7
+    # host-side small-region cleanup (reference automatic_mask_generator.py
+    # :323-372) in generate_masks; 0 (the reference operating point) = off
+    min_mask_region_area: int = 0
+    # crop cascade (reference automatic_mask_generator.py:196-264) in
+    # generate_masks: layer i adds (2^i)^2 overlapping crops, each through
+    # the AMG with a grid of points_per_side / factor^i, merged by
+    # cross-crop NMS preferring smaller crops; 0 (the reference operating
+    # point) = the full image only
+    crop_n_layers: int = 0
+    crop_overlap_ratio: float = 512 / 1500
+    crop_n_points_downscale_factor: int = 1
+    crop_nms_thresh: float = 0.7
     segmentor_width_size: int = 640  # pre-resize width (model/sam.py:107-119)
     max_proposals: int = 512         # fixed capacity of surviving proposals
     # exact iou-prefix pass: every grid prompt's predicted IoU from the
@@ -158,9 +169,25 @@ class ISMPostProcessConfig:
 
 
 @dataclass(frozen=True)
+class FastSAMConfig:
+    """FastSAM segmentor operating point (reference
+    configs/model/segmentor_model/fast_sam.yaml and the wrapper's overrides,
+    model/fast_sam.py:39): letterbox size, class-score threshold, box NMS
+    IoU, proposal capacity, mask threshold."""
+    imgsz: int = 640
+    conf_thresh: float = 0.25
+    iou_thresh: float = 0.9
+    max_det: int = 200
+    mask_thresh: float = 0.5
+
+
+@dataclass(frozen=True)
 class ISMConfig:
-    segmentor: str = "sam"          # 'sam' | 'fastsam' (not ported)
+    """The JAX package's ISMConfig, and the FastSAM operating point, which
+    the JAX demo fixes at FastSAMConfig() (the defaults here)."""
+    segmentor: str = "sam"          # 'sam' | 'fastsam'
     sam: SAMConfig = field(default_factory=SAMConfig)
+    fastsam: FastSAMConfig = field(default_factory=FastSAMConfig)
     dinov2: DINOv2Config = field(default_factory=DINOv2Config)
     matching: ISMMatchingConfig = field(default_factory=ISMMatchingConfig)
     post: ISMPostProcessConfig = field(default_factory=ISMPostProcessConfig)

@@ -1,11 +1,11 @@
 """The three-stage demo pipeline (reference SAM-6D/demo.sh) in one process.
 
-Port of `sam6d_tpu/pipelines/demo.py`: render templates -> ISM (SAM
-proposals + DINOv2 matching) -> PEM (poses), every stage on one device. The
-reference chains three OS processes through files; here the file outputs
-(templates/, detection_ism.json, vis_ism.png, detection_pem.json,
-vis_pem.png) stay the public contract while the masks and features stay on
-the device between the stages.
+Port of `sam6d_tpu/pipelines/demo.py`: render templates -> ISM (SAM or
+FastSAM proposals + DINOv2 matching) -> PEM (poses), every stage on one
+device. The reference chains three OS processes through files; here the
+file outputs (templates/, detection_ism.json, vis_ism.png,
+detection_pem.json, vis_pem.png) stay the public contract while the masks
+and features stay on the device between the stages.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from ..core.config import Config
 from ..data.mesh import load_mesh
 from ..eval.vis import draw_detections_masks, draw_pose_bbox, side_by_side
 from ..render.templates import render_templates
+from .fastsam import FastSAMSegmentor
 from .ism import ISMPipeline, detections_to_bop_json
 from .pem import PEMPipeline
 from .sam_amg import SAMSegmentor
@@ -47,10 +48,13 @@ def run_demo(
     """Full demo; writes the reference demo.sh output contract under
     `output_dir` and returns dict(ism records, pem results, the ISM result
     arrays, the stage split in ms). The state dicts are port weights
-    (reference names); None draws seeded random weights."""
-    if cfg.ism.segmentor == "fastsam":
-        raise NotImplementedError(
-            "the FastSAM segmentor is not ported (ROADMAP item 18); use segmentor='sam'")
+    (reference names); None draws seeded random weights.
+
+    `cfg.ism.segmentor` picks the segmentor: 'sam' (SAMSegmentor at
+    `cfg.ism.sam`) or 'fastsam' (FastSAMSegmentor at `cfg.ism.fastsam`).
+    As in the JAX demo, the FastSAM weights come in `sam_state_dict`
+    (`weights/fastsam.py` names; the network's widths and depths are read
+    from it), and `stability_score_thresh` applies to SAM only."""
     t_start = time.perf_counter()
     split = {}
 
@@ -79,10 +83,14 @@ def run_demo(
     t0 = lap("render_ms", t0)
 
     # stage 2: ISM
-    sam_cfg = cfg.ism.sam
-    if stability_score_thresh is not None:
-        sam_cfg = dataclasses.replace(sam_cfg, stability_score_thresh=stability_score_thresh)
-    segmentor = SAMSegmentor(sam_cfg, state_dict=sam_state_dict, seed=seed, device=device)
+    if cfg.ism.segmentor == "fastsam":
+        segmentor = FastSAMSegmentor(cfg.ism.fastsam, state_dict=sam_state_dict, seed=seed,
+                                     device=device)
+    else:
+        sam_cfg = cfg.ism.sam
+        if stability_score_thresh is not None:
+            sam_cfg = dataclasses.replace(sam_cfg, stability_score_thresh=stability_score_thresh)
+        segmentor = SAMSegmentor(sam_cfg, state_dict=sam_state_dict, seed=seed, device=device)
     ism = ISMPipeline(cfg.ism, state_dict=dinov2_state_dict, seed=seed, device=device,
                       segmentor=segmentor)
     t0 = lap("ism_models_ms", t0)

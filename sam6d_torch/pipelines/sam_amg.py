@@ -19,12 +19,16 @@ segment_anything/automatic_mask_generator.py:266-321):
 
 Top-k selections take a stable descending sort, so ties go to the lower
 index as `jax.lax.top_k` breaks them (`torch.topk` promises no order among
-ties). Left out: the crop cascade, the small-region cleanup (both off at
-the reference operating point), the pre-rank pass, the channel-selected
-re-decode and the truncation-divergence counter.
+ties). The host AMG (`generate_masks`) also runs the crop cascade
+(`crop_n_layers > 0`: `generate_masks_cropped`) and the small-region
+cleanup (`min_mask_region_area > 0`, `data/regions.py`), both off at the
+reference operating point; as in the JAX package, the device AMG
+(`generate_masks_device`) runs neither. Left out: the pre-rank pass, the
+channel-selected re-decode and the truncation-divergence counter.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -34,6 +38,7 @@ from PIL import Image
 from .. import use_strict_fp32
 from ..core.config import SAMConfig
 from ..data.preprocess import bilinear_resize
+from ..data.regions import postprocess_small_regions
 from ..models.sam import SAM
 from ..ops.masks import box_iou, masks_to_boxes, nms_masked_rounds
 from ..weights.sam import random_sam_state_dict
@@ -240,43 +245,97 @@ class SAMSegmentor:
                            np.uint8)
         return resized, (H0, W0), (hs, ws), (h_in, w_in)
 
-    def frame_constants(self, hs: int, ws: int, h_in: int, w_in: int):
+    def frame_constants(self, hs: int, ws: int, h_in: int, w_in: int, grid01=None):
         """(Ry (hs, 4g), Rx (ws, 4g), prompt coordinates (P, 2) in the encoder
         frame) on the device: the composed postprocess matrices (low-res ->
-        canvas -> crop -> segmentor size) and the scaled point grid."""
+        canvas -> crop -> segmentor size) and the scaled point grid.
+        `grid01` overrides the [0, 1]^2 prompt grid (the crop cascade's
+        layers take coarser grids)."""
         cfg = self.cfg
         low = cfg.img_size // 4
         R1 = bilinear_matrix(cfg.img_size, low)
         Ry = bilinear_matrix(hs, h_in) @ R1[:h_in]
         Rx = bilinear_matrix(ws, w_in) @ R1[:w_in]
-        pts = self.points * np.array([ws, hs], np.float32) * np.array(
+        grid = self.points if grid01 is None else grid01
+        pts = grid * np.array([ws, hs], np.float32) * np.array(
             [w_in / ws, h_in / hs], np.float32)
         dev = self.device
         return (torch.as_tensor(Ry, device=dev), torch.as_tensor(Rx, device=dev),
                 torch.as_tensor(pts, dtype=torch.float32, device=dev))
 
     @torch.inference_mode()
-    def generate_masks_device(self, image: np.ndarray) -> Dict:
-        """Device-resident AMG of one (H0, W0, 3) uint8 RGB frame. Returns
-        device tensors (masks (K, hs, ws) bool, boxes (K, 4) xyxy at the
-        segmentor size, valid (K,), iou_preds (K,)) and the frame geometry
-        (orig_size, seg_size)."""
+    def generate_masks_device(self, image: np.ndarray, grid01=None) -> Dict:
+        """Device-resident AMG of one (H0, W0, 3) uint8 RGB frame (prompt
+        grid `grid01`, default the config's). Returns device tensors (masks
+        (K, hs, ws) bool, boxes (K, 4) xyxy at the segmentor size, valid
+        (K,), iou_preds (K,)) and the frame geometry (orig_size,
+        seg_size)."""
         resized, (H0, W0), (hs, ws), (h_in, w_in) = self.preprocess_frame_u8(image)
-        Ry, Rx, pts = self.frame_constants(hs, ws, h_in, w_in)
+        Ry, Rx, pts = self.frame_constants(hs, ws, h_in, w_in, grid01)
         embedding = self._encode_u8(torch.as_tensor(resized, device=self.device))
         masks, boxes, valid, iou = self._propose_impl(embedding, pts, Ry, Rx)
         return dict(masks=masks, boxes=boxes, valid=valid, iou_preds=iou,
                     orig_size=(H0, W0), seg_size=(hs, ws))
 
-    def generate_masks(self, image: np.ndarray) -> Dict[str, np.ndarray]:
+    def generate_masks_cropped(self, image: np.ndarray) -> Dict[str, np.ndarray]:
+        """Crop-cascade AMG (reference automatic_mask_generator.py:196-264):
+        the full image and the (2^i)^2 overlapping crops of each layer i
+        each run `generate_masks` with a grid of points_per_side /
+        crop_n_points_downscale_factor^i points a side; the kept
+        proposals, moved back into the frame, are merged by greedy box NMS
+        preferring smaller crops (score 1 / crop area), and the top
+        max_proposals survivors by predicted IoU fill the slots."""
+        cfg = self.cfg
+        H0, W0 = image.shape[:2]
+        crop_boxes, layer_idxs = generate_crop_boxes(
+            (H0, W0), cfg.crop_n_layers, cfg.crop_overlap_ratio)
+        masks_l, boxes_l, iou_l, areas_l = [], [], [], []
+        for (x0, y0, x1, y1), layer in zip(crop_boxes, layer_idxs):
+            n = max(1, int(cfg.points_per_side // (cfg.crop_n_points_downscale_factor ** layer)))
+            # always an explicit grid: grid01=None would re-enter the cascade
+            out = self.generate_masks(image[y0:y1, x0:x1], grid01=build_point_grid(n))
+            for i in np.where(out["valid"])[0]:
+                canvas = np.zeros((H0, W0), np.float32)
+                canvas[y0:y1, x0:x1] = out["masks"][i]
+                masks_l.append(canvas)
+                boxes_l.append(out["boxes"][i] + np.array([x0, y0, x0, y0], np.float32))
+                iou_l.append(out["iou_preds"][i])
+                areas_l.append(float((x1 - x0) * (y1 - y0)))
+        K = cfg.max_proposals
+        res = dict(masks=np.zeros((K, H0, W0), np.float32), boxes=np.zeros((K, 4), np.float32),
+                   valid=np.zeros((K,), bool), iou_preds=np.zeros((K,), np.float32))
+        if masks_l:
+            boxes_a = np.stack(boxes_l)
+            keep = _host_greedy_nms(boxes_a, 1.0 / np.asarray(areas_l, np.float32),
+                                    cfg.crop_nms_thresh)
+            keep = sorted(keep, key=lambda i: -iou_l[i])[:K]
+            for slot, i in enumerate(keep):
+                res["masks"][slot] = masks_l[i]
+                res["boxes"][slot] = boxes_a[i]
+                res["valid"][slot] = True
+                res["iou_preds"][slot] = iou_l[i]
+        return res
+
+    def generate_masks(self, image: np.ndarray, grid01=None) -> Dict[str, np.ndarray]:
         """image (H0, W0, 3) uint8 RGB -> host dict(masks (K, H0, W0) float
         (bilinear coverage at the original size, reference
         postprocess_resize model/sam.py:85-100), boxes (K, 4) xyxy in
-        original coordinates, valid (K,), iou_preds (K,))."""
-        dev = self.generate_masks_device(image)
+        original coordinates, valid (K,), iou_preds (K,)). With
+        crop_n_layers > 0 and no `grid01`, the crop cascade; with
+        min_mask_region_area > 0, the small-region cleanup and its re-NMS
+        at the segmentor size (`valid` is then no longer a prefix)."""
+        if self.cfg.crop_n_layers > 0 and grid01 is None:
+            return self.generate_masks_cropped(image)
+        dev = self.generate_masks_device(image, grid01)
         H0, W0 = dev["orig_size"]
         hs, ws = dev["seg_size"]
         masks = dev["masks"]
+        if self.cfg.min_mask_region_area > 0:
+            m_np, boxes_np, keep = postprocess_small_regions(
+                masks.to(torch.float32).cpu().numpy(), dev["valid"].cpu().numpy(),
+                self.cfg.min_mask_region_area, self.cfg.box_nms_thresh)
+            masks = torch.as_tensor(m_np, device=self.device)
+            dev = dict(dev, boxes=torch.as_tensor(boxes_np), valid=torch.as_tensor(keep))
         with torch.inference_mode():
             if (H0, W0) != (hs, ws):
                 masks = resize_logits(masks.to(torch.float32),
@@ -289,3 +348,56 @@ class SAMSegmentor:
         return dict(masks=masks_out, boxes=boxes_out.astype(np.float32),
                     valid=dev["valid"].cpu().numpy(),
                     iou_preds=dev["iou_preds"].cpu().numpy())
+
+
+def generate_crop_boxes(im_size, n_layers: int, overlap_ratio: float):
+    """Crop boxes of the cascade: the full image, then (2^i)^2 overlapping
+    crops for layer i = 1..n_layers (reference
+    segment_anything/utils/amg.py:200-234). Returns (crop boxes xyxy,
+    layer indices)."""
+    crop_boxes, layer_idxs = [], []
+    im_h, im_w = im_size
+    short_side = min(im_h, im_w)
+    crop_boxes.append([0, 0, im_w, im_h])
+    layer_idxs.append(0)
+
+    def crop_len(orig_len, n_crops, overlap):
+        return int(math.ceil((overlap * (n_crops - 1) + orig_len) / n_crops))
+
+    for i_layer in range(n_layers):
+        n_per_side = 2 ** (i_layer + 1)
+        overlap = int(overlap_ratio * short_side * (2 / n_per_side))
+        crop_w = crop_len(im_w, n_per_side, overlap)
+        crop_h = crop_len(im_h, n_per_side, overlap)
+        x0s = [int((crop_w - overlap) * i) for i in range(n_per_side)]
+        y0s = [int((crop_h - overlap) * i) for i in range(n_per_side)]
+        for x0 in x0s:
+            for y0 in y0s:
+                crop_boxes.append([x0, y0, min(x0 + crop_w, im_w), min(y0 + crop_h, im_h)])
+                layer_idxs.append(i_layer + 1)
+    return crop_boxes, layer_idxs
+
+
+def _host_greedy_nms(boxes: np.ndarray, scores: np.ndarray, thresh: float):
+    """Greedy box NMS on the host over the cascade's few candidates, in
+    `np.argsort(-scores)` order (the JAX package's call, so that its
+    order among equal scores is kept). Returns the kept indices."""
+    order = np.argsort(-scores)
+    keep = []
+    for i in order:
+        ok = True
+        for j in keep:
+            b1, b2 = boxes[i], boxes[j]
+            xx0 = max(b1[0], b2[0])
+            yy0 = max(b1[1], b2[1])
+            xx1 = min(b1[2], b2[2])
+            yy1 = min(b1[3], b2[3])
+            inter = max(0.0, xx1 - xx0) * max(0.0, yy1 - yy0)
+            a1 = (b1[2] - b1[0]) * (b1[3] - b1[1])
+            a2 = (b2[2] - b2[0]) * (b2[3] - b2[1])
+            if inter / max(a1 + a2 - inter, 1e-9) > thresh:
+                ok = False
+                break
+        if ok:
+            keep.append(i)
+    return keep

@@ -3,8 +3,8 @@ widths with shared seeded weights: ISM's packed (K, 12) pull, multi-object
 PEM (`dispatch_frame_multi` / `finalize_frame_multi`), the bitpacked mask
 pull, synchronous against pipelined `MultiObjectStream`, the composed frame
 (`run_demo` render -> ISM -> PEM in both packages on one set of port-rendered
-templates), the `render`, `demo` and `stream` subcommands, the FastSAM
-refusal and the BOP writers.
+templates), the `render`, `demo` and `stream` subcommands and the BOP
+writers (the FastSAM frame is in test_torch_port_fastsam.py).
 
 Tolerances: indices, flags, boxes, RLE masks and file layouts exact; scores
 and descriptors atol = rtol = 1e-4 (float32 sums in another order), except
@@ -310,14 +310,6 @@ def test_composed_frame_matches_jax(weights, tmp_path):
         assert np.isfinite(g["t"]).all()
     assert set(got["split_ms"]) >= {"render_ms", "ism_onboard_ms", "ism_frame_ms",
                                     "pem_onboard_ms", "pem_frame_ms"}
-
-
-def test_run_demo_refuses_fastsam(tmp_path):
-    _, pcfg = _configs()
-    cfg = dataclasses.replace(pcfg, ism=dataclasses.replace(pcfg.ism, segmentor="fastsam"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        run_demo(cfg, *_write_frame(tmp_path, np.random.RandomState(9)), str(tmp_path),
-                 device="cpu")
 
 
 # -------------------------------------------------------------------- CLI
