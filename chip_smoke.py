@@ -72,7 +72,11 @@ Phases, in order; any failure raises and exits non-zero:
      28x10000->2048 and K6 at 28x2048x2048 on the batch's clouds against
      their plain versions, and one card step at batch 2 against the same
      step on the plain CPU path (loss terms, metrics, every gradient,
-     BatchNorm statistics);
+     BatchNorm statistics), the CPU step taking the card's FPS picks,
+     nearest neighbours and ball-query lists where they part from its own
+     at a near-tie, on the last step's batch and on the first 3 batches
+     each loader thread draws (the threads' race decides which one the
+     last step gets);
  11. segmentation options, at full width: FastSAM-x (seeded random
      weights, each conv rescaled on the job's frame) through
      generate_masks_device at 640 (no kernel), held to the plain CPU run of
@@ -85,13 +89,30 @@ Phases, in order; any failure raises and exits non-zero:
      output file; K5, K6, K7 launched, K1-K4 not); ViT-H SAM's
      generate_masks with crop_n_layers=1 and min_mask_region_area=100
      (boxes inside the frame, invalid slots empty, K1-K4 launched as often
-     as the crop boxes and per-layer grids predict).
+     as the crop boxes and per-layer grids predict);
+ 12. bf16: the ptxas record of the bf16 entries (registers, no spills);
+     the bf16 entries of K1 (a global and a windowed ViT-H block), K5, K8
+     and K9 against the plain versions of their bf16 contract within
+     BF16_ATOL, timed beside their dense-bf16 bounds (`bf16_bound`) and SDPA
+     in bf16 (K1: with its bias as a float mask); the nine stages of the
+     bf16 budget at full width (`sam6d_torch.core.numerics`: the port in
+     bf16 against the port in fp32 on the same fan-in-scaled weights and
+     inputs, each at or under its budget; PEM on a posed frame with the
+     conditioned draw of tests/torch_port_draw.py, its fp32 pose within
+     POSED_FP32_DEG of the frame's); the bf16 main path:
+     generate_masks (K1 bf16 32, K2-K4 16 each through their fp32
+     entries), a 48-valid match_frame (K5 bf16 72), PEM run_frame at B=16
+     (K6, K7 as in fp32), the 448 describe (K8 bf16 24), each against the
+     fp32 pipeline on CUDA events over three calls with the card's busy
+     share; run_demo with Config(dtype="bfloat16") and a bf16
+     MultiObjectStream frame.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; each kernel's record carries its launches on its own
-path (`launches`), on phases 8-11 (`path_launches`) and in a training step
+path (`launches`), on phases 8-12 (`path_launches`) and in a training step
 (`train_launches`; K6 and K7 also their times at the training shapes,
-`train_ms` and the rest). Prints the card's name and power limit, one JSON line of
+`train_ms` and the rest); the bf16 entries' records their launches on the
+bf16 path of phase 12. Prints the card's name and power limit, one JSON line of
 kernel records (times, launches, errors, bounds), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -119,6 +140,8 @@ NEAR_R2 = 1e-6
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
+# dense bf16 on the tensor cores (the bf16 entries' one-pass products)
+PEAK_BF16_FLOPS = 989e12
 # fp32 scores and online softmax summed in another order than the plain
 # matmul + softmax (the JAX package's own tolerance for its kernel)
 ATTENTION_ATOL = 2e-5
@@ -135,6 +158,11 @@ LN_INV_RTOL = 1e-3
 # tail at 1024 prompts): logits and IoU; a kept mask may differ only at
 # pixels whose card logit is this close to 0
 SAM_ATOL = 1e-3
+# the bf16 entries against the plain versions of their bf16 contract: the
+# same bf16 roundings of p, summed in another order and over an online
+# softmax, and the bf16 output's own rounding (the JAX package's tolerance
+# for its bf16 kernels)
+BF16_ATOL = 8e-3
 
 
 def log(msg):
@@ -152,6 +180,13 @@ def tc_bound(product_flops, other_flops, nbytes):
     """Least ms the card could take when the products run in three-pass TF32
     on the tensor cores and the rest on the fp32 units."""
     return 1e3 * max(product_flops / PEAK_TF32X3_FLOPS + other_flops / PEAK_FP32_FLOPS,
+                     nbytes / PEAK_BYTES)
+
+
+def bf16_bound(product_flops, other_flops, nbytes):
+    """Least ms the card could take when the products run in bf16 on the
+    tensor cores and the rest on the fp32 units."""
+    return 1e3 * max(product_flops / PEAK_BF16_FLOPS + other_flops / PEAK_FP32_FLOPS,
                      nbytes / PEAK_BYTES)
 
 
@@ -1962,6 +1997,7 @@ def phase_predictor(seg, rgb, job, device="cuda"):
 # ----------------------------------------------------------------- phase 10
 
 TRAIN_STEPS = 4
+TRAIN_LOADER_THREADS = 2
 TRAIN_CHECK_BATCH = 2
 # card vs the plain CPU path through one PEM-base training step at batch 2,
 # from the same weights, batch and pose-noise draws: the loss terms and the
@@ -1977,6 +2013,24 @@ TRAIN_ATOL = 1e-3
 TRAIN_GRAD_REL = 1e-2
 TRAIN_GRAD_FLOOR = 1e-6
 NEAR_TIE = 1e-3
+# The step's clouds differ between the card and the CPU in their last bits
+# (the template cloud is divided by a radius, the observed one posed by a
+# matmul), so the discrete picks on them may break a near-tie differently:
+# an FPS step (the sampled cloud then holds the same points in another
+# order, every similarity column moves with its point and the argmax
+# indices differ where the predictions do not), a structure-embedding
+# neighbour (a whole row of the embedding changes, and with it proj_a's
+# gradient), a ball-query candidate at the radius. The CPU step therefore
+# takes the card's picks (replayed_picks), each held first against the
+# CPU's own input: FPS may part from the CPU's picks only at a step whose
+# two candidates' squared distances to the common prefix lie within
+# REPLAY_TIE of the cloud's largest |p|^2; a neighbour list or a ball-query
+# list may hold, or lack, only points whose squared distance lies that
+# close to the k-th nearest one's or to r^2 (fp32 rounding of inputs that
+# differ in their last bits; a wrong pick is off by orders of magnitude
+# more). The clouds themselves must agree within REPLAY_TIE of their
+# largest |p|.
+REPLAY_TIE = 1e-5
 
 
 def train_config():
@@ -2029,22 +2083,177 @@ class recorded_losses:
         self.mod.compute_correspondence_loss = self.orig
 
 
+def _cloud_scale(pts):
+    """The largest |p|^2 of a (N, 3) float64 cloud: the unit of REPLAY_TIE."""
+    return float((pts * pts).sum(-1).max())
+
+
+def _check_fps_replay(pts, valid, card, own):
+    """pts (B, N, 3) float64, valid (B, N) bool or None, card / own
+    (B, npoint) picks. Where the card's picks part from the CPU's own, the
+    first step that parts must be a near-tie on the CPU's cloud: the two
+    candidates' squared distances to the common prefix within REPLAY_TIE of
+    the cloud's scale. Returns the gaps found, in that unit."""
+    import torch
+    gaps = []
+    for b in range(pts.shape[0]):
+        diff = (card[b] != own[b]).nonzero()
+        if not len(diff):
+            continue
+        k = int(diff[0])
+        md = torch.cdist(pts[b], pts[b, own[b, :k].long()]).amin(dim=1) ** 2
+        if valid is not None:
+            md = torch.where(valid[b], md, torch.full_like(md, -1.0))
+        scale = _cloud_scale(pts[b])
+        gap = abs(float(md[int(card[b, k])] - md[int(own[b, k])])) / scale
+        if gap > REPLAY_TIE:
+            raise AssertionError(f"training step: the card's FPS picks point {int(card[b, k])} "
+                                 f"at step {k} of cloud {b} where the CPU picks "
+                                 f"{int(own[b, k])}; their distances differ by {gap:.2e} of "
+                                 f"the cloud's |p|^2, above {REPLAY_TIE}")
+        gaps.append(gap)
+    return gaps
+
+
+def _check_ball_query_replay(xyz, new_xyz, radius, card, own):
+    """xyz (B, N, 3) and new_xyz (B, M, 3) float64, card / own (B, M, S)
+    lists of one scale. A row whose lists differ must hold every CPU hit
+    (|d^2 - r^2| above REPLAY_TIE of the cloud's scale) below its last index
+    and no candidate outside the radius by that margin. Returns the rows
+    that differ."""
+    import torch
+    rows = (card != own).any(dim=2).nonzero().tolist()
+    N, S = xyz.shape[1], card.shape[2]
+    for b, q in rows:
+        tol = REPLAY_TIE * _cloud_scale(torch.cat([xyz[b], new_xyz[b]]))
+        d2 = ((xyz[b] - new_xyz[b, q]) ** 2).sum(-1) - radius * radius
+        hits = torch.unique(card[b, q].long())
+        cut = int(hits.max()) + 1 if len(hits) == S else N
+        inside = (d2[:cut] < -tol).nonzero()[:, 0]
+        if bool((d2[hits] > tol).any()) or not bool(torch.isin(inside, hits).all()):
+            raise AssertionError(f"training step: the card's ball query (r {radius}) for query "
+                                 f"{q} of cloud {b} differs from the CPU's beyond a near-tie "
+                                 f"at the radius: {card[b, q].tolist()} vs {own[b, q].tolist()}")
+    return len(rows)
+
+
+def _check_knn_replay(pts, card, own):
+    """pts (B, N, 3) float64, card / own (B, N, k + 1) nearest-neighbour
+    lists. A row whose lists differ must hold every point nearer than the
+    (k + 1)-th nearest by more than REPLAY_TIE of the cloud's scale and none
+    farther by that margin. Returns the rows that differ."""
+    import torch
+    rows = (card != own).any(dim=2).nonzero().tolist()
+    for b, i in rows:
+        tol = REPLAY_TIE * _cloud_scale(pts[b])
+        d2 = ((pts[b] - pts[b, i]) ** 2).sum(-1)
+        last = d2.sort().values[card.shape[2] - 1]
+        sel = card[b, i].long()
+        if bool((d2[sel] > last + tol).any()) or \
+                not bool(torch.isin((d2 < last - tol).nonzero()[:, 0], sel).all()):
+            raise AssertionError(f"training step: the card's nearest neighbours of point {i} "
+                                 f"of cloud {b} differ from the CPU's beyond a near-tie: "
+                                 f"{card[b, i].tolist()} vs {own[b, i].tolist()}")
+    return len(rows)
+
+
+class replayed_picks:
+    """Within the block, FPS, the structure embedding's nearest neighbours
+    and the fine stage's ball query record their inputs and picks (mode
+    "record") or, on the CPU (mode "replay"), compute their own picks, hold
+    the recorded ones against them (_check_fps_replay, _check_knn_replay,
+    _check_ball_query_replay) and return the recorded ones. `report` counts
+    what parted."""
+
+    def __init__(self, mode, calls=None):
+        self.mode, self.calls = mode, [] if calls is None else calls
+        self.report = dict(fps_calls_parted=0, fps_gaps=[], knn_rows_parted=0,
+                           ball_query_rows_parted=0)
+
+    def __enter__(self):
+        import torch
+        from sam6d_torch.models import fine_matching, geo_transformer
+        from sam6d_torch.ops import sampling
+        self.patched = [(sampling, "farthest_point_sample", sampling.farthest_point_sample),
+                        (fine_matching, "two_scale_ball_query",
+                         fine_matching.two_scale_ball_query),
+                        (geo_transformer, "nearest_neighbours",
+                         geo_transformer.nearest_neighbours)]
+        orig_fps, orig_bq, orig_knn = (orig for _, _, orig in self.patched)
+        it = iter(self.calls)
+
+        def keep(kind, clouds, picks):
+            """Records the card's call (mode "record"); else returns the
+            card's picks after holding its clouds to the CPU's."""
+            clouds = tuple(c.detach().double().cpu() for c in clouds)
+            if self.mode == "record":
+                self.calls.append((kind, clouds, picks))
+                return None, clouds
+            card_kind, card_clouds, card = next(it)
+            scale = max(_cloud_scale(c.reshape(-1, 3)) for c in clouds) ** 0.5
+            if card_kind != kind or any(float((a - b).abs().max()) > REPLAY_TIE * scale
+                                        for a, b in zip(card_clouds, clouds)):
+                raise AssertionError(f"training step: {kind} on the CPU got other clouds "
+                                     f"than on the card")
+            return card, clouds
+
+        def fps(points, npoint, valid_mask=None):
+            own = orig_fps(points, npoint, valid_mask)
+            card, (pts,) = keep("FPS", (points,), own.cpu())
+            if card is None:
+                return own
+            gaps = _check_fps_replay(pts, None if valid_mask is None
+                                     else valid_mask.to(torch.bool), card, own)
+            self.report["fps_calls_parted"] += bool(gaps)
+            self.report["fps_gaps"] += gaps
+            return card
+
+        def knn(points, k):
+            own = orig_knn(points, k)
+            card, (pts,) = keep("nearest neighbours", (points,), own.cpu())
+            if card is None:
+                return own
+            self.report["knn_rows_parted"] += _check_knn_replay(pts, card, own)
+            return card
+
+        def bq(xyz, new_xyz, r1, s1, r2, s2):
+            own = orig_bq(xyz, new_xyz, r1, s1, r2, s2)
+            card, (x, nx) = keep("ball query", (xyz, new_xyz), [o.cpu() for o in own])
+            if card is None:
+                return own
+            for radius, c, o in zip((r1, r2), card, own):
+                self.report["ball_query_rows_parted"] += _check_ball_query_replay(
+                    x, nx, radius, c, o)
+            return tuple(card)
+
+        sampling.farthest_point_sample, fine_matching.two_scale_ball_query = fps, bq
+        geo_transformer.nearest_neighbours = knn
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.patched:
+            setattr(mod, name, orig)
+
+
 def check_step_against_plain(cfg, batch):
     """One training step on the card against the same step on the plain CPU
     path (the kernels' plain versions, CPU GEMMs) at batch
-    TRAIN_CHECK_BATCH: the same seeded weights, batch and pose-noise draws.
-    Compares the loss terms, the argmax metrics, every gradient and the
-    BatchNorm running statistics after the step; returns a report."""
+    TRAIN_CHECK_BATCH: the same seeded weights, batch and pose-noise draws,
+    the CPU taking the card's FPS picks, nearest neighbours and ball-query
+    lists where they part from its own at a near-tie (replayed_picks). Compares the loss terms,
+    the argmax metrics, every gradient and the BatchNorm running statistics
+    after the step; returns a report."""
     import torch
     from sam6d_torch.train.trainer import PEMTrainer, draw_pose_noise
     b = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
     noise = draw_pose_noise(TRAIN_CHECK_BATCH, torch.Generator().manual_seed(SEED))
-    runs = {}
+    runs, picks = {}, []
     for dev in ("cuda", "cpu"):
         trainer = PEMTrainer(cfg, seed=SEED, device=dev)
         state = trainer.init_state()
         t0 = time.perf_counter()
-        with recorded_losses() as rec:
+        with recorded_losses() as rec, \
+                replayed_picks("record" if dev == "cuda" else "replay", picks) as rep:
             state, metrics = trainer.step(state, {k: v.to(dev) for k, v in b.items()},
                                           noise=noise)
         if dev == "cuda":
@@ -2095,7 +2304,11 @@ def check_step_against_plain(cfg, batch):
             f"{grad_rel:.2e} of their scale ({worst}; besides, {len(tiny)} tensors of largest "
             f"|g| under {100 * TRAIN_GRAD_FLOOR:.0e}, up to {max(tiny, default=0):.1e}, most of "
             f"them 0 in exact arithmetic: key and position biases under the softmax), "
-            f"BatchNorm statistics {stats_err:.2e}; "
+            f"BatchNorm statistics {stats_err:.2e}; replayed on the CPU: "
+            f"{rep.report['fps_calls_parted']} FPS calls parted at near-ties (gaps "
+            f"{', '.join(f'{g:.1e}' for g in rep.report['fps_gaps']) or 'none'} of |p|^2 max), "
+            f"{rep.report['knn_rows_parted']} nearest-neighbour rows, "
+            f"{rep.report['ball_query_rows_parted']} ball-query rows; "
             f"CPU step {cpu['s']:.1f} s, loss {cpu['metrics']['loss']:.4f}")
 
 
@@ -2126,10 +2339,12 @@ def phase_train(job_root, device="cuda"):
     """Phase 10: PEM training through the CLI at full width on a
     write_megapose_job tree (two boxes, 8 frames at 480x640): `render-training`
     (2 objects x 2 views at 512^2), `train` at PEMConfig() and batch 28 for
-    TRAIN_STEPS steps with 2 loader threads and a checkpoint at the end; the
-    step split, peak memory and busy share; K6 and K7 per step; K7's cluster
-    path and K6 at the training shapes against their plain versions; a card
-    step against the CPU step; the checkpoint round trip. Returns (per-step
+    TRAIN_STEPS steps with TRAIN_LOADER_THREADS loader threads and a
+    checkpoint at the end; the step split, peak memory and busy share; K6
+    and K7 per step; K7's cluster path and K6 at the training shapes against
+    their plain versions; a card step against the CPU step on the last
+    step's batch and on every batch the threads could have handed it; the
+    checkpoint round trip. Returns (per-step
     launches, the K6 / K7 records at the training shapes)."""
     import torch
     from sam6d_torch.cli.main import main as cli_main
@@ -2142,7 +2357,7 @@ def phase_train(job_root, device="cuda"):
     from sam6d_torch.kernels import fps
     from sam6d_torch.models import fine_matching
     from sam6d_torch.ops import sampling
-    from sam6d_torch.train.trainer import PEMTrainer
+    from sam6d_torch.train.trainer import PEMTrainer, batch_to_device
 
     root = os.path.join(job_root, "megapose")
     t0 = time.perf_counter()
@@ -2179,7 +2394,8 @@ def phase_train(job_root, device="cuda"):
                 timed_calls(MegaPoseDataset, "sample_batch", device="cpu") as asm, \
                 timed_calls(StageTimer, "summary", device=device) as tim:
             cli_main(["train", "--data_dir", root, "--ckpt_dir", ckpt, "--iters",
-                      str(TRAIN_STEPS), "--data_workers", "2", "--device", device])
+                      str(TRAIN_STEPS), "--data_workers", str(TRAIN_LOADER_THREADS),
+                      "--device", device])
         cli_s = time.perf_counter() - t0
     finally:
         port_config.default_config = orig_cfg
@@ -2188,7 +2404,8 @@ def phase_train(job_root, device="cuda"):
     split = tim.calls[0][0].summary()
     later = stp.ms[1:]
     log(f"train: `train` CLI, {TRAIN_STEPS} steps at PEMConfig(), batch "
-        f"{cfg.train.batch_size}, remat {cfg.pem.vit.remat}, 2 loader threads, in {cli_s:.2f} s "
+        f"{cfg.train.batch_size}, remat {cfg.pem.vit.remat}, {TRAIN_LOADER_THREADS} loader "
+        f"threads, in {cli_s:.2f} s "
         f"(cold: weights, first batch); step wall ms {', '.join(f'{m:.1f}' for m in stp.ms)} "
         f"(after the first: median {statistics.median(later):.1f}, range "
         f"{min(later):.1f}-{max(later):.1f}); StageTimer means: data "
@@ -2242,7 +2459,17 @@ def phase_train(job_root, device="cuda"):
     f_bound = bound((n_fine - 1) * B * n_tem * 10, 4 * B * n_tem * 3 + 4 * B * n_fine)
     b_bound = bound(15 * _ball_query_scanned_pairs(pe1, args),
                     2 * 4 * B * n_obs * 3 + 4 * B * n_obs * (args[1] + args[3]))
-    log(f"train: {check_step_against_plain(cfg, batch)}")
+    log(f"train: last step's batch: {check_step_against_plain(cfg, batch)}")
+    # which thread's batch the loader hands the last step depends on the
+    # threads' race; every batch the race can hand it is held as well
+    ds = MegaPoseDataset(root, img_size=cfg.pem.img_size,
+                         n_sample_observed=cfg.pem.n_sample_observed_point,
+                         n_sample_template=cfg.pem.n_sample_template_point)
+    for w in range(TRAIN_LOADER_THREADS):
+        rng = np.random.RandomState(cfg.train.seed + 1 + w)
+        for k in range(TRAIN_STEPS - 1):
+            drawn = batch_to_device(ds.sample_batch(cfg.train.batch_size, rng), device)
+            log(f"train: loader thread {w}, batch {k}: {check_step_against_plain(cfg, drawn)}")
     records = {
         "farthest_point_sample_cuda": dict(
             train_ms=f_ms, train_plain_ms=f_plain, train_bound_ms=f_bound[0],
@@ -2595,6 +2822,585 @@ def phase_options(job, device="cuda"):
             "SAM crop cascade + small regions": phase_cascade(job, device)}
 
 
+# ------------------------------------------------------------------ phase 12
+
+BF16_KERNELS = ("flash_attention_relpos_bf16_cuda", "fused_attention_qkv_bf16_cuda",
+                "fused_attention_bf16_cuda", "fused_attention_small_bf16_cuda")
+
+
+def bf16_counters():
+    """Every attention entry and every kernel of the frame, by name: the
+    bf16 entries beside the fp32 ones."""
+    from sam6d_torch.kernels import attention, attention_qkv, attention_relpos
+    fns = frame_counters()
+    fns.update(flash_attention_relpos_bf16_cuda=attention_relpos.flash_attention_relpos_bf16_cuda,
+               fused_attention_qkv_bf16_cuda=attention_qkv.fused_attention_qkv_bf16_cuda,
+               fused_attention_bf16_cuda=attention.fused_attention_bf16_cuda,
+               fused_attention_small_bf16_cuda=attention.fused_attention_small_bf16_cuda)
+    return fns
+
+
+def _bf16_cards(rng, shape, scale=1.0):
+    import torch
+    return (torch.from_numpy(rng.randn(*shape).astype(np.float32) * np.float32(scale))
+            .cuda().to(torch.bfloat16))
+
+
+def _bf16_err(name, got, want, atol=BF16_ATOL):
+    import torch
+    torch.cuda.synchronize()
+    e = float((got.float() - want.float()).abs().max())
+    log(f"{name}: max |diff| {e:.2e} against its plain bf16 version (atol {atol})")
+    if not (got.dtype == want.dtype == torch.bfloat16 and e <= atol):
+        raise AssertionError(f"{name}: the bf16 entry disagrees with its plain version")
+    return e
+
+
+def _bf16_timed(name, fn, plain, lib, products, other, nbytes):
+    """Runs of 10 launches (one launch of the short entries is mostly the
+    host's dispatch of it)."""
+    ms = cuda_ms(fn, reps=10, launches=10)
+    plain_ms = cuda_ms(plain, reps=3, launches=10)
+    lib_ms = cuda_ms(lib, reps=10, launches=10)
+    b_ms = bf16_bound(products, other, nbytes)
+    by = "operations" if products / PEAK_BF16_FLOPS + other / PEAK_FP32_FLOPS \
+        >= nbytes / PEAK_BYTES else "bytes"
+    log(f"{name}, runs of 10 launches: bf16 entry {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA bf16 {lib_ms:.4f} ms "
+        f"(entry/SDPA {ms / lib_ms:.3f}); dense-bf16 bound {b_ms:.4f} ms ({by}, "
+        f"{100 * b_ms / ms:.1f}% of it)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_ratio=ms / lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def _check_bf16_kernels(rng, ptxas):
+    """The bf16 entries against the plain versions of their contract at the
+    main path's shapes and stress cases, timed beside their dense-bf16
+    bounds, the plain versions and SDPA in bf16; fails on a spill in any
+    bf16 instantiation."""
+    import torch
+    import torch.nn.functional as F
+    from sam6d_torch.kernels import attention, attention_qkv
+    from sam6d_torch.kernels import attention_relpos as rp
+    regs = {}
+    for kernel, hds in (("attention_relpos_bf16_kernel", (16, 32, 64, 80)),
+                        ("attention_qkv_bf16_kernel", (32, 64)),
+                        ("head_major_attention_bf16_kernel", tuple(range(16, 129, 16)))):
+        for hd in hds:
+            r, spills = ptxas_record(ptxas, kernel, hd)
+            regs[f"{kernel}<{hd}>"] = r
+            if spills:
+                raise AssertionError(f"{kernel}<{hd}> spills {spills} bytes")
+    log("bf16 entries' ptxas registers (no spills): "
+        + ", ".join(f"{k} {v}" for k, v in regs.items()))
+
+    # K5: the describe chunk, a ragged batch, large scores
+    heads, hd, C = 16, 64, 1024
+    err5 = 0.0
+    for B, N, qk in ((16, 257, 1.0), (3, 257, 1.0), (16, 257, 2.0)):
+        qkv = _bf16_cards(rng, (B, N, 3 * C))
+        with torch.no_grad():
+            qkv[..., :2 * C] *= 0.5 * qk
+        err5 = max(err5, _bf16_err(
+            f"attention_qkv bf16[{B}x{N}x{3 * C}, q and k x{0.5 * qk:g}]",
+            attention_qkv.fused_attention_qkv_bf16_cuda(qkv, heads, 0.125),
+            attention_qkv.fused_attention_qkv_bf16_plain(qkv, heads, 0.125)))
+    B, N = 16, 257
+    qkv = _bf16_cards(rng, (B, N, 3 * C))
+    q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    k5 = _bf16_timed(
+        "attention_qkv bf16[16x257x3072]",
+        lambda: attention_qkv.fused_attention_qkv_bf16_cuda(qkv, heads, 0.125),
+        lambda: attention_qkv.fused_attention_qkv_bf16_plain(qkv, heads, 0.125),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
+        4 * B * heads * N * N * hd, 2 * B * heads * N * N, 2 * B * N * 4 * C)
+
+    # K8: the 448 describe's views, large scores, cross-attention; K9
+    def views(B, H, N, hd, qk=1.0):
+        x = _bf16_cards(rng, (B, N, 3 * H * hd))
+        with torch.no_grad():
+            x[..., :2 * H * hd] *= 0.5 * qk
+        return x.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+
+    err8 = 0.0
+    for name, ops in (("16x16x1025x64", views(16, 16, 1025, 64)),
+                      ("16x16x1025x64 large scores", views(16, 16, 1025, 64, 2.0)),
+                      ("2x4x61x300x32 cross", [_bf16_cards(rng, (2, 4, n, 32), s)
+                                               for n, s in ((61, 0.5), (300, 0.5), (300, 1.0))])):
+        err8 = max(err8, _bf16_err(f"fused_attention bf16[{name}]",
+                                   attention.fused_attention_bf16_cuda(*ops, 0.125),
+                                   attention.fused_attention_bf16_plain(*ops, 0.125)))
+    q, k, v = views(16, 16, 1025, 64)
+    n8 = 16 * 16 * 1025 * 1025
+    k8 = _bf16_timed("fused_attention bf16[16x16x1025x64]",
+                     lambda: attention.fused_attention_bf16_cuda(q, k, v, 0.125),
+                     lambda: attention.fused_attention_bf16_plain(q, k, v, 0.125),
+                     lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
+                     4 * n8 * 64, 2 * n8, 2 * 4 * 16 * 16 * 1025 * 64)
+    err9 = 0.0
+    for qk in (1.0, 2.0):
+        ops = [_bf16_cards(rng, (16, 16, 257, 64), s) for s in (0.5 * qk, 0.5 * qk, 1.0)]
+        err9 = max(err9, _bf16_err(f"fused_attention_small bf16[16x16x257x64, q and k "
+                                   f"x{0.5 * qk:g}]",
+                                   attention.fused_attention_small_bf16_cuda(*ops, 0.125),
+                                   attention.fused_attention_small_bf16_plain(*ops, 0.125)))
+    q, k, v = (_bf16_cards(rng, (16, 16, 257, 64)) for _ in range(3))
+    n9 = 16 * 16 * 257 * 257
+    k9 = _bf16_timed("fused_attention_small bf16[16x16x257x64]",
+                     lambda: attention.fused_attention_small_bf16_cuda(q, k, v, 0.125),
+                     lambda: attention.fused_attention_small_bf16_plain(q, k, v, 0.125),
+                     lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
+                     4 * n9 * 64, 2 * n9, 2 * 4 * 16 * 16 * 257 * 64)
+
+    # K1: a global and a windowed ViT-H block, the windowed one also with
+    # its rel-pos parameters x3
+    heads, hd = 16, 80
+    C = heads * hd
+    rec1, err1 = {}, 0.0
+    for name, B, (H, W), rel in (("global", 1, (64, 64), 1.0), ("windowed", 25, (14, 14), 1.0),
+                                 ("windowed, rel-pos x3", 25, (14, 14), 3.0)):
+        N = H * W
+        qkv = _bf16_cards(rng, (B, N, 3 * C))
+        with torch.no_grad():
+            qkv[..., :2 * C] *= 0.5
+        rh, rw = (_bf16_cards(rng, (2 * s - 1, hd), 0.1 * rel) for s in (H, W))
+        args = (qkv, rh, rw, (H, W), heads)
+        e = _bf16_err(f"relpos_attention bf16[{name} {B}x{N}x{3 * C}]",
+                      rp.flash_attention_relpos_bf16_cuda(*args),
+                      rp.flash_attention_relpos_bf16_plain(*args))
+        if rel != 1.0:
+            stress_err1 = e
+            continue
+        err1 = max(err1, e)
+        q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = (t.to(torch.bfloat16).float() for t in rp.rel_pos_tables(
+            qkv.float(), rh.float(), rw.float(), (H, W), heads))
+        mask = (rel_h.view(B, heads, N, H, 1) + rel_w.view(B, heads, N, 1, W)
+                ).reshape(B, heads, N, N).to(torch.bfloat16)
+        del rel_h, rel_w
+        products = 4 * B * heads * N * N * hd
+        other = 4 * B * heads * N * N + 2 * B * heads * N * (H + W) * hd
+        nbytes = 2 * (B * N * 4 * C + (2 * H + 2 * W - 2) * hd)
+        rec1[name] = _bf16_timed(
+            f"relpos_attention bf16[{name} {B}x{N}x{3 * C}]",
+            lambda: rp.flash_attention_relpos_bf16_cuda(*args),
+            lambda: rp.flash_attention_relpos_bf16_plain(*args),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   scale=hd ** -0.5),
+            products, other, nbytes)
+        del mask
+    g, w = rec1["global"], rec1["windowed"]
+    common = dict(route="cuda", tolerance=f"atol {BF16_ATOL} against the plain bf16 version",
+                  timing="ms, plain_ms, library_ms: CUDA events over runs of 10 launches")
+    return [
+        dict(name="flash_attention_relpos_bf16_cuda", source="sam6d_torch/csrc/attention_relpos.cu",
+             replaces="sam6d_tpu/kernels/flash_attention.py:316", max_abs_err=err1, **g,
+             windowed_ms=w["ms"], windowed_plain_ms=w["plain_ms"],
+             windowed_bound_ms=w["bound_ms"], windowed_library_ms=w["library_ms"],
+             ptxas_registers=regs["attention_relpos_bf16_kernel<80>"], ptxas_spill_bytes=0,
+             stress_max_abs_err=stress_err1,
+             shapes="global 1x4096x3840 bf16, 16 heads of 80 (ms; library_ms: SDPA with the "
+                    "bf16 bias as a float mask); windowed 25x196x3840 (windowed_*); windowed "
+                    "with rel-pos x3 checked (stress_*)", **common),
+        dict(name="fused_attention_qkv_bf16_cuda", source="sam6d_torch/csrc/attention_qkv.cu",
+             replaces="sam6d_tpu/kernels/flash_attention.py:280", max_abs_err=err5, **k5,
+             ptxas_registers=regs["attention_qkv_bf16_kernel<64>"], ptxas_spill_bytes=0,
+             shapes="16x257x3072 bf16 (ms); 3x257 and q and k x1 checked", **common),
+        dict(name="fused_attention_bf16_cuda", source="sam6d_torch/csrc/attention.cu",
+             replaces="sam6d_tpu/kernels/flash_attention.py:133", max_abs_err=err8, **k8,
+             ptxas_registers=regs["head_major_attention_bf16_kernel<64>"],
+             ptxas_spill_bytes=0,
+             shapes="16x16x1025x64 bf16 qkv views (ms); large scores and 2x4x61x300x32 "
+                    "cross-attention checked", **common),
+        dict(name="fused_attention_small_bf16_cuda", source="sam6d_torch/csrc/attention.cu",
+             replaces="sam6d_tpu/kernels/flash_attention.py:203", max_abs_err=err9, **k9,
+             ptxas_registers=regs["head_major_attention_bf16_kernel<64>"],
+             ptxas_spill_bytes=0, shapes="16x16x257x64 bf16 (ms); large scores checked",
+             note="no caller in either package: held to its plain version only", **common),
+    ]
+
+
+def _stage_outputs(build, run, dtypes):
+    """run(build(dtype)) for each dtype, as float32 numpy arrays; each
+    pipeline freed before the next is built."""
+    import torch
+    out = {}
+    for dt in dtypes:
+        pipe = build(dt)
+        with torch.inference_mode():
+            out[dt] = [x.float().cpu().numpy() for x in run(pipe)]
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+# the budget the extra stage is held to: the iou_only pass as the decode's IoU
+BUDGET_OF = {"amg_decode_iou_only": "amg_decode_iou"}
+# how far PEM's fp32 pose may lie from the posed frame's own (q99, degrees):
+# the fp32 solve recovers it within a degree, an arbitrary pose lies ~90
+# degrees off
+POSED_FP32_DEG = 2.0
+
+
+def bf16_budget_stages():
+    """The nine stages of the bf16 budget at full width, and the decode's
+    iou_only pass: the port in bf16 against the port in fp32 on the same
+    fan-in-scaled weights (tests/torch_port_draw.rand_like_state_dict, the
+    JAX package's rand_like_tree on the flax layout, drawn on the CPU; seeds
+    1-3 as bf16_budget.py). SAM and DINOv2 take the inputs bf16_budget.py
+    gives them. PEM runs its whole `infer` at B=16 on a posed frame
+    (`posed_pem_frame`: the template is the observed cloud under a known
+    pose) with the conditioned draw (`conditioned_pem_state_dict`): under
+    the plain draw and bf16_budget.py's random template the fp32 pose
+    itself has no answer (every fine similarity within ~0.01 of 1 / temp),
+    so R and t would measure the harness. Returns ({stage: error}, q99 of
+    the fp32 pose's angle to the frame's own pose, in degrees)."""
+    import torch
+    from sam6d_torch.core.config import ISMConfig, SAMConfig
+    from sam6d_torch.core.numerics import BUDGETS, q99_rel, rotation_q99
+    from sam6d_torch.models import ism_scoring
+    from sam6d_torch.models.dinov2 import DINOv2
+    from sam6d_torch.models.pem import PEMNet
+    from sam6d_torch.models.sam import SAM
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    from sam6d_torch.pipelines.pem import PEMConfig, PEMPipeline
+    from sam6d_torch.pipelines.sam_amg import SAMSegmentor
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_draw import conditioned_pem_state_dict, posed_pem_frame, rand_like_state_dict
+    f32, b16 = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(SEED)
+    res = {}
+    t0 = time.perf_counter()
+
+    cfg = SAMConfig(max_proposals=128, pred_iou_thresh=-10.0, stability_score_thresh=0.0)
+    with torch.device("meta"):
+        meta = SAM(cfg)
+    sd = {k: v.cuda() for k, v in rand_like_state_dict(meta, 1).items()}
+    x = torch.from_numpy(rng.rand(1, 1024, 1024, 3).astype(np.float32)).cuda()
+    pts = torch.from_numpy(rng.rand(128, 2).astype(np.float32) * 1024).cuda()[:, None]
+    lbl = torch.ones(128, 1, dtype=torch.int64, device="cuda")
+
+    def sam_run(seg):
+        e = seg.sam.image_encoder(x)
+        pe = seg.sam.prompt_encoder.dense_pe()
+        sparse, dense = seg.sam.prompt_encoder(pts, lbl)
+        m, iou = seg.sam.mask_decoder(e[0], pe, sparse, dense)
+        return e, m, iou, seg.sam.mask_decoder(e[0], pe, sparse, dense, iou_only=True)[1]
+    o = _stage_outputs(lambda dt: SAMSegmentor(cfg, state_dict=sd, device="cuda", dtype=dt),
+                       sam_run, (f32, b16))
+    del sd
+    res["sam_encode"] = q99_rel(o[b16][0], o[f32][0])
+    res["amg_decode_masks"] = q99_rel(o[b16][1], o[f32][1])
+    res["amg_decode_iou"] = q99_rel(o[b16][2], o[f32][2])
+    res["amg_decode_iou_only"] = q99_rel(o[b16][3], o[f32][3])
+
+    icfg = ISMConfig()
+    d = icfg.dinov2
+    with torch.device("meta"):
+        meta = DINOv2(d.img_size, d.patch_size, d.embed_dim, d.depth, d.num_heads)
+    sd = {k: v.cuda() for k, v in rand_like_state_dict(meta, 2).items()}
+    crops = torch.from_numpy(rng.rand(32, d.img_size, d.img_size, 3).astype(np.float32)).cuda()
+    o = _stage_outputs(lambda dt: ISMPipeline(icfg, state_dict=sd, device="cuda", dtype=dt),
+                       lambda pipe: pipe.dinov2(crops), (f32, b16))
+    del sd
+    res["dinov2_cls"] = q99_rel(o[b16][0], o[f32][0])
+    res["dinov2_patch"] = q99_rel(o[b16][1], o[f32][1])
+    valid = torch.ones(128, dtype=torch.bool)
+    scores = {}
+    for dt in (f32, b16):
+        cls = torch.from_numpy(o[dt][0])
+        ref = torch.from_numpy(o[f32][0][:42]).to(dt).float()[None]
+        scores[dt] = ism_scoring.semantic_scores(torch.cat([cls] * 4)[:128], ref, valid,
+                                                 "avg_5", 0.2)["score"].numpy()
+    res["ism_scores"] = q99_rel(scores[b16], scores[f32])
+
+    pcfg = PEMConfig()
+    with torch.device("meta"):
+        meta = PEMNet(pcfg)
+    sd = {k: v.cuda() for k, v in conditioned_pem_state_dict(
+        rand_like_state_dict(meta, 3)).items()}
+    pem32 = PEMPipeline(pcfg, state_dict=sd, device="cuda")
+
+    def features(rgb, choose):
+        with torch.inference_mode():
+            return pem32.net.extract_img_feats(torch.from_numpy(rgb).cuda(),
+                                               torch.from_numpy(choose).cuda()).cpu().numpy()
+    frame, R_true, _ = posed_pem_frame(rng, pcfg, 16, features)
+    del pem32
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in frame.items()}
+
+    def pem_run(pipe):
+        out = pipe.net.infer(inputs, pipe._generator(0))
+        return out["pred_R"], out["pred_t"], out["pred_pose_score"]
+    o = _stage_outputs(lambda dt: PEMPipeline(pcfg, state_dict=sd, device="cuda", dtype=dt),
+                       pem_run, (f32, b16))
+    del sd
+    fp32_deg = 180.0 * rotation_q99(o[f32][0], R_true)
+    res["pem_R"] = rotation_q99(o[b16][0], o[f32][0])
+    res["pem_t"] = q99_rel(o[b16][1], o[f32][1])
+    res["pem_score"] = q99_rel(o[b16][2], o[f32][2])
+    log(f"bf16 budget, full width, the port in bf16 against the port in fp32 "
+        f"({time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"{k} {v:.4f} (budget {BUDGETS[BUDGET_OF.get(k, k)]})"
+                    for k, v in res.items())
+        + f"; PEM's fp32 pose to the frame's own: q99 {fp32_deg:.4f} deg")
+    return res, fp32_deg
+
+
+def _alternated(label, fns, reps=3):
+    """CUDA-event times of each of `fns` ({name: callable}), in turns
+    (a, b, b, a), each the median of `reps` calls; returns {name: [ms, ms]}."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        out[n].append(cuda_ms(fns[n], reps=reps))
+    log(f"{label}, CUDA events (median of {reps} calls, in turns): "
+        + "; ".join(f"{n} " + ", ".join(f"{m:.1f}" for m in v) + " ms"
+                    for n, v in out.items()))
+    return out
+
+
+def phase_bf16_path(job):
+    """The bf16 main path at full width beside the fp32 one: generate_masks,
+    a 48-valid match_frame, PEM run_frame at B=16 and the 448 describe,
+    their launches, times on CUDA events and the bf16 runs' busy share;
+    then run_demo with Config(dtype="bfloat16") and a bf16 MultiObjectStream
+    frame. Returns (launches per kernel on the bf16 path, {path: launches
+    per kernel} of each run)."""
+    import dataclasses
+    import torch
+    from sam6d_torch.core.config import (Config, DINOv2Config, ISMConfig, ISMMatchingConfig,
+                                         SAMConfig)
+    from sam6d_torch.data.mesh import load_ply
+    from sam6d_torch.data.synthetic import K_CAM, write_pem_job
+    from sam6d_torch.pipelines.demo import run_demo
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    from sam6d_torch.pipelines.pem import PEMConfig, PEMPipeline
+    from sam6d_torch.pipelines.sam_amg import SAMSegmentor
+    from sam6d_torch.pipelines.streaming import MultiObjectStream
+    f32, b16 = torch.float32, torch.bfloat16
+    fns = bf16_counters()
+    rgb, depth = job["rgb_arr"], job["depth_arr"]
+    scfg = SAMConfig(pred_iou_thresh=-10.0, stability_score_thresh=0.0, max_proposals=128)
+    icfg = ISMConfig(matching=ISMMatchingConfig(confidence_thresh=-1.0))
+    launches, paths = {}, {}
+
+    def expect(what, got, want):
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        log(f"bf16 {what}: kernel launches {got}")
+        if bad:
+            raise AssertionError(f"bf16 {what}: launches (got, expected) {bad}")
+
+    seg = {dt: SAMSegmentor(scfg, seed=SEED, device="cuda", dtype=dt) for dt in (f32, b16)}
+    if not all(p.dtype == b16 for p in seg[b16].sam.parameters()):
+        raise AssertionError("the bf16 segmentor holds non-bf16 parameters")
+    chunks = scfg.points_per_side ** 2 // scfg.points_per_batch
+    reset_counts(fns)
+    out = seg[b16].generate_masks(rgb)
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    n_kept = check_proposals(out, *rgb.shape[:2], scfg.max_proposals)
+    want = {"flash_attention_relpos_bf16_cuda": scfg.encoder_depth,
+            "flash_attention_relpos_cuda": 0}
+    want.update({n + "_cuda": 2 * chunks for n in FACTORED})
+    expect(f"generate_masks ({n_kept} kept)", got, want)
+    launches.update({k: got[k] for k in ("flash_attention_relpos_bf16_cuda",)})
+    paths["bf16 generate_masks"] = got
+    _alternated(
+        "generate_masks_device fp32 vs bf16",
+        {"fp32": lambda: seg[f32].generate_masks_device(rgb),
+         "bf16": lambda: seg[b16].generate_masks_device(rgb)})
+    with torch.inference_mode():
+        resized, _, _, _ = seg[b16].preprocess_frame_u8(rgb)
+        u8 = torch.as_tensor(resized, device="cuda")
+        _alternated("SAM encoder fp32 vs bf16",
+                                       {str(dt).split(".")[-1]: (lambda s=seg[dt]: s._encode_u8(u8))
+                                        for dt in (f32, b16)})
+    device_busy(lambda: seg[b16].generate_masks_device(rgb), "bf16: generate_masks_device")
+    del seg
+    torch.cuda.empty_cache()
+
+    props = job["proposals"]
+    n_valid = int(props["valid"].sum())
+    cloud = (load_ply(job["cad"]).sample(icfg.matching.pointcloud_sample_num,
+                                         np.random.RandomState(0)) / 1000.0
+             ).astype(np.float32)[None]
+    ism = {}
+    for dt in (f32, b16):
+        ism[dt] = ISMPipeline(icfg, seed=SEED, device="cuda", dtype=dt)
+        ism[dt].onboard_templates_from_dir(os.path.join(job["dir"], "templates"))
+    args = (rgb, depth, K_CAM, 1.0, cloud)
+    kw = dict(detections=props, apply_size_filters=False)
+    reset_counts(fns)
+    res16 = ism[b16].match_frame(*args, **kw)
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    d = icfg.dinov2
+    expect(f"match_frame ({n_valid} of {len(props['valid'])} valid)", got,
+           {"fused_attention_qkv_bf16_cuda": d.depth * -(-n_valid // d.chunk_size),
+            "fused_attention_qkv_cuda": 0})
+    launches["fused_attention_qkv_bf16_cuda"] = got["fused_attention_qkv_bf16_cuda"]
+    paths["bf16 match_frame"] = got
+    res32 = ism[f32].match_frame(*args, **kw)
+    sel = res16["valid"]
+    if int(sel.sum()) != n_valid or not all(np.isfinite(res16[k][sel]).all() for k in (
+            "scores", "semantic_score", "appe_score", "geometric_score")):
+        raise AssertionError("bf16 match_frame: bad scores or selection")
+    log(f"bf16 match_frame: scores of the valid slots against the fp32 pipeline's: max "
+        f"|diff| {float(np.abs(res16['scores'][sel] - res32['scores'][sel]).max()):.2e}")
+    walls = {}
+    for name, dt in (("fp32", f32), ("bf16", b16), ("bf16 ", b16), ("fp32 ", f32)):
+        t0 = time.perf_counter()
+        ism[dt].match_frame(*args, **kw)
+        walls.setdefault(name.strip(), []).append(1e3 * (time.perf_counter() - t0))
+    log("match_frame wall ms (in turns): " + "; ".join(
+        f"{k} " + ", ".join(f"{m:.1f}" for m in v) for k, v in walls.items()))
+    with torch.inference_mode():
+        rgb01 = torch.as_tensor(rgb, device="cuda").float() / 255.0
+        masks = torch.as_tensor(props["masks"], device="cuda").float()
+        boxes = torch.as_tensor(props["boxes"], device="cuda").int()
+        _alternated(
+            f"describe of {n_valid} valid fp32 vs bf16",
+            {str(dt).split(".")[-1]: (lambda p=ism[dt]: p._describe_impl(rgb01, masks, boxes,
+                                                                           n_valid))
+             for dt in (f32, b16)})
+    device_busy(lambda: ism[b16].match_frame(*args, **kw), "bf16: match_frame")
+    del ism
+    torch.cuda.empty_cache()
+
+    pcfg = PEMConfig()
+    with tempfile.TemporaryDirectory() as pdir:
+        pjob = write_pem_job(pdir, np.random.RandomState(SEED))
+        model_points = (load_ply(pjob["cad"]).sample(
+            pcfg.n_sample_model_point, np.random.RandomState(0)) / 1000.0).astype(np.float32)
+        pem, tem, counts = {}, {}, {}
+        for dt in (f32, b16):
+            pem[dt] = PEMPipeline(pcfg, seed=SEED, device="cuda", dtype=dt)
+            reset_counts(fns)
+            tem[dt] = pem[dt].onboard_templates(
+                pem[dt].load_template_views(os.path.join(pdir, "templates")))
+            onboard = read_counts(fns)
+            reset_counts(fns)
+            poses, _ = pem[dt].run_frame(pjob["rgb_arr"], pjob["depth_arr"], K_CAM, 1.0,
+                                         pjob["dets"], model_points, tem[dt], seed=2)
+            torch.cuda.synchronize()
+            counts[dt] = (onboard, read_counts(fns))
+            check_pose_records(poses, f"{dt} run_frame")
+            if len(poses) != 16:
+                raise AssertionError(f"{dt} run_frame posed {len(poses)} of 16")
+        pk = ("farthest_point_sample_cuda", "two_scale_ball_query_cuda")
+        for i, what in enumerate(("onboarding", "run_frame")):
+            g16 = {k: counts[b16][i][k] for k in pk}
+            g32 = {k: counts[f32][i][k] for k in pk}
+            expect(f"PEM {what} (fp32: {g32})", g16, g32)
+            if min(g16.values()) < 1:
+                raise AssertionError(f"bf16 PEM {what}: K6 or K7 not launched")
+        paths["bf16 PEM onboarding"], paths["bf16 PEM run_frame"] = counts[b16]
+        inputs = {dt: pem[dt].prepare_frame(pjob["rgb_arr"], pjob["depth_arr"], K_CAM, 1.0,
+                                            pjob["dets"], model_points, tem[dt])[0]
+                  for dt in (f32, b16)}
+        _alternated(
+            "PEM infer_batch at B=16 fp32 vs bf16",
+            {str(dt).split(".")[-1]: (lambda p=pem[dt], i=inputs[dt]: p.infer_batch(i))
+             for dt in (f32, b16)})
+        device_busy(lambda: pem[b16].infer_batch(inputs[b16]), "bf16: PEM infer_batch B=16")
+        del pem
+    torch.cuda.empty_cache()
+
+    p448 = ISMPipeline(ISMConfig(dinov2=DINOv2Config(img_size=448)), seed=SEED, device="cuda",
+                       dtype=b16)
+    n = p448.cfg.dinov2.chunk_size
+    with torch.inference_mode():
+        m = torch.as_tensor(props["masks"][:n], device="cuda").float()
+        bx = torch.as_tensor(props["boxes"][:n], device="cuda").int()
+        reset_counts(fns)
+        cls, patch = p448._describe_impl(rgb01, m, bx, n)
+        torch.cuda.synchronize()
+        got = read_counts(fns)
+        ms448 = cuda_ms(lambda: p448._describe_impl(rgb01, m, bx, n), reps=3)
+    expect(f"448 describe ({n} crops, {ms448:.1f} ms on CUDA events)",
+           got, {"fused_attention_bf16_cuda": p448.cfg.dinov2.depth, "fused_attention_cuda": 0,
+                 "fused_attention_qkv_bf16_cuda": 0})
+    if not (torch.isfinite(cls).all() and torch.isfinite(patch).all()):
+        raise AssertionError("bf16 448 describe: non-finite descriptors")
+    launches["fused_attention_bf16_cuda"] = got["fused_attention_bf16_cuda"]
+    launches["fused_attention_small_bf16_cuda"] = got["fused_attention_small_bf16_cuda"]
+    del p448
+    torch.cuda.empty_cache()
+
+    # run_demo in bf16 on phase 7's templates, then a bf16 stream frame
+    cfg = Config(ism=ISMConfig(sam=scfg, matching=icfg.matching), dtype="bfloat16")
+    out_dir = os.path.join(job["dir"], "demo")
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    res = run_demo(cfg, job["cad"], job["rgb"], job["depth"], job["cam"], out_dir,
+                   det_score_thresh=-1.0, skip_render=True, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    paths["bf16 run_demo"] = got
+    if not res["pem"] or not os.path.exists(os.path.join(out_dir, "sam6d_results",
+                                                          "detection_pem.json")):
+        raise AssertionError("bf16 run_demo: no pose or no detection_pem.json")
+    check_pose_records(res["pem"], "bf16 run_demo")
+    log(f"bf16 run_demo (Config(dtype='bfloat16'), skip_render) in "
+        f"{time.perf_counter() - t0:.1f} s: {len(res['ism'])} ISM records, "
+        f"{len(res['pem'])} poses; split " + ", ".join(
+            f"{k} {v:.1f}" for k, v in res["split_ms"].items()) + f"; launches {got}")
+    for k in ("flash_attention_relpos_bf16_cuda", "fused_attention_qkv_bf16_cuda",
+              "farthest_point_sample_cuda", "two_scale_ball_query_cuda"):
+        if got[k] < 1:
+            raise AssertionError(f"bf16 run_demo: {k} not launched")
+    if got["flash_attention_relpos_cuda"] or got["fused_attention_qkv_cuda"]:
+        raise AssertionError("bf16 run_demo reached an fp32 attention entry")
+
+    seg16 = SAMSegmentor(scfg, seed=SEED, device="cuda", dtype=b16)
+    stream = MultiObjectStream(
+        ISMPipeline(icfg, seed=SEED, device="cuda", segmentor=seg16, dtype=b16),
+        PEMPipeline(pcfg, seed=SEED, device="cuda", dtype=b16), det_score_thresh=-1.0)
+    mesh = load_ply(job["cad"])
+    rs = np.random.RandomState(0)
+    stream.onboard_object(1, os.path.join(out_dir, "templates"),
+                          mesh.sample(pcfg.n_sample_model_point, rs) / 1000.0,
+                          ism_points=mesh.sample(icfg.matching.pointcloud_sample_num, rs) / 1000.0)
+    reset_counts(fns)
+    frames = list(stream.process_stream(iter([(rgb, depth, K_CAM, 1.0)] * 2),
+                                        depth_in_flight=1))
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    paths["bf16 MultiObjectStream, 2 frames"] = got
+    n_poses = sum(len(f["poses"]) for f in frames)
+    for f in frames:
+        check_pose_records(f["poses"], "bf16 stream")
+    log(f"bf16 MultiObjectStream: {len(frames)} frames, {n_poses} poses; launches {got}")
+    if n_poses < 1 or got["flash_attention_relpos_bf16_cuda"] < 1:
+        raise AssertionError("the bf16 stream posed nothing or skipped the bf16 entries")
+    return launches, paths
+
+
+def phase_bf16(job, ptxas):
+    """Phase 12: the bf16 entries, the bf16 budget at full width, the bf16
+    main path. Returns (the bf16 entries' kernel records, {path: launches
+    per kernel})."""
+    import torch
+    from sam6d_torch.core.numerics import BUDGETS
+    kernels = _check_bf16_kernels(np.random.RandomState(SEED + 7), ptxas)
+    torch.cuda.empty_cache()
+    budget, pem_fp32_deg = bf16_budget_stages()
+    torch.cuda.empty_cache()
+    launches, paths = phase_bf16_path(job)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["path_launches"] = {p: n[k["name"]] for p, n in paths.items()}
+    over = {k: v for k, v in budget.items() if v > BUDGETS[BUDGET_OF.get(k, k)]}
+    if over:
+        raise AssertionError(f"bf16 stages over their budget: {over}")
+    # the fp32 pose the PEM stages compare against must be the frame's own:
+    # against an arbitrary fp32 pose a budget would hold nothing
+    if not pem_fp32_deg <= POSED_FP32_DEG:
+        raise AssertionError(f"PEM's fp32 pose misses the posed frame's by {pem_fp32_deg} deg")
+    return kernels, paths
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -2644,6 +3450,8 @@ def main():
         train_launches, train_records = phase_train(job_dir)
         torch.cuda.empty_cache()
         option_launches = phase_options(dict(job, dir=job_dir))
+        torch.cuda.empty_cache()
+        bf16_kernels, bf16_paths = phase_bf16(dict(job, dir=job_dir), ptxas)
     # each kernel's count from the run of its own path: K6/K7 from the `pem`
     # CLI run of phase 4, K5 from match_frame in phase 5, K1-K4 from
     # generate_masks in phase 6, K8 (and K9, which no path calls) from the
@@ -2667,6 +3475,9 @@ def main():
             "SAMPredictor.set_image": predictor_launches[k["name"]],
             "PEM training step": train_launches[k["name"]]}
         k["path_launches"].update({p: n[k["name"]] for p, n in option_launches.items()})
+        k["path_launches"].update({p: n[k["name"]] for p, n in bf16_paths.items()})
+    # the bf16 entries: their launches on the bf16 path of phase 12
+    kernels += bf16_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,11 @@ PEM tree (reference `Pose_Estimation_Model/config/base.yaml`), the SAM
 segmentor and the ISM matching tree (reference
 `Instance_Segmentation_Model/configs/model/ISM_sam.yaml`), template
 rendering, the PEM training tree (reference `config/base.yaml:3-13`), and
-the root `Config` that `run_demo` and the CLI take. Names and defaults are
-the JAX package's; fields no ported code reads (the compute dtype, the
-TPU-only lowering knobs, the training tree's weight_decay and epochs) are
-left out.
+the root `Config` that `run_demo` and the CLI take, with the inference
+compute dtype (`Config.dtype`, "float32" by default; `run_demo` builds its
+pipelines in it). Names and defaults are the JAX package's; fields no
+ported code reads (the TPU-only lowering knobs, the training tree's
+weight_decay and epochs) are left out.
 """
 from __future__ import annotations
 
@@ -230,6 +231,8 @@ class Config:
     pem: PEMConfig = field(default_factory=PEMConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
+    dtype: str = "float32"          # compute dtype of the inference pipelines
+    #   ("float32" or "bfloat16"; training stays float32)
 
 
 def default_config() -> Config:

@@ -43,6 +43,18 @@
 // blocks, 16-key tiles at hd 64 and two 16-row tiles a warp were all
 // slower; a cp.async raw stage (the other way to split once) would add
 // 16.5 KB and leave one block an SM.
+//
+// The bf16 entries (sam6d_fused_attention_bf16, _small_bf16) are the bf16
+// core of bf16_attention.cuh: one-pass bf16 mma.sync m16n8k16 with fp32
+// accumulation, fp32 scores and softmax, p rounded to bf16 and l summed
+// from the rounded p. K8's q enters as bf16(q * bf16(scale)), the q_aug of
+// _fused_kernel; K9 scales the fp32 product, as _small_kernel does. They
+// take hd a multiple of 8 (padded to HDP with zero columns), k and v rows
+// 16-byte aligned, q and out rows 4-byte aligned. K8 at 16x16x1025^2x64 is
+// 68.9 GFLOP: 0.070 ms at the dense bf16 rate (989 TFLOP/s), its bytes
+// (33.6 MB) 0.010 ms: operations. 4 warps of 16 rows, 64-key tiles at HDP
+// <= 64, 32 above.
+#include "bf16_attention.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -113,6 +125,72 @@ int launch_padded(const float* q, const float* k, const float* v, float* out, St
   }
 }
 
+template <int HDP>
+__host__ __device__ constexpr int tile_keys_bf16() { return HDP <= 64 ? 64 : 32; }
+constexpr int kWarpsBf16 = 4;
+constexpr int kRowsBf16 = 16 * kWarpsBf16;
+
+template <int HDP>
+__global__ void __launch_bounds__(kWarpsBf16 * 32)
+    head_major_attention_bf16_kernel(const sam6d::bf16attn::bf16* __restrict__ q,
+                                     const sam6d::bf16attn::bf16* __restrict__ k,
+                                     const sam6d::bf16attn::bf16* __restrict__ v,
+                                     sam6d::bf16attn::bf16* __restrict__ out, Strides sq,
+                                     Strides sk, Strides sv, Strides so, int nq, int nk,
+                                     int hd, float scale, bool prescale) {
+  namespace b16 = sam6d::bf16attn;
+  extern __shared__ float4 smem4[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const b16::Operands op{q + b * sq.b + h * sq.h, k + b * sk.b + h * sk.h,
+                         v + b * sv.b + h * sv.h, out + b * so.b + h * so.h,
+                         sq.n, sk.n, sv.n, so.n, nq, nk, hd};
+  b16::bf16* smem = reinterpret_cast<b16::bf16*>(smem4);
+  if (prescale)
+    b16::attention_rows<HDP, kWarpsBf16, tile_keys_bf16<HDP>(), true>(
+        op, smem, blockIdx.x * kRowsBf16, scale, b16::NoBias{});
+  else
+    b16::attention_rows<HDP, kWarpsBf16, tile_keys_bf16<HDP>(), false>(
+        op, smem, blockIdx.x * kRowsBf16, scale, b16::NoBias{});
+}
+
+template <int HDP>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, Strides sq,
+                Strides sk, Strides sv, Strides so, int b, int heads, int nq, int nk, int hd,
+                float scale, bool prescale, cudaStream_t stream) {
+  using sam6d::bf16attn::bf16;
+  constexpr size_t bytes = sam6d::bf16attn::core_smem_bytes<HDP, tile_keys_bf16<HDP>()>();
+  cudaError_t err = cudaFuncSetAttribute(head_major_attention_bf16_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nq + kRowsBf16 - 1) / kRowsBf16, heads, b);
+  head_major_attention_bf16_kernel<HDP><<<grid, kWarpsBf16 * 32, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), sq, sk, sv, so, nq, nk, hd, scale, prescale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_padded_bf16(const void* q, const void* k, const void* v, void* out, Strides sq,
+                       Strides sk, Strides sv, Strides so, int b, int heads, int nq, int nk,
+                       int hd, float scale, bool prescale, cudaStream_t stream) {
+  if (hd < 8 || hd % 8 || nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define SAM6D_BF16_CASE(P)                                                                 \
+  return launch_bf16<P>(q, k, v, out, sq, sk, sv, so, b, heads, nq, nk, hd, scale, prescale, \
+                        stream)
+  switch ((hd + 15) / 16) {
+    case 1: SAM6D_BF16_CASE(16);
+    case 2: SAM6D_BF16_CASE(32);
+    case 3: SAM6D_BF16_CASE(48);
+    case 4: SAM6D_BF16_CASE(64);
+    case 5: SAM6D_BF16_CASE(80);
+    case 6: SAM6D_BF16_CASE(96);
+    case 7: SAM6D_BF16_CASE(112);
+    case 8: SAM6D_BF16_CASE(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SAM6D_BF16_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -145,6 +223,36 @@ int sam6d_fused_attention_small(const float* q, const float* k, const float* v,
   return launch_padded(q, k, v, out, Strides{sq[0], sq[1], sq[2]}, Strides{sk[0], sk[1], sk[2]},
                        Strides{sv[0], sv[1], sv[2]}, Strides{heads * rows, rows, hd}, b, heads,
                        n, n, hd, scale, stream);
+}
+
+// The bf16 entries. K8: q (b, heads, nq, hd), k and v (b, heads, nk, hd),
+// out (b, heads, nq, hd), bfloat16, strides as sam6d_fused_attention's;
+// `scale` is hd^-0.5 rounded to bf16 (q enters as bf16(q * scale)). K9:
+// self-attention, out contiguous, the fp32 product scaled by `scale`. hd a
+// multiple of 8 up to 128 (K9: 16, 32 or 64); k and v rows 16-byte
+// aligned, q and out rows 4-byte aligned. Return the CUDA error code of the
+// launch.
+int sam6d_fused_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                               const long long* sq, const long long* sk,
+                               const long long* sv, const long long* so, int b,
+                               int heads, int nq, int nk, int hd, float scale,
+                               cudaStream_t stream) {
+  return launch_padded_bf16(q, k, v, out, Strides{sq[0], sq[1], sq[2]},
+                            Strides{sk[0], sk[1], sk[2]}, Strides{sv[0], sv[1], sv[2]},
+                            Strides{so[0], so[1], so[2]}, b, heads, nq, nk, hd, scale, true,
+                            stream);
+}
+
+int sam6d_fused_attention_small_bf16(const void* q, const void* k, const void* v, void* out,
+                                     const long long* sq, const long long* sk,
+                                     const long long* sv, int b, int heads, int n, int hd,
+                                     float scale, cudaStream_t stream) {
+  if (hd != 16 && hd != 32 && hd != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(n) * hd;
+  return launch_padded_bf16(q, k, v, out, Strides{sq[0], sq[1], sq[2]},
+                            Strides{sk[0], sk[1], sk[2]}, Strides{sv[0], sv[1], sv[2]},
+                            Strides{heads * rows, rows, hd}, b, heads, n, n, hd, scale, false,
+                            stream);
 }
 
 }  // extern "C"

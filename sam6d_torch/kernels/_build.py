@@ -46,6 +46,13 @@ _SIGNATURES = {
                                     _I, _F, _P],
     "sam6d_flash_attention_relpos": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _P],
+    "sam6d_fused_attention_qkv_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "sam6d_fused_attention_bf16": [_P, _P, _P, _P, _LP, _LP, _LP, _LP, _I, _I,
+                                   _I, _I, _I, _F, _P],
+    "sam6d_fused_attention_small_bf16": [_P, _P, _P, _P, _LP, _LP, _LP, _I, _I,
+                                         _I, _I, _F, _P],
+    "sam6d_flash_attention_relpos_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _F, _P],
     "sam6d_factored_ln_stats": [_PP, _PP, _IP, _I, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _F, _P],
     "sam6d_factored_t2i_workspace": [_I, _I],

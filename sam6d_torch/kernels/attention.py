@@ -23,6 +23,14 @@ H, hd) tensor, so `out.transpose(1, 2).reshape(B, Nq, H * hd)` is free.
 What bounds them on the card: 4*B*H*Nq*Nk*hd operations, run as
 fp32-accurate three-pass TF32 on the tensor cores; see the header of
 `csrc/attention.cu`.
+
+Each dispatch takes float32 or bfloat16 operands, all of one dtype, and
+refuses any other: float32 goes to the fp32 entry, bfloat16 to the bf16
+entry (`*_bf16_cuda`, one-pass bf16 `mma.sync` with fp32 accumulation) or,
+on the CPU, to the plain version of the bf16 contract
+(`bf16_attention_plain`): the JAX package's bf16 kernels, with fp32
+scores and softmax, p rounded to bf16 before P V, l summed from that
+rounded p, and a bf16 output. No entry gives way to another.
 """
 from __future__ import annotations
 
@@ -34,10 +42,50 @@ from ._build import check, load_library
 
 MAX_HEAD_DIM = 128
 SMALL_HEAD_DIMS = (16, 32, 64)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def operand_dtype(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of `tensors`, float32 or bfloat16; raises on mixed
+    dtypes and on any other."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16 operands of one dtype, "
+                         f"got {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def bf16_scale(scale: float) -> float:
+    """`scale` rounded to bf16: the constant the JAX kernels that scale q
+    before the product (K1, K8) multiply by."""
+    return float(torch.tensor(scale, dtype=torch.bfloat16))
+
+
+def bf16_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, prescale: bool,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The bf16 contract of the JAX kernels on bf16 (..., Nq, hd) x (...,
+    Nk, hd) operands, in explicit fp32 arithmetic: scores in fp32 (with
+    `prescale`, q enters as bf16(q * bf16(scale)), as in _fused_kernel;
+    otherwise the fp32 product is scaled, as in _small_kernel and
+    _qkv_kernel), plus an optional fp32 `bias`; p = exp(s - max) rounded to
+    bf16; l the fp32 sum of the rounded p; (p V) / max(l, 1e-30) rounded to
+    bf16."""
+    f = torch.float32
+    if prescale:
+        qs = (q.to(f) * bf16_scale(scale)).to(torch.bfloat16).to(f)
+        s = qs @ k.to(f).transpose(-1, -2)
+    else:
+        s = (q.to(f) @ k.to(f).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(torch.bfloat16).to(f)
+    l = p.sum(dim=-1, keepdim=True)
+    return ((p @ v.to(f)) / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,11 +96,11 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attn @ v
 
 
-def _check_operands(name, q, k, v):
+def _check_operands(name, q, k, v, dtype=torch.float32):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name} takes CUDA tensors")
-    if any(t.dtype != torch.float32 or t.dim() != 4 for t in (q, k, v)):
-        raise ValueError(f"{name}: q, k, v must be (B, H, N, hd) float32")
+    if any(t.dtype != dtype or t.dim() != 4 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must be (B, H, N, hd) {dtype}")
     B, H, Nq, hd = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != hd:
         raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -86,14 +134,58 @@ def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 fused_attention_cuda.launches = 0
 
 
+def _check_bf16_rows(name, q, k, v, hd):
+    """The bf16 entries' layout: hd a multiple of 8, k and v rows 16-byte
+    aligned (cp.async), q rows 4-byte aligned."""
+    if hd % 8:
+        raise ValueError(f"{name} takes hd a multiple of 8, got {hd}")
+    if (any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (k, v))
+            or q.data_ptr() % 4 or any(s % 2 for s in q.stride()[:3])):
+        raise ValueError(f"{name} needs 16-byte aligned k and v rows and 4-byte "
+                         f"aligned q rows")
+
+
+def fused_attention_bf16_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """The plain version of K8's bf16 entry: bf16_attention_plain with q
+    scaled before the product (_fused_kernel's q_aug)."""
+    return bf16_attention_plain(q, k, v, scale, prescale=True)
+
+
+def fused_attention_bf16_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """K8's bf16 entry: same contract as fused_attention_bf16_plain; bf16
+    (B, H, Nq, hd) out, a view of a (B, Nq, H, hd) tensor."""
+    name = "fused_attention_bf16_cuda"
+    B, H, Nq, Nk, hd = _check_operands(name, q, k, v, torch.bfloat16)
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name} takes hd <= {MAX_HEAD_DIM}, got {hd}")
+    _check_bf16_rows(name, q, k, v, hd)
+    lib = load_library()
+    out = torch.empty((B, Nq, H, hd), dtype=torch.bfloat16, device=q.device)
+    out_h = out.permute(0, 2, 1, 3)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sam6d_fused_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q),
+        _strides(k), _strides(v), _strides(out_h), B, H, Nq, Nk, hd,
+        bf16_scale(scale), stream)
+    fused_attention_bf16_cuda.launches += 1
+    check(err, name)
+    return out_h
+
+
+fused_attention_bf16_cuda.launches = 0
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """A CUDA tensor goes to the K8 kernel, a CPU tensor to the plain
-    version."""
+    """A CUDA tensor goes to the K8 kernel of its dtype (float32 or
+    bfloat16), a CPU tensor to the plain version of that dtype."""
+    bf16 = operand_dtype("fused_attention", q, k, v) == torch.bfloat16
     if q.device.type == "cuda":
-        return fused_attention_cuda(q, k, v, scale)
+        return (fused_attention_bf16_cuda if bf16 else fused_attention_cuda)(q, k, v, scale)
     if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, scale)
+        return (fused_attention_bf16_plain if bf16 else fused_attention_plain)(q, k, v, scale)
     raise ValueError(f"no fused_attention for device {q.device}")
 
 
@@ -127,12 +219,46 @@ def fused_attention_small_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 fused_attention_small_cuda.launches = 0
 
 
+def fused_attention_small_bf16_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     scale: float) -> torch.Tensor:
+    """The plain version of K9's bf16 entry: bf16_attention_plain with the
+    fp32 product scaled (_small_kernel)."""
+    return bf16_attention_plain(q, k, v, scale, prescale=False)
+
+
+def fused_attention_small_bf16_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    scale: float) -> torch.Tensor:
+    """K9's bf16 entry: self-attention (Nq == Nk), hd 16, 32 or 64; returns a
+    contiguous bf16 (B, H, N, hd) tensor."""
+    name = "fused_attention_small_bf16_cuda"
+    B, H, N, Nk, hd = _check_operands(name, q, k, v, torch.bfloat16)
+    if Nk != N or hd not in SMALL_HEAD_DIMS:
+        raise ValueError(f"{name} takes Nq == Nk and hd in {SMALL_HEAD_DIMS}, got "
+                         f"{N}, {Nk}, {hd}")
+    _check_bf16_rows(name, q, k, v, hd)
+    lib = load_library()
+    out = torch.empty((B, H, N, hd), dtype=torch.bfloat16, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.sam6d_fused_attention_small_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q),
+        _strides(k), _strides(v), B, H, N, hd, float(scale), stream)
+    fused_attention_small_bf16_cuda.launches += 1
+    check(err, name)
+    return out
+
+
+fused_attention_small_bf16_cuda.launches = 0
+
+
 def fused_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> torch.Tensor:
-    """A CUDA tensor goes to the K9 kernel, a CPU tensor to the plain
-    version."""
+    """A CUDA tensor goes to the K9 kernel of its dtype (float32 or
+    bfloat16), a CPU tensor to the plain version of that dtype."""
+    bf16 = operand_dtype("fused_attention_small", q, k, v) == torch.bfloat16
     if q.device.type == "cuda":
-        return fused_attention_small_cuda(q, k, v, scale)
+        return (fused_attention_small_bf16_cuda if bf16
+                else fused_attention_small_cuda)(q, k, v, scale)
     if q.device.type == "cpu":
-        return fused_attention_small_plain(q, k, v, scale)
+        return (fused_attention_small_bf16_plain if bf16
+                else fused_attention_small_plain)(q, k, v, scale)
     raise ValueError(f"no fused_attention_small for device {q.device}")

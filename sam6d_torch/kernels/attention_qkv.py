@@ -13,15 +13,19 @@ from the strided (B, N, 3C) tensor, so no (B, H, N, hd) copy and no
 (B, H, N, N) score tensor reaches memory; see the header of
 `csrc/attention_qkv.cu` and the core in `csrc/tf32x3.cuh`.
 
-Semantics shared by both versions: qkv is laid out [q | k | v] on the
+Semantics shared by every version: qkv is laid out [q | k | v] on the
 channel axis with heads contiguous (hd = C // heads); scores and softmax in
-fp32; the output (B, N, C) holds each head at its channel offset.
+fp32; the output (B, N, C) holds each head at its channel offset. A
+bfloat16 qkv takes the bf16 entry (`csrc/attention_qkv.cu`, one-pass bf16
+`mma.sync`) or, on the CPU, its plain version: _qkv_kernel's bf16 contract
+(`attention.bf16_attention_plain`), bf16 out.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import check, load_library
+from .attention import bf16_attention_plain, operand_dtype
 
 KERNEL_HEAD_DIMS = (32, 64)
 
@@ -75,11 +79,57 @@ def fused_attention_qkv_cuda(qkv: torch.Tensor, heads: int,
 fused_attention_qkv_cuda.launches = 0
 
 
+def fused_attention_qkv_bf16_plain(qkv: torch.Tensor, heads: int,
+                                   scale: float) -> torch.Tensor:
+    """bf16 qkv (B, N, 3C) -> bf16 (B, N, C): the bf16 contract with the fp32
+    product scaled, as _qkv_kernel does."""
+    B, N, C3 = qkv.shape
+    q, k, v = _split_heads(qkv, heads)
+    out = bf16_attention_plain(q, k, v, scale, prescale=False)
+    return out.transpose(1, 2).reshape(B, N, C3 // 3)
+
+
+def fused_attention_qkv_bf16_cuda(qkv: torch.Tensor, heads: int,
+                                  scale: float) -> torch.Tensor:
+    """The bf16 entry: same contract as fused_attention_qkv_bf16_plain."""
+    name = "fused_attention_qkv_bf16_cuda"
+    if not qkv.is_cuda:
+        raise ValueError(f"{name} takes a CUDA tensor")
+    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3:
+        raise ValueError(f"qkv must be (B, N, 3C) bfloat16, got "
+                         f"{tuple(qkv.shape)} {qkv.dtype}")
+    B, N, C3 = qkv.shape
+    if C3 % (3 * heads) or C3 // (3 * heads) not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"qkv width {C3} with {heads} heads: the kernel takes "
+                         f"head dims {KERNEL_HEAD_DIMS}")
+    if not (0 < B <= 65535 and 0 < N and heads <= 65535):
+        raise ValueError(f"qkv {tuple(qkv.shape)} with {heads} heads is empty "
+                         f"or exceeds the launch grid (B, heads <= 65535)")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    lib = load_library()
+    out = torch.empty((B, N, C3 // 3), dtype=torch.bfloat16, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.sam6d_fused_attention_qkv_bf16(qkv.data_ptr(), out.data_ptr(), B, N,
+                                             heads, C3 // 3 // heads, float(scale),
+                                             stream)
+    fused_attention_qkv_bf16_cuda.launches += 1
+    check(err, name)
+    return out
+
+
+fused_attention_qkv_bf16_cuda.launches = 0
+
+
 def fused_attention_qkv(qkv: torch.Tensor, heads: int,
                         scale: float) -> torch.Tensor:
-    """A CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
+    """A CUDA tensor goes to the kernel of its dtype (float32 or bfloat16),
+    a CPU tensor to the plain version of that dtype."""
+    bf16 = operand_dtype("fused_attention_qkv", qkv) == torch.bfloat16
     if qkv.device.type == "cuda":
-        return fused_attention_qkv_cuda(qkv, heads, scale)
+        return (fused_attention_qkv_bf16_cuda if bf16
+                else fused_attention_qkv_cuda)(qkv, heads, scale)
     if qkv.device.type == "cpu":
-        return fused_attention_qkv_plain(qkv, heads, scale)
+        return (fused_attention_qkv_bf16_plain if bf16
+                else fused_attention_qkv_plain)(qkv, heads, scale)
     raise ValueError(f"no fused_attention_qkv for device {qkv.device}")

@@ -36,9 +36,10 @@ class CoarsePointMatching(nn.Module):
         geo* (B or 1, N+1, N+1, C) embeddings incl. bg. Returns a list of
         (B, N1+1, N2+1) similarities (every block if all_blocks, else last)."""
         B = f1.shape[0]
+        dt = self.in_proj.weight.dtype
         bg = self.bg_token.expand(B, -1, -1)
-        f1 = torch.cat([bg, self.in_proj(f1)], dim=1)
-        f2 = torch.cat([bg, self.in_proj(f2.expand(B, -1, -1))], dim=1)
+        f1 = torch.cat([bg, self.in_proj(f1.to(dt))], dim=1)
+        f2 = torch.cat([bg, self.in_proj(f2.to(dt).expand(B, -1, -1))], dim=1)
         sims = []
         for i, block in enumerate(self.transformers):
             f1, f2 = block(f1, geo1, f2, geo2)

@@ -56,7 +56,8 @@ class _ConvBNReLU(nn.Module):
         self.normlayer = _BNLayer(cout)
 
     def linear(self, x):
-        return x @ self.conv.weight[:, :, 0, 0].t()
+        w = self.conv.weight[:, :, 0, 0]
+        return x.to(w.dtype) @ w.t()
 
 
 class SharedMLP(nn.Module):
@@ -169,9 +170,10 @@ class FinePointMatching(nn.Module):
         signature's; the blocks hold no batch statistics (the positional
         encodings, which do, are computed by the caller)."""
         B = f1.shape[0]
+        dt = self.in_proj.weight.dtype
         bg = self.bg_token.expand(B, -1, -1)
-        f1 = torch.cat([bg, self.in_proj(f1) + pe1], dim=1)
-        f2 = torch.cat([bg, (self.in_proj(f2) + pe2).expand(B, -1, -1)], dim=1)
+        f1 = torch.cat([bg, self.in_proj(f1.to(dt)) + pe1], dim=1)
+        f2 = torch.cat([bg, (self.in_proj(f2.to(dt)) + pe2).expand(B, -1, -1)], dim=1)
         sims = []
         for i, block in enumerate(self.transformers):
             f1, f2 = block(f1, geo1, fps_idx1, f2, geo2, fps_idx2)

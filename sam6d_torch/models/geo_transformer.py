@@ -5,7 +5,10 @@ Port of `sam6d_tpu/models/geo_transformer.py` (reference
 embedding, RPE self-attention with the proj_p projection folded into the
 query, vanilla cross-attention, focused linear attention and the
 sparse-to-dense transformer. Module and parameter names follow the reference
-`state_dict`; LayerNorm eps is 1e-6 as in the JAX package.
+`state_dict`; LayerNorm eps is 1e-6 as in the JAX package. Every module runs
+in the dtype of its weights: the structure embedding's geometry and
+sinusoids stay float32 (the point clouds are float32) and are cast where
+they enter proj_d / proj_a, as flax's `Dense` casts them.
 """
 from __future__ import annotations
 
@@ -18,6 +21,16 @@ from ..ops.embedding import pairwise_planar_diffs, sinusoid_phase_tables
 from ..ops.geometry import pairwise_sq_distance
 
 LN_EPS = 1e-6
+
+
+def nearest_neighbours(points, k: int):
+    """points (B, N, 3) -> (B, N, k + 1) indices of each point's k + 1
+    nearest points, nearest first (the point itself, which the caller
+    drops), selected on the matmul-form distance (the reference's near-tie
+    ordering); a stable sort gives equal distances to the lower index, as
+    jax.lax.top_k does (torch.topk promises no order among ties)."""
+    d2 = pairwise_sq_distance(points, points)
+    return torch.sort(d2, dim=-1, stable=True).indices[..., :k + 1]
 
 
 class GeometricStructureEmbedding(nn.Module):
@@ -41,17 +54,16 @@ class GeometricStructureEmbedding(nn.Module):
         dev = points.device
         ax, ay, az = pairwise_planar_diffs(points)
         dist = torch.sqrt(ax * ax + ay * ay + az * az)
+        dt = self.proj_d.weight.dtype
         div_d, phase = sinusoid_phase_tables(self.hidden_dim, 1.0 / self.sigma_d, dev)
-        out = self.proj_d(torch.sin(dist[..., None] * div_d + phase))
+        # torch.sin in bf16 too: the JAX package's bf16 path takes a
+        # polynomial sin (geo_transformer._fast_sin) for speed, whose
+        # difference lies inside bf16's own rounding noise
+        # (tests/test_bf16_budget.py::test_fast_sin_error_below_bf16_cast_noise)
+        out = self.proj_d(torch.sin(dist[..., None] * div_d + phase).to(dt))
 
-        # k nearest neighbours excluding self, selected on the matmul-form
-        # distance (the reference's near-tie ordering); a stable sort gives
-        # equal distances to the lower index, as jax.lax.top_k does
-        # (torch.topk promises no order among ties)
         k = self.angle_k
-        d2_sel = pairwise_sq_distance(points, points)
-        knn = torch.sort(d2_sel, dim=-1, stable=True).indices[..., :k + 1]
-        flat = knn[..., 1:].reshape(B, N * k)
+        flat = nearest_neighbours(points, k)[..., 1:].reshape(B, N * k)
         px, py, pz = points[..., 0], points[..., 1], points[..., 2]
         rx = torch.gather(px, 1, flat).reshape(B, N, k) - px[..., None]
         ry = torch.gather(py, 1, flat).reshape(B, N, k) - py[..., None]
@@ -69,7 +81,7 @@ class GeometricStructureEmbedding(nn.Module):
             # + 0.0 turns the diagonal's -0.0 into +0.0 (atan2(0, -0) = pi)
             cos_v = rxe * ax + rye * ay + rze * az + 0.0
             ang = torch.atan2(sin_v, cos_v)
-            p = self.proj_a(torch.sin(ang[..., None] * div_a + phase))
+            p = self.proj_a(torch.sin(ang[..., None] * div_a + phase).to(dt))
             if a_out is None:
                 a_out = p
             elif self.reduction_a == "max":

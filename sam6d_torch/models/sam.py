@@ -25,6 +25,17 @@ checkpoint loads with `strict=True`.
   package takes its kernel branch.
 - The mask decoder's upscale runs as two GEMMs in row-major pixel order
   (the JAX package's `block_layout` path with `block_masks=False`).
+
+Every module runs in the dtype of its weights (float32, or bfloat16 after
+`core/params.cast_float_params`) with the JAX package's fp32 islands: the
+prompt encodings stay float32 (the Fourier features of float32 coordinates;
+JAX promotes bf16 + fp32 to fp32, and so does PyTorch), and are cast where
+they enter a projection, as flax's `Dense` casts to its `dtype`; flax's
+LayerNorm (`nn.LayerNorm` here) takes its statistics in fp32, while the
+manual norms (`apply_ln`, `LayerNorm2d`) run in the input's dtype as JAX's
+do; the rel-pos attention takes bf16 to its bf16 entry. The factored iou
+pass reaches its three kernels through `via_fp32_entry`. GELU stays the
+exact erf form in bf16 (`vit.MlpBlock`).
 """
 from __future__ import annotations
 
@@ -40,6 +51,30 @@ from ..kernels.factored import (blocks_concat, factored_i2t_scores,
                                 factored_ln_stats, factored_t2i_attention,
                                 heads_block, heads_diag)
 from .vit import PatchEmbed
+
+
+def via_fp32_entry(dtype: torch.dtype, fn, *args):
+    """Call a factored dispatch (K2 factored_ln_stats, K3
+    factored_t2i_attention, K4 factored_i2t_scores) through its float32
+    entry: the tensor arguments (and the tensors of the `blocks` tuples)
+    cast to float32, the result cast back to the compute dtype `dtype`.
+
+    K2-K4 have float32 entries only; their bf16 entries are ROADMAP item
+    29, "bf16 entries for K2-K4" (their CUDA kernels stage P_eff through
+    cp.async rings sized for 4-byte elements). Their wrappers refuse any
+    other dtype, and this helper is the one place the bf16 iou pass
+    crosses into float32. For float32 operands every cast is a no-op."""
+    def f32(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(torch.float32)
+        if isinstance(x, tuple):
+            return tuple(f32(y) for y in x)
+        return x
+
+    out = fn(*(f32(a) for a in args))
+    if isinstance(out, tuple):
+        return tuple(o.to(dtype) for o in out)
+    return out.to(dtype)
 
 
 class MLPBlock(nn.Module):
@@ -231,8 +266,10 @@ class PromptEncoder(nn.Module):
         self.no_mask_embed = nn.Embedding(1, embed_dim)
 
     def _pe(self, coords01):
-        """[0, 1]-normalized coords (..., 2) -> (..., C)."""
-        c = (2.0 * coords01 - 1.0) @ self.pe_layer.positional_encoding_gaussian_matrix
+        """[0, 1]-normalized coords (..., 2) -> (..., C), in the coordinates'
+        dtype (float32; the matrix is cast up, as in JAX)."""
+        g = self.pe_layer.positional_encoding_gaussian_matrix
+        c = (2.0 * coords01 - 1.0) @ g.to(coords01.dtype)
         c = 2.0 * math.pi * c
         return torch.cat([torch.sin(c), torch.cos(c)], dim=-1)
 
@@ -266,6 +303,7 @@ class PromptEncoder(nn.Module):
         """masks (B, 4h, 4w, 1) low-res mask logits, channels-last -> dense
         embedding (B, h, w, C) (reference mask_downscaling)."""
         conv1, ln1, _, conv2, ln2, _, conv3 = self.mask_downscaling
+        masks = masks.to(conv1.weight.dtype)
         x = ln1(conv1(masks.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
         x = ln2(conv2(F.gelu(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
         return conv3(F.gelu(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -319,17 +357,19 @@ class DownsampleAttention(nn.Module):
 
     @staticmethod
     def _proj(lin: nn.Linear, x, extra=None):
+        """The projection of x (+ extra), both cast to the weights' dtype."""
+        dt = lin.weight.dtype
         if extra is None:
-            return lin(x)
+            return lin(x.to(dt))
         W = lin.weight.t()
-        return x @ W + (extra @ W + lin.bias)
+        return x.to(dt) @ W + (extra.to(dt) @ W + lin.bias)
 
     def forward(self, q, k, v, q_extra=None, k_extra=None):
         H = self.num_heads
         hd = self.inner_dim // H
         qp = self._proj(self.q_proj, q, q_extra) / math.sqrt(hd)
         kp = self._proj(self.k_proj, k, k_extra)
-        vp = self.v_proj(v)
+        vp = self._proj(self.v_proj, v)
 
         def heads(x):
             return x.reshape(x.shape[0], x.shape[1], H, hd).transpose(1, 2)
@@ -410,7 +450,7 @@ class TwoWayTransformer(nn.Module):
         UK = None if U is None else U @ W
         KC = lin.bias[None, :] * scale
         if pos is not None:
-            KC = pos[0] @ W + KC
+            KC = pos[0].to(W.dtype) @ W + KC
         return KS, UK, KC
 
     @staticmethod
@@ -423,7 +463,7 @@ class TwoWayTransformer(nn.Module):
         gamma, beta = ln.weight, ln.bias
         B, _, N = blocks[0][0].shape
         C = S.shape[-1]
-        mu, inv = factored_ln_stats(blocks, Uc, S, a, eps)
+        mu, inv = via_fp32_entry(S.dtype, factored_ln_stats, blocks, Uc, S, a, eps)
         a2 = inv if a is None else a * inv
         blocks2 = tuple((pd, inv if s is None else s * inv) for pd, s in blocks)
         rows = torch.cat([(-mu * inv)[:, None, :], torch.ones_like(mu)[:, None, :]], dim=1)
@@ -436,13 +476,14 @@ class TwoWayTransformer(nn.Module):
         image<-token update."""
         H = self.num_heads
         hd = att.inner_dim // H
-        qp = att.q_proj(q_tokens) / math.sqrt(hd)
+        qp = att._proj(att.q_proj, q_tokens) / math.sqrt(hd)
         B, T, _ = qp.shape
         N = S.shape[0]
         KS, UK, KC = self._proj_factored(att.k_proj, S, U, pos)
         VS, UV, VC = self._proj_factored(att.v_proj, S, U, None)
         if blocks and a is not None and KC.shape[0] == N:
-            out = factored_t2i_attention(qp, UK, UV, blocks, a, KS, KC, VS, H)
+            out = via_fp32_entry(qp.dtype, factored_t2i_attention, qp, UK, UV, blocks, a,
+                                 KS, KC, VS, H)
             return att.out_proj(out + VC)   # softmax rows sum to 1: bias adds once
         qb = heads_block(qp, H)
         P = blocks_concat(blocks) if blocks else None
@@ -470,9 +511,10 @@ class TwoWayTransformer(nn.Module):
         hd = d // H
         B = queries.shape[0]
         QS, UQ, QC = self._proj_factored(att.q_proj, S, U, pos, scale=float(hd) ** -0.5)
-        k_t = att.k_proj(queries + point_embedding)             # (B, T, d)
-        Pd = factored_i2t_scores(k_t, UQ if blocks else None, blocks, a, QS, QC, H)
-        vbo = heads_block(att.v_proj(queries), H) @ att.out_proj.weight.t()
+        k_t = att._proj(att.k_proj, queries + point_embedding)  # (B, T, d)
+        Pd = via_fp32_entry(k_t.dtype, factored_i2t_scores, k_t, UQ if blocks else None,
+                            blocks, a, QS, QC, H)
+        vbo = heads_block(att._proj(att.v_proj, queries), H) @ att.out_proj.weight.t()
         C = vbo.shape[-1]
         Ud = torch.cat([vbo, att.out_proj.bias.expand(B, 1, C)], dim=1)
         return blocks + ((Pd, None),), (Ud if U is None else torch.cat([U, Ud], dim=1))

@@ -9,6 +9,13 @@ explicit matmul + softmax, as on the JAX fp32 path, or, under `use_flash`
 (DINOv2 in the ISM pipeline; PEM keeps it off, as the JAX package does), the
 fused-attention dispatches of `kernels/attention_qkv.py` (N <= 1024) and
 `kernels/attention.py` (longer sequences).
+
+Every module runs in the dtype of its weights (float32, or bfloat16 after
+`core/params.cast_float_params`): inputs that arrive in float32 (images,
+point clouds) are cast where they enter a projection, as flax's `Dense`
+casts to its `dtype`; LayerNorm computes its statistics in fp32 and returns
+the weights' dtype; the attention dispatches take bf16 to the kernels' bf16
+entries.
 """
 from __future__ import annotations
 
@@ -30,6 +37,10 @@ class MlpBlock(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, out_dim)
 
     def forward(self, x):
+        # exact (erf) GELU in bf16 too: the JAX package's bf16 path takes a
+        # tanh-polynomial form for speed (sam6d_tpu/models/vit.py gelu), whose
+        # difference lies inside bf16's own rounding noise
+        # (tests/test_bf16_budget.py::test_gelu_tanh_error_below_bf16_cast_noise)
         return self.fc2(F.gelu(self.fc1(x)))
 
 
@@ -82,7 +93,7 @@ class PatchEmbed(nn.Module):
         x = x.reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 5, 2, 4)
         x = x.reshape(B, gh * gw, C * p * p)          # (c, dy, dx) row-major
         w = self.proj.weight.reshape(self.proj.out_channels, -1)
-        y = x @ w.t() + self.proj.bias
+        y = x.to(w.dtype) @ w.t() + self.proj.bias
         return y.reshape(B, gh, gw, -1)
 
 

@@ -5,7 +5,8 @@ FastSAM proposals + DINOv2 matching) -> PEM (poses), every stage on one
 device. The reference chains three OS processes through files; here the
 file outputs (templates/, detection_ism.json, vis_ism.png,
 detection_pem.json, vis_pem.png) stay the public contract while the masks
-and features stay on the device between the stages.
+and features stay on the device between the stages. The three networks run
+in `Config.dtype` ("float32" or "bfloat16").
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from PIL import Image
 
 from ..core.config import Config
+from ..core.params import compute_dtype
 from ..data.mesh import load_mesh
 from ..eval.vis import draw_detections_masks, draw_pose_bbox, side_by_side
 from ..render.templates import render_templates
@@ -54,8 +56,10 @@ def run_demo(
     `cfg.ism.sam`) or 'fastsam' (FastSAMSegmentor at `cfg.ism.fastsam`).
     As in the JAX demo, the FastSAM weights come in `sam_state_dict`
     (`weights/fastsam.py` names; the network's widths and depths are read
-    from it), and `stability_score_thresh` applies to SAM only."""
+    from it), and `stability_score_thresh` applies to SAM only. Every
+    pipeline is built in `cfg.dtype`."""
     t_start = time.perf_counter()
+    dtype = compute_dtype(cfg.dtype)
     split = {}
 
     def lap(name, t0):
@@ -85,14 +89,15 @@ def run_demo(
     # stage 2: ISM
     if cfg.ism.segmentor == "fastsam":
         segmentor = FastSAMSegmentor(cfg.ism.fastsam, state_dict=sam_state_dict, seed=seed,
-                                     device=device)
+                                     device=device, dtype=dtype)
     else:
         sam_cfg = cfg.ism.sam
         if stability_score_thresh is not None:
             sam_cfg = dataclasses.replace(sam_cfg, stability_score_thresh=stability_score_thresh)
-        segmentor = SAMSegmentor(sam_cfg, state_dict=sam_state_dict, seed=seed, device=device)
+        segmentor = SAMSegmentor(sam_cfg, state_dict=sam_state_dict, seed=seed, device=device,
+                                 dtype=dtype)
     ism = ISMPipeline(cfg.ism, state_dict=dinov2_state_dict, seed=seed, device=device,
-                      segmentor=segmentor)
+                      segmentor=segmentor, dtype=dtype)
     t0 = lap("ism_models_ms", t0)
     ism.onboard_templates_from_dir(tdir)
     t0 = lap("ism_onboard_ms", t0)
@@ -111,7 +116,8 @@ def run_demo(
 
     # stage 3: PEM
     t0 = time.perf_counter()
-    pem = PEMPipeline(cfg.pem, state_dict=pem_state_dict, seed=seed, device=device)
+    pem = PEMPipeline(cfg.pem, state_dict=pem_state_dict, seed=seed, device=device,
+                      dtype=dtype)
     model_points = mesh.sample(cfg.pem.n_sample_model_point,
                                np.random.RandomState(0)).astype(np.float32) / 1000.0
     templates = pem.onboard_templates(pem.load_template_views(tdir))

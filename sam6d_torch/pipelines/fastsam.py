@@ -21,6 +21,11 @@ keeps the JAX contract: sigmoid(coefs . protos) cropped to the box at
 proto resolution (`>=`, `<` on pixel indices), bilinearly resized to
 (H0, W0) and thresholded after the resize; slots NMS did not keep keep
 their masks (only `valid` marks them).
+
+`dtype=torch.bfloat16` runs the network in bf16 (weights cast by
+`core/params.cast_float_params`; the convolutions stay cuDNN's, as JAX
+leaves them to XLA); its outputs are cast to float32 before the decode's
+selection, NMS and mask assembly.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from .. import use_strict_fp32
 from ..core.config import FastSAMConfig
+from ..core.params import cast_float_params
 from ..data.preprocess import bilinear_resize
 from ..models.fastsam import FastSAMNet
 from ..ops.masks import box_iou, nms_masked_rounds
@@ -47,13 +53,16 @@ class FastSAMSegmentor:
 
     `state_dict`: port-named weights (`weights/fastsam.py`); its widths and
     depths set the network's, unless given. None = seeded random FastSAM-x
-    (or `widths`/`depths`), drawn on the device."""
+    (or `widths`/`depths`), drawn on the device. `dtype`: the compute dtype
+    (float32, or bfloat16: the weights are cast to it)."""
 
     def __init__(self, cfg: FastSAMConfig = FastSAMConfig(), state_dict=None,
-                 seed: int = 0, device="cuda", widths=None, depths=None):
+                 seed: int = 0, device="cuda", widths=None, depths=None,
+                 dtype: torch.dtype = torch.float32):
         use_strict_fp32()
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dtype = dtype
         if state_dict is not None and (widths is None or depths is None):
             widths, depths = fastsam_arch(state_dict)
         widths = tuple(widths or FASTSAM_X[0])
@@ -64,7 +73,7 @@ class FastSAMSegmentor:
             state_dict = random_fastsam_state_dict(net, seed, self.device)
         net = net.to_empty(device=self.device)
         net.load_state_dict(state_dict, strict=True)
-        self.net = net.eval()
+        self.net = cast_float_params(net, dtype).eval()
         self.last_nms_rounds = 0
 
     # -------------------------------------------------------------- stages
@@ -136,7 +145,8 @@ class FastSAMSegmentor:
         (orig_size == seg_size == (H0, W0))."""
         H0, W0 = image.shape[:2]
         resized, scale, (h_in, w_in) = self.letterbox_u8(image)
-        preds, protos = self.net(self.canvas(torch.as_tensor(resized, device=self.device)))
+        canvas = self.canvas(torch.as_tensor(resized, device=self.device)).to(self.dtype)
+        preds, protos = (t.to(torch.float32) for t in self.net(canvas))
         boxes, scores, keep, coefs = self.select(preds[0])
         probs = self.assemble(boxes, coefs, protos[0], h_in, w_in, H0, W0)
         return dict(masks=probs > self.cfg.mask_thresh,

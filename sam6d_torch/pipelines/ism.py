@@ -5,16 +5,18 @@ Port of the matching half of `sam6d_tpu/pipelines/ism.py` (reference
 custom-image path `run_inference_custom.py:95-215`). Proposals arrive as a
 fixed-capacity buffer (masks, boxes, valid); filtering is a validity mask,
 not index shuffling, so slots compare one-to-one with the JAX package.
-Everything on the card runs in float32 under `torch.inference_mode`; every
-DINOv2 attention goes through the fused-attention dispatch (the CUDA kernel
-of `csrc/attention_qkv.cu` on the card). With a `segmentor`
+DINOv2 runs in the pipeline's `dtype` (float32 by default; bfloat16 casts
+the folded weights, as the JAX pipeline does), under
+`torch.inference_mode`; every DINOv2 attention goes through the
+fused-attention dispatch (the CUDA kernel of `csrc/attention_qkv.cu` on the
+card, its bf16 entry in bf16). The descriptors are cast to float32 where
+they leave the describe: the reference descriptors, the onboarding cache
+and the three scores are float32 in either dtype. With a `segmentor`
 (`pipelines/sam_amg.SAMSegmentor`), `match_frame(detections=None)` takes
 its proposals from SAM on the same device; the masks never leave it.
 BOP onboarding (rendered templates or mined train_pbr crops) describes every
 object's views once and keeps them in an npz cache whose keys are the JAX
 package's.
-
-Not ported yet: bf16.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from PIL import Image
 from .. import use_strict_fp32
 from ..core.checkpoint import load_template_cache, save_template_cache
 from ..core.config import ISMConfig
+from ..core.params import cast_float_params
 from ..data.rle import rle_encode_coco
 from ..models import ism_scoring
 from ..models.dinov2 import DINOv2, fold_ln_affine, masked_patch_descriptors
@@ -78,11 +81,12 @@ class ISMPipeline:
 
     `state_dict`: unfolded DINOv2 weights (reference names); None = seeded
     random. The block LayerNorm affines are folded into the qkv / fc1
-    weights (exact re-association), as the JAX pipeline does on its
-    fused-attention path."""
+    weights (exact re-association, in float32), as the JAX pipeline does on
+    its fused-attention path, then cast to `dtype`."""
 
     def __init__(self, cfg: ISMConfig, state_dict=None, seed: int = 0,
-                 device="cuda", segmentor: Optional[SAMSegmentor] = None):
+                 device="cuda", segmentor: Optional[SAMSegmentor] = None,
+                 dtype: torch.dtype = torch.float32):
         use_strict_fp32()
         self.cfg = cfg
         self.device = torch.device(device)
@@ -93,7 +97,8 @@ class ISMPipeline:
             state_dict = random_dinov2_state_dict(DINOv2(**dims), seed)
         net = DINOv2(**dims, use_flash=True, ln_folded=True)
         net.load_state_dict(fold_ln_affine(state_dict), strict=True)
-        self.dinov2 = net.to(self.device).eval()
+        self.dtype = dtype
+        self.dinov2 = cast_float_params(net.to(self.device), dtype).eval()
         self.segmentor = segmentor
         self.ref_data: Dict[str, torch.Tensor] = {}
         self.last_nms_rounds = 0
@@ -120,8 +125,8 @@ class ISMPipeline:
         trips = n_chunks if n_needed is None else min(-(-n_needed // chunk), n_chunks)
         C = self.dinov2.cls_token.shape[-1]
         P = self.dinov2.pos_embed.shape[1] - 1
-        cls = images.new_zeros((n_chunks, chunk, C))
-        patch = images.new_zeros((n_chunks, chunk, P, C))
+        cls = images.new_zeros((n_chunks, chunk, C), dtype=self.dtype)
+        patch = images.new_zeros((n_chunks, chunk, P, C), dtype=self.dtype)
         for i in range(trips):
             cls[i], patch[i] = self.dinov2(xs[i])
         return cls.reshape(-1, C)[:N], patch.reshape(-1, P, C)[:N]
@@ -136,16 +141,16 @@ class ISMPipeline:
         crops, mask_crops = masked_crop_resize_pad_nearest(
             normalize_imagenet(rgb01), masks, boxes, d.img_size)
         cls, patch = self._dino_forward_chunked(crops, n_needed)
-        return cls, masked_patch_descriptors(patch, mask_crops, d.patch_size,
-                                             d.validity_thresh)
+        patch = masked_patch_descriptors(patch, mask_crops, d.patch_size, d.validity_thresh)
+        return cls.to(torch.float32), patch.to(torch.float32)
 
     def _describe_templates_impl(self, images, masks):
         """Cropped template stacks (T, S, S, 3) + their mask crops ->
         (cls (T, C), patch (T, P, C))."""
         d = self.cfg.dinov2
         cls, patch = self._dino_forward_chunked(images)
-        return cls, masked_patch_descriptors(patch, masks, d.patch_size,
-                                             d.validity_thresh)
+        patch = masked_patch_descriptors(patch, masks, d.patch_size, d.validity_thresh)
+        return cls.to(torch.float32), patch.to(torch.float32)
 
     # ------------------------------------------------------------ onboarding
 

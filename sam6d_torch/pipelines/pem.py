@@ -5,7 +5,12 @@ Port of `sam6d_tpu/pipelines/pem.py` (reference
 cached per object (dense features plus the pose-independent fine positional
 encoding and coarse trunk), instances padded to power-of-two batch buckets,
 host-side mask decoding and instance preparation, json output in the same
-schema. Everything on the card runs in float32 under `torch.inference_mode`.
+schema. The network runs in the pipeline's `dtype` under
+`torch.inference_mode` (float32 by default; bfloat16 casts the weights, as
+the JAX pipeline does): the features are bf16, the point clouds, the
+sampling (K6, K7) and the pose solvers stay float32, so the poses and scores
+come out float32 in either dtype. Training (`train/trainer.py`) stays
+float32.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from PIL import Image
 
 from .. import use_strict_fp32
 from ..core.config import PEMConfig
+from ..core.params import cast_float_params
 from ..data.mesh import load_ply
 from ..data.preprocess import prepare_instance, prepare_template
 from ..data.rle import rle_decode_coco
@@ -50,17 +56,20 @@ def _host_backproject(depth, depth_scale, K):
 class PEMPipeline:
     """A PEMNet on one device plus the host-side data path.
 
-    `state_dict`: port weights (reference names); None = seeded random."""
+    `state_dict`: port weights (reference names); None = seeded random.
+    `dtype`: the compute dtype (float32, or bfloat16: the weights are cast
+    to it)."""
 
     def __init__(self, cfg: PEMConfig, state_dict=None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", dtype: torch.dtype = torch.float32):
         use_strict_fp32()
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dtype = dtype
         net = PEMNet(cfg)
         net.load_state_dict(state_dict if state_dict is not None
                             else random_pem_state_dict(net, seed), strict=True)
-        self.net = net.to(self.device).eval()
+        self.net = cast_float_params(net.to(self.device), dtype).eval()
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)

@@ -104,6 +104,6 @@ class SAMPredictor:
                                                             box, mask_input))
         sl = slice(1, None) if multimask_output else slice(0, 1)
         m = hi[0, sl]
-        if not return_logits:
-            m = m > 0.0
-        return m.cpu().numpy(), iou[0, sl].cpu().numpy(), low[0, sl].cpu().numpy()
+        m = m.float() if return_logits else m > 0.0
+        # float32 on the host whatever the segmentor's dtype
+        return m.cpu().numpy(), iou[0, sl].float().cpu().numpy(), low[0, sl].float().cpu().numpy()

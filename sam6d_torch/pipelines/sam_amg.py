@@ -25,6 +25,13 @@ cleanup (`min_mask_region_area > 0`, `data/regions.py`), both off at the
 reference operating point; as in the JAX package, the device AMG
 (`generate_masks_device`) runs neither. Left out: the pre-rank pass, the
 channel-selected re-decode and the truncation-divergence counter.
+
+`dtype=torch.bfloat16` runs SAM in bf16 (weights cast by
+`core/params.cast_float_params`, as the JAX segmentor does): the uint8
+frame is normalised in fp32 on the device and cast where it enters the
+patch embedding; the postprocess matrices are cast to the logits' dtype
+(JAX's choice: the fp32 product would materialise the logits at twice the
+bytes); the predicted IoUs leave the segmentor as float32.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from PIL import Image
 
 from .. import use_strict_fp32
 from ..core.config import SAMConfig
+from ..core.params import cast_float_params
 from ..data.preprocess import bilinear_resize
 from ..data.regions import postprocess_small_regions
 from ..models.sam import SAM
@@ -85,28 +93,30 @@ def stable_top_k(key: torch.Tensor, k: int) -> torch.Tensor:
 
 def resize_logits(masks: torch.Tensor, Ry: torch.Tensor, Rx: torch.Tensor) -> torch.Tensor:
     """(..., h, w) -> (..., Hs, Ws) through the composed bilinear matrices
-    Ry (Hs, h), Rx (Ws, w)."""
-    return Ry @ masks @ Rx.T
+    Ry (Hs, h), Rx (Ws, w), taken in the masks' dtype."""
+    return Ry.to(masks.dtype) @ masks @ Rx.to(masks.dtype).T
 
 
 class SAMSegmentor:
     """SAM AMG over a fixed proposal capacity, on one device.
 
     `state_dict`: SAM weights under the reference names; None = seeded
-    random, drawn on the device."""
+    random, drawn on the device. `dtype`: the compute dtype (float32, or
+    bfloat16: the weights are cast to it)."""
 
     def __init__(self, cfg: SAMConfig, state_dict=None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", dtype: torch.dtype = torch.float32):
         use_strict_fp32()
         self.cfg = cfg
         self.device = torch.device(device)
+        self.dtype = dtype
         with torch.device("meta"):
             net = SAM(cfg)
         if state_dict is None:
             state_dict = random_sam_state_dict(net, seed, self.device)
         net = net.to_empty(device=self.device)
         net.load_state_dict(state_dict, strict=True)
-        self.sam = net.eval()
+        self.sam = cast_float_params(net, dtype).eval()
         self.points = build_point_grid(cfg.points_per_side)
         self.last_nms_rounds = 0
         self.last_prefix = 0
@@ -219,7 +229,7 @@ class SAMSegmentor:
         order = top[order_t]
         # the kept low-res logits are gathered, not re-decoded
         masks = resize_logits(lows[order], Ry, Rx) > 0.0
-        return masks, boxes[order], sel_valid, iou[order], order
+        return masks, boxes[order], sel_valid, iou[order].to(torch.float32), order
 
     def _propose_impl(self, embedding, points, Ry, Rx):
         """The AMG tail of one frame: iou prefix, then _select_impl. Returns

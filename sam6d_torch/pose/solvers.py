@@ -7,6 +7,12 @@ batched Jacobi SVD; the hypothesis-to-model distance is taken in chunks of
 proposals so (B, 300, 196, 1024) is never materialised. The random numbers
 come from an explicit `torch.Generator` (they cannot match JAX's; parity of
 the coarse solve is statistical).
+
+Both solvers run in float32 whatever the network's dtype: the point clouds
+are float32, and JAX promotes its bf16 similarities to float32 where they
+meet them (the soft correspondences, the weighted Kabsch). Here the
+similarity matrix is cast once on entry, so the soft assignment and the
+sampling CDF over N1 x N2 weights are float32 sums too.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ def compute_coarse_Rt(atten, pts1, pts2, model_pts=None,
     Returns (R (B, 3, 3), t (B, 3)) with pts1 ~ pts2 @ R^T + t."""
     if model_pts is None:
         model_pts = pts2
+    atten = atten.to(torch.float32)
     B, N1, _ = pts1.shape
     N2 = pts2.shape[1]
 
@@ -89,6 +96,7 @@ def compute_fine_Rt(atten, pts1, pts2, model_pts=None, dis_thres: float = 0.15):
     fraction x foreground fraction."""
     if model_pts is None:
         model_pts = pts2
+    atten = atten.to(torch.float32)
     score, _, _, label1, _ = soft_assignment(atten)
     norm_score = score / (score.sum(dim=2, keepdim=True) + 1e-6)
     pred_pts = norm_score @ pts2

@@ -3,7 +3,8 @@
 query (also at the training shapes, on inputs that carry autograd
 history), the fused attentions (K5 off the qkv projection, K8 and K9 on
 head-major operands), SAM's rel-pos attention (K1) and the factored AMG
-kernels (K2-K4). The file imports torch, numpy, pytest and sam6d_torch only,
+kernels (K2-K4), and the bf16 entries of K1, K5, K8 and K9 against the
+plain versions of their bf16 contract. The file imports torch, numpy, pytest and sam6d_torch only,
 so it runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
@@ -517,3 +518,150 @@ def test_factored_i2t_scores_kernel_covers_ranks_tokens_and_edges(cuda_device, B
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, 8 * T + 1, N)
     assert float((got - want).abs().max()) <= FACTORED_ATOL
+
+
+# ------------------------------------------- bf16 entries (K1, K5, K8, K9)
+
+# the bf16 entries against the plain versions of their contract: the same
+# bf16 roundings of p, summed in another order and over an online softmax,
+# and the bf16 output's own rounding (the JAX package's tolerance for its
+# bf16 kernels, tests/test_pallas_kernels.py)
+BF16_ATOL = 8e-3
+
+
+def _bf16_on_card(rng, device, shape, scale=1.0, offset=0):
+    """A bf16 tensor of `shape` on the card, randn x scale; with `offset` > 0
+    it starts `offset` elements into a larger buffer."""
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * np.float32(scale))
+    buf = torch.zeros(offset + x.numel(), device=device, dtype=torch.bfloat16)
+    view = buf[offset:].view(*shape)
+    view.copy_(x)
+    return view
+
+
+def _bf16_close(got, want, atol=BF16_ATOL):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,hd,qk,offset", [
+    pytest.param(16, 257, 16, 64, 1.0, 0, id="16-257-16-64"),   # DINOv2-L, one chunk
+    pytest.param(3, 257, 16, 64, 1.0, 0, id="3-257-16-64"),
+    pytest.param(2, 17, 4, 32, 1.0, 0, id="2-17-4-32"),
+    pytest.param(3, 1, 4, 64, 1.0, 0, id="3-1-4-64"),
+    pytest.param(2, 130, 4, 64, 1.0, 0, id="2-130-4-64-a-tile-and-a-row"),
+    pytest.param(16, 257, 16, 64, 2.0, 0, id="16-257-16-64-large-scores"),
+    pytest.param(2, 257, 4, 64, 1.0, 8, id="2-257-4-64-offset-16-bytes"),
+])
+def test_fused_attention_qkv_bf16_entry_matches_plain(cuda_device, B, N, heads, hd, qk, offset):
+    C = heads * hd
+    qkv = _bf16_on_card(np.random.RandomState(21), cuda_device, (B, N, 3 * C), 1.0, offset)
+    with torch.no_grad():
+        qkv[..., :2 * C] *= 0.5 * qk
+    got = attention_qkv.fused_attention_qkv_bf16_cuda(qkv, heads, hd ** -0.5)
+    _bf16_close(got, attention_qkv.fused_attention_qkv_bf16_plain(qkv, heads, hd ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Nq,Nk,hd,qk", [
+    pytest.param(16, 16, 1025, 1025, 64, 1.0, id="16-16-1025-1025-64"),   # DINOv2-L at 448
+    pytest.param(2, 4, 61, 300, 32, 1.0, id="2-4-61-300-32"),   # cross-attention
+    pytest.param(2, 3, 130, 130, 80, 1.0, id="2-3-130-130-80"),
+    pytest.param(1, 2, 33, 70, 40, 1.0, id="1-2-33-70-40-padded-hd"),
+    pytest.param(1, 2, 70, 66, 128, 1.0, id="1-2-70-66-128"),
+    pytest.param(2, 3, 1, 300, 64, 1.0, id="2-3-1-300-64-one-query"),
+    pytest.param(2, 3, 50, 1, 64, 1.0, id="2-3-50-1-64-one-key"),
+    pytest.param(1, 2, 129, 70, 64, 1.0, id="1-2-129-70-64-a-row-past-a-block"),
+    pytest.param(16, 16, 1025, 1025, 64, 2.0, id="16-16-1025-1025-64-large-scores"),
+])
+def test_fused_attention_bf16_entry_matches_plain(cuda_device, B, H, Nq, Nk, hd, qk):
+    rng = np.random.RandomState(22)
+    q = _bf16_on_card(rng, cuda_device, (B, H, Nq, hd), 0.5 * qk)
+    k = _bf16_on_card(rng, cuda_device, (B, H, Nk, hd), 0.5 * qk)
+    v = _bf16_on_card(rng, cuda_device, (B, H, Nk, hd))
+    got = attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5)
+    _bf16_close(got, attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5))
+
+
+@pytest.mark.cuda
+def test_fused_attention_bf16_entry_reads_qkv_views(cuda_device):
+    """The (B, H, N, hd) views of a bf16 qkv projection, as
+    models/vit.Attention passes them at N > 1024."""
+    B, N, H, hd = 2, 1100, 4, 64
+    qkv = _bf16_on_card(np.random.RandomState(23), cuda_device, (B, N, 3 * H * hd), 0.5)
+    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    got = attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5)
+    _bf16_close(got, attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5))
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,N,hd,qk", [
+    pytest.param(16, 16, 257, 64, 1.0, id="16-16-257-64"),
+    pytest.param(3, 4, 31, 32, 1.0, id="3-4-31-32"),
+    pytest.param(2, 2, 65, 16, 1.0, id="2-2-65-16"),
+    pytest.param(16, 16, 257, 64, 2.0, id="16-16-257-64-large-scores"),
+])
+def test_fused_attention_small_bf16_entry_matches_plain(cuda_device, B, H, N, hd, qk):
+    rng = np.random.RandomState(24)
+    q, k = (_bf16_on_card(rng, cuda_device, (B, H, N, hd), 0.5 * qk) for _ in range(2))
+    v = _bf16_on_card(rng, cuda_device, (B, H, N, hd))
+    got = attention.fused_attention_small_bf16_cuda(q, k, v, hd ** -0.5)
+    _bf16_close(got, attention.fused_attention_small_bf16_plain(q, k, v, hd ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,heads,hd,rel_scale", [
+    pytest.param(1, (64, 64), 16, 80, 1.0, id="1-64x64-16-80"),     # ViT-H global block
+    pytest.param(25, (14, 14), 16, 80, 1.0, id="25-14x14-16-80"),   # ViT-H windowed
+    pytest.param(2, (5, 7), 2, 16, 1.0, id="2-5x7-2-16"),
+    pytest.param(3, (9, 9), 4, 64, 1.0, id="3-9x9-4-64"),
+    pytest.param(2, (3, 4), 2, 32, 1.0, id="2-3x4-2-32"),
+    pytest.param(25, (14, 14), 16, 80, 3.0, id="25-14x14-16-80-large-bias"),
+])
+def test_flash_attention_relpos_bf16_entry_matches_plain(cuda_device, B, hw, heads, hd,
+                                                         rel_scale):
+    rng = np.random.RandomState(25)
+    H, W = hw
+    C = heads * hd
+    qkv = _bf16_on_card(rng, cuda_device, (B, H * W, 3 * C))
+    with torch.no_grad():
+        qkv[..., :2 * C] *= 0.5
+    rh = _bf16_on_card(rng, cuda_device, (2 * H - 1, hd), 0.1 * rel_scale)
+    rw = _bf16_on_card(rng, cuda_device, (2 * W - 1, hd), 0.1 * rel_scale)
+    got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, hw, heads)
+    _bf16_close(got, relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, hw, heads))
+
+
+@pytest.mark.cuda
+def test_bf16_entries_refuse_what_they_do_not_take(cuda_device):
+    """float32 operands, a head dim that is not a multiple of 8, rows that
+    are not 16-byte aligned; and the dispatches never hand bf16 to a float32
+    entry, nor float16 to either."""
+    q = torch.zeros(1, 2, 9, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bf16_cuda(q, q, q, 0.1)
+    with pytest.raises(ValueError):
+        attention.fused_attention_small_bf16_cuda(q, q, q, 0.1)
+    with pytest.raises(ValueError):
+        attention_qkv.fused_attention_qkv_bf16_cuda(torch.zeros(1, 9, 3 * 64, device=cuda_device),
+                                                    1, 0.1)
+    odd = torch.zeros(1, 2, 9, 12, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bf16_cuda(odd, odd, odd, 0.1)
+    buf = torch.zeros(1 + 2 * 9 * 64, device=cuda_device, dtype=torch.bfloat16)
+    shifted = buf[1:].view(1, 2, 9, 64)
+    with pytest.raises(ValueError):
+        attention.fused_attention_bf16_cuda(shifted, shifted, shifted, 0.1)
+    with pytest.raises(ValueError):
+        attention.fused_attention(q.half(), q.half(), q.half(), 0.1)
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, q.bfloat16(), q, 0.1)
+    with pytest.raises(ValueError):
+        relpos.flash_attention_relpos_cuda(torch.zeros(1, 9, 96, device=cuda_device).bfloat16(),
+                                           torch.zeros(5, 8, device=cuda_device).bfloat16(),
+                                           torch.zeros(5, 8, device=cuda_device).bfloat16(),
+                                           (3, 3), 4)
+
