@@ -100,8 +100,13 @@ Phases, in order; any failure raises and exits non-zero:
      inputs, each at or under its budget; PEM on a posed frame with the
      conditioned draw of tests/torch_port_draw.py, its fp32 pose within
      POSED_FP32_DEG of the frame's); the bf16 main path:
-     generate_masks (K1 bf16 32, K2-K4 16 each through their fp32
-     entries), a 48-valid match_frame (K5 bf16 72), PEM run_frame at B=16
+     generate_masks (K1 bf16 32, K2-K4 bf16 16 each, no fp32 entry; the
+     float32 segmentor's the reverse), the K2-K4 bf16 entries on that
+     pass's captured chunk states against their plain bf16 versions (K2
+     within FACTORED_ATOL / LN_INV_RTOL, K3 within BF16_ATOL x max(1,
+     |out|), K4 within BF16_ATOL), timed beside the fp32 entries on the
+     same values and their dense-bf16 bounds, no spills; a 48-valid
+     match_frame (K5 bf16 72), PEM run_frame at B=16
      (K6, K7 as in fp32), the 448 describe (K8 bf16 24), each against the
      fp32 pipeline on CUDA events over three calls with the card's busy
      share; run_demo with Config(dtype="bfloat16") and a bf16
@@ -784,28 +789,34 @@ def capture_factored(seg, rng):
 
 
 def _blocks_bytes(blocks):
-    return 4 * sum(pd.numel() + (0 if s is None else s.numel()) for pd, s in blocks)
+    return sum(pd.numel() * pd.element_size()
+               + (0 if s is None else s.numel() * s.element_size()) for pd, s in blocks)
 
 
 def _ln_stats_work(args):
     """(FLOP of the rank-R product that forms x, FLOP of a*S, the sum and
-    the square, bytes) of one factored_ln_stats call."""
+    the square, bytes) of one factored_ln_stats call: each operand at its
+    own element size (2 in bf16, where the bf16 moments mS and qS are read
+    too), the (mu, 1/sigma) output in fp32."""
     blocks, Uc, S, a, _ = args
     (B, R, C), N = Uc.shape, S.shape[0]
-    nbytes = _blocks_bytes(blocks) + 4 * (Uc.numel() + S.numel() + 2 * B * N) \
-        + (0 if a is None else 4 * a.numel())
+    e = S.element_size()
+    nbytes = _blocks_bytes(blocks) + e * (Uc.numel() + S.numel()) + 4 * 2 * B * N \
+        + (0 if a is None else e * a.numel()) + (2 * e * N if e == 2 else 0)
     return 2 * B * N * R * C, 4 * B * N * C, nbytes
 
 
 def _i2t_work(args):
     """(FLOP of the products K4 runs on the tensor cores: the rank-R score
     term and the 16-channel head-score term; FLOP of a QS + QC, the low-rank
-    factor T1 and the softmax; bytes) of one factored_i2t_scores call."""
+    factor T1 and the softmax; bytes, at the operands' element size, the
+    output in theirs) of one factored_i2t_scores call."""
     kt, UQ, blocks, a, QS, QC, heads = args
     (B, T, d), N = kt.shape, QS.shape[0]
     R = 0 if UQ is None else UQ.shape[1]
     hd, HT = d // heads, heads * T
-    nbytes = _blocks_bytes(blocks) + 4 * (kt.numel() + (0 if UQ is None else UQ.numel())
+    e = kt.element_size()
+    nbytes = _blocks_bytes(blocks) + e * (kt.numel() + (0 if UQ is None else UQ.numel())
                                           + (0 if a is None else a.numel())
                                           + 2 * QS.numel() + B * (HT + 1) * N)
     return (2 * B * HT * N * (R + hd), 2 * B * N * d + 2 * B * HT * R * hd + 5 * B * HT * N,
@@ -814,16 +825,22 @@ def _i2t_work(args):
 
 def _t2i_work(args):
     """(FLOP of the products K3 runs on the tensor cores: the score terms,
-    q against KS, KC and the rank-R factor; FLOP of the value part, T2,
-    the softmax and the two low-rank factors T1 and T2 UV; bytes) of one
-    factored_t2i_attention call."""
+    q against KS, KC and the rank-R factor, and in bf16 also the value part,
+    T2 and the two low-rank factors T1 and T2 UV; FLOP of the rest on the
+    fp32 units: in fp32 those four and the softmax, in bf16 the softmax;
+    bytes, at the operands' element size) of one factored_t2i_attention
+    call."""
     qp, UK, UV, blocks, a, KS, KC, VS, heads = args
     (B, T, d), R, N = qp.shape, UK.shape[1], KS.shape[0]
     hd, HT = d // heads, heads * T
-    nbytes = _blocks_bytes(blocks) + 4 * (2 * qp.numel() + UK.numel() + UV.numel()
+    e = qp.element_size()
+    nbytes = _blocks_bytes(blocks) + e * (2 * qp.numel() + UK.numel() + UV.numel()
                                           + a.numel() + 3 * KS.numel())
-    return (B * HT * N * (4 * hd + 2 * R),
-            B * HT * N * (2 * hd + 2 * R + 5) + 4 * B * HT * R * hd, nbytes)
+    scores, rest = B * HT * N * (4 * hd + 2 * R), B * HT * N * (2 * hd + 2 * R)
+    factors, softmax = 4 * B * HT * R * hd, 5 * B * HT * N
+    if e == 2:
+        return scores + rest + factors, softmax, nbytes
+    return scores, rest + softmax + factors, nbytes
 
 
 def _factored_bound(name, args):
@@ -2825,18 +2842,21 @@ def phase_options(job, device="cuda"):
 # ------------------------------------------------------------------ phase 12
 
 BF16_KERNELS = ("flash_attention_relpos_bf16_cuda", "fused_attention_qkv_bf16_cuda",
-                "fused_attention_bf16_cuda", "fused_attention_small_bf16_cuda")
+                "fused_attention_bf16_cuda", "fused_attention_small_bf16_cuda") + tuple(
+                    n + "_bf16_cuda" for n in FACTORED)
 
 
 def bf16_counters():
     """Every attention entry and every kernel of the frame, by name: the
     bf16 entries beside the fp32 ones."""
     from sam6d_torch.kernels import attention, attention_qkv, attention_relpos
+    from sam6d_torch.kernels import factored as fk
     fns = frame_counters()
     fns.update(flash_attention_relpos_bf16_cuda=attention_relpos.flash_attention_relpos_bf16_cuda,
                fused_attention_qkv_bf16_cuda=attention_qkv.fused_attention_qkv_bf16_cuda,
                fused_attention_bf16_cuda=attention.fused_attention_bf16_cuda,
                fused_attention_small_bf16_cuda=attention.fused_attention_small_bf16_cuda)
+    fns.update({n + "_bf16_cuda": getattr(fk, n + "_bf16_cuda") for n in FACTORED})
     return fns
 
 
@@ -3020,6 +3040,121 @@ def _check_bf16_kernels(rng, ptxas):
     ]
 
 
+# the kernels of each bf16 factored entry (ptxas registers and spills)
+BF16_FACTORED_KERNELS = {
+    "factored_ln_stats": ("ln_stats_bf16_kernel",),
+    "factored_t2i_attention": ("t2i_scores_bf16_kernel", "t2i_bf16_kernel",
+                               "t2i_merge_bf16_kernel"),
+    "factored_i2t_scores": ("i2t_bf16_kernel",)}
+
+
+def bf16_factored_err(name, got, want):
+    """(agrees, error, description) of a bf16 factored entry against its
+    plain version. K2: fp32 mu within FACTORED_ATOL and 1/sigma within
+    LN_INV_RTOL (error: the larger of the two, as the fp32 record keeps);
+    K4: within BF16_ATOL; K3: within BF16_ATOL x max(1, |plain|), since its
+    outputs pass 2, where the output's own rounding, flipped by the fp32
+    sums' order, is one ulp (2^-7 |out| at most) and more than 8e-3: the
+    same error relative to the output as 8e-3 in [1, 2). K3 and K4: error is
+    the max |diff|."""
+    import torch
+    if name == "factored_ln_stats":
+        err = float((got[0] - want[0]).abs().max())
+        rel = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+        return (err <= FACTORED_ATOL and rel <= LN_INV_RTOL, max(err, rel),
+                f"mu max |diff| {err:.2e} (atol {FACTORED_ATOL}), 1/sigma max rel diff "
+                f"{rel:.2e} (rtol {LN_INV_RTOL})")
+    if not (got.dtype == want.dtype == torch.bfloat16):
+        raise AssertionError(f"{name}: the bf16 entry returned {got.dtype}")
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    if name == "factored_i2t_scores":
+        return err <= BF16_ATOL, err, f"max |diff| {err:.2e} (atol {BF16_ATOL})"
+    share = float((d / want.float().abs().clamp(min=1.0)).max())
+    return (share <= BF16_ATOL, err,
+            f"max |diff| {err:.2e}, max |diff| / max(1, |plain|) {share:.2e} ({BF16_ATOL}); "
+            f"{int((d > 0).sum())} of {d.numel()} outputs differ")
+
+
+def _check_bf16_factored(seg, ptxas):
+    """The bf16 entries of K2-K4 on the bf16 iou pass's own arguments (one
+    128-prompt chunk of a bf16 segmentor, captured), held to their plain
+    bf16 versions, timed over runs of 10 launches beside the plain version,
+    the float32 entry on the same values and the dense-bf16 bound (bytes at
+    2 an operand). Fails on a spill in any of their kernels."""
+    import torch
+    from sam6d_torch.kernels import factored as fk
+    ptx = {}
+    for n, kernels in BF16_FACTORED_KERNELS.items():
+        ptx[n] = {k: ptxas_record(ptxas, k) for k in kernels}
+        for kernel, (regs, spills) in ptx[n].items():
+            log(f"{n} bf16: {kernel} ptxas {regs} registers, {spills} bytes spilled")
+            if spills:
+                raise AssertionError(f"{n} bf16: {kernel} spills {spills} bytes")
+    calls = capture_factored(seg, np.random.RandomState(SEED + 8))
+
+    def f32(x):
+        if isinstance(x, torch.Tensor):
+            return x.float()
+        if isinstance(x, tuple):
+            return tuple(f32(y) for y in x)
+        return x
+
+    records = []
+    for n, line in zip(FACTORED, (296, 350, 167)):
+        cuda_fn, plain_fn = getattr(fk, n + "_bf16_cuda"), getattr(fk, n + "_bf16_plain")
+        fp32_fn = getattr(fk, n + "_cuda")
+        rows = []
+        for args in calls[n]:
+            if args[2 if n == "factored_ln_stats" else 0].dtype != torch.bfloat16:
+                raise AssertionError(f"{n}: the bf16 iou pass passed non-bf16 operands")
+            with torch.inference_mode():
+                ok, err, desc = bf16_factored_err(n, cuda_fn(*args), plain_fn(*args))
+                torch.cuda.synchronize()
+                ms = cuda_ms(lambda: cuda_fn(*args), reps=10, launches=10)
+                plain_ms = cuda_ms(lambda: plain_fn(*args), reps=3)
+                args32 = f32(args)
+                fp32_ms = cuda_ms(lambda: fp32_fn(*args32), reps=10, launches=10)
+                del args32
+            products, other, nbytes = {"factored_ln_stats": _ln_stats_work,
+                                       "factored_t2i_attention": _t2i_work,
+                                       "factored_i2t_scores": _i2t_work}[n](args)
+            b_ms = bf16_bound(products, other, nbytes)
+            by = "operations" if products / PEAK_BF16_FLOPS + other / PEAK_FP32_FLOPS \
+                >= nbytes / PEAK_BYTES else "bytes"
+            blocks = args[{"factored_ln_stats": 0, "factored_t2i_attention": 3,
+                           "factored_i2t_scores": 2}[n]]
+            ranks = "+".join(str(pd.shape[1]) for pd, _ in blocks) or "0"
+            log(f"{n} bf16[B=128, ranks {ranks}]: {desc}; runs of 10 launches: bf16 entry "
+                f"{ms:.4f} ms, fp32 entry {fp32_ms:.4f} ms; plain {plain_ms:.4f} ms; dense-bf16 "
+                f"bound {b_ms:.4f} ms ({by}, {100 * b_ms / ms:.1f}% of it)")
+            if not ok:
+                raise AssertionError(f"{n}: the bf16 entry disagrees with its plain version")
+            rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, fp32_ms=fp32_ms, b_ms=b_ms,
+                             by=by, ranks=ranks))
+        first, last = rows[0], rows[-1]
+        regs = {f"{k}_ptxas_registers": r for k, (r, _) in ptx[n].items()}
+        records.append(dict(
+            name=n + "_bf16_cuda", route="cuda", source="sam6d_torch/csrc/factored_bf16.cu",
+            replaces=f"sam6d_tpu/kernels/factored_t2i.py:{line}",
+            max_abs_err=max(r["err"] for r in rows),
+            tolerance=(f"mu atol {FACTORED_ATOL}, 1/sigma rtol {LN_INV_RTOL} (max_abs_err "
+                       f"holds the larger)" if n == "factored_ln_stats" else
+                       f"|diff| <= {BF16_ATOL} x max(1, |plain|)"
+                       if n == "factored_t2i_attention" else f"atol {BF16_ATOL}"),
+            ms=last["ms"], plain_ms=last["plain_ms"], bound_ms=last["b_ms"],
+            bound_by=last["by"], library_ms=None, fp32_entry_ms=last["fp32_ms"],
+            first_call_ms=first["ms"], first_call_plain_ms=first["plain_ms"],
+            first_call_bound_ms=first["b_ms"], first_call_fp32_entry_ms=first["fp32_ms"],
+            ptxas_spill_bytes=0, **regs,
+            timing="ms, fp32_entry_ms: CUDA events over runs of 10 launches; plain_ms: one "
+                   "launch",
+            shapes=f"B=128, N=4096, ranks {last['ranks']} (ms); ranks {first['ranks']} "
+                   f"(first_call_*); bf16 states captured from one chunk of the bf16 iou "
+                   f"pass"))
+    return records
+
+
 def _stage_outputs(build, run, dtypes):
     """run(build(dtype)) for each dtype, as float32 numpy arrays; each
     pipeline freed before the next is built."""
@@ -3160,13 +3295,15 @@ def _alternated(label, fns, reps=3):
     return out
 
 
-def phase_bf16_path(job):
-    """The bf16 main path at full width beside the fp32 one: generate_masks,
-    a 48-valid match_frame, PEM run_frame at B=16 and the 448 describe,
-    their launches, times on CUDA events and the bf16 runs' busy share;
-    then run_demo with Config(dtype="bfloat16") and a bf16 MultiObjectStream
-    frame. Returns (launches per kernel on the bf16 path, {path: launches
-    per kernel} of each run)."""
+def phase_bf16_path(job, ptxas):
+    """The bf16 main path at full width beside the fp32 one: generate_masks
+    (and the fp32 segmentor's, which must reach no bf16 entry), the bf16
+    K2-K4 entries on its captured iou-pass states, a 48-valid match_frame,
+    PEM run_frame at B=16 and the 448 describe, their launches, times on
+    CUDA events and the bf16 runs' busy share; then run_demo with
+    Config(dtype="bfloat16") and a bf16 MultiObjectStream frame. Returns
+    (launches per kernel on the bf16 path, {path: launches per kernel} of
+    each run, the K2-K4 bf16 entries' kernel records)."""
     import dataclasses
     import torch
     from sam6d_torch.core.config import (Config, DINOv2Config, ISMConfig, ISMMatchingConfig,
@@ -3202,10 +3339,23 @@ def phase_bf16_path(job):
     n_kept = check_proposals(out, *rgb.shape[:2], scfg.max_proposals)
     want = {"flash_attention_relpos_bf16_cuda": scfg.encoder_depth,
             "flash_attention_relpos_cuda": 0}
-    want.update({n + "_cuda": 2 * chunks for n in FACTORED})
+    want.update({n + "_cuda": 0 for n in FACTORED})
+    want.update({n + "_bf16_cuda": 2 * chunks for n in FACTORED})
     expect(f"generate_masks ({n_kept} kept)", got, want)
-    launches.update({k: got[k] for k in ("flash_attention_relpos_bf16_cuda",)})
+    launches.update({k: got[k] for k in ("flash_attention_relpos_bf16_cuda",)
+                     + tuple(n + "_bf16_cuda" for n in FACTORED)})
     paths["bf16 generate_masks"] = got
+    # the reverse: the float32 segmentor reaches only the float32 entries
+    reset_counts(fns)
+    seg[f32].generate_masks(rgb)
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    want = {"flash_attention_relpos_bf16_cuda": 0,
+            "flash_attention_relpos_cuda": scfg.encoder_depth}
+    want.update({n + "_cuda": 2 * chunks for n in FACTORED})
+    want.update({n + "_bf16_cuda": 0 for n in FACTORED})
+    expect("(the float32 segmentor) generate_masks", got, want)
+    factored_records = _check_bf16_factored(seg[b16], ptxas)
     _alternated(
         "generate_masks_device fp32 vs bf16",
         {"fp32": lambda: seg[f32].generate_masks_device(rgb),
@@ -3350,8 +3500,9 @@ def phase_bf16_path(job):
               "farthest_point_sample_cuda", "two_scale_ball_query_cuda"):
         if got[k] < 1:
             raise AssertionError(f"bf16 run_demo: {k} not launched")
-    if got["flash_attention_relpos_cuda"] or got["fused_attention_qkv_cuda"]:
-        raise AssertionError("bf16 run_demo reached an fp32 attention entry")
+    if got["flash_attention_relpos_cuda"] or got["fused_attention_qkv_cuda"] or any(
+            got[n + "_cuda"] for n in FACTORED):
+        raise AssertionError("bf16 run_demo reached an fp32 attention or factored entry")
 
     seg16 = SAMSegmentor(scfg, seed=SEED, device="cuda", dtype=b16)
     stream = MultiObjectStream(
@@ -3374,7 +3525,7 @@ def phase_bf16_path(job):
     log(f"bf16 MultiObjectStream: {len(frames)} frames, {n_poses} poses; launches {got}")
     if n_poses < 1 or got["flash_attention_relpos_bf16_cuda"] < 1:
         raise AssertionError("the bf16 stream posed nothing or skipped the bf16 entries")
-    return launches, paths
+    return launches, paths, factored_records
 
 
 def phase_bf16(job, ptxas):
@@ -3387,7 +3538,8 @@ def phase_bf16(job, ptxas):
     torch.cuda.empty_cache()
     budget, pem_fp32_deg = bf16_budget_stages()
     torch.cuda.empty_cache()
-    launches, paths = phase_bf16_path(job)
+    launches, paths, factored_records = phase_bf16_path(job, ptxas)
+    kernels += factored_records
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["path_launches"] = {p: n[k["name"]] for p, n in paths.items()}

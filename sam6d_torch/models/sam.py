@@ -33,9 +33,10 @@ JAX promotes bf16 + fp32 to fp32, and so does PyTorch), and are cast where
 they enter a projection, as flax's `Dense` casts to its `dtype`; flax's
 LayerNorm (`nn.LayerNorm` here) takes its statistics in fp32, while the
 manual norms (`apply_ln`, `LayerNorm2d`) run in the input's dtype as JAX's
-do; the rel-pos attention takes bf16 to its bf16 entry. The factored iou
-pass reaches its three kernels through `via_fp32_entry`. GELU stays the
-exact erf form in bf16 (`vit.MlpBlock`).
+do; the rel-pos attention and the factored iou pass's three kernels take
+bf16 to their bf16 entries, and the factored LayerNorm casts as the JAX
+package's kernel branch does (`TwoWayTransformer._ln_factored`). GELU stays
+the exact erf form in bf16 (`vit.MlpBlock`).
 """
 from __future__ import annotations
 
@@ -51,30 +52,6 @@ from ..kernels.factored import (blocks_concat, factored_i2t_scores,
                                 factored_ln_stats, factored_t2i_attention,
                                 heads_block, heads_diag)
 from .vit import PatchEmbed
-
-
-def via_fp32_entry(dtype: torch.dtype, fn, *args):
-    """Call a factored dispatch (K2 factored_ln_stats, K3
-    factored_t2i_attention, K4 factored_i2t_scores) through its float32
-    entry: the tensor arguments (and the tensors of the `blocks` tuples)
-    cast to float32, the result cast back to the compute dtype `dtype`.
-
-    K2-K4 have float32 entries only; their bf16 entries are ROADMAP item
-    29, "bf16 entries for K2-K4" (their CUDA kernels stage P_eff through
-    cp.async rings sized for 4-byte elements). Their wrappers refuse any
-    other dtype, and this helper is the one place the bf16 iou pass
-    crosses into float32. For float32 operands every cast is a no-op."""
-    def f32(x):
-        if isinstance(x, torch.Tensor):
-            return x.to(torch.float32)
-        if isinstance(x, tuple):
-            return tuple(f32(y) for y in x)
-        return x
-
-    out = fn(*(f32(a) for a in args))
-    if isinstance(out, tuple):
-        return tuple(o.to(dtype) for o in out)
-    return out.to(dtype)
 
 
 class MLPBlock(nn.Module):
@@ -459,14 +436,20 @@ class TwoWayTransformer(nn.Module):
         the updated factored state (S', a', blocks', U'): the statistics come
         from the factored LN-stats dispatch; the 1/sigma scaling goes into
         the block scales and one rank-2 block ([-mu/sigma, 1] rows) is
-        appended."""
+        appended. The casts are the JAX package's kernel branch: the dispatch
+        takes mS, qS in the compute dtype and returns fp32 (mu, 1/sigma);
+        1/sigma is cast to the compute dtype, the rows are
+        (-mu * float(1/sigma)) cast to it (a no-op in float32)."""
         gamma, beta = ln.weight, ln.bias
         B, _, N = blocks[0][0].shape
         C = S.shape[-1]
-        mu, inv = via_fp32_entry(S.dtype, factored_ln_stats, blocks, Uc, S, a, eps)
+        dt = S.dtype
+        mu, inv = factored_ln_stats(blocks, Uc, S, a, eps)
+        inv = inv.to(dt)
         a2 = inv if a is None else a * inv
         blocks2 = tuple((pd, inv if s is None else s * inv) for pd, s in blocks)
-        rows = torch.cat([(-mu * inv)[:, None, :], torch.ones_like(mu)[:, None, :]], dim=1)
+        rows = torch.cat([(-mu * inv.to(mu.dtype)).to(dt)[:, None, :],
+                          torch.ones_like(inv)[:, None, :]], dim=1)
         U2 = torch.cat([Uc * gamma, gamma.expand(B, 1, C), beta.expand(B, 1, C)], dim=1)
         return S * gamma, a2, blocks2 + ((rows, None),), U2
 
@@ -482,8 +465,7 @@ class TwoWayTransformer(nn.Module):
         KS, UK, KC = self._proj_factored(att.k_proj, S, U, pos)
         VS, UV, VC = self._proj_factored(att.v_proj, S, U, None)
         if blocks and a is not None and KC.shape[0] == N:
-            out = via_fp32_entry(qp.dtype, factored_t2i_attention, qp, UK, UV, blocks, a,
-                                 KS, KC, VS, H)
+            out = factored_t2i_attention(qp, UK, UV, blocks, a, KS, KC, VS, H)
             return att.out_proj(out + VC)   # softmax rows sum to 1: bias adds once
         qb = heads_block(qp, H)
         P = blocks_concat(blocks) if blocks else None
@@ -512,8 +494,7 @@ class TwoWayTransformer(nn.Module):
         B = queries.shape[0]
         QS, UQ, QC = self._proj_factored(att.q_proj, S, U, pos, scale=float(hd) ** -0.5)
         k_t = att._proj(att.k_proj, queries + point_embedding)  # (B, T, d)
-        Pd = via_fp32_entry(k_t.dtype, factored_i2t_scores, k_t, UQ if blocks else None,
-                            blocks, a, QS, QC, H)
+        Pd = factored_i2t_scores(k_t, UQ if blocks else None, blocks, a, QS, QC, H)
         vbo = heads_block(att._proj(att.v_proj, queries), H) @ att.out_proj.weight.t()
         C = vbo.shape[-1]
         Ud = torch.cat([vbo, att.out_proj.bias.expand(B, 1, C)], dim=1)

@@ -5,7 +5,7 @@ factored LayerNorm statistics (K2) beside K3 and K4, on one GPU.
 Used to compare kernel variants: copy `sam6d_torch/csrc/` to a directory,
 edit the copy, and run
 
-    python3 scripts/time_attention_variants.py [--sam] [--factored] DIR [DIR ...]
+    python3 scripts/time_attention_variants.py [--sam] [--factored] [--bf16] DIR [DIR ...]
     python3 scripts/time_attention_variants.py --points ROOT [ROOT ...]
 
 Each directory is built into `DIR/_build/` and timed in its own process (the
@@ -21,7 +21,11 @@ heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
 (layer 2; also over runs of 10 launches, which hide the host's dispatch),
 and each kernel's max |diff| from its plain version (K2: mu's,
 and 1/sigma's relative), K3 beside its plain version's time (5 runs);
-`--factored` keeps only K2-K4. With `--points`, each argument is instead
+`--factored` keeps only K2-K4. With `--bf16`, K2-K4 are their bf16 entries
+on the same states rounded to bf16 (each held to its plain bf16 version;
+one launch and runs of 10; each call's kernels by name on the card under
+torch.profiler, which parts the card's time from the host's dispatch), and
+`--sam` builds the segmentor in bf16. With `--points`, each argument is instead
 the root of a checkout (a directory holding `sam6d_torch/`, e.g. a parent
 commit unpacked with `git archive`, or a copy of the package with edited
 `csrc/`), built and imported from there, and the line times its FPS (K7)
@@ -51,7 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def time_one(csrc: Path, sam: bool, factored_only: bool) -> str:
+def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> str:
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -108,9 +112,9 @@ def time_one(csrc: Path, sam: bool, factored_only: bool) -> str:
                      - relpos.flash_attention_relpos_plain(*args)).abs().max())
         ms = cs.cuda_ms(lambda: relpos.flash_attention_relpos_cuda(*args), reps=20)
         fields.append(f"{name} {ms:.4f} ms, max |diff| {err:.2e}")
-    fields += factored_fields(rng, cs)
+    fields += (factored_bf16_fields if bf16 else factored_fields)(rng, cs)
     if sam:
-        fields += sam_fields(cs)
+        fields += sam_fields(cs, bf16)
     return f"{csrc.name}: " + "; ".join(fields)
 
 
@@ -183,7 +187,7 @@ def time_points(root: Path) -> str:
     return f"{root.name}: " + "; ".join(fields)
 
 
-def sam_fields(cs):
+def sam_fields(cs, bf16=False):
     import numpy as np
     import torch
     from sam6d_torch import use_strict_fp32
@@ -191,7 +195,8 @@ def sam_fields(cs):
     from sam6d_torch.pipelines.sam_amg import SAMSegmentor
     use_strict_fp32()
     seg = SAMSegmentor(SAMConfig(pred_iou_thresh=-10.0, stability_score_thresh=0.0,
-                                 max_proposals=128), seed=0, device="cuda")
+                                 max_proposals=128), seed=0, device="cuda",
+                       dtype=torch.bfloat16 if bf16 else torch.float32)
     rgb = (np.random.RandomState(1).rand(480, 640, 3) * 255).astype(np.uint8)
     resized, _, (hs, ws), (h_in, w_in) = seg.preprocess_frame_u8(rgb)
     _, _, pts = seg.frame_constants(hs, ws, h_in, w_in)
@@ -292,15 +297,69 @@ def factored_fields(rng, cs):
     return fields
 
 
+def factored_bf16_fields(rng, cs):
+    """The bf16 entries of K2-K4 at the iou pass's shapes, on factored_state
+    rounded to bf16."""
+    import torch
+    from sam6d_torch.kernels import factored as fk
+
+    def bf(st):
+        out = {k: None if v is None else v.to(torch.bfloat16)
+               for k, v in st.items() if k != "blocks"}
+        out["blocks"] = tuple((p.to(torch.bfloat16), None if s is None else s.to(torch.bfloat16))
+                              for p, s in st["blocks"])
+        return out
+
+    def timed(name, fn, err):
+        ms = cs.cuda_ms(fn, reps=20)
+        runs = cs.cuda_ms(fn, reps=10, launches=10)
+        return (f"{name} {ms:.4f} ms ({runs:.4f} over runs of 10; on the card "
+                f"{device_split(fn, top=4)}), {err}")
+
+    fields = []
+    for ranks, scaled, with_a in (((57,), (False,), False),
+                                  ((57, 2, 57), (True, True, False), True)):
+        st = bf(factored_state(rng, ranks, scaled, with_a))
+        args = (st["blocks"], st["U"], st["S"], st["a"])
+        mu, inv = fk.factored_ln_stats_bf16_cuda(*args)
+        mu_p, inv_p = fk.factored_ln_stats_bf16_plain(*args)
+        err = (f"mu |diff| {float((mu - mu_p).abs().max()):.2e}, 1/sigma rel "
+               f"{float(((inv - inv_p).abs() / inv_p.abs()).max()):.2e}")
+        del mu, inv, mu_p, inv_p
+        fields.append(timed(f"K2 bf16 rank {sum(ranks)}",
+                            lambda: fk.factored_ln_stats_bf16_cuda(*args), err))
+        del st, args
+    for ranks, scaled in (((57, 2), (True, False)), ((57, 2, 57, 2), (True, True, True, False))):
+        st = bf(factored_state(rng, ranks, scaled, True))
+        args = (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
+                st["VS"], 8)
+        d = (fk.factored_t2i_attention_bf16_cuda(*args).float()
+             - fk.factored_t2i_attention_bf16_plain(*args).float()).abs()
+        fields.append(timed(f"K3 bf16 rank {sum(ranks)}",
+                            lambda: fk.factored_t2i_attention_bf16_cuda(*args),
+                            f"max |diff| {float(d.max()):.2e}"))
+        if len(ranks) == 2:
+            for name, a4 in (
+                    ("K4 bf16 rank 0", (st["q"], None, (), None, st["KS"], st["KC"], 8)),
+                    ("K4 bf16 rank 59", (st["q"], st["UK"], st["blocks"], st["a"], st["KS"],
+                                         st["KC"], 8))):
+                d = (fk.factored_i2t_scores_bf16_cuda(*a4).float()
+                     - fk.factored_i2t_scores_bf16_plain(*a4).float()).abs()
+                fields.append(timed(name, lambda a4=a4: fk.factored_i2t_scores_bf16_cuda(*a4),
+                                    f"max |diff| {float(d.max()):.2e}"))
+        del st, args
+    return fields
+
+
 def main(argv):
     if argv[:1] == ["--one"]:
         if "--points" in argv[2:]:
             print(time_points(Path(argv[1]).resolve()), flush=True)
         else:
             print(time_one(Path(argv[1]).resolve(), "--sam" in argv[2:],
-                           "--factored" in argv[2:]), flush=True)
+                           "--factored" in argv[2:], "--bf16" in argv[2:]), flush=True)
         return 0
-    flags = [a for a in argv if a in ("--sam", "--factored", "--points")]
+    flags = [a for a in argv if a in ("--sam", "--factored", "--points", "--bf16")]
     argv = [a for a in argv if a not in flags]
     if not argv:
         print(__doc__)

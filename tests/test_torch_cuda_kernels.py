@@ -3,9 +3,9 @@
 query (also at the training shapes, on inputs that carry autograd
 history), the fused attentions (K5 off the qkv projection, K8 and K9 on
 head-major operands), SAM's rel-pos attention (K1) and the factored AMG
-kernels (K2-K4), and the bf16 entries of K1, K5, K8 and K9 against the
-plain versions of their bf16 contract. The file imports torch, numpy, pytest and sam6d_torch only,
-so it runs where JAX is absent:
+kernels (K2-K4), and the bf16 entries of K1, K5, K8, K9 and K2-K4 against
+the plain versions of their bf16 contract. The file imports torch, numpy,
+pytest and sam6d_torch only, so it runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
 """
@@ -665,3 +665,142 @@ def test_bf16_entries_refuse_what_they_do_not_take(cuda_device):
                                            torch.zeros(5, 8, device=cuda_device).bfloat16(),
                                            (3, 3), 4)
 
+
+
+# --------------------------------------- bf16 entries of K2, K3 and K4
+
+def _bf16_state(st):
+    """factored_state's tensors rounded to bf16 (the blocks too)."""
+    def b(x):
+        return None if x is None else x.to(torch.bfloat16)
+    out = {k: b(v) for k, v in st.items() if k != "blocks"}
+    out["blocks"] = tuple((b(pd), b(s)) for pd, s in st["blocks"])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,with_a,B,N,u_mag", [
+    pytest.param((57,), (False,), False, 16, 4096, 1.0, id="rank-57-unscaled"),
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 4096, 1.0, id="rank-116"),
+    pytest.param((1,), (True,), True, 16, 4096, 1.0, id="rank1"),
+    pytest.param((30, 2, 20, 9), (True, False, True, True), True, 16, 4096, 1.0,
+                 id="four-blocks-mixed-scales"),
+    pytest.param((5, 2, 3), (True, True, False), True, 16, 4096, 1.0, id="ranks-5+2+3"),
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 100, 1.0, id="ragged-N100"),
+    pytest.param((57,), (False,), False, 128, 4096, 1.0, id="main-path-B128-57"),
+    pytest.param((57, 2, 57), (True, True, False), True, 128, 4096, 1.0,
+                 id="main-path-B128-116"),
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 4096, 4.0, id="stress-Ux4"),
+])
+def test_factored_ln_stats_bf16_entry_matches_plain(cuda_device, ranks, scaled, with_a, B,
+                                                    N, u_mag):
+    """The hi/lo split of the scaled rows and fp32 sums: mu within 1e-4 and
+    1/sigma within rtol 1e-3 of the plain bf16 version, as the fp32 entry."""
+    st = _bf16_state(factored_state(np.random.RandomState(11), B, N, 256, 128, ranks, scaled,
+                                    with_a, cuda_device))
+    U = (st["U"].float() * u_mag).to(torch.bfloat16)
+    mu, inv = factored.factored_ln_stats_bf16_cuda(st["blocks"], U, st["S"], st["a"])
+    mu_p, inv_p = factored.factored_ln_stats_bf16_plain(st["blocks"], U, st["S"], st["a"])
+    torch.cuda.synchronize()
+    assert mu.dtype == inv.dtype == torch.float32 and mu.shape == inv.shape == (B, N)
+    assert float((mu - mu_p).abs().max()) <= FACTORED_ATOL
+    assert float(((inv - inv_p).abs() / inv_p.abs()).max()) <= LN_INV_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,scaled,N,B,T,q_mag", [
+    pytest.param((57, 2), (True, False), 4096, 16, 7, 1.0, id="rank-59"),
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 16, 7, 1.0, id="rank-118"),
+    pytest.param((5, 2), (True, False), 100, 16, 7, 1.0, id="ranks-5+2-N100"),
+    pytest.param((57, 2), (True, False), 4096, 128, 7, 1.0, id="main-path-B128-rank-59"),
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 128, 7, 1.0,
+                 id="main-path-B128-rank-118"),
+    pytest.param((1,), (True,), 4096, 4, 7, 1.0, id="rank-1"),
+    pytest.param((64, 64), (True, False), 4096, 4, 7, 1.0, id="rank-128"),
+    pytest.param((57, 2), (True, False), 4096, 4, 1, 1.0, id="one-token"),
+    pytest.param((57, 2), (True, False), 4096, 4, 8, 1.0, id="eight-tokens"),
+    pytest.param((17, 2), (True, False), 98, 4, 7, 1.0, id="n98-2-byte-staging"),
+    # four times the scores: a sharp softmax over the N positions, whose
+    # chunks' maxima differ widely
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 16, 7, 4.0,
+                 id="stress-scores-x4"),
+])
+def test_factored_t2i_attention_bf16_entry_matches_plain(cuda_device, ranks, scaled, N, B,
+                                                         T, q_mag):
+    rng = np.random.RandomState(12)
+    st = _bf16_state(factored_state(rng, B, N, 256, 128, ranks, scaled, True, cuda_device))
+    q = st["q"] if T == 7 else torch.from_numpy(
+        rng.randn(B, T, 128).astype(np.float32) * 0.25).to(cuda_device).to(torch.bfloat16)
+    args = ((q.float() * q_mag).to(torch.bfloat16), st["UK"], st["UV"], st["blocks"], st["a"],
+            st["KS"], st["KC"], st["VS"], 8)
+    got = factored.factored_t2i_attention_bf16_cuda(*args)
+    want = factored.factored_t2i_attention_bf16_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape == (B, T, 128)
+    # K3's outputs pass 2 (T2 U_V), where one ulp of the bf16 output, whose
+    # rounding the fp32 sums' order can flip, is 2^-7 |out| > 8e-3: held to
+    # 8e-3 relative to max(1, |out|), the error 8e-3 is in [1, 2)
+    d = (got.float() - want.float()).abs()
+    assert float((d / want.float().abs().clamp(min=1.0)).max()) <= BF16_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,ranks,scaled,with_a,N,T", [
+    pytest.param(16, (), (), False, 4096, 7, id="layer-1-rank-0"),
+    pytest.param(16, (57, 2), (True, False), True, 4096, 7, id="layer-2-rank-59"),
+    pytest.param(16, (5, 2), (True, False), True, 100, 7, id="ranks-5+2-N100"),
+    pytest.param(128, (57, 2), (True, False), True, 4096, 7, id="main-path-rank-59"),
+    pytest.param(128, (), (), False, 4096, 7, id="main-path-rank-0"),
+    pytest.param(4, (64, 64), (True, False), True, 4096, 7, id="rank-128"),
+    pytest.param(4, (5, 16, 3, 9), (True, False, True, False), True, 1024, 7,
+                 id="four-blocks-mixed-scales"),
+    pytest.param(4, (57, 2), (True, False), True, 1024, 1, id="one-token"),
+    pytest.param(4, (57, 2), (True, False), False, 1024, 8, id="eight-tokens"),
+    pytest.param(4, (17, 2), (True, False), True, 98, 7, id="n98-2-byte-staging"),
+])
+def test_factored_i2t_scores_bf16_entry_matches_plain(cuda_device, B, ranks, scaled, with_a,
+                                                      N, T):
+    rng = np.random.RandomState(14)
+    st = _bf16_state(factored_state(rng, B, N, 256, 128, ranks, scaled, with_a, cuda_device))
+    kt = torch.from_numpy(rng.randn(B, T, 128).astype(np.float32) * 0.25).to(cuda_device)
+    args = (kt.to(torch.bfloat16), st["UK"] if ranks else None, st["blocks"], st["a"],
+            st["KS"], st["KC"], 8)
+    got = factored.factored_i2t_scores_bf16_cuda(*args)
+    assert got.shape == (B, 8 * T + 1, N)
+    _bf16_close(got, factored.factored_i2t_scores_bf16_plain(*args))
+
+
+@pytest.mark.cuda
+def test_factored_bf16_entries_refuse_what_they_do_not_take(cuda_device):
+    """float32 operands, a rank past the kernels' 128, rows that are not
+    16-byte aligned; the dispatches route by the one dtype and refuse mixed
+    or float16 operands."""
+    st = factored_state(np.random.RandomState(15), 2, 64, 256, 128, (9, 2), (True, False),
+                        True, cuda_device)
+    b16 = _bf16_state(st)
+    with pytest.raises(ValueError):
+        factored.factored_ln_stats_bf16_cuda(st["blocks"], st["U"], st["S"], st["a"])
+    with pytest.raises(ValueError):
+        factored.factored_i2t_scores_bf16_cuda(st["q"], st["UK"], st["blocks"], st["a"],
+                                               st["KS"], st["KC"], 8)
+    big = ((torch.zeros(2, 129, 64, device=cuda_device, dtype=torch.bfloat16), None),)
+    uk = torch.zeros(2, 129, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        factored.factored_t2i_attention_bf16_cuda(b16["q"], uk, uk, big, b16["a"], b16["KS"],
+                                                  b16["KC"], b16["VS"], 8)
+    buf = torch.zeros(1 + 64 * 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        factored.factored_i2t_scores_bf16_cuda(b16["q"], b16["UK"], b16["blocks"], b16["a"],
+                                               buf[1:].view(64, 128), b16["KC"], 8)
+    with pytest.raises(ValueError):
+        factored.factored_i2t_scores(b16["q"], st["UK"], b16["blocks"], b16["a"], b16["KS"],
+                                     b16["KC"], 8)
+    with pytest.raises(ValueError):
+        factored.factored_ln_stats(tuple((p.half(), s) for p, s in st["blocks"]), st["U"],
+                                   st["S"], st["a"])
+    counts = (factored.factored_i2t_scores_cuda.launches,
+              factored.factored_i2t_scores_bf16_cuda.launches)
+    factored.factored_i2t_scores(b16["q"], b16["UK"], b16["blocks"], b16["a"], b16["KS"],
+                                 b16["KC"], 8)
+    assert (factored.factored_i2t_scores_cuda.launches,
+            factored.factored_i2t_scores_bf16_cuda.launches) == (counts[0], counts[1] + 1)

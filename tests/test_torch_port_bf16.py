@@ -22,7 +22,7 @@ package's converters:
 - pipelines built without `dtype` hold float32 parameters and give the
   outputs of the float32 modules bit for bit;
 - the dispatches refuse float16 and mixed dtypes, and the bf16 CUDA entries
-  refuse CPU tensors without counting a launch."""
+  (K1, K5, K8, K9 and K2-K4) refuse CPU tensors without counting a launch."""
 import dataclasses
 import pathlib
 
@@ -45,7 +45,7 @@ from sam6d_tpu.weights.convert_pem import convert_pem_state_dict
 from sam6d_tpu.weights.convert_sam import convert_sam_state_dict
 from sam6d_torch.core.numerics import BUDGETS, q99_rel, rotation_q99
 from sam6d_torch.core.params import cast_float_params
-from sam6d_torch.kernels import attention, attention_qkv, attention_relpos
+from sam6d_torch.kernels import attention, attention_qkv, attention_relpos, factored
 from sam6d_torch.models import ism_scoring
 from sam6d_torch.models.dinov2 import DINOv2
 from sam6d_torch.models.pem import PEMNet
@@ -237,7 +237,9 @@ def test_dispatches_refuse_float16_and_mixed_dtypes():
 def test_bf16_cuda_entries_refuse_cpu_tensors_and_count_only_launches():
     entries = (attention.fused_attention_bf16_cuda, attention.fused_attention_small_bf16_cuda,
                attention_qkv.fused_attention_qkv_bf16_cuda,
-               attention_relpos.flash_attention_relpos_bf16_cuda)
+               attention_relpos.flash_attention_relpos_bf16_cuda,
+               factored.factored_ln_stats_bf16_cuda, factored.factored_t2i_attention_bf16_cuda,
+               factored.factored_i2t_scores_bf16_cuda)
     counts = [f.launches for f in entries]
     q = torch.zeros(1, 2, 9, 16, dtype=BF)
     qkv = torch.zeros(1, 9, 3 * 32, dtype=BF)
@@ -249,10 +251,25 @@ def test_bf16_cuda_entries_refuse_cpu_tensors_and_count_only_launches():
         entries[2](torch.zeros(1, 5, 3 * 64, dtype=BF), 1, 0.125)
     with pytest.raises(ValueError):
         entries[3](qkv, rh, rw, (3, 3), 4)
+    # K2-K4 at their kernels' widths: 256 channels, 8 heads of 16
+    blocks = ((torch.rand(1, 3, 8, dtype=BF), torch.rand(1, 8, dtype=BF)),)
+    U, S = torch.zeros(1, 3, 256, dtype=BF), torch.zeros(8, 256, dtype=BF)
+    a = torch.ones(1, 8, dtype=BF)
+    kt, uk = torch.zeros(1, 7, 128, dtype=BF), torch.zeros(1, 3, 128, dtype=BF)
+    ks = torch.zeros(8, 128, dtype=BF)
+    with pytest.raises(ValueError):
+        entries[4](blocks, U, S, a)
+    with pytest.raises(ValueError):
+        entries[5](kt, uk, uk, blocks, a, ks, ks, ks, 8)
+    with pytest.raises(ValueError):
+        entries[6](kt, uk, blocks, a, ks, ks, 8)
     attention.fused_attention(q, q, q, 0.25)              # CPU: plain versions
     attention.fused_attention_small(q, q, q, 0.25)
     attention_qkv.fused_attention_qkv(torch.zeros(1, 5, 3 * 64, dtype=BF), 1, 0.125)
     attention_relpos.flash_attention_relpos(qkv, rh, rw, (3, 3), 4)
+    factored.factored_ln_stats(blocks, U, S, a)
+    factored.factored_t2i_attention(kt, uk, uk, blocks, a, ks, ks, ks, 8)
+    factored.factored_i2t_scores(kt, uk, blocks, a, ks, ks, 8)
     assert counts == [f.launches for f in entries]
 
 
@@ -300,7 +317,8 @@ def _jax_decode(seg, emb, pts, iou_only=False):
 def test_sam_decode_bf16_within_budget(sam_stage, iou_only):
     """A chunk of 16 point prompts on JAX's own embeddings (bf16 for the bf16
     runs): the standard decode's masks and IoU, and the factored iou_only
-    pass (its K2-K4 through their fp32 entries) against JAX's."""
+    pass (its K2-K4 through their plain bf16 versions) against JAX's (its
+    XLA branch on the CPU)."""
     j32, j16, port, _, e32, e16 = sam_stage
     pts = np.random.RandomState(3).rand(16, 2).astype(np.float32) * 64
     m32, iou32 = _jax_decode(j32, e32, jnp.asarray(pts), iou_only)

@@ -1,22 +1,29 @@
 """The modules of the port's SAM segmentor against the JAX package on the
 CPU, at tiny widths, on one set of seeded weights carried across by the
 converters: the image encoder, the prompt encoder, the mask decoder (the
-standard decode and the factored `iou_only` pass), the rel-pos attention
+standard decode and the factored `iou_only` pass, in float32 and in bf16
+against the JAX package's bf16 kernel path), the rel-pos attention
 (K1) and the three factored kernels (K2-K4) as plain versions against the
 Pallas kernels in interpret mode, mask boxes, the top-k tie rule, and the
 SAM weights bridge."""
+import copy
+
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from sam6d_tpu.core.params import cast_float_params as jax_cast_float_params
 from sam6d_tpu.kernels import factored_t2i as jfac
 from sam6d_tpu.kernels.flash_attention import flash_attention_relpos as jax_relpos
 from sam6d_tpu.models import sam as jsam
 from sam6d_tpu.ops import masks as jmasks
 from sam6d_tpu.weights.convert_sam import convert_sam_state_dict
+from sam6d_torch.core.numerics import BUDGETS, q99_rel
+from sam6d_torch.core.params import cast_float_params
 from sam6d_torch.kernels import attention_relpos, factored
 from sam6d_torch.models import sam
 from sam6d_torch.ops import masks
@@ -124,6 +131,35 @@ def test_iou_only_matches_jax_factored_kernels_in_interpret_mode(weights):
     with torch.no_grad():
         _, got = net.mask_decoder(*map(tt, inputs), iou_only=True)
     close(got, want)
+
+
+def test_iou_only_bf16_matches_jax_factored_kernels_in_interpret_mode(weights):
+    """The bf16 iou_only pass against the path the JAX package runs on a TPU
+    in bf16: its decoder with the three Pallas kernels (interpret mode) on
+    bf16 weights; the port's K2-K4 dispatches take their plain bf16
+    versions on the CPU. Held to the amg_decode_iou budget (q99_rel)."""
+    _, _, variables, net = weights
+    emb, pe, sparse, dense = _decoder_inputs(B=16)
+    # as the bf16 pipelines give them: the embedding and the no-mask dense
+    # embedding (a weight) in bf16, the Fourier encodings in float32
+    emb16, dense16 = (x.astype(ml_dtypes.bfloat16) for x in (emb, dense))
+    dec_k = jsam.MaskDecoder(transformer_dim=32, block_layout=True, block_masks=True,
+                             factored_kernel=True, dtype=jnp.bfloat16)
+    v16 = jax_cast_float_params(variables["mask_decoder"], jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        _, want = dec_k.apply(v16, *map(jnp.asarray, (emb16, pe, sparse, dense16)),
+                              iou_only=True)
+    def t16(x):
+        return tt(x.astype(np.float32)).to(torch.bfloat16)
+
+    dec = copy.deepcopy(net.mask_decoder)
+    cast_float_params(dec, torch.bfloat16)
+    with torch.no_grad():
+        _, got = dec(t16(emb16), tt(pe), tt(sparse), t16(dense16), iou_only=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (16, 4)
+    err = q99_rel(got.float().numpy(), np.asarray(want).astype(np.float32))
+    print(f"bf16 iou_only vs JAX's bf16 kernel path: q99_rel {err:.4f}")
+    assert err <= BUDGETS["amg_decode_iou"], err
 
 
 # ------------------------------------------------------------------ K1
