@@ -110,14 +110,25 @@ Phases, in order; any failure raises and exits non-zero:
      (K6, K7 as in fp32), the 448 describe (K8 bf16 24), each against the
      fp32 pipeline on CUDA events over three calls with the card's busy
      share; run_demo with Config(dtype="bfloat16") and a bf16
-     MultiObjectStream frame.
+     MultiObjectStream frame;
+ 13. export, at full width: PEM-base inference at B=16 (fp32, on a prepared
+     synthetic frame, the sampler's uniforms an input), the DINOv2-L
+     describe at 16 crops (fp32 and bf16) and ViT-H's prompt decode at 16
+     prompts (has_mask 0 and 1) exported with sam6d_torch.deploy, saved,
+     loaded here and in a child interpreter that imports only sam6d_torch,
+     each held to its direct call (EXPORT_ATOL fp32, BF16_ATOL bf16) with
+     the same kernel launches (K7 and K6; K5 x24; K5 bf16 x24; none);
+     export s, MB, load s, CUDA-event ms beside the direct call's; the
+     host µs a call of torch.ops.sam6d.fused_attention_qkv beside its
+     ctypes wrapper (medians of 1000 calls).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; each kernel's record carries its launches on its own
 path (`launches`), on phases 8-12 (`path_launches`) and in a training step
 (`train_launches`; K6 and K7 also their times at the training shapes,
 `train_ms` and the rest); the bf16 entries' records their launches on the
-bf16 path of phase 12. Prints the card's name and power limit, one JSON line of
+bf16 path of phase 12; every record its launches in each artifact of
+phase 13 (`export_launches`). Prints the card's name and power limit, one JSON line of
 kernel records (times, launches, errors, bounds), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -3553,6 +3564,235 @@ def phase_bf16(job, ptxas):
     return kernels, paths
 
 
+# ------------------------------------------------------------------ phase 13
+
+# an artifact against the direct call of the same network on the same card:
+# the same kernels in the same order, so float32 agrees to the last bits
+EXPORT_ATOL = 1e-5
+EXPORT_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from sam6d_torch.deploy import load_exported
+from sam6d_torch.kernels.ops import OPS
+from sam6d_torch.kernels import attention_qkv, ball_query, fps
+fns = dict(farthest_point_sample_cuda=fps.farthest_point_sample_cuda,
+           two_scale_ball_query_cuda=ball_query.two_scale_ball_query_cuda,
+           fused_attention_qkv_cuda=attention_qkv.fused_attention_qkv_cuda,
+           fused_attention_qkv_bf16_cuda=attention_qkv.fused_attention_qkv_bf16_cuda)
+launches = {}
+for name in sys.argv[3:]:
+    runner = load_exported(f"{sys.argv[2]}/{name}.pt2")
+    args = torch.load(f"{sys.argv[2]}/{name}.in.pt")
+    for fn in fns.values():
+        fn.launches = 0
+    out = runner(*args)
+    torch.cuda.synchronize()
+    launches[name] = {k: fn.launches for k, fn in fns.items()}
+    torch.save(out, f"{sys.argv[2]}/{name}.child.pt")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "sam6d_tpu"))
+assert not bad, bad
+print(json.dumps(launches))
+"""
+
+
+def export_counters():
+    from sam6d_torch.kernels import attention, attention_qkv, ball_query, fps
+    return dict(farthest_point_sample_cuda=fps.farthest_point_sample_cuda,
+                two_scale_ball_query_cuda=ball_query.two_scale_ball_query_cuda,
+                fused_attention_qkv_cuda=attention_qkv.fused_attention_qkv_cuda,
+                fused_attention_qkv_bf16_cuda=attention_qkv.fused_attention_qkv_bf16_cuda,
+                fused_attention_cuda=attention.fused_attention_cuda)
+
+
+def _max_err(got, want):
+    import torch
+    leaves = (lambda x: list(x.values()) if isinstance(x, dict) else list(x))
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(leaves(got), leaves(want)))
+
+
+def _dispatch_us(qkv, heads, scale, calls=1000):
+    """Host µs of one call of torch.ops.sam6d.fused_attention_qkv and of
+    fused_attention_qkv_cuda at `qkv`'s shape: medians over `calls` calls
+    each, alternating blocks of 100 (the card synchronized between blocks,
+    outside the timing, so the launch queue never fills)."""
+    import torch
+    from sam6d_torch.kernels.attention_qkv import fused_attention_qkv_cuda
+    ways = {"torch.ops.sam6d": torch.ops.sam6d.fused_attention_qkv,
+            "ctypes wrapper": fused_attention_qkv_cuda}
+    times = {k: [] for k in ways}
+    with torch.inference_mode():
+        for _ in range(calls // 100):
+            for k, fn in ways.items():
+                torch.cuda.synchronize()
+                for _ in range(100):
+                    t0 = time.perf_counter_ns()
+                    fn(qkv, heads, scale)
+                    times[k].append((time.perf_counter_ns() - t0) / 1e3)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_export(job_dir):
+    """Phase 13: the deployment artifacts (sam6d_torch/deploy) at full
+    width: PEM-base at B=16 (fp32) on a synthetic job's prepared frame, the
+    DINOv2-L describe at batch 16 (fp32 and bf16) and ViT-H's prompt
+    decode at 16 prompts (has_mask 0 and 1). Each is exported on the card,
+    saved, loaded here and in a child interpreter that imports only
+    sam6d_torch, and held to the direct call (EXPORT_ATOL fp32, BF16_ATOL
+    bf16) with the same kernel launches. Returns {artifact: launches}."""
+    import torch
+    from sam6d_torch.core.config import DINOv2Config, ISMConfig, PEMConfig, SAMConfig
+    from sam6d_torch.data.synthetic import K_CAM, write_pem_job
+    from sam6d_torch.deploy import (export_dinov2_describe, export_pem_infer,
+                                    export_sam_decode, load_exported)
+    from sam6d_torch.models.sam import SAM
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    from sam6d_torch.pipelines.pem import PEMPipeline, load_ply
+    from sam6d_torch.weights.dinov2 import random_dinov2_state_dict
+    from sam6d_torch.models.dinov2 import DINOv2
+    from sam6d_torch.weights.sam import random_sam_state_dict
+
+    fns = export_counters()
+    rng = np.random.RandomState(SEED + 13)
+    out_dir = os.path.join(job_dir, "export")
+    os.makedirs(out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    programs = {}     # name -> (data, args, direct fn, atol)
+
+    # PEM-base at B=16 on a prepared synthetic frame; the sampler's uniforms
+    # are an input of the artifact
+    cfg = PEMConfig()
+    pipe = PEMPipeline(cfg, seed=SEED, device="cuda")
+    os.makedirs(os.path.join(job_dir, "pem13"))
+    job = write_pem_job(os.path.join(job_dir, "pem13"), rng)
+    model_points = (load_ply(job["cad"]).sample(cfg.n_sample_model_point,
+                                               np.random.RandomState(0)) / 1000.0
+                    ).astype(np.float32)
+    templates = pipe.onboard_templates(pipe.load_template_views(
+        os.path.join(job_dir, "pem13", "templates")))
+    prep, _ = pipe.prepare_frame(job["rgb_arr"], job["depth_arr"], K_CAM, 1.0, job["dets"],
+                                 model_points, templates)
+    B = 16
+    inputs = {k: torch.as_tensor(v, device="cuda").expand(B, *v.shape[1:]).contiguous()
+              for k, v in prep.items() if k in ("rgb", "rgb_choose", "pts", "model",
+                                                "dense_po", "dense_fo", "pe_o")}
+    inputs["u"] = torch.rand((B, 3 * cfg.coarse.nproposal1), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    data = export_pem_infer(cfg, pipe.net, batch_size=B, device="cuda")
+    programs["pem"] = (data, time.perf_counter() - t0, (inputs,),
+                       lambda x: pipe.net.infer(x, u=x["u"]), EXPORT_ATOL)
+
+    # the DINOv2-L describe at batch 16, fp32 and bf16
+    d = DINOv2Config()
+    sd = random_dinov2_state_dict(DINOv2(d.img_size, d.patch_size, d.embed_dim, d.depth,
+                                         d.num_heads), SEED)
+    crops = torch.randn((16, d.img_size, d.img_size, 3), generator=gen, device="cuda")
+    for dtype, atol in ((torch.float32, EXPORT_ATOL), (torch.bfloat16, BF16_ATOL)):
+        ism = ISMPipeline(ISMConfig(dinov2=d), state_dict=sd, device="cuda", dtype=dtype)
+        t0 = time.perf_counter()
+        data = export_dinov2_describe(d, sd, batch=16, device="cuda", dtype=dtype)
+        programs[f"describe_{str(dtype)[6:]}"] = (data, time.perf_counter() - t0, (crops,),
+                                                  ism.dinov2, atol)
+
+    # ViT-H's prompt decode at 16 prompts
+    scfg = SAMConfig()
+    with torch.device("meta"):
+        sam = SAM(scfg)
+    sam_sd = {k: v for k, v in random_sam_state_dict(sam, SEED, "cuda").items()
+              if not k.startswith("image_encoder.")}
+    sam = sam.to_empty(device="cuda")
+    sam.load_state_dict(sam_sd, strict=False)
+    pe, dec = sam.prompt_encoder.eval(), sam.mask_decoder.eval()
+    g, C, P = scfg.img_size // scfg.patch_size, scfg.prompt_embed_dim, 16
+    t0 = time.perf_counter()
+    data = export_sam_decode(scfg, sam_sd, num_prompts=P, device="cuda")
+    secs = time.perf_counter() - t0
+
+    def decode(emb, pts, labels, mask_in, has_mask):
+        dense = (has_mask * pe.embed_masks(mask_in)[0]
+                 + (1.0 - has_mask) * pe.no_mask_dense())
+        return dec(emb, pe.dense_pe(), pe.embed_points(pts, labels), dense)
+
+    emb = 0.1 * torch.randn((g, g, C), generator=gen, device="cuda")
+    pts = torch.rand((P, 1, 2), generator=gen, device="cuda") * scfg.img_size
+    labels = torch.ones((P, 1), dtype=torch.int64, device="cuda")
+    mask_in = torch.randn((P, 4 * g, 4 * g, 1), generator=gen, device="cuda")
+    for has_mask in (0.0, 1.0):
+        programs[f"decode_has_mask_{int(has_mask)}"] = (
+            data, secs, (emb, pts, labels, mask_in,
+                         torch.tensor(has_mask, device="cuda")), decode, EXPORT_ATOL)
+
+    launches, records = {}, []
+    for name, (data, secs, args, direct, atol) in programs.items():
+        path = os.path.join(out_dir, f"{name}.pt2")
+        with open(path, "wb") as f:
+            f.write(data)
+        torch.save(args, os.path.join(out_dir, f"{name}.in.pt"))
+        t0 = time.perf_counter()
+        runner = load_exported(path)
+        load_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            reset_counts(fns)
+            got = runner(*args)
+            torch.cuda.synchronize()
+            art = read_counts(fns)
+            reset_counts(fns)
+            want = direct(*args)
+            torch.cuda.synchronize()
+            dir_counts = read_counts(fns)
+            err = _max_err(got, want)
+            ms = cuda_ms(lambda: runner(*args), reps=3)
+            direct_ms = cuda_ms(lambda: direct(*args), reps=3)
+        torch.save(want, os.path.join(out_dir, f"{name}.want.pt"))
+        log(f"export {name}: exported in {secs:.1f} s, {len(data) / 2**20:.1f} MB, loaded in "
+            f"{load_s:.1f} s; max |artifact - direct| {err:.3e} (atol {atol}); "
+            f"{ms:.2f} ms artifact, {direct_ms:.2f} ms direct (CUDA events, median of 3); "
+            f"launches artifact {art}, direct {dir_counts}")
+        if not err <= atol:
+            raise AssertionError(f"the {name} artifact disagrees with its direct call")
+        if art != dir_counts:
+            raise AssertionError(f"the {name} artifact launches {art}, the direct call "
+                                 f"{dir_counts}")
+        launches[name] = art
+        del runner
+    want_k5 = {"describe_float32": "fused_attention_qkv_cuda",
+               "describe_bfloat16": "fused_attention_qkv_bf16_cuda"}
+    for name, k in want_k5.items():
+        if launches[name][k] != d.depth or sum(launches[name].values()) != d.depth:
+            raise AssertionError(f"{name}: expected {d.depth} launches of {k} alone")
+    if not (launches["pem"]["farthest_point_sample_cuda"] >= 1
+            and launches["pem"]["two_scale_ball_query_cuda"] >= 1):
+        raise AssertionError("the PEM artifact launched no FPS or no ball query")
+    if any(sum(launches[n].values()) for n in launches if n.startswith("decode")):
+        raise AssertionError("the decode artifact launched a kernel")
+
+    # the same artifacts in a child interpreter that imports only sam6d_torch
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, ROOT, out_dir, *programs],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"export child failed:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, (_, _, _, _, atol) in programs.items():
+        got = torch.load(os.path.join(out_dir, f"{name}.child.pt"))
+        err = _max_err(got, torch.load(os.path.join(out_dir, f"{name}.want.pt")))
+        if not err <= atol or any(child[name][k] != launches[name].get(k, 0)
+                                  for k in child[name]):
+            raise AssertionError(f"the {name} artifact in the child: max |diff| {err:.3e}, "
+                                 f"launches {child[name]}")
+    log(f"export: the {len(programs)} artifacts loaded and run in a child interpreter "
+        f"(no jax, no sam6d_tpu) in {time.perf_counter() - t0:.1f} s, each within its "
+        f"atol of the direct call with the same launches")
+
+    qkv = torch.randn((16, 257, 3 * d.embed_dim), generator=gen, device="cuda")
+    us = _dispatch_us(qkv, d.num_heads, (d.embed_dim // d.num_heads) ** -0.5)
+    log(f"export: host µs a call of fused_attention_qkv at {tuple(qkv.shape)} "
+        f"(median of 1000): " + ", ".join(f"{k} {v:.1f}" for k, v in us.items()))
+    return launches
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -3604,6 +3844,8 @@ def main():
         option_launches = phase_options(dict(job, dir=job_dir))
         torch.cuda.empty_cache()
         bf16_kernels, bf16_paths = phase_bf16(dict(job, dir=job_dir), ptxas)
+        torch.cuda.empty_cache()
+        export_launches = phase_export(job_dir)
     # each kernel's count from the run of its own path: K6/K7 from the `pem`
     # CLI run of phase 4, K5 from match_frame in phase 5, K1-K4 from
     # generate_masks in phase 6, K8 (and K9, which no path calls) from the
@@ -3630,6 +3872,9 @@ def main():
         k["path_launches"].update({p: n[k["name"]] for p, n in bf16_paths.items()})
     # the bf16 entries: their launches on the bf16 path of phase 12
     kernels += bf16_kernels
+    # and every kernel's launches in each deployment artifact (phase 13)
+    for k in kernels:
+        k["export_launches"] = {a: n.get(k["name"], 0) for a, n in export_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

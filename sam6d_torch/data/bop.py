@@ -22,6 +22,9 @@ from .mesh import Mesh, load_ply
 from .preprocess import prepare_instance, prepare_template
 from .rle import rle_decode_coco
 
+# the BOP-19/23 core datasets (reference exp.sh; sam6d_tpu/data/bop.py)
+BOP_DATASETS = ["lmo", "tless", "tudl", "icbin", "itodd", "hb", "ycbv"]
+
 def load_scene_camera(path: str) -> Dict[int, Dict]:
     with open(path) as f:
         data = json.load(f)

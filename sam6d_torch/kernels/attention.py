@@ -179,14 +179,11 @@ fused_attention_bf16_cuda.launches = 0
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """A CUDA tensor goes to the K8 kernel of its dtype (float32 or
-    bfloat16), a CPU tensor to the plain version of that dtype."""
-    bf16 = operand_dtype("fused_attention", q, k, v) == torch.bfloat16
-    if q.device.type == "cuda":
-        return (fused_attention_bf16_cuda if bf16 else fused_attention_cuda)(q, k, v, scale)
-    if q.device.type == "cpu":
-        return (fused_attention_bf16_plain if bf16 else fused_attention_plain)(q, k, v, scale)
-    raise ValueError(f"no fused_attention for device {q.device}")
+    """`torch.ops.sam6d.fused_attention` (kernels/ops.py): a CUDA tensor
+    goes to the K8 kernel of its dtype (float32 or bfloat16), a CPU tensor
+    to the plain version of that dtype. The strided q, k, v views pass
+    through as they are."""
+    return torch.ops.sam6d.fused_attention(q, k, v, scale)
 
 
 def fused_attention_small_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -252,13 +249,7 @@ fused_attention_small_bf16_cuda.launches = 0
 
 def fused_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> torch.Tensor:
-    """A CUDA tensor goes to the K9 kernel of its dtype (float32 or
-    bfloat16), a CPU tensor to the plain version of that dtype."""
-    bf16 = operand_dtype("fused_attention_small", q, k, v) == torch.bfloat16
-    if q.device.type == "cuda":
-        return (fused_attention_small_bf16_cuda if bf16
-                else fused_attention_small_cuda)(q, k, v, scale)
-    if q.device.type == "cpu":
-        return (fused_attention_small_bf16_plain if bf16
-                else fused_attention_small_plain)(q, k, v, scale)
-    raise ValueError(f"no fused_attention_small for device {q.device}")
+    """`torch.ops.sam6d.fused_attention_small` (kernels/ops.py): a CUDA
+    tensor goes to the K9 kernel of its dtype (float32 or bfloat16), a CPU
+    tensor to the plain version of that dtype."""
+    return torch.ops.sam6d.fused_attention_small(q, k, v, scale)

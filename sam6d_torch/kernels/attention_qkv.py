@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, load_library
-from .attention import bf16_attention_plain, operand_dtype
+from .attention import bf16_attention_plain
 
 KERNEL_HEAD_DIMS = (32, 64)
 
@@ -123,13 +123,7 @@ fused_attention_qkv_bf16_cuda.launches = 0
 
 def fused_attention_qkv(qkv: torch.Tensor, heads: int,
                         scale: float) -> torch.Tensor:
-    """A CUDA tensor goes to the kernel of its dtype (float32 or bfloat16),
-    a CPU tensor to the plain version of that dtype."""
-    bf16 = operand_dtype("fused_attention_qkv", qkv) == torch.bfloat16
-    if qkv.device.type == "cuda":
-        return (fused_attention_qkv_bf16_cuda if bf16
-                else fused_attention_qkv_cuda)(qkv, heads, scale)
-    if qkv.device.type == "cpu":
-        return (fused_attention_qkv_bf16_plain if bf16
-                else fused_attention_qkv_plain)(qkv, heads, scale)
-    raise ValueError(f"no fused_attention_qkv for device {qkv.device}")
+    """`torch.ops.sam6d.fused_attention_qkv` (kernels/ops.py): a CUDA tensor
+    goes to the kernel of its dtype (float32 or bfloat16), a CPU tensor to
+    the plain version of that dtype."""
+    return torch.ops.sam6d.fused_attention_qkv(qkv, heads, scale)

@@ -43,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check, load_library
-from .attention import bf16_attention_plain, bf16_scale, operand_dtype
+from .attention import bf16_attention_plain, bf16_scale
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 80)
 
@@ -220,15 +220,9 @@ flash_attention_relpos_bf16_cuda.launches = 0
 def flash_attention_relpos(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                            rel_pos_w: torch.Tensor, hw,
                            heads: int) -> torch.Tensor:
-    """A CUDA tensor goes to the kernel of its dtype (float32 or bfloat16; the
-    rel-pos tables in the same dtype), a CPU tensor to the plain version of
-    that dtype."""
-    bf16 = operand_dtype("flash_attention_relpos", qkv, rel_pos_h,
-                         rel_pos_w) == torch.bfloat16
-    if qkv.device.type == "cuda":
-        return (flash_attention_relpos_bf16_cuda if bf16 else flash_attention_relpos_cuda)(
-            qkv, rel_pos_h, rel_pos_w, hw, heads)
-    if qkv.device.type == "cpu":
-        return (flash_attention_relpos_bf16_plain if bf16 else flash_attention_relpos_plain)(
-            qkv, rel_pos_h, rel_pos_w, hw, heads)
-    raise ValueError(f"no flash_attention_relpos for device {qkv.device}")
+    """`torch.ops.sam6d.flash_attention_relpos` (kernels/ops.py): a CUDA
+    tensor goes to the kernel of its dtype (float32 or bfloat16; the rel-pos
+    tables in the same dtype), a CPU tensor to the plain version of that
+    dtype."""
+    return torch.ops.sam6d.flash_attention_relpos(qkv, rel_pos_h, rel_pos_w,
+                                                  list(hw), heads)

@@ -106,9 +106,6 @@ two_scale_ball_query_cuda.launches = 0
 
 def two_scale_ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor,
                          r1: float, s1: int, r2: float, s2: int):
-    """A CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
-    if xyz.device.type == "cuda":
-        return two_scale_ball_query_cuda(xyz, new_xyz, r1, s1, r2, s2)
-    if xyz.device.type == "cpu":
-        return two_scale_ball_query_plain(xyz, new_xyz, r1, s1, r2, s2)
-    raise ValueError(f"no ball query for device {xyz.device}")
+    """`torch.ops.sam6d.two_scale_ball_query` (kernels/ops.py): a CUDA
+    tensor goes to the kernel, a CPU tensor to the plain version."""
+    return torch.ops.sam6d.two_scale_ball_query(xyz, new_xyz, r1, s1, r2, s2)

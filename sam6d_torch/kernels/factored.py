@@ -35,7 +35,6 @@ import ctypes
 import torch
 
 from ._build import check, load_library
-from .attention import operand_dtype
 
 MAX_BLOCKS = 4
 MAX_RANK = 128            # K3/K4 keep the low-rank factor in shared memory
@@ -440,47 +439,29 @@ factored_i2t_scores_bf16_cuda.launches = 0
 
 
 # ----------------------------------------------------------------- dispatch
+#
+# Each public function is its `torch.ops.sam6d` operator (kernels/ops.py),
+# which takes the scaled blocks as two lists: a CUDA tensor goes to the
+# kernel of the operands' one dtype, a CPU tensor to the plain version of
+# that dtype.
 
 
-def _route(name, x, tensors, fp32, bf16, *args):
-    """The entry of the operands' one dtype (float32 or bfloat16): its CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors."""
-    dtype = operand_dtype(name, *(t for t in tensors if t is not None))
-    cuda_fn, plain_fn = bf16 if dtype == torch.bfloat16 else fp32
-    if x.device.type == "cuda":
-        return cuda_fn(*args)
-    if x.device.type == "cpu":
-        return plain_fn(*args)
-    raise ValueError(f"no {name} for device {x.device}")
-
-
-def _block_tensors(blocks):
-    return [t for pd, s in blocks for t in (pd, s)]
+def _split_blocks(blocks):
+    return [pd for pd, _ in blocks], [s for _, s in blocks]
 
 
 def factored_ln_stats(blocks, Uc, S, a, eps: float = 1e-6):
-    """A CUDA tensor goes to the kernel of its dtype, a CPU tensor to the
-    plain version of that dtype."""
-    return _route("factored_ln_stats", S, [*_block_tensors(blocks), Uc, S, a],
-                  (factored_ln_stats_cuda, factored_ln_stats_plain),
-                  (factored_ln_stats_bf16_cuda, factored_ln_stats_bf16_plain),
-                  blocks, Uc, S, a, eps)
+    """`torch.ops.sam6d.factored_ln_stats`: (mu, 1/sigma), each (B, N)."""
+    return tuple(torch.ops.sam6d.factored_ln_stats(*_split_blocks(blocks), Uc, S, a, eps))
 
 
 def factored_t2i_attention(qp, UK, UV, blocks, a, KS, KC, VS, heads: int):
-    """A CUDA tensor goes to the kernel of its dtype, a CPU tensor to the
-    plain version of that dtype."""
-    return _route("factored_t2i_attention", KS,
-                  [qp, UK, UV, *_block_tensors(blocks), a, KS, KC, VS],
-                  (factored_t2i_attention_cuda, factored_t2i_attention_plain),
-                  (factored_t2i_attention_bf16_cuda, factored_t2i_attention_bf16_plain),
-                  qp, UK, UV, blocks, a, KS, KC, VS, heads)
+    """`torch.ops.sam6d.factored_t2i_attention`."""
+    return torch.ops.sam6d.factored_t2i_attention(qp, UK, UV, *_split_blocks(blocks), a,
+                                                  KS, KC, VS, heads)
 
 
 def factored_i2t_scores(kt, UQ, blocks, a, QS, QC, heads: int):
-    """A CUDA tensor goes to the kernel of its dtype, a CPU tensor to the
-    plain version of that dtype."""
-    return _route("factored_i2t_scores", QS, [kt, UQ, *_block_tensors(blocks), a, QS, QC],
-                  (factored_i2t_scores_cuda, factored_i2t_scores_plain),
-                  (factored_i2t_scores_bf16_cuda, factored_i2t_scores_bf16_plain),
-                  kt, UQ, blocks, a, QS, QC, heads)
+    """`torch.ops.sam6d.factored_i2t_scores`."""
+    return torch.ops.sam6d.factored_i2t_scores(kt, UQ, *_split_blocks(blocks), a, QS, QC,
+                                               heads)

@@ -182,9 +182,6 @@ def step_sync_us(path: str, n: int, steps: tuple[int, int] = (256, 2304),
 def farthest_point_sample(points: torch.Tensor, npoint: int,
                           valid_mask: torch.Tensor | None = None
                           ) -> torch.Tensor:
-    """A CUDA tensor goes to the kernel, a CPU tensor to the plain version."""
-    if points.device.type == "cuda":
-        return farthest_point_sample_cuda(points, npoint, valid_mask)
-    if points.device.type == "cpu":
-        return farthest_point_sample_plain(points, npoint, valid_mask)
-    raise ValueError(f"no FPS for device {points.device}")
+    """`torch.ops.sam6d.farthest_point_sample` (kernels/ops.py): a CUDA
+    tensor goes to the kernel, a CPU tensor to the plain version."""
+    return torch.ops.sam6d.farthest_point_sample(points, npoint, valid_mask)

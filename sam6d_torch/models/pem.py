@@ -138,9 +138,12 @@ class PEMNet(nn.Module):
                     fps_idx_o=fps_idx_o, geo_o=geo_o)
 
     def infer_coarse(self, inputs: Dict[str, Any],
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None,
+                     u: torch.Tensor | None = None):
         """Trunk + coarse matching + hypothesis solve. Returns (trunk dict,
-        model points normalized, init_R, init_t in normalized units)."""
+        model points normalized, init_R, init_t in normalized units). The
+        hypothesis sampler's (B, 3 * coarse.nproposal1) uniforms are `u`
+        when given, else drawn from `generator`."""
         c = self.cfg
         tr = self._shared_trunk(inputs)
         model_n = inputs["model"] / (tr["radius"][:, None, None] + 1e-6)
@@ -148,7 +151,7 @@ class PEMNet(nn.Module):
             tr["sparse_fm"], tr["geo_m"], tr["sparse_fo"], tr["geo_o"])[-1]
         init_R, init_t = compute_coarse_Rt(
             coarse_atten, tr["sparse_pm"], tr["sparse_po"], model_n,
-            c.coarse.nproposal1, c.coarse.nproposal2, generator=generator)
+            c.coarse.nproposal1, c.coarse.nproposal2, generator=generator, u=u)
         return tr, model_n, init_R, init_t
 
     def infer_fine(self, tr, model_n, init_R, init_t, pe_o=None):
@@ -165,10 +168,12 @@ class PEMNet(nn.Module):
                                model_n, dis_thres=self.cfg.dis_thres)
 
     def infer(self, inputs: Dict[str, Any],
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None,
+              u: torch.Tensor | None = None):
         """Full inference: dict with init_R, init_t, pred_R, pred_t (meters)
-        and pred_pose_score."""
-        tr, model_n, init_R, init_t = self.infer_coarse(inputs, generator)
+        and pred_pose_score. `u`: the sampler's uniforms, as infer_coarse
+        takes them (the exported program's input in place of a generator)."""
+        tr, model_n, init_R, init_t = self.infer_coarse(inputs, generator, u)
         pred_R, pred_t, score = self.infer_fine(tr, model_n, init_R, init_t,
                                                 inputs.get("pe_o"))
         scale = tr["radius"][:, None] + 1e-6

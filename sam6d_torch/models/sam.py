@@ -566,11 +566,14 @@ class MaskDecoder(nn.Module):
         return m.reshape(B, hyper.shape[1], 4 * H, 4 * W)
 
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
-                iou_only: bool = False):
+                iou_only: bool = False, sel_channel: torch.Tensor | None = None):
         """image_embeddings, image_pe, dense_prompt (H, W, C) of one image;
         sparse_prompt (B, Np, C). Returns (masks (B, 4, 4H, 4W) logits,
         iou_pred (B, 4)); with `iou_only`, (None, iou_pred) from the factored
-        token-side pass (no (B, H*W, C) tensor, no upscale)."""
+        token-side pass (no (B, H*W, C) tensor, no upscale). `sel_channel`
+        (B,) mask-token indices: only that channel's mask is made, (B, 1,
+        4H, 4W), the selection taken on the (B, 4, C/8) hypernetwork vectors
+        (JAX's MaskDecoder sel_channel)."""
         H, W, C = image_embeddings.shape
         B = sparse_prompt.shape[0]
         out_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
@@ -585,6 +588,8 @@ class MaskDecoder(nn.Module):
         mask_tokens_out = hs[:, 1:1 + self.num_mask_tokens]
         hyper = torch.stack([mlp(mask_tokens_out[:, i]) for i, mlp in
                              enumerate(self.output_hypernetworks_mlps)], dim=1)
+        if sel_channel is not None:
+            hyper = hyper[torch.arange(B, device=hyper.device), sel_channel][:, None]
         masks = self._upscale_masks(src.expand(B, -1, -1), hyper, H, W)
         return masks, self.iou_prediction_head(hs[:, 0])
 

@@ -43,6 +43,14 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-8)
 
 
+def mask_iou_matrix(masks: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) masks (nonzero = in) -> (N, N) mask IoU in float32."""
+    m = (masks > 0).to(torch.float32).reshape(masks.shape[0], -1)
+    inter = m @ m.T
+    area = m.sum(dim=1)
+    return inter / torch.clamp(area[:, None] + area[None, :] - inter, min=1e-8)
+
+
 def nms_masked_rounds(iou: torch.Tensor, scores: torch.Tensor,
                       valid: torch.Tensor, same_group: torch.Tensor,
                       thresh: float):

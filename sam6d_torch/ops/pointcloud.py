@@ -1,5 +1,5 @@
-"""Depth back-projection on the device (port of the part of
-`sam6d_tpu/ops/pointcloud.py` the ISM geometric score runs).
+"""Depth back-projection and cloud helpers on the device (port of
+`sam6d_tpu/ops/pointcloud.py`).
 
 Parity targets: reference `Pose_Estimation_Model/utils/data_utils.py`
 get_point_cloud_from_depth (:92-110) and `Instance_Segmentation_Model/utils/
@@ -39,3 +39,27 @@ def masked_depth_mean_translation(masks: torch.Tensor, depth: torch.Tensor,
     num = torch.stack([X.sum(dim=(1, 2)), Y.sum(dim=(1, 2)), Z.sum(dim=(1, 2))],
                       dim=1)
     return num / den
+
+
+def radius_outlier_mask(cloud: torch.Tensor, valid: torch.Tensor,
+                        radius_limit: torch.Tensor | float) -> torch.Tensor:
+    """cloud (N, 3), valid (N,) bool -> (N,) bool: the valid points within
+    `radius_limit` of the valid points' centroid (the outlier cut of the
+    reference instance assembly, run_inference_custom.py:215-221)."""
+    vf = valid.to(cloud.dtype)[:, None]
+    center = (cloud * vf).sum(dim=0) / torch.clamp(vf.sum(), min=1.0)
+    return valid & (torch.linalg.vector_norm(cloud - center, dim=1) < radius_limit)
+
+
+def normalize_cloud_by_radius(clouds: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) clouds divided by their radius (...,), eps-guarded
+    (reference feature_extraction.py:139-157)."""
+    return clouds / (radius[..., None, None] + 1e-6)
+
+
+def cloud_radius(cloud: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Largest point norm of the (valid) cloud: (..., N, 3) -> (...,)."""
+    n = torch.linalg.vector_norm(cloud, dim=-1)
+    if valid is not None:
+        n = torch.where(valid, n, torch.zeros_like(n))
+    return n.amax(dim=-1)

@@ -10,7 +10,7 @@ import torch
 from ..kernels.fps import farthest_point_sample
 
 __all__ = ["farthest_point_sample", "gather_points", "sample_pts_feats",
-           "normalized_cdf", "multinomial_from_weights"]
+           "normalized_cdf", "multinomial_from_weights", "random_choice_fixed"]
 
 
 def gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -48,3 +48,24 @@ def multinomial_from_weights(weights: torch.Tensor, num: int,
                        device=weights.device)
     idx = torch.searchsorted(cdf, u.to(cdf.dtype).contiguous(), right=False)
     return torch.clamp(idx, max=N - 1)
+
+
+def random_choice_fixed(n_valid, capacity: int, num: int, u: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    """Choose `num` indices among the first `n_valid` entries of a
+    fixed-capacity buffer: without replacement when n_valid >= num, else
+    cycling through them (the reference data path's np.random.choice,
+    run_inference_custom.py:223-227, on the device). The (capacity,)
+    uniforms `u` give each slot its priority (from `generator` when not
+    given); the valid slots in descending priority, ties to the lower slot,
+    are taken in turn. Returns (num,) int32 in [0, n_valid); given JAX's
+    draws, JAX's indices."""
+    if u is None:
+        u = torch.rand((capacity,), generator=generator,
+                       device=None if generator is None else generator.device)
+    n_valid = torch.as_tensor(n_valid, device=u.device)
+    iota = torch.arange(capacity, device=u.device)
+    pri = torch.where(iota < n_valid, u, torch.full_like(u, -torch.inf))
+    order = torch.argsort(-pri, stable=True)
+    take = torch.clamp(n_valid, min=1, max=capacity)
+    return order[torch.arange(num, device=u.device) % take].to(torch.int32)

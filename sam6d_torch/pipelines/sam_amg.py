@@ -23,8 +23,10 @@ ties). The host AMG (`generate_masks`) also runs the crop cascade
 (`crop_n_layers > 0`: `generate_masks_cropped`) and the small-region
 cleanup (`min_mask_region_area > 0`, `data/regions.py`), both off at the
 reference operating point; as in the JAX package, the device AMG
-(`generate_masks_device`) runs neither. Left out: the pre-rank pass, the
-channel-selected re-decode and the truncation-divergence counter.
+(`generate_masks_device`) runs neither. `_masks_for` is the
+channel-selected re-decode, and `truncation_divergence` counts how far the
+iou prefix and the NMS top-k move the kept set on a frame. Left out: the
+pre-rank pass.
 
 `dtype=torch.bfloat16` runs SAM in bf16 (weights cast by
 `core/params.cast_float_params`, as the JAX segmentor does): the uint8
@@ -35,6 +37,8 @@ bytes); the predicted IoUs leave the segmentor as float32.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from typing import Dict
 
@@ -133,15 +137,20 @@ class SAMSegmentor:
         x = torch.nn.functional.pad(x, (0, 0, 0, S - u8.shape[1], 0, S - u8.shape[0]))
         return self.sam.image_encoder(x[None])[0]
 
-    def _decode_chunk(self, embedding, dense_pe, pts, iou_only: bool = False):
+    def _decode_chunk(self, embedding, dense_pe, pts, iou_only: bool = False,
+                      sel_channel=None):
         """pts (chunk, 2) in the encoder frame -> (masks (chunk, 3, 4g, 4g)
         logits of the three multimask channels, or None with `iou_only`;
-        iou (chunk, 3))."""
+        iou (chunk, 3)). With `sel_channel` (chunk,) in {0, 1, 2}, only that
+        multimask channel is decoded: masks (chunk, 1, 4g, 4g)."""
         labels = torch.ones((pts.shape[0], 1), dtype=torch.int64, device=pts.device)
         sparse, dense = self.sam.prompt_encoder(pts[:, None, :], labels)
-        masks, iou = self.sam.mask_decoder(embedding, dense_pe, sparse, dense,
-                                           iou_only=iou_only)
-        return (None if masks is None else masks[:, 1:]), iou[:, 1:]
+        masks, iou = self.sam.mask_decoder(
+            embedding, dense_pe, sparse, dense, iou_only=iou_only,
+            sel_channel=None if sel_channel is None else sel_channel + 1)
+        if masks is not None and sel_channel is None:
+            masks = masks[:, 1:]
+        return masks, iou[:, 1:]
 
     def _score_all_impl(self, embedding, dense_pe, points, Ry, Rx):
         """Every prompt decoded in chunks: (iou (3P,), stability (3P,), boxes
@@ -231,6 +240,23 @@ class SAMSegmentor:
         masks = resize_logits(lows[order], Ry, Rx) > 0.0
         return masks, boxes[order], sel_valid, iou[order].to(torch.float32), order
 
+    def _masks_for(self, embedding, sel_points, sel_channel, Ry, Rx):
+        """Re-decode the masks of selected (point, channel) pairs: sel_points
+        (K, 2) in the encoder frame, sel_channel (K,) multimask channels ->
+        (K, hs, ws) bool, in chunks of points_per_batch (K a multiple of
+        the chunk), each prompt decoding only its channel (JAX's
+        _masks_for). The device AMG gathers the kept logits instead."""
+        dense_pe = self.sam.prompt_encoder.dense_pe()
+        K = sel_points.shape[0]
+        chunk = min(self.cfg.points_per_batch, K)
+        if K % chunk:
+            raise ValueError(f"{K} selected prompts: not a multiple of the chunk {chunk}")
+        return torch.cat([
+            resize_logits(self._decode_chunk(embedding, dense_pe, sel_points[c:c + chunk],
+                                             sel_channel=sel_channel[c:c + chunk])[0],
+                          Ry, Rx)[:, 0] > 0.0
+            for c in range(0, K, chunk)])
+
     def _propose_impl(self, embedding, points, Ry, Rx):
         """The AMG tail of one frame: iou prefix, then _select_impl. Returns
         (masks (K, Hs, Ws) bool, boxes (K, 4), valid (K,), iou (K,))."""
@@ -286,6 +312,31 @@ class SAMSegmentor:
         masks, boxes, valid, iou = self._propose_impl(embedding, pts, Ry, Rx)
         return dict(masks=masks, boxes=boxes, valid=valid, iou_preds=iou,
                     orig_size=(H0, W0), seg_size=(hs, ws))
+
+    def truncation_divergence(self, image: np.ndarray, grid01=None) -> Dict:
+        """How far the AMG truncations move the result on one frame: this
+        segmentor's configured pass (iou prefix, NMS top-k) against its
+        exact twin (amg_iou_prefix_factor=0, amg_nms_topk=0; same weights)
+        on `image`. Returns dict(n_kept_trunc, n_kept_full, n_differing,
+        exact), n_differing counting the full run's kept (mask, box) pairs
+        with no bit-identical pair in the truncated run (JAX's
+        SAMSegmentor.truncation_divergence)."""
+        dev_t = self.generate_masks_device(image, grid01)
+        full = getattr(self, "_exact_twin", None)
+        if full is None:
+            # a shallow copy shares the network; only the config differs
+            full = self._exact_twin = copy.copy(self)
+            full.cfg = dataclasses.replace(self.cfg, amg_iou_prefix_factor=0.0,
+                                           amg_nms_topk=0)
+        dev_f = full.generate_masks_device(image, grid01)
+        vt, vf = dev_t["valid"].cpu().numpy(), dev_f["valid"].cpu().numpy()
+        mt, mf = dev_t["masks"].cpu().numpy()[vt], dev_f["masks"].cpu().numpy()[vf]
+        bt, bf = dev_t["boxes"].cpu().numpy()[vt], dev_f["boxes"].cpu().numpy()[vf]
+        n_diff = sum(not any(np.array_equal(bf[i], bt[j]) and np.array_equal(mf[i], mt[j])
+                             for j in range(len(mt)))
+                     for i in range(len(mf)))
+        return dict(n_kept_trunc=int(vt.sum()), n_kept_full=int(vf.sum()),
+                    n_differing=n_diff, exact=(n_diff == 0 and vt.sum() == vf.sum()))
 
     def generate_masks_cropped(self, image: np.ndarray) -> Dict[str, np.ndarray]:
         """Crop-cascade AMG (reference automatic_mask_generator.py:196-264):

@@ -51,12 +51,15 @@ def _chunked_min_dist_to_model(transformed, model_pts, chunk: int):
 def compute_coarse_Rt(atten, pts1, pts2, model_pts=None,
                       n_proposal1: int = 6000, n_proposal2: int = 300,
                       dist_chunk: int = 30,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      u: torch.Tensor | None = None):
     """Initial pose from the coarse assignment.
 
     pts1 (B, N1, 3) observed (normalized), pts2 (B, N2, 3) model-frame FPS
     points, model_pts (B, M, 3) normalized CAD points for scoring. The
-    3 * n_proposal1 sampling uniforms come from `generator`.
+    (B, 3 * n_proposal1) sampling uniforms are `u` when given (JAX's
+    `jax.random.uniform(key, ...)` draws them so), else they come from
+    `generator`.
     Returns (R (B, 3, 3), t (B, 3)) with pts1 ~ pts2 @ R^T + t."""
     if model_pts is None:
         model_pts = pts2
@@ -66,7 +69,7 @@ def compute_coarse_Rt(atten, pts1, pts2, model_pts=None,
 
     score, w1, _, _, _ = soft_assignment(atten)
     flat = score.reshape(B, N1 * N2) ** 1.5
-    idx = multinomial_from_weights(flat, n_proposal1 * 3, generator=generator)
+    idx = multinomial_from_weights(flat, n_proposal1 * 3, u=u, generator=generator)
     idx1 = torch.clamp(idx // N2, max=N1 - 1)
     idx2 = idx % N2
     p1 = torch.gather(pts1, 1, idx1[..., None].expand(-1, -1, 3))

@@ -1,7 +1,6 @@
 """Template viewpoints: icosphere camera/object poses (numpy).
 
-The port's own copy of `template_obj_poses` and what it needs from
-`sam6d_tpu/render/poses.py`. It regenerates the reference's predefined pose
+The port's own copy of `sam6d_tpu/render/poses.py`. It regenerates the reference's predefined pose
 assets (`Instance_Segmentation_Model/utils/poses/predefined_poses/*.npy`)
 from first principles: an icosahedron subdivided L+1 times, vertices sorted
 by (elevation, azimuth), cameras looking at the origin at radius 1000 (mm).
@@ -123,3 +122,36 @@ def template_obj_poses(level: int, radius: float = 1000.0) -> np.ndarray:
     out[:, :3, :3] = R
     out[:, :3, 3] = -np.einsum("nij,nj->ni", R, cams[:, :3, 3])
     return out
+
+
+def get_obj_poses_from_template_level(level: int, pose_distribution: str = "all",
+                                      return_cam: bool = False) -> np.ndarray:
+    """API-compatible with reference pose_utils.get_obj_poses_from_template_level
+    (:70-100): the object (or, with `return_cam`, camera) poses of a level,
+    all of them or the upper hemisphere's (camera z >= 0)."""
+    poses = template_cam_poses(level) if return_cam else template_obj_poses(level)
+    if pose_distribution == "all":
+        return poses
+    if pose_distribution == "upper":
+        return poses[template_cam_poses(level)[:, 2, 3] >= 0]
+    raise ValueError(pose_distribution)
+
+
+def match_pose_order(my_poses: np.ndarray, asset_poses: np.ndarray) -> np.ndarray:
+    """Permutation `perm` with my_poses[perm[i]] ~ asset_poses[i] (nearest
+    camera location). The reference assets were sorted with Blender's float
+    noise in the elevation keys, so their order within a ring does not follow
+    from exact geometry; templates rendered by the reference scripts are
+    reordered with this. Raises unless the match is one-to-one."""
+    d = np.linalg.norm(asset_poses[:, None, :3, 3] - my_poses[None, :, :3, 3], axis=-1)
+    perm = d.argmin(axis=1)
+    if len(set(perm.tolist())) != len(perm):
+        raise ValueError("pose sets do not match one-to-one")
+    return perm
+
+
+def nearest_template_indices(level_src: int, level_dst: int = 2) -> np.ndarray:
+    """For each view direction of `level_src`, the index of the nearest
+    direction of `level_dst` (reference find_neighbors.py,
+    idx_*_in_level2.npy)."""
+    return np.argmax(icosphere_vertices(level_src) @ icosphere_vertices(level_dst).T, axis=1)

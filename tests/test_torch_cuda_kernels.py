@@ -804,3 +804,74 @@ def test_factored_bf16_entries_refuse_what_they_do_not_take(cuda_device):
                                  b16["KC"], 8)
     assert (factored.factored_i2t_scores_cuda.launches,
             factored.factored_i2t_scores_bf16_cuda.launches) == (counts[0], counts[1] + 1)
+
+
+# --------------------------------------------- the torch.ops.sam6d operators
+
+def _op_cuda_case(name, dtype, device):
+    """(public dispatch, the `*_cuda` entry of `dtype`, args) at small
+    kernel-legal shapes on the card."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    sfx = "_bf16_cuda" if dtype == torch.bfloat16 else "_cuda"
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)
+
+    if name == "farthest_point_sample":
+        return fps.farthest_point_sample, fps.farthest_point_sample_cuda, (t(2, 300, 3), 16,
+                                                                           None)
+    if name == "two_scale_ball_query":
+        return (bq.two_scale_ball_query, bq.two_scale_ball_query_cuda,
+                (t(2, 256, 3), t(2, 64, 3), 0.5, 8, 1.0, 16))
+    if name == "fused_attention_qkv":
+        return (attention_qkv.fused_attention_qkv, getattr(attention_qkv, name + sfx),
+                (t(2, 33, 3 * 128), 2, 0.125))
+    if name in ("fused_attention", "fused_attention_small"):
+        q, k, v = t(2, 33, 3, 2, 64).permute(2, 0, 3, 1, 4)   # views of a qkv projection
+        return getattr(attention, name), getattr(attention, name + sfx), (q, k, v, 0.125)
+    if name == "flash_attention_relpos":
+        return (relpos.flash_attention_relpos, getattr(relpos, name + sfx),
+                (t(2, 12, 3 * 32), t(5, 16) * 0.1, t(7, 16) * 0.1, (3, 4), 2))
+    st = factored_state(rng, 2, 64, 256, 128, (5, 2), (True, False), True, device)
+    if dtype == torch.bfloat16:
+        st = _bf16_state(st)
+    fns = (getattr(factored, name), getattr(factored, name + sfx))
+    if name == "factored_ln_stats":
+        return (*fns, (st["blocks"], st["U"], st["S"], st["a"]))
+    if name == "factored_t2i_attention":
+        return (*fns, (st["q"], st["UK"], st["UV"], st["blocks"], st["a"], st["KS"], st["KC"],
+                       st["VS"], 8))
+    return (*fns, (st["q"], st["UK"], st["blocks"], st["a"], st["KS"], st["KC"], 8))
+
+
+SAM6D_OPS = ("farthest_point_sample", "two_scale_ball_query", "fused_attention_qkv",
+             "fused_attention", "fused_attention_small", "flash_attention_relpos",
+             "factored_ln_stats", "factored_t2i_attention", "factored_i2t_scores")
+OP_CUDA_CASES = [(n, torch.float32) for n in SAM6D_OPS] + [
+    (n, torch.bfloat16) for n in SAM6D_OPS[2:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", OP_CUDA_CASES,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in OP_CUDA_CASES])
+def test_sam6d_op_on_the_card_is_its_kernel(cuda_device, name, dtype):
+    """Each dispatch is `torch.ops.sam6d.<name>`: on CUDA tensors it launches
+    the `*_cuda` entry of the operands' dtype once and returns what the
+    entry returns, and the operator's fake implementation gives the eager
+    outputs' shapes, dtypes and strides (K8's (B, H, Nq, hd) view of a
+    (B, Nq, H, hd) tensor)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map_only
+    public, entry, args = _op_cuda_case(name, dtype, cuda_device)
+    want = entry(*args)
+    n = entry.launches
+    got = public(*args)
+    torch.cuda.synchronize()
+    assert entry.launches == n + 1
+    flat = (lambda o: list(o) if isinstance(o, (tuple, list)) else [o])
+    for g, w in zip(flat(got), flat(want)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+    with FakeTensorMode() as mode:
+        fake = flat(public(*tree_map_only(torch.Tensor, mode.from_tensor, args)))
+    for f, g in zip(fake, flat(got)):
+        assert (tuple(f.shape), f.dtype, f.stride()) == (tuple(g.shape), g.dtype, g.stride())

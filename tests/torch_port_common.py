@@ -3,6 +3,7 @@ seeded numpy inputs, and one set of seeded weights in both packages (JAX
 variables from `convert_pem_state_dict`, carried back into the port by
 `pem_state_dict_from_flax`)."""
 import numpy as np
+import pytest
 import torch
 
 from sam6d_tpu.core.config import (GeoEmbeddingConfig, PEMConfig,
@@ -169,3 +170,14 @@ def tiny_sam_weights(cfg, seed=1, rng=None, blocky_masks=False):
         {k: v.numpy() for k, v in sd.items()}, depth=cfg.encoder_depth,
         grid=cfg.img_size // cfg.patch_size)
     return variables, sam_state_dict_from_flax(variables, cfg)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's torch work (imported by a test
+    module, it applies to that module): the suite runs in several processes
+    at once, and their thread pools would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
