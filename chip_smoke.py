@@ -2877,6 +2877,23 @@ def _bf16_cards(rng, shape, scale=1.0):
             .cuda().to(torch.bfloat16))
 
 
+def _peaked_qkv_cards(rng, B, N, heads, hd):
+    """(B, N, 3 heads hd) bf16 qkv on the card in which every query's scores
+    peak at one key (the query is twice that key, at a random place) and
+    every V row carries its 64-key tile's own offset, (tile mod 64 - 31.5) /
+    36, plus a little noise (outputs below 1, where one ulp of bf16 is
+    2^-8): a stage of the streaming ring read stale moves the rows whose
+    peak key lies in it by 1/36 or more, where flat scores would move them
+    by less than the tolerance."""
+    import torch
+    k = rng.randn(B, N, heads, hd).astype(np.float32)
+    q = 2 * k[:, rng.permutation(N)]
+    tile = (np.arange(N) // 64 % 64 - 31.5) / 36
+    v = (tile[None, :, None, None] + 0.01 * rng.randn(B, N, heads, hd)).astype(np.float32)
+    x = np.concatenate([q, k, v], axis=2).reshape(B, N, 3 * heads * hd)
+    return torch.from_numpy(x).cuda().to(torch.bfloat16)
+
+
 def _bf16_err(name, got, want, atol=BF16_ATOL):
     import torch
     torch.cuda.synchronize()
@@ -2913,21 +2930,36 @@ def _check_bf16_kernels(rng, ptxas):
     import torch.nn.functional as F
     from sam6d_torch.kernels import attention, attention_qkv
     from sam6d_torch.kernels import attention_relpos as rp
-    regs = {}
-    for kernel, hds in (("attention_relpos_bf16_kernel", (16, 32, 64, 80)),
-                        ("attention_qkv_bf16_kernel", (32, 64)),
+    from sam6d_torch.kernels._build import load_library
+    lib = load_library()
+    regs, smem = {}, {}
+    for kernel, hds in (("attention_relpos_wgmma_kernel", (16, 32, 64, 80)),
+                        ("attention_qkv_wgmma_kernel", (32, 64)),
                         ("head_major_attention_bf16_kernel", tuple(range(16, 129, 16)))):
         for hd in hds:
             r, spills = ptxas_record(ptxas, kernel, hd)
             regs[f"{kernel}<{hd}>"] = r
             if spills:
                 raise AssertionError(f"{kernel}<{hd}> spills {spills} bytes")
+            # dynamic shared memory a block, as the C launch sizes it
+            if kernel == "attention_qkv_wgmma_kernel":
+                smem[f"{kernel}<{hd}>"] = "/".join(
+                    str(lib.sam6d_fused_attention_qkv_bf16_smem(n, hd)) for n in (257, 4096))
+            elif kernel == "attention_relpos_wgmma_kernel":
+                smem[f"{kernel}<{hd}>"] = "/".join(
+                    str(lib.sam6d_flash_attention_relpos_bf16_smem(g * g, hd, g, g))
+                    for g in (14, 64))
     log("bf16 entries' ptxas registers (no spills): "
         + ", ".join(f"{k} {v}" for k, v in regs.items()))
+    log("wgmma kernels' dynamic shared memory a block, bytes (K5 at 257/4096 keys, K1 on a "
+        "14x14/64x64 grid): " + ", ".join(f"{k} {v}" for k, v in smem.items()))
 
-    # K5: the describe chunk, a ragged batch, large scores
+    # K5: the describe chunk, a ragged batch, large scores; then the wgmma
+    # core's tile edges (64-row and 64-key tiles; the ring's five resident
+    # tiles at 320 keys and the streaming ring past them), hd 32, and a qkv
+    # 16 bytes into its buffer
     heads, hd, C = 16, 64, 1024
-    err5 = 0.0
+    err5 = edge5 = 0.0
     for B, N, qk in ((16, 257, 1.0), (3, 257, 1.0), (16, 257, 2.0)):
         qkv = _bf16_cards(rng, (B, N, 3 * C))
         with torch.no_grad():
@@ -2936,6 +2968,21 @@ def _check_bf16_kernels(rng, ptxas):
             f"attention_qkv bf16[{B}x{N}x{3 * C}, q and k x{0.5 * qk:g}]",
             attention_qkv.fused_attention_qkv_bf16_cuda(qkv, heads, 0.125),
             attention_qkv.fused_attention_qkv_bf16_plain(qkv, heads, 0.125)))
+    for B, N, eh, ehd, offset in ((2, 1, 16, 64, 0), (2, 63, 16, 64, 0), (2, 65, 16, 32, 0),
+                                  (2, 196, 16, 64, 0), (2, 320, 16, 64, 0),
+                                  (2, 321, 16, 64, 0), (1, 4096, 16, 64, 0),
+                                  (2, 257, 16, 64, 8), (1, 4096, 16, 64, None)):
+        if offset is None:   # peaked scores, a V offset a key tile
+            qkv = _peaked_qkv_cards(rng, B, N, eh, ehd)
+        else:
+            qkv = _bf16_cards(rng, (offset + B * N * 3 * eh * ehd,))[offset:].view(B, N, -1)
+            with torch.no_grad():
+                qkv[..., :2 * eh * ehd] *= 0.5
+        edge5 = max(edge5, _bf16_err(
+            f"attention_qkv bf16[{B}x{N}x{3 * eh * ehd}, hd {ehd}, "
+            + ("peaked]" if offset is None else f"offset {2 * offset} bytes]"),
+            attention_qkv.fused_attention_qkv_bf16_cuda(qkv, eh, ehd ** -0.5),
+            attention_qkv.fused_attention_qkv_bf16_plain(qkv, eh, ehd ** -0.5)))
     B, N = 16, 257
     qkv = _bf16_cards(rng, (B, N, 3 * C))
     q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
@@ -2984,21 +3031,34 @@ def _check_bf16_kernels(rng, ptxas):
                      4 * n9 * 64, 2 * n9, 2 * 4 * 16 * 16 * 257 * 64)
 
     # K1: a global and a windowed ViT-H block, the windowed one also with
-    # its rel-pos parameters x3
+    # its rel-pos parameters x3; then the wgmma core's tile edges (N 1, 63,
+    # 65, 257; the ring's four resident tiles at hd 80 and the streaming
+    # ring past them) at hd 16, 32, 64 and 80
     heads, hd = 16, 80
     C = heads * hd
-    rec1, err1 = {}, 0.0
-    for name, B, (H, W), rel in (("global", 1, (64, 64), 1.0), ("windowed", 25, (14, 14), 1.0),
-                                 ("windowed, rel-pos x3", 25, (14, 14), 3.0)):
+    rec1, err1, edge1 = {}, 0.0, 0.0
+    for name, B, (H, W), rel, eh, ehd in (
+            ("global", 1, (64, 64), 1.0, heads, hd), ("windowed", 25, (14, 14), 1.0, heads, hd),
+            ("windowed, rel-pos x3", 25, (14, 14), 3.0, heads, hd),
+            ("edge", 2, (1, 1), 1.0, 4, 16), ("edge", 2, (7, 9), 1.0, 4, 32),
+            ("edge", 2, (5, 13), 1.0, 4, 64), ("edge", 1, (1, 257), 1.0, 4, 32),
+            ("edge", 2, (16, 16), 1.0, 4, 80), ("edge", 2, (13, 20), 1.0, 4, 80),
+            ("edge, peaked", 1, (64, 64), 1.0, 4, 80)):
         N = H * W
-        qkv = _bf16_cards(rng, (B, N, 3 * C))
-        with torch.no_grad():
-            qkv[..., :2 * C] *= 0.5
-        rh, rw = (_bf16_cards(rng, (2 * s - 1, hd), 0.1 * rel) for s in (H, W))
-        args = (qkv, rh, rw, (H, W), heads)
-        e = _bf16_err(f"relpos_attention bf16[{name} {B}x{N}x{3 * C}]",
+        if name == "edge, peaked":   # peaked scores, a V offset a key tile
+            qkv = _peaked_qkv_cards(rng, B, N, eh, ehd)
+        else:
+            qkv = _bf16_cards(rng, (B, N, 3 * eh * ehd))
+            with torch.no_grad():
+                qkv[..., :2 * eh * ehd] *= 0.5
+        rh, rw = (_bf16_cards(rng, (2 * s - 1, ehd), 0.1 * rel) for s in (H, W))
+        args = (qkv, rh, rw, (H, W), eh)
+        e = _bf16_err(f"relpos_attention bf16[{name} {B}x{H}x{W}x{3 * eh * ehd}, hd {ehd}]",
                       rp.flash_attention_relpos_bf16_cuda(*args),
                       rp.flash_attention_relpos_bf16_plain(*args))
+        if name.startswith("edge"):
+            edge1 = max(edge1, e)
+            continue
         if rel != 1.0:
             stress_err1 = e
             continue
@@ -3028,15 +3088,20 @@ def _check_bf16_kernels(rng, ptxas):
              replaces="sam6d_tpu/kernels/flash_attention.py:316", max_abs_err=err1, **g,
              windowed_ms=w["ms"], windowed_plain_ms=w["plain_ms"],
              windowed_bound_ms=w["bound_ms"], windowed_library_ms=w["library_ms"],
-             ptxas_registers=regs["attention_relpos_bf16_kernel<80>"], ptxas_spill_bytes=0,
-             stress_max_abs_err=stress_err1,
+             ptxas_registers=regs["attention_relpos_wgmma_kernel<80>"], ptxas_spill_bytes=0,
+             stress_max_abs_err=stress_err1, edge_max_abs_err=edge1,
              shapes="global 1x4096x3840 bf16, 16 heads of 80 (ms; library_ms: SDPA with the "
                     "bf16 bias as a float mask); windowed 25x196x3840 (windowed_*); windowed "
-                    "with rel-pos x3 checked (stress_*)", **common),
+                    "with rel-pos x3 checked (stress_*); tile edges N 1, 63, 65, 257, 256, "
+                    "260 at hd 16-80 and 64x64 with peaked scores checked (edge_*)", **common),
         dict(name="fused_attention_qkv_bf16_cuda", source="sam6d_torch/csrc/attention_qkv.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:280", max_abs_err=err5, **k5,
-             ptxas_registers=regs["attention_qkv_bf16_kernel<64>"], ptxas_spill_bytes=0,
-             shapes="16x257x3072 bf16 (ms); 3x257 and q and k x1 checked", **common),
+             ptxas_registers=regs["attention_qkv_wgmma_kernel<64>"], ptxas_spill_bytes=0,
+             edge_max_abs_err=edge5,
+             shapes="16x257x3072 bf16 (ms); 3x257 and q and k x1 checked; tile edges N 1, "
+                    "63, 65, 196, 320, 321, 4096 (also with peaked scores), hd 32, a 16-byte "
+                    "offset checked (edge_*)",
+             **common),
         dict(name="fused_attention_bf16_cuda", source="sam6d_torch/csrc/attention.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:133", max_abs_err=err8, **k8,
              ptxas_registers=regs["head_major_attention_bf16_kernel<64>"],

@@ -1,5 +1,6 @@
 // The bf16 attention core on Hopper's bf16 tensor cores (the bf16 entries
-// of K1, K5, K8 and K9): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// of K8 and K9; K1's and K5's run on bf16_wgmma.cuh):
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // with fp32 accumulation, one pass (989 TFLOP/s dense bf16 on an H100 SXM,
 // where the fp32 entries' three-pass TF32 stops at 495/3).
 //

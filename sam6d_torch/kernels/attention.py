@@ -26,7 +26,8 @@ fp32-accurate three-pass TF32 on the tensor cores; see the header of
 
 Each dispatch takes float32 or bfloat16 operands, all of one dtype, and
 refuses any other: float32 goes to the fp32 entry, bfloat16 to the bf16
-entry (`*_bf16_cuda`, one-pass bf16 `mma.sync` with fp32 accumulation) or,
+entry (`*_bf16_cuda`, one-pass bf16 `mma.sync` with fp32 accumulation;
+K1's and K5's on `wgmma`, `csrc/bf16_wgmma.cuh`) or,
 on the CPU, to the plain version of the bf16 contract
 (`bf16_attention_plain`): the JAX package's bf16 kernels, with fp32
 scores and softmax, p rounded to bf16 before P V, l summed from that

@@ -16,8 +16,9 @@ from the strided (B, N, 3C) tensor, so no (B, H, N, hd) copy and no
 Semantics shared by every version: qkv is laid out [q | k | v] on the
 channel axis with heads contiguous (hd = C // heads); scores and softmax in
 fp32; the output (B, N, C) holds each head at its channel offset. A
-bfloat16 qkv takes the bf16 entry (`csrc/attention_qkv.cu`, one-pass bf16
-`mma.sync`) or, on the CPU, its plain version: _qkv_kernel's bf16 contract
+bfloat16 qkv takes the bf16 entry (`csrc/attention_qkv.cu` on the core of
+`csrc/bf16_wgmma.cuh`: `wgmma` for both products, K/V tiles by TMA) or, on
+the CPU, its plain version: _qkv_kernel's bf16 contract
 (`attention.bf16_attention_plain`), bf16 out.
 """
 from __future__ import annotations

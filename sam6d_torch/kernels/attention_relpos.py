@@ -30,7 +30,9 @@ tokens of the windowed blocks included, as the reference does; the output
 (B, N, C) holds each head at its channel offset.
 
 A bfloat16 qkv with bfloat16 rel-pos tables (the weights' dtype) takes the
-bf16 entry (`csrc/attention_relpos.cu`, one-pass bf16 `mma.sync`) or, on the
+bf16 entry (`csrc/attention_relpos.cu` on the core of `csrc/bf16_wgmma.cuh`:
+`wgmma` for both products, K/V tiles by TMA; a grid whose tables do not fit
+a block's shared memory beside the ring is refused) or, on the
 CPU, its plain version: the tables formed in fp32 from the bf16 q and
 rel-pos rows and rounded to bf16, as the TPU wrapper casts them before its
 kernel (flash_attention.py:337-372), each entry summed in the kernel's

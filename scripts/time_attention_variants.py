@@ -21,7 +21,11 @@ heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
 (layer 2; also over runs of 10 launches, which hide the host's dispatch),
 and each kernel's max |diff| from its plain version (K2: mu's,
 and 1/sigma's relative), K3 beside its plain version's time (5 runs);
-`--factored` keeps only K2-K4. With `--bf16`, K2-K4 are their bf16 entries
+`--factored` keeps only K2-K4. With
+`--bf16`, the bf16 entries of K5 (16x257x3072) and K1 (global and windowed)
+are also timed, one launch and runs of 10, beside SDPA in bf16 on the same
+operands (K1's bias as a bf16 mask), each held to its plain bf16 version,
+with the ptxas registers of their kernels, and K2-K4 are their bf16 entries
 on the same states rounded to bf16 (each held to its plain bf16 version;
 one launch and runs of 10; each call's kernels by name on the card under
 torch.profiler, which parts the card's time from the host's dispatch), and
@@ -112,10 +116,13 @@ def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> 
                      - relpos.flash_attention_relpos_plain(*args)).abs().max())
         ms = cs.cuda_ms(lambda: relpos.flash_attention_relpos_cuda(*args), reps=20)
         fields.append(f"{name} {ms:.4f} ms, max |diff| {err:.2e}")
+    if bf16 and not factored_only:
+        fields += attention_bf16_fields(rng, cs, ptxas)
     fields += (factored_bf16_fields if bf16 else factored_fields)(rng, cs)
     if sam:
         fields += sam_fields(cs, bf16)
-    return f"{csrc.name}: " + "; ".join(fields)
+    label = csrc.relative_to(ROOT) if csrc.is_relative_to(ROOT) else csrc
+    return f"{label}: " + "; ".join(fields)
 
 
 def time_points(root: Path) -> str:
@@ -185,6 +192,65 @@ def time_points(root: Path) -> str:
         fields.append(f"step sync block {fps.step_sync_us('block', 2048):.4f} us, "
                       f"cluster {fps.step_sync_us('cluster', 210000):.4f} us")
     return f"{root.name}: " + "; ".join(fields)
+
+
+def attention_bf16_fields(rng, cs, ptxas):
+    """The bf16 entries of K5 (16x257x3072, the describe chunk) and K1 (a
+    global 1x4096 and a windowed 25x196 ViT-H block, 16 heads of 80), each
+    held to its plain bf16 version and timed (one launch, and runs of 10
+    launches) beside SDPA in bf16 on the same operands (K1's bias as a bf16
+    mask), with the registers and spill bytes ptxas gave the kernels of
+    those entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from sam6d_torch.kernels import attention_qkv
+    from sam6d_torch.kernels import attention_relpos as relpos
+
+    def bf(shape, scale=1.0):
+        return (torch.from_numpy(rng.randn(*shape).astype(np.float32) * np.float32(scale))
+                .cuda().to(torch.bfloat16))
+
+    def timed(name, fn, plain, lib):
+        err = float((fn().float() - plain().float()).abs().max())
+        one = cs.cuda_ms(fn, reps=20)
+        runs = cs.cuda_ms(fn, reps=10, launches=10)
+        lib_runs = cs.cuda_ms(lib, reps=10, launches=10)
+        return (f"{name} bf16 {one:.4f} ms ({runs:.4f} over runs of 10; SDPA bf16 "
+                f"{lib_runs:.4f}), max |diff| {err:.2e}")
+
+    kernels = [(m[1] + f"<{m[2]}>", rec) for name, rec in ptxas.items()
+               if (m := re.search(r"(attention_(?:qkv|relpos)_(?:bf16|wgmma)_kernel)ILi(64|80)E",
+                                  name))]
+    fields = ["bf16 K1/K5 kernels (registers, spill bytes) "
+              + ", ".join(f"{k} {rec}" for k, rec in kernels)]
+    qkv = bf((16, 257, 3 * 1024))
+    with torch.no_grad():
+        qkv[..., :2048] *= 0.5
+    q, k, v = qkv.view(16, 257, 3, 16, 64).permute(2, 0, 3, 1, 4)
+    fields.append(timed("K5 16x257x3072",
+                        lambda: attention_qkv.fused_attention_qkv_bf16_cuda(qkv, 16, 0.125),
+                        lambda: attention_qkv.fused_attention_qkv_bf16_plain(qkv, 16, 0.125),
+                        lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)))
+    for name, B, (H, W) in (("K1 global 1x4096", 1, (64, 64)),
+                            ("K1 windowed 25x196", 25, (14, 14))):
+        N = H * W
+        qkv = bf((B, N, 3 * 1280))
+        with torch.no_grad():
+            qkv[..., :2560] *= 0.5
+        rh, rw = (bf((2 * n - 1, 80), 0.1) for n in (H, W))
+        args = (qkv, rh, rw, (H, W), 16)
+        q, k, v = qkv.view(B, N, 3, 16, 80).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = relpos.bf16_rel_pos_tables(qkv, rh, rw, (H, W), 16)
+        mask = (rel_h.view(B, 16, N, H, 1) + rel_w.view(B, 16, N, 1, W)
+                ).reshape(B, 16, N, N).to(torch.bfloat16)
+        del rel_h, rel_w
+        fields.append(timed(name, lambda: relpos.flash_attention_relpos_bf16_cuda(*args),
+                            lambda: relpos.flash_attention_relpos_bf16_plain(*args),
+                            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                   scale=80 ** -0.5)))
+        del mask
+    return fields
 
 
 def sam_fields(cs, bf16=False):

@@ -554,6 +554,15 @@ def _bf16_close(got, want, atol=BF16_ATOL):
     pytest.param(2, 130, 4, 64, 1.0, 0, id="2-130-4-64-a-tile-and-a-row"),
     pytest.param(16, 257, 16, 64, 2.0, 0, id="16-257-16-64-large-scores"),
     pytest.param(2, 257, 4, 64, 1.0, 8, id="2-257-4-64-offset-16-bytes"),
+    # tile edges of the wgmma core: 64-row and 64-key tiles, the ring's five
+    # resident tiles at hd <= 64 (320 keys) and the streaming ring past them
+    pytest.param(2, 63, 4, 64, 1.0, 0, id="2-63-4-64"),
+    pytest.param(2, 65, 4, 32, 1.0, 0, id="2-65-4-32"),
+    pytest.param(2, 196, 4, 64, 1.0, 0, id="2-196-4-64"),
+    pytest.param(2, 320, 2, 64, 1.0, 0, id="2-320-2-64-ring-full"),
+    pytest.param(2, 321, 2, 64, 1.0, 0, id="2-321-2-64-streaming"),
+    pytest.param(1, 4096, 2, 64, 1.0, 0, id="1-4096-2-64-streaming"),
+    pytest.param(1, 4096, 2, 32, 2.0, 8, id="1-4096-2-32-large-scores-offset"),
 ])
 def test_fused_attention_qkv_bf16_entry_matches_plain(cuda_device, B, N, heads, hd, qk, offset):
     C = heads * hd
@@ -620,6 +629,15 @@ def test_fused_attention_small_bf16_entry_matches_plain(cuda_device, B, H, N, hd
     pytest.param(3, (9, 9), 4, 64, 1.0, id="3-9x9-4-64"),
     pytest.param(2, (3, 4), 2, 32, 1.0, id="2-3x4-2-32"),
     pytest.param(25, (14, 14), 16, 80, 3.0, id="25-14x14-16-80-large-bias"),
+    # tile edges of the wgmma core: N 1, 63, 65, 257; the ring's four
+    # resident tiles at hd 80 (256 keys) and the streaming ring past them
+    pytest.param(2, (1, 1), 2, 16, 1.0, id="2-1x1-2-16"),
+    pytest.param(2, (7, 9), 2, 32, 1.0, id="2-7x9-2-32"),
+    pytest.param(2, (5, 13), 2, 64, 1.0, id="2-5x13-2-64"),
+    pytest.param(1, (1, 257), 2, 32, 1.0, id="1-1x257-2-32"),
+    pytest.param(2, (16, 16), 2, 80, 1.0, id="2-16x16-2-80-ring-full"),
+    pytest.param(2, (13, 20), 2, 80, 1.0, id="2-13x20-2-80-streaming"),
+    pytest.param(1, (64, 64), 16, 80, 3.0, id="1-64x64-16-80-large-bias"),
 ])
 def test_flash_attention_relpos_bf16_entry_matches_plain(cuda_device, B, hw, heads, hd,
                                                          rel_scale):
@@ -633,6 +651,46 @@ def test_flash_attention_relpos_bf16_entry_matches_plain(cuda_device, B, hw, hea
     rw = _bf16_on_card(rng, cuda_device, (2 * W - 1, hd), 0.1 * rel_scale)
     got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, hw, heads)
     _bf16_close(got, relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, hw, heads))
+
+
+def _peaked_qkv(rng, B, N, heads, hd):
+    """(B, N, 3 heads hd) float32 qkv in which every query's scores peak at
+    one key (the query is twice that key, at a random place) and every V row
+    carries its 64-key tile's own offset, (tile mod 64 - 31.5) / 36, plus a
+    little noise: a row's output is about its peak key's tile offset, below
+    1 in magnitude, where one ulp of the bf16 output is 2^-8."""
+    k = rng.randn(B, N, heads, hd).astype(np.float32)
+    q = 2 * k[:, rng.permutation(N)]
+    tile = (np.arange(N) // 64 % 64 - 31.5) / 36
+    v = (tile[None, :, None, None] + 0.01 * rng.randn(B, N, heads, hd)).astype(np.float32)
+    return np.concatenate([q, k, v], axis=2).reshape(B, N, 3 * heads * hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,hw,heads,hd", [
+    pytest.param("qkv", (1, 4096), 2, 64, id="k5-1x4096-2-64"),
+    pytest.param("relpos", (64, 64), 2, 80, id="k1-64x64-2-80"),
+    pytest.param("relpos", (13, 20), 2, 80, id="k1-13x20-2-80"),
+])
+def test_bf16_streaming_ring_reads_every_key_tile(cuda_device, entry, hw, heads, hd):
+    """Past the resident ring the wgmma core streams K/V through two stages.
+    With peaked scores and a V offset a tile, a stage read before its refill
+    landed, or refilled before it was read, moves the rows whose peak key
+    lies in it to another tile's offset, at least 1/36 away (three times the
+    tolerance), where flat scores would move them by less than it."""
+    H, W = hw
+    qkv = torch.from_numpy(_peaked_qkv(np.random.RandomState(26), 1, H * W, heads, hd))
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    if entry == "qkv":
+        got = attention_qkv.fused_attention_qkv_bf16_cuda(qkv, heads, hd ** -0.5)
+        want = attention_qkv.fused_attention_qkv_bf16_plain(qkv, heads, hd ** -0.5)
+    else:
+        rng = np.random.RandomState(27)
+        rh = _bf16_on_card(rng, cuda_device, (2 * H - 1, hd), 0.1)
+        rw = _bf16_on_card(rng, cuda_device, (2 * W - 1, hd), 0.1)
+        got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, hw, heads)
+        want = relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, hw, heads)
+    _bf16_close(got, want)
 
 
 @pytest.mark.cuda
@@ -659,6 +717,13 @@ def test_bf16_entries_refuse_what_they_do_not_take(cuda_device):
         attention.fused_attention(q.half(), q.half(), q.half(), 0.1)
     with pytest.raises(ValueError):
         attention.fused_attention(q, q.bfloat16(), q, 0.1)
+    # a grid whose tables do not fit a block's shared memory beside the ring:
+    # the C launch refuses it (cudaErrorInvalidValue)
+    wide = torch.zeros(1, 1000, 3 * 16, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        relpos.flash_attention_relpos_bf16_cuda(
+            wide, torch.zeros(1, 16, device=cuda_device, dtype=torch.bfloat16),
+            torch.zeros(1999, 16, device=cuda_device, dtype=torch.bfloat16), (1, 1000), 1)
     with pytest.raises(ValueError):
         relpos.flash_attention_relpos_cuda(torch.zeros(1, 9, 96, device=cuda_device).bfloat16(),
                                            torch.zeros(5, 8, device=cuda_device).bfloat16(),
