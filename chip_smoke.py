@@ -318,7 +318,8 @@ def phase_build():
 
 def ptxas_record(ptxas, kernel, hd=None):
     """(registers, spill bytes) of `kernel`<hd> (`kernel` alone: its one
-    instantiation) from phase_build's table."""
+    instantiation) from phase_build's table; `hd` may carry the further
+    template arguments as mangled ("64ELb1": <64, true>)."""
     for name, rec in ptxas.items():
         if kernel in name and (hd is None or f"ILi{hd}E" in name):
             return rec[:2]
@@ -2933,9 +2934,13 @@ def _check_bf16_kernels(rng, ptxas):
     from sam6d_torch.kernels._build import load_library
     lib = load_library()
     regs, smem = {}, {}
+    # K8's and K9's kernel: one instance a padded hd with q scaled before the
+    # product (K8, Lb1) and, at 16, 32 and 64, with the product scaled (K9, Lb0)
+    head_major = tuple(f"{hd}ELb{p}" for hd in (16, 32, 64, 80, 128) for p in (1, 0)
+                       if p or hd <= 64)
     for kernel, hds in (("attention_relpos_wgmma_kernel", (16, 32, 64, 80)),
                         ("attention_qkv_wgmma_kernel", (32, 64)),
-                        ("head_major_attention_bf16_kernel", tuple(range(16, 129, 16)))):
+                        ("head_major_attention_wgmma_kernel", head_major)):
         for hd in hds:
             r, spills = ptxas_record(ptxas, kernel, hd)
             regs[f"{kernel}<{hd}>"] = r
@@ -2949,10 +2954,15 @@ def _check_bf16_kernels(rng, ptxas):
                 smem[f"{kernel}<{hd}>"] = "/".join(
                     str(lib.sam6d_flash_attention_relpos_bf16_smem(g * g, hd, g, g))
                     for g in (14, 64))
+            elif hd.endswith("Lb1"):
+                smem[f"{kernel}<{hd}>"] = "/".join(
+                    str(lib.sam6d_fused_attention_bf16_smem(n, n, int(hd[:-4])))
+                    for n in (257, 1025))
     log("bf16 entries' ptxas registers (no spills): "
         + ", ".join(f"{k} {v}" for k, v in regs.items()))
     log("wgmma kernels' dynamic shared memory a block, bytes (K5 at 257/4096 keys, K1 on a "
-        "14x14/64x64 grid): " + ", ".join(f"{k} {v}" for k, v in smem.items()))
+        "14x14/64x64 grid, K8/K9 at 257/1025 keys): "
+        + ", ".join(f"{k} {v}" for k, v in smem.items()))
 
     # K5: the describe chunk, a ragged batch, large scores; then the wgmma
     # core's tile edges (64-row and 64-key tiles; the ring's five resident
@@ -3008,6 +3018,35 @@ def _check_bf16_kernels(rng, ptxas):
         err8 = max(err8, _bf16_err(f"fused_attention bf16[{name}]",
                                    attention.fused_attention_bf16_cuda(*ops, 0.125),
                                    attention.fused_attention_bf16_plain(*ops, 0.125)))
+    # the wgmma core's tile edges through K8's entry: 64-row and 64-key
+    # tiles, the last tile of <= 8 keys, the resident ring (320 keys at hd
+    # <= 64, 256 above) and the streaming one past it, cross-attention under
+    # a tile on either side, hd padded by TMA's zero columns (8, 24) and the
+    # two-part tiles (80, 128), a qkv 16 bytes into its buffer, q rows
+    # aligned to 4 bytes only, and the describe's 1025 keys with peaked
+    # scores (a stale ring stage moves a row by 1/36 or more)
+    edge8 = 0.0
+    edges = [(f"{n}x{n} hd 64", 1, 2, n, n, 64) for n in (1, 8, 9, 63, 64, 65, 320, 321)]
+    edges += [("7x1025 cross", 1, 3, 7, 1025, 64), ("1025x9 cross", 1, 3, 1025, 9, 64)]
+    edges += [(f"{n}x{n} hd {hd}", 2, 2, n, n, hd) for hd in (8, 24, 80, 128) for n in (65, 321)]
+    for name, B, H, nq, nk, hd in edges:
+        q, k, v = (_bf16_cards(rng, (B, H, n, hd), s)
+                   for n, s in ((nq, 0.5), (nk, 0.5), (nk, 1.0)))
+        edge8 = max(edge8, _bf16_err(f"fused_attention bf16[edge {B}x{H}x{name}]",
+                                     attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5),
+                                     attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5)))
+    x = _bf16_cards(rng, (8 + 2 * 300 * 3 * 3 * 128,))[8:].view(2, 300, 3, 3, 128)
+    q_narrow = _bf16_cards(rng, (2, 3, 130, 66), 0.5)[..., :64]
+    for name, (q, k, v) in (
+            ("2x3x300x128 qkv views 16 bytes in", x.permute(2, 0, 3, 1, 4)),
+            ("2x3x130x200x64 q rows 4-byte aligned",
+             (q_narrow, _bf16_cards(rng, (2, 3, 200, 64), 0.5), _bf16_cards(rng, (2, 3, 200, 64)))),
+            ("1x16x1025x64 peaked", _peaked_qkv_cards(rng, 1, 1025, 16, 64)
+             .view(1, 1025, 3, 16, 64).permute(2, 0, 3, 1, 4))):
+        hd = q.shape[-1]
+        edge8 = max(edge8, _bf16_err(f"fused_attention bf16[edge {name}]",
+                                     attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5),
+                                     attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5)))
     q, k, v = views(16, 16, 1025, 64)
     n8 = 16 * 16 * 1025 * 1025
     k8 = _bf16_timed("fused_attention bf16[16x16x1025x64]",
@@ -3016,12 +3055,12 @@ def _check_bf16_kernels(rng, ptxas):
                      lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
                      4 * n8 * 64, 2 * n8, 2 * 4 * 16 * 16 * 1025 * 64)
     err9 = 0.0
-    for qk in (1.0, 2.0):
-        ops = [_bf16_cards(rng, (16, 16, 257, 64), s) for s in (0.5 * qk, 0.5 * qk, 1.0)]
-        err9 = max(err9, _bf16_err(f"fused_attention_small bf16[16x16x257x64, q and k "
+    for qk, hd in ((1.0, 64), (2.0, 64), (1.0, 32), (1.0, 16)):
+        ops = [_bf16_cards(rng, (16, 16, 257, hd), s) for s in (0.5 * qk, 0.5 * qk, 1.0)]
+        err9 = max(err9, _bf16_err(f"fused_attention_small bf16[16x16x257x{hd}, q and k "
                                    f"x{0.5 * qk:g}]",
-                                   attention.fused_attention_small_bf16_cuda(*ops, 0.125),
-                                   attention.fused_attention_small_bf16_plain(*ops, 0.125)))
+                                   attention.fused_attention_small_bf16_cuda(*ops, hd ** -0.5),
+                                   attention.fused_attention_small_bf16_plain(*ops, hd ** -0.5)))
     q, k, v = (_bf16_cards(rng, (16, 16, 257, 64)) for _ in range(3))
     n9 = 16 * 16 * 257 * 257
     k9 = _bf16_timed("fused_attention_small bf16[16x16x257x64]",
@@ -3104,14 +3143,20 @@ def _check_bf16_kernels(rng, ptxas):
              **common),
         dict(name="fused_attention_bf16_cuda", source="sam6d_torch/csrc/attention.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:133", max_abs_err=err8, **k8,
-             ptxas_registers=regs["head_major_attention_bf16_kernel<64>"],
+             ptxas_registers=regs["head_major_attention_wgmma_kernel<64ELb1>"],
              ptxas_spill_bytes=0,
+             smem_bytes=lib.sam6d_fused_attention_bf16_smem(1025, 1025, 64),
+             edge_max_abs_err=edge8,
              shapes="16x16x1025x64 bf16 qkv views (ms); large scores and 2x4x61x300x32 "
-                    "cross-attention checked", **common),
+                    "cross-attention checked; tile edges N 1-321, cross 7x1025 and 1025x9, "
+                    "hd 8, 24, 80, 128, views 16 bytes in, q rows 4-byte aligned, 1025 "
+                    "peaked keys checked (edge_*)", **common),
         dict(name="fused_attention_small_bf16_cuda", source="sam6d_torch/csrc/attention.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:203", max_abs_err=err9, **k9,
-             ptxas_registers=regs["head_major_attention_bf16_kernel<64>"],
-             ptxas_spill_bytes=0, shapes="16x16x257x64 bf16 (ms); large scores checked",
+             ptxas_registers=regs["head_major_attention_wgmma_kernel<64ELb0>"],
+             ptxas_spill_bytes=0,
+             smem_bytes=lib.sam6d_fused_attention_bf16_smem(257, 257, 64),
+             shapes="16x16x257x64 bf16 (ms); large scores, hd 32 and 16 checked",
              note="no caller in either package: held to its plain version only", **common),
     ]
 

@@ -79,8 +79,7 @@ int launch(const float* qkv, float* out, int b, int n, int heads,
 // 128 rows; the fp32 product scaled as _qkv_kernel scales it.
 template <int HD>
 __global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
-    attention_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap kv0,
-                               const __grid_constant__ CUtensorMap kv1,
+    attention_qkv_wgmma_kernel(const __grid_constant__ sam6d::wgattn::KVMaps maps,
                                const sam6d::wgattn::bf16* __restrict__ qkv,
                                sam6d::wgattn::bf16* __restrict__ out, int n, int c,
                                int row_tiles, float score_scale) {
@@ -89,9 +88,9 @@ __global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
   const int b = blockIdx.z, h = blockIdx.y;
   const wa::Tiles op{qkv + static_cast<size_t>(b) * n * 3 * c + h * HD,
                      out + static_cast<size_t>(b) * n * c + h * HD,
-                     3LL * c, c, n, b * n, c + h * HD, 2 * c + h * HD};
+                     3LL * c, c, n, n, HD, h, b};
   const int rt0 = blockIdx.x * row_tiles;
-  wa::attend<HD>(&kv0, &kv1, op, wa::checked_base(smem_raw), rt0,
+  wa::attend<HD>(maps, op, wa::checked_base(smem_raw), rt0,
                  min(row_tiles, (n + wa::kRowsWG - 1) / wa::kRowsWG - rt0), 1.f, score_scale,
                  wa::NoBias{});
 }
@@ -101,18 +100,18 @@ int launch_bf16(const void* qkv, void* out, int b, int n, int heads, float scale
                 cudaStream_t stream) {
   namespace wa = sam6d::wgattn;
   const int c = heads * HD;
-  CUtensorMap kv[2];
-  int err = wa::encode_kv_maps<HD>(kv, qkv, static_cast<long long>(b) * n, 3LL * c);
+  wa::KVMaps maps;
+  int err = wa::encode_qkv_maps<HD>(maps, qkv, b, n, heads);
   if (err != 0) return err;
   const size_t bytes = wa::core_smem_bytes<HD>(n);
   err = static_cast<int>(cudaFuncSetAttribute(attention_qkv_wgmma_kernel<HD>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               static_cast<int>(bytes)));
   if (err != 0) return err;
-  const int row_tiles = wa::row_tiles_per_block<HD>(n);
+  const int row_tiles = wa::row_tiles_per_block<HD>(n, n);
   const dim3 grid(((n + wa::kRowsWG - 1) / wa::kRowsWG + row_tiles - 1) / row_tiles, heads, b);
   attention_qkv_wgmma_kernel<HD><<<grid, wa::kThreads, bytes, stream>>>(
-      kv[0], kv[1], static_cast<const wa::bf16*>(qkv), static_cast<wa::bf16*>(out), n, c, row_tiles,
+      maps, static_cast<const wa::bf16*>(qkv), static_cast<wa::bf16*>(out), n, c, row_tiles,
       scale * wa::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -366,8 +366,7 @@ size_t smem_bytes_bf16(int n, int gh, int gw) {
 
 template <int HD>
 __global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
-    attention_relpos_wgmma_kernel(const __grid_constant__ CUtensorMap kv0,
-                                  const __grid_constant__ CUtensorMap kv1,
+    attention_relpos_wgmma_kernel(const __grid_constant__ sam6d::wgattn::KVMaps maps,
                                   const sam6d::wgattn::bf16* __restrict__ qkv,
                                   const sam6d::wgattn::bf16* __restrict__ rel_pos_h,
                                   const sam6d::wgattn::bf16* __restrict__ rel_pos_w,
@@ -388,9 +387,9 @@ __global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
                           rel_pos_h, rel_pos_w, scratch};
   const wa::Tiles op{qkv + static_cast<size_t>(b) * n * 3 * c + h * HD,
                      out + static_cast<size_t>(b) * n * c + h * HD,
-                     3LL * c, c, n, b * n, c + h * HD, 2 * c + h * HD};
+                     3LL * c, c, n, n, HD, h, b};
   const int rt0 = blockIdx.x * row_tiles;
-  wa::attend<HD>(&kv0, &kv1, op, smem, rt0, min(row_tiles, (n + wa::kRowsWG - 1) / wa::kRowsWG - rt0),
+  wa::attend<HD>(maps, op, smem, rt0, min(row_tiles, (n + wa::kRowsWG - 1) / wa::kRowsWG - rt0),
                  scale, wa::kLog2e, bias);
 }
 
@@ -400,17 +399,17 @@ int launch_bf16(const void* qkv, const void* rel_pos_h, const void* rel_pos_w, v
   namespace wa = sam6d::wgattn;
   const size_t bytes = smem_bytes_bf16<HD>(n, gh, gw);
   if (bytes > kMaxSmemBf16) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap kv[2];
-  int err = wa::encode_kv_maps<HD>(kv, qkv, static_cast<long long>(b) * n, 3LL * heads * HD);
+  wa::KVMaps maps;
+  int err = wa::encode_qkv_maps<HD>(maps, qkv, b, n, heads);
   if (err != 0) return err;
   err = static_cast<int>(cudaFuncSetAttribute(attention_relpos_wgmma_kernel<HD>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               static_cast<int>(bytes)));
   if (err != 0) return err;
-  const int row_tiles = wa::row_tiles_per_block<HD>(n);
+  const int row_tiles = wa::row_tiles_per_block<HD>(n, n);
   const dim3 grid(((n + wa::kRowsWG - 1) / wa::kRowsWG + row_tiles - 1) / row_tiles, heads, b);
   attention_relpos_wgmma_kernel<HD><<<grid, wa::kThreads, bytes, stream>>>(
-      kv[0], kv[1], static_cast<const wa::bf16*>(qkv), static_cast<const wa::bf16*>(rel_pos_h),
+      maps, static_cast<const wa::bf16*>(qkv), static_cast<const wa::bf16*>(rel_pos_h),
       static_cast<const wa::bf16*>(rel_pos_w), static_cast<wa::bf16*>(out), n, heads, gh, gw,
       row_tiles, scale);
   return static_cast<int>(cudaGetLastError());

@@ -1,42 +1,49 @@
 // The bf16 attention core on Hopper's warpgroup tensor-core path (the bf16
-// entries of K1 and K5): wgmma.mma_async for both products, K/V tiles by
-// TMA (cp.async.bulk.tensor) into a ring of shared-memory stages on
-// mbarriers.
+// entries of K1, K5, K8 and K9): wgmma.mma_async for both products, K/V
+// tiles by TMA (cp.async.bulk.tensor) into a ring of shared-memory stages
+// on mbarriers.
 //
 // The contract is the JAX package's bf16 kernels
-// (sam6d_tpu/kernels/flash_attention.py: _qkv_kernel, and _fused_kernel
-// through flash_attention_relpos's augmented product), as in
-// bf16_attention.cuh: q, k and v bf16; scores, running max, softmax sum l
-// and the output accumulator fp32; p = exp(s - m) rounded to bf16 as the A
-// operand of P V, l summed from that rounded p; the output O / max(l,
-// 1e-30) rounded to bf16. exp is ex2.approx of the score scaled by log2(e)
+// (sam6d_tpu/kernels/flash_attention.py: _qkv_kernel, _small_kernel, and
+// _fused_kernel directly and through flash_attention_relpos's augmented
+// product), as in bf16_attention.cuh: q, k and v bf16; scores, running
+// max, softmax sum l and the output accumulator fp32; p = exp(s - m)
+// rounded to bf16 as the A operand of P V, l summed from that rounded p;
+// the output O / max(l, 1e-30) rounded to bf16. exp is ex2.approx of the score scaled by log2(e)
 // (folded into the score scale and the max, one FMA a score).
 //
 // Blocks and warpgroups. A block is kWarpgroups warpgroups of 128 threads;
 // each owns a tile of 64 query rows (wgmma's M) and walks over every key
 // tile, so a K/V tile read into shared memory serves 64 * kWarpgroups rows.
-// Thread 0 issues the TMA loads: all of them up front when a (sample,
-// head)'s keys fit the ring ("resident": K5's 257 keys, K1's 196-key
-// windows), and the block's warpgroups then loop over several row tiles on
-// K/V loaded once, one stage a key tile; otherwise (K1's 4096-key global
-// blocks) two stages stream, each refilled once every warpgroup has
-// released it (an empty mbarrier a stage). A warpgroup runs a key tile as
-// S = Q K^T, wait, softmax in registers, O += P V, wait; a last tile of at
-// most 8 keys runs as one 8-key block (m64n8k16) instead of 64 padded keys.
+// Query rows and keys are counted apart (K8 takes cross-attention). Thread
+// 0 issues the TMA loads: all of them up front when a (sample, head)'s keys
+// fit the ring ("resident": K5's and K9's 257 keys, K1's 196-key windows),
+// and the block's warpgroups then loop over several row tiles on K/V loaded
+// once, one stage a key tile; otherwise (K1's 4096-key global blocks, K8's
+// 1025 keys at img_size 448) two stages stream, each refilled once every
+// warpgroup has released it (an empty mbarrier a stage). A warpgroup runs
+// a key tile as S = Q K^T, wait, softmax in registers, O += P V, wait; a
+// last tile of at most 8 keys runs as one 8-key block (m64n8k16) instead
+// of 64 padded keys.
 // At most 128 registers and 113 KB of shared memory let two blocks share
-// an SM, which measured faster than one block of 255 registers; running
-// the softmax of tile i beside the P V of tile i - 1 measured slower
-// (PERF.md).
+// an SM at hd <= 80, which measured faster than one block of 255 registers;
+// running the softmax of tile i beside the P V of tile i - 1 measured
+// slower (PERF.md). hd 128 keeps twice the output fragments and runs one
+// block an SM.
 //
-// Shared-memory layout. A 64-row tile (q, K or V) is stored in "parts" of
-// whole rows, each in a swizzled canonical layout of wgmma whose swizzle
-// width is the part's row: hd 16 one part of 32-byte rows (32-byte
-// swizzle), hd 32 of 64-byte rows (64-byte), hd 64 of 128-byte rows
-// (128-byte); hd 80, which is no swizzle width (160-byte rows), a part of
-// its first 64 channels (128-byte swizzle) and one of its last 16 (32-byte
-// swizzle). Each part of a K or V tile is one 2-D TMA box of the qkv
-// matrix ({part's channels, 64 rows}) with the TMA swizzle of its width,
-// which lands it in that layout; q is written by the warpgroup's threads
+// Shared-memory layout. A 64-row tile (q, K or V) of HD (padded) channels
+// is stored in "parts" of whole rows, each in a swizzled canonical layout
+// of wgmma whose swizzle width is the part's row: hd 16 one part of 32-byte
+// rows (32-byte swizzle), hd 32 of 64-byte rows (64-byte), hd 64 of
+// 128-byte rows (128-byte); hd 80, which is no swizzle width (160-byte
+// rows), a part of its first 64 channels (128-byte swizzle) and one of its
+// last 16 (32-byte swizzle); hd 128 two parts of 64 channels (128-byte).
+// Each part of a K or V tile is one box of a 4-D TMA map of the operand
+// ({hd, keys, heads, samples} with the operand's strides; box {part's
+// channels, 64 keys, 1, 1}) with the TMA swizzle of its width, which lands
+// it in that layout; channels past the true hd and keys past the last read
+// as zeros (TMA's out-of-bounds fill), so an hd of 8 or 40 runs padded to
+// 16 or 64. q is written by the warpgroup's threads
 // with the same XOR of 16-byte chunks (chunk ^= row bits above the row
 // width, as the hardware swizzles address bits 4-6 by bits 7-9). Unswizzled
 // tiles need TMA boxes of 16-byte rows: so stored, K5 measured 0.037-0.038
@@ -49,7 +56,7 @@
 // layout, with no shuffle) and V the MN-major B operand (transposed): a
 // k16 step starts 16 rows further, SBO (between 8-key groups) is 8 rows,
 // and hd 80 takes an n64 product on its first part and an n16 on its
-// second.
+// second, hd 128 an n64 on each.
 //
 // Accumulator fragments (wgmma m64nN f32): warp w of the warpgroup holds
 // rows 16 w + g and 16 w + g + 8 (lane = 4 g + t); d[4 j + e] is column
@@ -82,51 +89,58 @@ constexpr int kThreads = 128 * kWarpgroups;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Ring stages: a (sample, head) of up to max_resident * 64 keys (320 at hd
-// <= 64, 256 at hd 80) is held whole, one stage a key tile; longer ones
+// <= 64, 256 above) is held whole, one stage a key tile; longer ones
 // stream through kStreamStages.
 template <int HD>
 __host__ __device__ constexpr int max_resident() { return HD > 64 ? 4 : 5; }
 constexpr int kStreamStages = 2;
 template <int HD>
-__host__ __device__ constexpr int ring_stages(int n) {
-  return (n + kTileKeys - 1) / kTileKeys <= max_resident<HD>() ? (n + kTileKeys - 1) / kTileKeys
-                                                                : kStreamStages;
+__host__ __device__ constexpr int ring_stages(int nk) {
+  return (nk + kTileKeys - 1) / kTileKeys <= max_resident<HD>() ? (nk + kTileKeys - 1) / kTileKeys
+                                                                 : kStreamStages;
 }
+// resident blocks an SM the registers must allow (__launch_bounds__)
+template <int HD>
+__host__ __device__ constexpr int min_blocks() { return HD > 80 ? 1 : 2; }
 template <int HD>
 __host__ __device__ constexpr int tile_bytes() { return kTileKeys * HD * 2; }
 template <int HD>
 __host__ __device__ constexpr int q_tile_bytes() { return kRowsWG * HD * 2; }
 // the parts of a tile (see the layout above): channels, row bytes, offset
 template <int HD>
-__host__ __device__ constexpr int n_parts() { return HD == 80 ? 2 : 1; }
+__host__ __device__ constexpr int n_parts() { return HD > 64 ? 2 : 1; }
 template <int HD>
-__host__ __device__ constexpr int part_cols(int p) { return HD == 80 ? (p == 0 ? 64 : 16) : HD; }
+__host__ __device__ constexpr int part_cols(int p) {
+  return HD > 64 ? (p == 0 ? 64 : HD - 64) : HD;
+}
 template <int HD>
 __host__ __device__ constexpr int part_width(int p) { return 2 * part_cols<HD>(p); }
 __host__ __device__ constexpr int part_offset(int p) { return p * kRowsWG * 128; }
 // byte offset in a tile of 16-byte chunk c (channels 8c..8c+7) of row r
 template <int HD>
 __device__ __forceinline__ int chunk_offset(int r, int c) {
-  const int p = HD == 80 ? c / 8 : 0;
+  const int p = n_parts<HD>() == 2 ? c / 8 : 0;
   const int w = part_width<HD>(p);
   const int off = r * w + (c - 8 * p) * 16;
   return part_offset(p) + (off ^ (((off >> 7) & (w / 16 - 1)) << 4));
 }
-// the ring of a sequence of n keys, the warpgroups' q tiles and the
+// the ring of a sequence of nk keys, the warpgroups' q tiles and the
 // barriers; a bias's shared memory follows
 template <int HD>
-__host__ __device__ constexpr size_t core_smem_bytes(int n) {
-  return ring_stages<HD>(n) * (2 * tile_bytes<HD>() + 2 * sizeof(uint64_t)) +
+__host__ __device__ constexpr size_t core_smem_bytes(int nk) {
+  return ring_stages<HD>(nk) * (2 * tile_bytes<HD>() + 2 * sizeof(uint64_t)) +
          kWarpgroups * q_tile_bytes<HD>();
 }
 
 // Row tiles of 64 a block takes: all of a (sample, head)'s when its keys
-// fit the ring (K/V read once), else one a warpgroup.
+// fit the ring (K/V read once; at most kResidentRowTiles, which only a
+// cross-attention of many rows on few keys reaches), else one a warpgroup.
+constexpr int kResidentRowTiles = 8;
 template <int HD>
-inline int row_tiles_per_block(int n) {
-  const int key_tiles = (n + kTileKeys - 1) / kTileKeys;
-  const int row_tiles = (n + kRowsWG - 1) / kRowsWG;
-  return key_tiles <= max_resident<HD>() ? row_tiles : kWarpgroups;
+inline int row_tiles_per_block(int nq, int nk) {
+  const int key_tiles = (nk + kTileKeys - 1) / kTileKeys;
+  const int row_tiles = (nq + kRowsWG - 1) / kRowsWG;
+  return key_tiles <= max_resident<HD>() ? min(row_tiles, kResidentRowTiles) : kWarpgroups;
 }
 
 // ------------------------------------------------------------ PTX wrappers
@@ -165,14 +179,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
-// one box of a 2-D tensor map (column, row) into shared memory, completing
-// on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int col, int row) {
+// one box of a 4-D tensor map (channel, row, head, sample) into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row, int head, int sample) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(sample),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -338,44 +353,72 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The (rows, c3) bf16 qkv matrix (rows = b * n tokens, c3 = 3 C channels,
-// 16-byte aligned) as 2-D tensor maps, one for each part of an hd-channel
-// tile: box {part's channels, 64 rows} with the swizzle of the part's row
-// width. Box (col, row) is that part of the tile of 64 rows from `row`;
-// rows past the matrix read as zeros. Returns 0 or a CUDA error code.
+// The tensor maps of K and V, one for each part of an HD-channel tile (a
+// second map repeats the first where the tile has one part).
+struct KVMaps {
+  CUtensorMap k[2], v[2];
+};
+
+// A bf16 (b, heads, n, hd) operand with the head dim contiguous, at `base`
+// with (batch, head, row) element strides `s`, as 4-D tensor maps {hd, n,
+// heads, b}, one for each part of an HD-channel tile: box {part's channels,
+// 64 rows, 1, 1} with the swizzle of the part's row width. Box (col, row,
+// h, b) is that part of the 64 rows from `row` of (sample b, head h);
+// channels past hd and rows past n read as zeros. TMA takes a 16-byte
+// aligned base and strides of whole 16 bytes (8 elements) below 2^40
+// bytes: anything else returns cudaErrorInvalidValue. Returns 0 or a CUDA
+// error code.
 template <int HD>
-int encode_kv_maps(CUtensorMap (&maps)[2], const void* qkv, long long rows, long long c3) {
+int encode_operand_maps(CUtensorMap (&maps)[2], const void* base, const long long (&s)[3], int b,
+                        int heads, int n, int hd) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  for (int p = 0; p < 2; ++p) {
-    const int pp = p < n_parts<HD>() ? p : 0;  // an unused second map repeats the first
-    const int w = part_width<HD>(pp);
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c3), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c3) * 2};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(part_cols<HD>(pp)), kTileKeys};
-    const cuuint32_t elem[2] = {1, 1};
+  if (reinterpret_cast<uintptr_t>(base) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  for (long long e : s)
+    if (e < 0 || e % 8 || e >= (1LL << 39)) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s[2]) * 2,
+                                 static_cast<cuuint64_t>(s[1]) * 2,
+                                 static_cast<cuuint64_t>(s[0]) * 2};
+  for (int p = 0; p < n_parts<HD>(); ++p) {
+    const int w = part_width<HD>(p);
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(part_cols<HD>(p)), kTileKeys, 1, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
     const CUtensorMapSwizzle swizzle = w == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                        : w == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-    const CUresult r = fn(&maps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(qkv),
+    const CUresult r = fn(&maps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                           dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_parts<HD>() == 1) maps[1] = maps[0];
   return 0;
+}
+
+// The K and V maps of a (b, n, 3 heads HD) qkv matrix laid out [q | k | v]
+// on the channel axis (K1, K5): k and v are its head-major views.
+template <int HD>
+int encode_qkv_maps(KVMaps& maps, const void* qkv, int b, int n, int heads) {
+  const long long c = static_cast<long long>(heads) * HD;
+  const long long s[3] = {n * 3 * c, HD, 3 * c};
+  const auto* base = static_cast<const unsigned char*>(qkv);
+  const int err = encode_operand_maps<HD>(maps.k, base + 2 * c, s, b, heads, n, HD);
+  return err != 0 ? err : encode_operand_maps<HD>(maps.v, base + 4 * c, s, b, heads, n, HD);
 }
 
 // ------------------------------------------------------------ the core
 
-// One (sample, head): its q rows and output rows, and where its K and V
-// lie in the kv map.
+// One (sample, head): its q rows and output rows, and its coordinates in
+// the K and V maps. q and out rows need only be 4-byte aligned.
 struct Tiles {
   const bf16* q;       // row 0 of this (sample, head)'s q
   bf16* out;           // row 0 of its output
   long long sq, so;    // row strides in elements
-  int n;               // query rows = keys
-  int kv_row;          // the sample's first row in the kv maps
-  int k_col, v_col;    // first channel of the head's k and v in the kv maps
+  int nq, nk;          // query rows, keys
+  int hd;              // true head dim, a multiple of 8 up to HD (the padded one)
+  int head, sample;    // coordinates in the K and V maps
 };
 
 // A bias has kPrescale (q enters the product as bf16(q * qscale): K1's
@@ -389,6 +432,10 @@ struct NoBias {
   __device__ __forceinline__ void prepare(const unsigned char*, int, int) const {}
   template <int NT>
   __device__ __forceinline__ void add(float (&)[NT][4], int, int, int) const {}
+};
+// no bias, q scaled before the product (K8: _fused_kernel's q_aug)
+struct PrescaledQ : NoBias {
+  static constexpr bool kPrescale = true;
 };
 
 // The swizzle atoms need 1024-byte aligned tiles. The kernels declare their
@@ -404,29 +451,30 @@ __device__ __forceinline__ unsigned char* checked_base(unsigned char* p) {
 
 // Softmax attention of row tiles [rt0, rt0 + n_rt) (64 rows each) of one
 // (sample, head), all threads of the block. p = ex2(s * score_scale - m *
-// score_scale) with s the fp32 score before any scale (K5: score_scale =
-// scale * log2 e, the product scaled as _qkv_kernel scales it; K1: log2 e,
-// the scale already in q). `smem` is 1024-byte aligned, core_smem_bytes(n)
-// of it.
+// score_scale) with s the fp32 score before any scale (K5, K9: score_scale
+// = scale * log2 e, the product scaled as _qkv_kernel and _small_kernel
+// scale it; K1, K8: log2 e, the scale already in q). `smem` is 1024-byte
+// aligned, core_smem_bytes(op.nk) of it.
 template <int HD, class Bias>
-__device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap* kv1,
-                                       const Tiles& op,
-                                       unsigned char* smem, int rt0, int n_rt, float qscale,
-                                       float score_scale, const Bias& bias) {
-  static_assert(HD % 16 == 0 && HD <= 80, "head dim: 16, 32, 64 or 80");
+__device__ __forceinline__ void attend(const KVMaps& maps, const Tiles& op, unsigned char* smem,
+                                       int rt0, int n_rt, float qscale, float score_scale,
+                                       const Bias& bias) {
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 128,
+                "padded head dim: 16, 32, 64, 80 or 128");
   constexpr int TB = tile_bytes<HD>();
   constexpr int CH = HD / 8;          // 8-channel chunks of a row
   constexpr int KS = HD / 16;         // k16 steps of Q K^T
   constexpr int NT = kTileKeys / 8;   // 8-key blocks of a score tile
   constexpr int QV = HD / 16;         // 16-byte q chunks a thread loads (64 CH / 128)
   constexpr int NA = part_cols<HD>(0);                 // hd columns of part 0
+  constexpr int NB = n_parts<HD>() == 2 ? part_cols<HD>(1) : 16;  // of part 1 (if any)
   constexpr int W0 = part_width<HD>(0), W1 = part_width<HD>(1);
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int n = op.n;
-  const int n_kt = (n + kTileKeys - 1) / kTileKeys;
-  const int S = ring_stages<HD>(n);
+  const int nq = op.nq, nk_all = op.nk;
+  const int n_kt = (nk_all + kTileKeys - 1) / kTileKeys;
+  const int S = ring_stages<HD>(nk_all);
   const bool resident = n_kt <= S;
 
   unsigned char* ring = smem;  // [S][K tile, V tile]
@@ -437,13 +485,14 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
 
   auto load = [&](int tile, int stage) {
     unsigned char* dst = ring + stage * 2 * TB;
-    const int row = op.kv_row + tile * kTileKeys;
+    const int row = tile * kTileKeys;
     mbar_expect_tx(&full[stage], 2 * TB);
-    tma_load_2d(dst, kv0, &full[stage], op.k_col, row);
-    tma_load_2d(dst + TB, kv0, &full[stage], op.v_col, row);
-    if constexpr (n_parts<HD>() == 2) {
-      tma_load_2d(dst + part_offset(1), kv1, &full[stage], op.k_col + NA, row);
-      tma_load_2d(dst + TB + part_offset(1), kv1, &full[stage], op.v_col + NA, row);
+#pragma unroll
+    for (int p = 0; p < n_parts<HD>(); ++p) {
+      tma_load_4d(dst + part_offset(p), &maps.k[p], &full[stage], 64 * p, row, op.head,
+                  op.sample);
+      tma_load_4d(dst + TB + part_offset(p), &maps.v[p], &full[stage], 64 * p, row, op.head,
+                  op.sample);
     }
   };
   if (threadIdx.x == 0) {
@@ -457,23 +506,36 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
   __syncthreads();
   if (wg >= live) return;
 
+  // q rows 16-byte aligned (K1, K5, most K8 views) load as 16-byte chunks;
+  // others (K8's contract allows 4-byte aligned rows) as four words
+  const bool q_wide = ((reinterpret_cast<uintptr_t>(op.q) | static_cast<uintptr_t>(op.sq) * 2) &
+                       15) == 0;
   unsigned char* qs = qtiles + wg * q_tile_bytes<HD>();
   const int bar = 1 + wg;
   for (int rt = rt0 + wg; rt < rt0 + n_rt; rt += kWarpgroups) {
     const int q0 = rt * kRowsWG;
-    // the q tile, 16-byte chunks read along rows, stored swizzled
+    // the q tile, 16-byte chunks read along rows (zeros past nq and hd),
+    // stored swizzled
     wg_sync(bar);  // the previous row tile's reads of qs and the bias are done
 #pragma unroll
     for (int i = 0; i < QV; ++i) {
       const int e = tid + 128 * i;
       const int r = e / CH, c = e - r * CH;
-      *reinterpret_cast<uint4*>(qs + chunk_offset<HD>(r, c)) =
-          q0 + r < n ? *reinterpret_cast<const uint4*>(op.q + (q0 + r) * op.sq + 8 * c)
-                     : make_uint4(0u, 0u, 0u, 0u);
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < nq && 8 * c < op.hd) {
+        const bf16* src = op.q + (q0 + r) * op.sq + 8 * c;
+        if (q_wide) {
+          x = *reinterpret_cast<const uint4*>(src);
+        } else {
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(src);
+          x = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      *reinterpret_cast<uint4*>(qs + chunk_offset<HD>(r, c)) = x;
     }
     if constexpr (Bias::kPrescale) {
       wg_sync(bar);
-      bias.prepare(qs, q0, n);
+      bias.prepare(qs, q0, nq);
       wg_sync(bar);
 #pragma unroll
       for (int i = 0; i < QV; ++i) {
@@ -490,18 +552,19 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
     fence_async_shared();
     wg_sync(bar);
 
-    float o[NA / 2];  // output columns 0..NA-1
-    float o1[8];      // hd 80: columns 64..79
+    float o[NA / 2];   // output columns 0..NA-1
+    float o1[NB / 2];  // hd 80, 128: columns NA..HD-1
 #pragma unroll
     for (int i = 0; i < NA / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) o1[i] = 0.f;
+    for (int i = 0; i < NB / 2; ++i) o1[i] = 0.f;
     float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;  // running max of rows g, g + 8
     float l_lo = 0.f, l_hi = 0.f;                      // this lane's partial sums
 
     // One key tile of NTT 8-key blocks: a full tile, or a last tile of at
-    // most 8 keys (K5's 257th, K1's windows' last 4 of 196), whose product,
-    // softmax and P V shrink to one block instead of running 64 padded keys.
+    // most 8 keys (K5's and K9's 257th, K8's 1025th, K1's windows' last 4 of
+    // 196), whose product, softmax and P V shrink to one block instead of
+    // running 64 padded keys.
     auto tile_step = [&](auto ntt, int kt, const unsigned char* kt_s,
                          const unsigned char* vt_s) {
       constexpr int NTT = decltype(ntt)::value;
@@ -515,17 +578,17 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
       for (int kk = 0; kk < KS; ++kk) {
         if (kk < NA / 16)
           wgmma_ss(sf, make_desc<W0>(qs + 32 * kk), make_desc<W0>(kt_s + 32 * kk), kk > 0);
-        else  // hd 80's last 16 channels
-          wgmma_ss(sf, make_desc<W1>(qs + part_offset(1)), make_desc<W1>(kt_s + part_offset(1)),
-                   1);
+        else  // part 1 (hd 80, 128)
+          wgmma_ss(sf, make_desc<W1>(qs + part_offset(1) + 32 * (kk - NA / 16)),
+                   make_desc<W1>(kt_s + part_offset(1) + 32 * (kk - NA / 16)), 1);
       }
       wgmma_commit();
       wgmma_wait0();
       fence_regs(sf);
 
-      const int k0 = kt * kTileKeys, nk = min(kTileKeys, n - k0);
+      const int k0 = kt * kTileKeys, nk = min(kTileKeys, nk_all - k0);
       bias.add(sf, k0, nk, t);
-      if (nk < 8 * NTT) {  // keys past n
+      if (nk < 8 * NTT) {  // keys past nk
 #pragma unroll
         for (int nt = 0; nt < NTT; ++nt)
 #pragma unroll
@@ -581,7 +644,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
         }
         if constexpr (n_parts<HD>() == 2) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
+          for (int j = 0; j < NB / 8; ++j) {
             o1[4 * j] *= corr_lo;
             o1[4 * j + 1] *= corr_lo;
             o1[4 * j + 2] *= corr_hi;
@@ -618,7 +681,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
       __syncwarp();
       mbar_wait(&full[stage], resident ? 0 : (kt / S) & 1);
       const unsigned char* kt_s = ring + stage * 2 * TB;
-      if (n - kt * kTileKeys <= 8)
+      if (nk_all - kt * kTileKeys <= 8)
         tile_step(std::integral_constant<int, 1>{}, kt, kt_s, kt_s + TB);
       else
         tile_step(std::integral_constant<int, NT>{}, kt, kt_s, kt_s + TB);
@@ -631,9 +694,10 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
     const float inv_hi = 1.f / fmaxf(quad_sum(l_hi), 1e-30f);
     const int r_lo = q0 + 16 * warp + g, r_hi = r_lo + 8;
     auto store = [&](float a, float b, float c, float d, int col) {
-      if (r_lo < n)
+      if (col >= op.hd) return;  // padded columns
+      if (r_lo < nq)
         *reinterpret_cast<uint32_t*>(op.out + r_lo * op.so + col) = pack2(a * inv_lo, b * inv_lo);
-      if (r_hi < n)
+      if (r_hi < nq)
         *reinterpret_cast<uint32_t*>(op.out + r_hi * op.so + col) = pack2(c * inv_hi, d * inv_hi);
     };
 #pragma unroll
@@ -641,7 +705,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* kv0, const CUtensorMap
       store(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3], 8 * j + 2 * t);
     if constexpr (n_parts<HD>() == 2) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < NB / 8; ++j)
         store(o1[4 * j], o1[4 * j + 1], o1[4 * j + 2], o1[4 * j + 3], NA + 8 * j + 2 * t);
     }
   }

@@ -52,6 +52,7 @@ _SIGNATURES = {
                                    _I, _I, _I, _F, _P],
     "sam6d_fused_attention_small_bf16": [_P, _P, _P, _P, _LP, _LP, _LP, _I, _I,
                                          _I, _I, _F, _P],
+    "sam6d_fused_attention_bf16_smem": [_I, _I, _I],
     "sam6d_flash_attention_relpos_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _F, _P],
     "sam6d_flash_attention_relpos_bf16_smem": [_I, _I, _I, _I],

@@ -26,9 +26,10 @@ fp32-accurate three-pass TF32 on the tensor cores; see the header of
 
 Each dispatch takes float32 or bfloat16 operands, all of one dtype, and
 refuses any other: float32 goes to the fp32 entry, bfloat16 to the bf16
-entry (`*_bf16_cuda`, one-pass bf16 `mma.sync` with fp32 accumulation;
-K1's and K5's on `wgmma`, `csrc/bf16_wgmma.cuh`) or,
-on the CPU, to the plain version of the bf16 contract
+entry (`*_bf16_cuda`: `head_major_attention_wgmma_kernel` on the `wgmma`
+core of `csrc/bf16_wgmma.cuh`, which K1's and K5's bf16 entries share;
+K and V by TMA through a tensor map of each view, one-pass bf16 with fp32
+accumulation) or, on the CPU, to the plain version of the bf16 contract
 (`bf16_attention_plain`): the JAX package's bf16 kernels, with fp32
 scores and softmax, p rounded to bf16 before P V, l summed from that
 rounded p, and a bf16 output. No entry gives way to another.
@@ -136,8 +137,9 @@ fused_attention_cuda.launches = 0
 
 
 def _check_bf16_rows(name, q, k, v, hd):
-    """The bf16 entries' layout: hd a multiple of 8, k and v rows 16-byte
-    aligned (cp.async), q rows 4-byte aligned."""
+    """The bf16 entries' layout: hd a multiple of 8, k and v 16-byte aligned
+    with strides of whole 16 bytes (the TMA tensor maps; the C launch
+    refuses others too), q rows 4-byte aligned."""
     if hd % 8:
         raise ValueError(f"{name} takes hd a multiple of 8, got {hd}")
     if (any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (k, v))

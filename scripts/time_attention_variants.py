@@ -22,8 +22,9 @@ heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
 and each kernel's max |diff| from its plain version (K2: mu's,
 and 1/sigma's relative), K3 beside its plain version's time (5 runs);
 `--factored` keeps only K2-K4. With
-`--bf16`, the bf16 entries of K5 (16x257x3072) and K1 (global and windowed)
-are also timed, one launch and runs of 10, beside SDPA in bf16 on the same
+`--bf16`, the bf16 entries of K8 (16x16x1025x64 on qkv views), K9
+(16x16x257x64), K5 (16x257x3072) and K1 (global and windowed) are also
+timed, one launch and runs of 10, beside SDPA in bf16 on the same
 operands (K1's bias as a bf16 mask), each held to its plain bf16 version,
 with the ptxas registers of their kernels, and K2-K4 are their bf16 entries
 on the same states rounded to bf16 (each held to its plain bf16 version;
@@ -51,6 +52,7 @@ chunks and their merge, and K4 by name).
 """
 from __future__ import annotations
 
+import ctypes
 import re
 import subprocess
 import sys
@@ -71,7 +73,10 @@ def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> 
     from sam6d_torch.kernels import attention_qkv
     from sam6d_torch.kernels import attention_relpos as relpos
 
-    _, out = _build.build(verbose=True)
+    so, out = _build.build(verbose=True)
+    # an older csrc/ (a parent commit's) may lack entries added since
+    lib = ctypes.CDLL(str(so))
+    _build._SIGNATURES = {n: a for n, a in _build._SIGNATURES.items() if hasattr(lib, n)}
     _build.load_library()
     ptxas, entry, spill = {}, None, 0
     for line in out.splitlines():
@@ -195,8 +200,10 @@ def time_points(root: Path) -> str:
 
 
 def attention_bf16_fields(rng, cs, ptxas):
-    """The bf16 entries of K5 (16x257x3072, the describe chunk) and K1 (a
-    global 1x4096 and a windowed 25x196 ViT-H block, 16 heads of 80), each
+    """The bf16 entries of K8 (16x16x1025x64 on the views of a qkv
+    projection: the describe at 448), K9 (16x16x257x64), K5 (16x257x3072,
+    the describe chunk) and K1 (a global 1x4096 and a windowed 25x196 ViT-H
+    block, 16 heads of 80), each
     held to its plain bf16 version and timed (one launch, and runs of 10
     launches) beside SDPA in bf16 on the same operands (K1's bias as a bf16
     mask), with the registers and spill bytes ptxas gave the kernels of
@@ -220,10 +227,24 @@ def attention_bf16_fields(rng, cs, ptxas):
                 f"{lib_runs:.4f}), max |diff| {err:.2e}")
 
     kernels = [(m[1] + f"<{m[2]}>", rec) for name, rec in ptxas.items()
-               if (m := re.search(r"(attention_(?:qkv|relpos)_(?:bf16|wgmma)_kernel)ILi(64|80)E",
-                                  name))]
-    fields = ["bf16 K1/K5 kernels (registers, spill bytes) "
+               if (m := re.search(r"((?:attention_(?:qkv|relpos)|head_major_attention)"
+                                  r"_(?:bf16|wgmma)_kernel)ILi(\d+)E(?:Lb(\d)E)?", name))]
+    fields = ["bf16 K1/K5/K8/K9 kernels (registers, spill bytes) "
               + ", ".join(f"{k} {rec}" for k, rec in kernels)]
+    from sam6d_torch.kernels import attention as att
+    for name, n, fn, plain in (
+            ("K8 16x16x1025x64 qkv views", 1025, att.fused_attention_bf16_cuda,
+             att.fused_attention_bf16_plain),
+            ("K9 16x16x257x64", 257, att.fused_attention_small_bf16_cuda,
+             att.fused_attention_small_bf16_plain)):
+        qkv = bf((16, n, 3 * 1024))
+        with torch.no_grad():
+            qkv[..., :2048] *= 0.5
+        q, k, v = qkv.view(16, n, 3, 16, 64).permute(2, 0, 3, 1, 4)
+        if n == 257:   # K9 on contiguous operands, as chip_smoke.py times it
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fields.append(timed(name, lambda: fn(q, k, v, 0.125), lambda: plain(q, k, v, 0.125),
+                            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)))
     qkv = bf((16, 257, 3 * 1024))
     with torch.no_grad():
         qkv[..., :2048] *= 0.5

@@ -584,6 +584,23 @@ def test_fused_attention_qkv_bf16_entry_matches_plain(cuda_device, B, N, heads, 
     pytest.param(2, 3, 50, 1, 64, 1.0, id="2-3-50-1-64-one-key"),
     pytest.param(1, 2, 129, 70, 64, 1.0, id="1-2-129-70-64-a-row-past-a-block"),
     pytest.param(16, 16, 1025, 1025, 64, 2.0, id="16-16-1025-1025-64-large-scores"),
+    # tile edges of the wgmma core: 64-row and 64-key tiles, the last tile
+    # of at most 8 keys, the ring's five resident tiles at hd <= 64 (320
+    # keys) and the streaming ring past them; cross-attention with either
+    # side under a tile
+    *(pytest.param(1, 2, n, n, 64, 1.0, id=f"1-2-{n}-{n}-64")
+      for n in (1, 8, 9, 63, 64, 65, 320, 321, 1025)),
+    pytest.param(1, 3, 7, 1025, 64, 1.0, id="1-3-7-1025-64-cross"),
+    pytest.param(1, 3, 1025, 9, 64, 1.0, id="1-3-1025-9-64-cross"),
+    pytest.param(2, 2, 9, 8, 64, 1.0, id="2-2-9-8-64-cross"),
+    pytest.param(2, 2, 8, 65, 32, 1.0, id="2-2-8-65-32-cross"),
+    # head dims padded by TMA's zero columns (8 -> 16, 24 -> 32) and the
+    # two-part tiles (80: 64 + 16 channels, 128: 64 + 64), resident and
+    # streaming (hd 80 and 128 hold 256 keys)
+    *(pytest.param(2, 2, n, n, hd, 1.0, id=f"2-2-{n}-{n}-{hd}")
+      for hd in (8, 24, 80, 128) for n in (65, 257, 321)),
+    pytest.param(1, 2, 1025, 1025, 128, 2.0, id="1-2-1025-1025-128-large-scores"),
+    pytest.param(2, 2, 9, 300, 8, 2.0, id="2-2-9-300-8-large-scores"),
 ])
 def test_fused_attention_bf16_entry_matches_plain(cuda_device, B, H, Nq, Nk, hd, qk):
     rng = np.random.RandomState(22)
@@ -595,15 +612,43 @@ def test_fused_attention_bf16_entry_matches_plain(cuda_device, B, H, Nq, Nk, hd,
 
 
 @pytest.mark.cuda
-def test_fused_attention_bf16_entry_reads_qkv_views(cuda_device):
+@pytest.mark.parametrize("B,N,H,hd,offset", [
+    pytest.param(2, 1100, 4, 64, 0, id="2-1100-4-64"),
+    pytest.param(16, 1025, 16, 64, 0, id="16-1025-16-64"),   # the describe at 448
+    pytest.param(2, 1025, 4, 64, 8, id="2-1025-4-64-offset-16-bytes"),
+    pytest.param(2, 300, 3, 128, 8, id="2-300-3-128-offset-16-bytes"),
+    pytest.param(2, 70, 2, 24, 0, id="2-70-2-24"),
+])
+def test_fused_attention_bf16_entry_reads_qkv_views(cuda_device, B, N, H, hd, offset):
     """The (B, H, N, hd) views of a bf16 qkv projection, as
-    models/vit.Attention passes them at N > 1024."""
-    B, N, H, hd = 2, 1100, 4, 64
-    qkv = _bf16_on_card(np.random.RandomState(23), cuda_device, (B, N, 3 * H * hd), 0.5)
+    models/vit.Attention passes them at N > 1024 (every stride a multiple of
+    16 bytes, non-monotonic: the head's below the row's), also 16 bytes
+    into a buffer."""
+    qkv = _bf16_on_card(np.random.RandomState(23), cuda_device, (B, N, 3 * H * hd), 0.5,
+                        offset)
     q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
     got = attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5)
     _bf16_close(got, attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5))
     assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q-4-bytes-into-a-buffer", "q-rows-of-hd-plus-2"])
+def test_fused_attention_bf16_entry_reads_4_byte_aligned_q(cuda_device, case):
+    """K8's contract takes q rows aligned to 4 bytes only (k and v to 16):
+    q 4 bytes into its buffer, or q rows 2 elements longer than hd, so no
+    row but the first is 16-byte aligned."""
+    B, H, Nq, Nk, hd = 2, 3, 130, 200, 64
+    rng = np.random.RandomState(28)
+    if case == "q-4-bytes-into-a-buffer":
+        q = _bf16_on_card(rng, cuda_device, (B, H, Nq, hd), 0.5, offset=2)
+    else:
+        q = _bf16_on_card(rng, cuda_device, (B, H, Nq, hd + 2), 0.5)[..., :hd]
+    assert q.data_ptr() % 16 or q.stride(2) % 8
+    k = _bf16_on_card(rng, cuda_device, (B, H, Nk, hd), 0.5)
+    v = _bf16_on_card(rng, cuda_device, (B, H, Nk, hd))
+    got = attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5)
+    _bf16_close(got, attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5))
 
 
 @pytest.mark.cuda
@@ -612,6 +657,9 @@ def test_fused_attention_bf16_entry_reads_qkv_views(cuda_device):
     pytest.param(3, 4, 31, 32, 1.0, id="3-4-31-32"),
     pytest.param(2, 2, 65, 16, 1.0, id="2-2-65-16"),
     pytest.param(16, 16, 257, 64, 2.0, id="16-16-257-64-large-scores"),
+    pytest.param(4, 16, 257, 32, 1.0, id="4-16-257-32"),
+    pytest.param(4, 16, 257, 16, 1.0, id="4-16-257-16"),
+    pytest.param(2, 2, 321, 64, 1.0, id="2-2-321-64-streaming"),
 ])
 def test_fused_attention_small_bf16_entry_matches_plain(cuda_device, B, H, N, hd, qk):
     rng = np.random.RandomState(24)
@@ -671,9 +719,11 @@ def _peaked_qkv(rng, B, N, heads, hd):
     pytest.param("qkv", (1, 4096), 2, 64, id="k5-1x4096-2-64"),
     pytest.param("relpos", (64, 64), 2, 80, id="k1-64x64-2-80"),
     pytest.param("relpos", (13, 20), 2, 80, id="k1-13x20-2-80"),
+    pytest.param("head-major", (1, 1025), 16, 64, id="k8-1x1025-16-64"),
 ])
 def test_bf16_streaming_ring_reads_every_key_tile(cuda_device, entry, hw, heads, hd):
-    """Past the resident ring the wgmma core streams K/V through two stages.
+    """Past the resident ring the wgmma core streams K/V through two stages
+    (K5 and K1 off one qkv matrix, K8 through a tensor map of each view).
     With peaked scores and a V offset a tile, a stage read before its refill
     landed, or refilled before it was read, moves the rows whose peak key
     lies in it to another tile's offset, at least 1/36 away (three times the
@@ -684,6 +734,10 @@ def test_bf16_streaming_ring_reads_every_key_tile(cuda_device, entry, hw, heads,
     if entry == "qkv":
         got = attention_qkv.fused_attention_qkv_bf16_cuda(qkv, heads, hd ** -0.5)
         want = attention_qkv.fused_attention_qkv_bf16_plain(qkv, heads, hd ** -0.5)
+    elif entry == "head-major":   # K8 on the qkv's (B, H, N, hd) views
+        q, k, v = qkv.view(1, H * W, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        got = attention.fused_attention_bf16_cuda(q, k, v, hd ** -0.5)
+        want = attention.fused_attention_bf16_plain(q, k, v, hd ** -0.5)
     else:
         rng = np.random.RandomState(27)
         rh = _bf16_on_card(rng, cuda_device, (2 * H - 1, hd), 0.1)
@@ -729,6 +783,42 @@ def test_bf16_entries_refuse_what_they_do_not_take(cuda_device):
                                            torch.zeros(5, 8, device=cuda_device).bfloat16(),
                                            torch.zeros(5, 8, device=cuda_device).bfloat16(),
                                            (3, 3), 4)
+
+
+@pytest.mark.cuda
+def test_fused_attention_bf16_launch_refuses_what_tma_cannot_map(cuda_device):
+    """The C launch of K8's bf16 entry keeps the wrapper's refusals itself
+    (cudaErrorInvalidValue, 1): k or v rows off 16 bytes, q rows off 4
+    bytes, an hd off the contract; its shared-memory entry sizes the
+    resident ring and the streaming stages, and refuses such an hd."""
+    from sam6d_torch.kernels._build import load_library
+    lib = load_library()
+    buf = torch.zeros(8 + 2 * 3 * 70 * 64, device=cuda_device, dtype=torch.bfloat16)
+    good = buf[:2 * 3 * 70 * 64].view(2, 3, 70, 64)
+    off_k = buf[4:4 + good.numel()].view(2, 3, 70, 64)   # 8 bytes in
+    off_q = buf[1:1 + good.numel()].view(2, 3, 70, 64)   # 2 bytes in
+    out = torch.empty_like(good)
+
+    def launch(q, k, v, hd=64):
+        st = [attention._strides(t) for t in (q, k, v, out)]
+        return lib.sam6d_fused_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *st, 2, 3, 70, 70, hd,
+            0.125, torch.cuda.current_stream().cuda_stream)
+
+    assert launch(good, good, good) == 0
+    assert launch(good, off_k, good) == 1
+    assert launch(good, good, off_k) == 1
+    assert launch(off_q, good, good) == 1
+    assert launch(good, good, good, hd=60) == 1
+    torch.cuda.synchronize()
+    smem = [lib.sam6d_fused_attention_bf16_smem(70, nk, hd)
+            for nk, hd in ((257, 64), (1025, 64), (256, 128), (257, 128))]
+    # K, V tiles and two barriers a stage, then two q tiles; past the
+    # resident ring two stages stream
+    stage64, stage128 = 2 * 64 * 64 * 2 + 16, 2 * 64 * 128 * 2 + 16
+    assert smem == [5 * stage64 + 2 * 64 * 64 * 2, 2 * stage64 + 2 * 64 * 64 * 2,
+                    4 * stage128 + 2 * 64 * 128 * 2, 2 * stage128 + 2 * 64 * 128 * 2]
+    assert lib.sam6d_fused_attention_bf16_smem(70, 257, 60) == -1
 
 
 

@@ -21,6 +21,7 @@ from sam6d_torch.data import regions
 from sam6d_torch.pipelines import sam_amg
 from sam6d_torch.pipelines.sam_amg import SAMSegmentor
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, tiny_sam_cfgs, tiny_sam_weights
 
 COVERAGE_ATOL = 1e-5

@@ -56,6 +56,7 @@ from sam6d_torch.pipelines.ism import ISMPipeline
 from sam6d_torch.pipelines.pem import PEMPipeline
 from sam6d_torch.pipelines.sam_amg import SAMSegmentor
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import tiny_cfg, tiny_ism_cfgs, tiny_sam_cfgs
 from torch_port_draw import conditioned_pem_state_dict, posed_pem_frame, rand_like_state_dict
 

@@ -40,6 +40,7 @@ from sam6d_torch.render.templates import _intrinsics, render_bop_templates
 from test_data_providers import make_mini_bop
 from test_torch_port_ism_slice import _frame
 from test_torch_port_render import S, XYZ_NEAR_ZERO_MM, _write_colored_ply
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, tiny_dinov2_weights, tiny_ism_cfgs
 
 H, W = 48, 64

@@ -42,6 +42,7 @@ from sam6d_torch.weights.pem import pem_state_dict_from_flax
 
 from test_torch_port_bop import make_mini_tree, mini_detections
 from test_torch_port_ism_slice import NEAR_PIXEL
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import (close, jax_variables, tiny_cfg, tiny_dinov2_weights,
                                tiny_ism_cfgs, tiny_sam_cfgs, tiny_sam_weights, tt)
 

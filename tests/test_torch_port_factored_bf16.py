@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from sam6d_tpu.kernels import factored_t2i as jfac
 from sam6d_tpu.models import sam as jsam
 from sam6d_torch.kernels import factored
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 BF = torch.bfloat16
 JBF = ml_dtypes.bfloat16

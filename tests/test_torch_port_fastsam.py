@@ -50,6 +50,7 @@ from sam6d_torch.weights.pem import pem_state_dict_from_flax
 from test_fastsam_convert import synth_fastsam_x
 from test_torch_port_frame import _configs, _write_frame
 from test_torch_port_ism_slice import K_CAM
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, jax_variables, tiny_dinov2_weights, tiny_ism_cfgs
 
 TINY_W = (8, 16, 32, 64, 64)

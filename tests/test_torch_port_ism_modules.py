@@ -23,6 +23,7 @@ from sam6d_torch.weights.dinov2 import (dinov2_state_dict_from_flax,
                                         load_reference_checkpoint,
                                         random_dinov2_state_dict)
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, tiny_dinov2_weights, tiny_ism_cfgs, tt
 
 

@@ -16,6 +16,7 @@ from sam6d_torch.data.synthetic import write_ism_job
 from sam6d_torch.ops.pointcloud import masked_depth_mean_translation
 from sam6d_torch.pipelines import ism as port_ism
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, tiny_dinov2_weights, tiny_ism_cfgs
 
 H, W = 48, 64

@@ -25,6 +25,7 @@ from sam6d_torch.ops.ball_query import group_points
 
 from test_torch_cuda_kernels import (FPS_EDGE_CASES, _fps_case, _fps_edge_case,
                                      factored_state)
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import separated_cloud
 
 

@@ -32,6 +32,7 @@ from sam6d_torch.render import templates
 from sam6d_torch.train.trainer import PEMTrainer
 
 from tests.test_trainer import tiny_full_cfg
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 HW = (240, 320)
 TEMPLATE_SIZE = 96

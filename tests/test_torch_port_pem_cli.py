@@ -12,6 +12,7 @@ from sam6d_torch.data.synthetic import write_pem_job
 from sam6d_torch.pipelines import pem as port_pem
 from sam6d_torch.weights.pem import pem_state_dict_from_flax
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import jax_variables, tiny_cfg
 
 LAYOUT_KEYS = ("scene_id", "image_id", "category_id", "bbox", "segmentation")

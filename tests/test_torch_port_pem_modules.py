@@ -22,6 +22,7 @@ from sam6d_torch.weights.pem import (load_reference_checkpoint,
                                      pem_state_dict_from_flax,
                                      random_pem_state_dict)
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import (close, jax_variables, separated_cloud,
                                tiny_cfg, torch_net, tt)
 

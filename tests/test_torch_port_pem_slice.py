@@ -18,6 +18,7 @@ from sam6d_tpu.pipelines.pem import PEMPipeline as JaxPEMPipeline
 from sam6d_torch.pipelines import pem as port_pem
 from sam6d_torch.weights.pem import pem_state_dict_from_flax
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, jax_variables, tiny_cfg, tiny_inputs, torch_net, tt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

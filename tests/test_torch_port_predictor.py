@@ -15,6 +15,7 @@ from sam6d_tpu.pipelines.sam_amg import SAMSegmentor as JaxSAMSegmentor
 from sam6d_torch.pipelines.predictor import SAMPredictor
 from sam6d_torch.pipelines.sam_amg import SAMSegmentor
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, tiny_sam_cfgs, tiny_sam_weights
 
 MASK_NEAR_ZERO = 1e-4

@@ -31,6 +31,7 @@ from sam6d_torch.render.poses import template_cam_poses
 from sam6d_torch.render.templates import render_templates
 
 from test_mesh_appearance import _write_texture, _write_textured_ply
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 S = 64
 K = np.array([[S * 50 / 36, 0, S / 2], [0, S * 50 / 36, S / 2], [0, 0, 1]], np.float32)

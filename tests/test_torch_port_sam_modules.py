@@ -32,6 +32,7 @@ from sam6d_torch.weights.sam import (load_reference_checkpoint,
                                      random_sam_state_dict,
                                      sam_state_dict_from_flax)
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, tiny_sam_cfgs, tiny_sam_weights, tt
 
 # the JAX package's own tolerances: its encoder test against the torch

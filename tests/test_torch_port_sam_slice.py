@@ -16,6 +16,7 @@ from sam6d_torch.ops.masks import box_iou, masks_to_boxes
 from sam6d_torch.pipelines import ism as port_ism
 from sam6d_torch.pipelines.sam_amg import SAMSegmentor, resize_logits, stable_top_k
 
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import (close, tiny_dinov2_weights, tiny_ism_cfgs,
                                tiny_sam_cfgs, tiny_sam_weights, tt)
 

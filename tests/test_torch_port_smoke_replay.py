@@ -15,6 +15,7 @@ from sam6d_torch.train.trainer import (PEMTrainer, batch_to_device, draw_pose_no
                                        make_dummy_batch)
 
 from tests.test_trainer import tiny_full_cfg
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 # a unit square's corners and its centre: from corner 0, FPS takes the far
 # corner 3, then corners 1 and 2 tie

@@ -70,6 +70,7 @@ from sam6d_torch.weights.partial import load_partial
 from sam6d_torch.weights.pem import mae_vit_state_dict, pem_state_dict_from_flax
 
 from tests.test_trainer import tiny_full_cfg
+from torch_port_common import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_common import close, jax_variables, torch_net
 
 B = 2
