@@ -231,7 +231,8 @@ def cuda_ms(fn, reps=5, launches=1):
 def device_busy(fn, label):
     """Run fn() once under torch.profiler: log the card's busy share (the
     sum of device-side op times over the wall time; one stream, so they do
-    not overlap) and the ops that took most of it."""
+    not overlap), the ops that took most of it, and the factored kernels
+    (K2-K4) wherever they rank."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -256,7 +257,9 @@ def device_busy(fn, label):
         log(f"{label}: device busy share not measured (the profiler saw no "
             f"device time); wall {wall:.1f} ms")
         return
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    top = ranked[:6] + [e for e in ranked[6:]
+                        if any(k in e.key for k in ("ln_stats", "t2i", "i2t"))]
     log(f"{label}: card busy {busy:.1f} ms of {wall:.1f} ms wall under the "
         f"profiler ({100 * busy / wall:.0f}%), {sum(e.count for e in kernels)} "
         f"device ops; most time: " + "; ".join(
@@ -3164,7 +3167,7 @@ def _check_bf16_kernels(rng, ptxas):
 # the kernels of each bf16 factored entry (ptxas registers and spills)
 BF16_FACTORED_KERNELS = {
     "factored_ln_stats": ("ln_stats_bf16_kernel",),
-    "factored_t2i_attention": ("t2i_scores_bf16_kernel", "t2i_bf16_kernel",
+    "factored_t2i_attention": ("t2i_scores_wgmma_kernel", "t2i_wgmma_kernel",
                                "t2i_merge_bf16_kernel"),
     "factored_i2t_scores": ("i2t_bf16_kernel",)}
 
@@ -3268,6 +3271,11 @@ def _check_bf16_factored(seg, ptxas):
             first_call_ms=first["ms"], first_call_plain_ms=first["plain_ms"],
             first_call_bound_ms=first["b_ms"], first_call_fp32_entry_ms=first["fp32_ms"],
             ptxas_spill_bytes=0, **regs,
+            # the kernels K3's wgmma design replaced are gone from the sources
+            **({"parent_note": "parent (one-pass mma.sync, warp = head) timed beside this "
+                               "design by scripts/time_attention_variants.py --factored "
+                               "--bf16 in one call, not in this run"}
+               if n == "factored_t2i_attention" else {}),
             timing="ms, fp32_entry_ms: CUDA events over runs of 10 launches; plain_ms: one "
                    "launch",
             shapes=f"B=128, N=4096, ranks {last['ranks']} (ms); ranks {first['ranks']} "

@@ -28,7 +28,7 @@
 // (softmax) and 2 (LayerNorm) rows: ranks 57 / 116 (K2), 59 / 118 (K3),
 // 0 / 59 (K4).
 //
-// Designs (warp = head for K3/K4; all products m16n8k16 bf16):
+// Designs (K4, K2: products m16n8k16 bf16; K3: wgmma and m16n8k16):
 //  - K4 (i2t_bf16_kernel): one block per (prompt, 64 positions). The score
 //    tile is M = the head's tokens (rows past T zero) x N = 8 positions:
 //    the head-score terms are one k16 step over the head's 16 channels
@@ -41,22 +41,22 @@
 //    lanes' g; the probabilities leave through shared memory as 16-byte
 //    rows.
 //  - K3: the normalised p is rounded (JAX's order), so it takes two
-//    passes over the positions, one block per (prompt, chunk of position
-//    tiles) each, warp h = head h: t2i_scores_bf16_kernel forms each tile's
-//    scores as K4 does (the tile's KS, KC and P_eff rows double-buffered by
-//    cp.async), stores them in fp32 to a workspace (B, 64, N) and keeps the
-//    online max and sum of exp of each token row over its chunk;
-//    t2i_bf16_kernel merges the chunks' statistics, reads each tile's
-//    stored scores back (with its P_eff and VS rows, double-buffered), forms
-//    p = exp(s - M) / L, and accumulates the value part (pa VS_h, M =
-//    tokens, VS by ldmatrix.trans) and T2^T = Pd pc^T (M = ranks, the
-//    P_eff tile's rows as A fragments, pc's C fragments as the B fragment
-//    as they stand); t2i_merge_bf16_kernel, one block per prompt, sums the
-//    chunks' partials, rounds T2, adds T2 U_V and writes the head-diagonal
-//    blocks (B, T, d) in bf16. Forming the scores again in the second
-//    pass instead took 15-40% longer on an H100 (PERF.md); an online
-//    softmax in one pass rounds exp(s - m) before it is normalised, and
-//    measured up to 4 output ulps off JAX's order at four times the scores.
+//    passes over the positions, one block of one warpgroup per (prompt,
+//    chunk of position tiles) each, on wgmma (bf16_wgmma.cuh): the 8 heads'
+//    token rows packed into wgmma's 64 rows (see the K3 section).
+//    t2i_scores_wgmma_kernel forms each tile's fp32 scores (head terms on
+//    mma.sync, the rank term on wgmma against the P_eff tile), stores them
+//    in the accumulator's order to a workspace and keeps each row's max and
+//    sum of exp over its chunk; t2i_wgmma_kernel merges the chunks'
+//    statistics, reads each tile's scores back (one bulk copy), forms p =
+//    exp(s - M) / L, and accumulates the value part (mma.sync) and T2 (wgmma
+//    against the same P_eff tile read K-major); t2i_merge_bf16_kernel, one
+//    block per prompt, sums the chunks' partials, rounds T2, adds T2 U_V and
+//    writes the head-diagonal blocks (B, T, d) in bf16. Forming the scores
+//    again in the second pass instead took 15-40% longer on an H100
+//    (PERF.md); an online softmax in one pass rounds exp(s - m) before it is
+//    normalised, and measured up to 4 output ulps off JAX's order at four
+//    times the scores.
 //  - K2 (ln_stats_bf16_kernel): one block of 8 warps per (prompt, 64
 //    positions), the x_l tile (64 positions x 256 channels) on the tensor
 //    cores: each tilde (16 significant bits) is split exactly into two
@@ -71,8 +71,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstdint>
+#include <cstring>
+#include <utility>
 
 #include "bf16_attention.cuh"
+#include "bf16_wgmma.cuh"  // K3: wgmma, TMA, mbarriers
 
 namespace {
 
@@ -88,6 +91,7 @@ using sam6d::bf16attn::lo_of;
 using sam6d::bf16attn::mma_bf16;
 using sam6d::bf16attn::pack2;
 using sam6d::bf16attn::round_bf16;
+namespace wg = sam6d::wgattn;
 
 constexpr int kMaxBlocks = 4;
 constexpr int kThreads = 256;
@@ -388,6 +392,39 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ----------------------------------------------------------------- K3
+//
+// Two passes over the positions, then the merge. A block is one warpgroup
+// on one (prompt, chunk of position tiles). Its 64 rows are the 8 heads'
+// token rows packed into wgmma's M: row 8h + tt, token tt < kRows of head h
+// (tokens past T are dead rows, never stored), so warp w holds heads 2w
+// (rows g) and 2w + 1 (rows g + 8) and lane (g, t) token g of both:
+//  - head terms S = (q KS^T) a + q KC^T: per warp on mma.sync, its two
+//    heads' channels of the KS and KC tiles (ldmatrix), the block-diagonal
+//    q's zeros skipped (as wgmma over all 128 channels they cost 8x the
+//    products and measured no faster);
+//  - rank term, per block: T1_i Pd_i on wgmma over all 64 rows, A = T1 =
+//    bf16(q U_K^T) in registers (formed once a block by mma.sync), B = the
+//    P_eff tile [rank][position], MN-major (as the core's V); its fp32
+//    product times the block's scale is added to S in block order;
+//  - pass 2's T2_i = bf16(p s_i) Pd_i^T reads the same P_eff tile K-major
+//    (positions as K), one m64n16 product a step of 16 ranks; the value part
+//    bf16(p a) VS runs on mma.sync per warp over its two heads' 32
+//    channels, B fragments by ldmatrix.trans from the swizzled VS tile.
+// KS, KC and VS tiles (one box each: the two 64-channel parts as a third
+// dim), P_eff (one box a block) and the scales arrive by TMA (128-byte
+// swizzle; positions past N and ranks past a block read as zeros), each
+// share issued by a lane of another warp, on one full mbarrier a stage;
+// where N % 8 != 0 the P_eff rows and the scales are written by the
+// threads instead (P_eff into the same swizzled layout). Pass 1 folds each
+// tile into the rows' (max, sum of exp) once a tile (the tile's row max
+// over the quad first) and stores the fp32 scores in the accumulator's own
+// order, [tile][float4 v][thread], which pass 2 reads back with one bulk
+// copy a tile into exactly the A fragments its threads take.
+// Bound: each pass moves P_eff and the fp32 scores once (the bytes) but
+// runs at about twice that on an H100: a warpgroup's chain of wgmma waits
+// (one a block), exponentials and barriers is exposed with two blocks an
+// SM (shared memory: two 53 KB stages; registers: 235-255), as clock64
+// readings of each phase showed (PERF.md).
 
 constexpr int kT2iChunks = 8;  // position chunks a prompt, one block each (as factored.cu)
 
@@ -415,215 +452,536 @@ __device__ __forceinline__ int chunk_tiles(int npos, int per, int& c0) {
   return (c1 - c0 + kBN - 1) / kBN;
 }
 
-// Pass 1: one block per (prompt, chunk), warp h = head h: each token
-// row's fp32 scores over the chunk, stored to scores (B, kHeads * kRows, N)
-// (rows h kRows + tt, tt < t), and their online max and sum of exp.
-__global__ void __launch_bounds__(kThreads, 1)
-    t2i_scores_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ uk, Blocks bl,
-                           Steps st, const bf16* __restrict__ a, const bf16* __restrict__ ks,
-                           const bf16* __restrict__ kc, float* __restrict__ scores,
-                           float* __restrict__ stats, int t_tok, int npos, int rtot, int per) {
-  extern __shared__ uint4 smem_u4[];
-  const int tile_elems = 16 * st.n * kLdp;
-  bf16* kst = reinterpret_cast<bf16*>(smem_u4);                  // [2][KS, KC][kBN][kLdv]
-  bf16* ptile = kst + 2 * 2 * kBN * kLdv;                        // [2][16 st.n][kLdp]
-  float* asb = reinterpret_cast<float*>(ptile + 2 * tile_elems);  // [2][1 + kMaxBlocks][kBN]
+constexpr int kWgThreads = 128;                // one warpgroup a block
+constexpr int kRowBytes = kBN * 2;             // a P_eff row of a tile: one 128-byte swizzle row
+constexpr int kTileBytes = kBN * kD * 2;       // a tile of KS, KC or VS: two 64-channel parts
+constexpr int kStepBytes = 16 * kRowBytes;     // the 16 P_eff rows of a rank step
+constexpr int kTileFloats = kHeads * kRows * kBN;  // a tile's stored scores
+constexpr int kScaleElems = (1 + kMaxBlocks) * kBN;  // a tile's a and block scales, bf16
+// Stages of the ring: two of 53 KB at rank 118 let two blocks share an SM
+// (one block with four stages measured 1.5x slower)
+constexpr int kStages = 2;
 
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.y;
-  int c0;
-  const int ntiles = chunk_tiles(npos, per, c0);
-  auto stage = [&](int it) {
-    const int buf = it & 1, p0 = c0 + it * kBN;
-    load_rows(kst + 2 * buf * kBN * kLdv, ks, p0, npos);
-    load_rows(kst + (2 * buf + 1) * kBN * kLdv, kc, p0, npos);
-    load_peff(ptile + buf * tile_elems, bl, st, b, p0, npos, ks);
-    load_scales(asb + buf * (1 + kMaxBlocks) * kBN, bl, a, b, p0, npos);
-  };
-  stage(0);
-  cp_async_commit();
-  uint32_t qa[2];
-  token_fragment(qa, q + static_cast<size_t>(b) * t_tok * kD + h * kHd, t_tok);
-  uint32_t t1[kMaxSteps][2];
-  t1_fragments(t1, qa, uk + static_cast<size_t>(b) * rtot * kD + h * kHd, st);
+// The tensor maps of a call, in the 128-byte swizzle: KS, KC, VS (N, 128)
+// with boxes of 64 positions x both 64-channel parts, P_eff block i (B, r_i,
+// N) with boxes of 64 positions x its ranks padded to 16 (its rank steps);
+// unswizzled, a (sc[0]) and block i's scale (sc[1 + i]), (B, N), with boxes
+// of 64 positions. P_eff and the scales only where N % 8 == 0 (their rows
+// 16-byte aligned); a null scale has no map.
+struct T2iMaps {
+  CUtensorMap ks, kc, vs;
+  CUtensorMap pd[kMaxBlocks];
+  CUtensorMap sc[1 + kMaxBlocks];
+};
 
-  // this lane's running max and sum of exp over its positions (2t, 2t + 1
-  // of every n8 tile), merged over the quad at the end
-  float m = -CUDART_INF_F, l = 0.f;
-  const bool live = g < t_tok, pairs = (npos & 1) == 0;
-  float* srow = scores + (static_cast<size_t>(b) * kHeads * kRows + h * kRows + g) * npos;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) stage(it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int p0 = c0 + it * kBN, buf = it & 1;
-    constexpr int NT = 4;  // n8 tiles a step
-    for (int nt0 = 0; nt0 < kBN / 8; nt0 += NT) {
-      float s[NT][2];
-      tile_scores<NT>(s, nt0, qa, t1, st, ptile + buf * tile_elems,
-                      asb + buf * (1 + kMaxBlocks) * kBN, kst + 2 * buf * kBN * kLdv,
-                      kst + (2 * buf + 1) * kBN * kLdv);
+__device__ __forceinline__ void ldmatrix_x4_trans_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The P_eff rows of a tile by TMA, one box a block (its steps' rows),
+// completing on bar.
+__device__ __forceinline__ void peff_tma(unsigned char* dst, const T2iMaps& maps, const Blocks& bl,
+                                         uint64_t* bar, int b, int p0) {
+  int step = 0;
 #pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        const int pos = p0 + 8 * (nt0 + u) + 2 * t;
-        if (live && pairs && pos < npos) {
-          *reinterpret_cast<float2*>(srow + pos) = make_float2(s[u][0], s[u][1]);
-        } else if (live) {
-          if (pos < npos) srow[pos] = s[u][0];
-          if (pos + 1 < npos) srow[pos + 1] = s[u][1];
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (pos + e < npos) {
-            const float mn = fmaxf(m, s[u][e]);
-            l = l * __expf(m - mn) + __expf(s[u][e] - mn);
-            m = mn;
-          }
-        }
-      }
+  for (int i = 0; i < kMaxBlocks; ++i) {
+    if (i < bl.n && bl.r[i] > 0) {
+      wg::tma_load_4d(dst + step * kStepBytes, &maps.pd[i], bar, p0, 0, b, 0);
+      step += (bl.r[i] + 15) / 16;
     }
-    __syncthreads();  // the buffer just read is refilled next iteration
-  }
-  // every chunk's first position is below npos, so lane t = 0 holds one
-  const float mq = quad_max(m);
-  l = quad_sum(m == -CUDART_INF_F ? 0.f : l * __expf(m - mq));
-  if (t == 0 && live) {
-    float* dst = stats + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * kStatFloats;
-    dst[2 * (h * kRows + g)] = mq;
-    dst[2 * (h * kRows + g) + 1] = l;
   }
 }
 
-// Pass 2: one block per (prompt, chunk), warp h = head h. Each token row's
-// max M and sum L over all positions from the chunks' statistics; per tile
-// (its stored scores, P_eff and VS rows double-buffered by cp.async), p =
-// exp(s - M) / L, the value part pa VS_h (M = tokens, N = the head's 16
-// channels, K = positions) and T2^T += Pd pc^T (M = padded ranks, N =
-// tokens, K = positions). The chunk's partial goes to part.
-constexpr int kLds = kBN + 8;  // floats a staged score row
-__global__ void __launch_bounds__(kThreads, 1)
-    t2i_bf16_kernel(const float* __restrict__ scores, Blocks bl, Steps st,
-                    const bf16* __restrict__ a, const bf16* __restrict__ vs,
-                    const float* __restrict__ stats, float* __restrict__ part, int t_tok,
-                    int npos, int per) {
-  extern __shared__ uint4 smem_u4[];
-  const int tile_elems = 16 * st.n * kLdp;
-  float* sct = reinterpret_cast<float*>(smem_u4);                // [2][kHeads * kRows][kLds]
-  bf16* vtile = reinterpret_cast<bf16*>(sct + 2 * kHeads * kRows * kLds);  // [2][kBN][kLdv]
-  bf16* ptile = vtile + 2 * kBN * kLdv;                          // [2][16 st.n][kLdp]
-  float* asb = reinterpret_cast<float*>(ptile + 2 * tile_elems);  // [2][1 + kMaxBlocks][kBN]
+// The same rows written by the threads where TMA cannot read them (N % 8 !=
+// 0: rows not 16-byte aligned), by 2-byte loads, into TMA's swizzled layout
+// (16-byte chunk c of row r at r * 128 + (c ^ r % 8) * 16); zeros past a
+// step's rows and past npos. Thread (j, c) writes chunk c of row j of every
+// step.
+__device__ __forceinline__ void peff_threads(unsigned char* dst, const Blocks& bl, const Steps& st,
+                                             int b, int p0, int npos) {
+  static_assert(16 * (kBN / 8) == kWgThreads, "one chunk a thread a step");
+  const int j = threadIdx.x / 8, c = threadIdx.x % 8, pos = p0 + 8 * c;
+#pragma unroll
+  for (int ks = 0; ks < kMaxSteps; ++ks) {
+    if (ks < st.n) {
+      const int blk = st.blk[ks];
+      const bool ok = j < st.rows[ks];
+      const auto* src = reinterpret_cast<const unsigned short*>(
+          pick(bl.pd, blk) + (static_cast<size_t>(b) * pick(bl.r, blk) + st.lr0[ks] + j) * npos +
+          pos);
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t lo = ok && pos + 2 * k < npos ? src[2 * k] : 0u;
+        const uint32_t hi = ok && pos + 2 * k + 1 < npos ? src[2 * k + 1] : 0u;
+        w[k] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(dst + ks * kStepBytes + j * kRowBytes + ((c ^ (j & 7)) << 4)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
 
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+// a and the blocks' scales at a tile's positions, bf16 [1 + kMaxBlocks][kBN]:
+// row 0 a, row 1 + i block i's scale; ones for a null one, zeros past npos.
+__device__ __forceinline__ const bf16* scale_src(const Blocks& bl, const bf16* a, int k) {
+  return k == 0 ? a : k - 1 < bl.n ? pick(bl.s, k - 1) : nullptr;
+}
+// The bytes of the rows that have a source (TMA loads them where N % 8 == 0).
+__device__ __forceinline__ int scale_bytes(const Blocks& bl, const bf16* a) {
+  int bytes = 0;
+#pragma unroll
+  for (int k = 0; k < 1 + kMaxBlocks; ++k)
+    if (scale_src(bl, a, k)) bytes += kBN * 2;
+  return bytes;
+}
+// Rows k0, k0 + dk, ... of them by TMA, completing on bar.
+__device__ __forceinline__ void scales_tma(bf16* sc, const T2iMaps& maps, const Blocks& bl,
+                                           const bf16* a, uint64_t* bar, int b, int p0, int k0,
+                                           int dk) {
+#pragma unroll
+  for (int k = 0; k < 1 + kMaxBlocks; ++k)
+    if ((k - k0) % dk == 0 && k >= k0 && scale_src(bl, a, k))
+      wg::tma_load_4d(sc + k * kBN, &maps.sc[k], bar, p0, b, 0, 0);
+}
+// All threads: every row (TMA off), or only the ones of the null rows (once
+// a stage, TMA on).
+__device__ __forceinline__ void scales_threads(bf16* sc, const Blocks& bl, const bf16* a, int b,
+                                               int p0, int npos, bool only_null) {
+  for (int e = threadIdx.x; e < kScaleElems; e += kWgThreads) {
+    const int k = e / kBN, pos = p0 + e % kBN;
+    const bf16* src = scale_src(bl, a, k);
+    if (src && only_null) continue;
+    sc[e] = !src ? __float2bfloat16(1.f)
+                 : pos < npos ? src[static_cast<size_t>(b) * npos + pos] : __float2bfloat16(0.f);
+  }
+}
+// A scale row's values at positions pos, pos + 1 (pos even).
+__device__ __forceinline__ float2 scale_pair(const bf16* row, int pos) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + pos);
+  return make_float2(lo_of(w), hi_of(w));
+}
+
+// Warp w's words of q: token g of head 2w at its channels 2t, 2t + 8 (qf[0],
+// qf[1]) and of head 2w + 1 (qf[2], qf[3]); zeros for a dead row.
+__device__ __forceinline__ void head_pair_q(uint32_t (&qf)[4], const bf16* q, int b, int t_tok) {
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  qf[0] = qf[1] = qf[2] = qf[3] = 0u;
+  if (g < t_tok) {
+    const bf16* row = q + (static_cast<size_t>(b) * t_tok + g) * kD + 32 * warp + 2 * t;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) qf[k] = ld32(row + 8 * k);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d = q_h x^T for the warp's two heads over a staged 64-position tile x
+// (KS or KC, [part][position][64 channels] swizzled) in the accumulator's
+// order: per 8-position block j, one ldmatrix.x4 (the 8 positions' four
+// 8-channel chunks of heads 2w, 2w + 1) and two m16n8k16, head 2w into rows
+// g, head 2w + 1 into rows g + 8.
+__device__ __forceinline__ void head_terms(float (&d)[32], const uint32_t (&qf)[4],
+                                           const unsigned char* x) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r = lane % 8;
+  const int c = 4 * warp + lane / 8;  // this lane's chunk
+  const uint32_t alo[4] = {qf[0], 0u, qf[1], 0u}, ahi[4] = {0u, qf[2], 0u, qf[3]};
+  // rows of a part are 64 channels, 128 bytes: the same width as a P_eff row
+  const uint32_t base =
+      wg::smem_u32(x + wg::part_offset(c / 8) + r * kRowBytes + (((c % 8) ^ r) << 4));
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    uint32_t v[4];
+    ldmatrix_x4_at(v, base + j * 8 * kRowBytes);
+    float(&c4)[4] = *reinterpret_cast<float(*)[4]>(d + 4 * j);
+    c4[0] = c4[1] = c4[2] = c4[3] = 0.f;
+    const uint32_t blo[2] = {v[0], v[1]}, bhi[2] = {v[2], v[3]};
+    mma_bf16(c4, alo, blo);
+    mma_bf16(c4, ahi, bhi);
+  }
+}
+
+// T1 = bf16(q U_K^T) of the warp's two heads as the register A fragments of
+// the rank term, one a step (16 ranks): two mma.sync a rank octet, head 2w's
+// channels into rows g and head 2w + 1's into rows g + 8. ub: the prompt's
+// U_K rows.
+__device__ __forceinline__ void t1_pair_fragments(uint32_t (&t1)[kMaxSteps][4],
+                                                  const uint32_t (&qf)[4], const bf16* ub,
+                                                  const Steps& st) {
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const uint32_t alo[4] = {qf[0], 0u, qf[1], 0u}, ahi[4] = {0u, qf[2], 0u, qf[3]};
+#pragma unroll
+  for (int ks = 0; ks < kMaxSteps; ++ks) {
+    t1[ks][0] = t1[ks][1] = t1[ks][2] = t1[ks][3] = 0u;
+    if (ks < st.n) {
+      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = 8 * u + g;
+        uint32_t b0[2] = {0u, 0u}, b1[2] = {0u, 0u};
+        if (j < st.rows[ks]) {
+          const bf16* row = ub + static_cast<size_t>(st.r0[ks] + j) * kD + 32 * warp + 2 * t;
+          b0[0] = ld32(row);
+          b0[1] = ld32(row + 8);
+          b1[0] = ld32(row + 16);
+          b1[1] = ld32(row + 24);
+        }
+        mma_bf16(c[u], alo, b0);
+        mma_bf16(c[u], ahi, b1);
+      }
+      t1[ks][0] = pack2(c[0][0], c[0][1]);
+      t1[ks][1] = pack2(c[0][2], c[0][3]);
+      t1[ks][2] = pack2(c[1][0], c[1][1]);
+      t1[ks][3] = pack2(c[1][2], c[1][3]);
+    }
+  }
+}
+
+// bf16(x * w) of a lane's 32 accumulator-ordered values (x[4j + e]: row g (e
+// < 2) or g + 8, position 8j + 2t + (e & 1)) as the register A fragments of
+// the four k16 steps over the tile's positions; w: the scale row, + 2t.
+__device__ __forceinline__ void scaled_fragments(uint32_t (&f)[kBN / 16][4], const float (&x)[32],
+                                                 const bf16* w) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const float2 w0 = scale_pair(w, 16 * kk), w1 = scale_pair(w, 16 * kk + 8);
+    const float* v = x + 8 * kk;
+    f[kk][0] = pack2(v[0] * w0.x, v[1] * w0.y);
+    f[kk][1] = pack2(v[2] * w0.x, v[3] * w0.y);
+    f[kk][2] = pack2(v[4] * w1.x, v[5] * w1.y);
+    f[kk][3] = pack2(v[6] * w1.x, v[7] * w1.y);
+  }
+}
+
+// A ring of kStages stages of stage_bytes (1 KB multiples), then their
+// scales [kStages][kScaleElems] and one full mbarrier a stage.
+size_t t2i_smem(size_t stage_bytes) {
+  return kStages * (stage_bytes + sizeof(bf16) * kScaleElems + sizeof(uint64_t));
+}
+
+// Pass 1: each row's fp32 scores over the chunk, stored to the workspace,
+// and the chunk's max and sum of exp of each row.
+__global__ void __launch_bounds__(kWgThreads)
+    t2i_scores_wgmma_kernel(const __grid_constant__ T2iMaps maps, const bf16* __restrict__ q,
+                            const bf16* __restrict__ uk, Blocks bl, Steps st,
+                            const bf16* __restrict__ a, float* __restrict__ scores,
+                            float* __restrict__ stats, int t_tok, int npos, int rtot, int per,
+                            int tma) {
+  extern __shared__ __align__(1024) unsigned char t2i_smem_raw[];
+  unsigned char* smem = wg::checked_base(t2i_smem_raw);
+  const int stage_bytes = 2 * kTileBytes + st.n * kStepBytes;  // [KS | KC | P_eff]
+  bf16* scl = reinterpret_cast<bf16*>(smem + kStages * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scl + kStages * kScaleElems);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int b = blockIdx.y;
   int c0;
   const int ntiles = chunk_tiles(npos, per, c0);
-  const float* sb = scores + static_cast<size_t>(b) * kHeads * kRows * npos;
-  const bool vec = (npos & 3) == 0;
-  auto stage = [&](int it) {
-    const int buf = it & 1, p0 = c0 + it * kBN;
-    float* sd = sct + buf * kHeads * kRows * kLds;
-    for (int e = threadIdx.x; e < kHeads * kRows * (kBN / 4); e += kThreads) {
-      const int r = e / (kBN / 4), q = 4 * (e % (kBN / 4)), pos = p0 + q;
-      if (r % kRows >= t_tok) continue;  // rows of no token: never read
-      const float* src = sb + static_cast<size_t>(r) * npos + pos;
-      float* dst = sd + r * kLds + q;
-      if (vec) {
-        cp_async16(dst, pos < npos ? src : sb, pos < npos);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) dst[k] = pos + k < npos ? src[k] : 0.f;
-      }
-    }
-    load_rows(vtile + buf * kBN * kLdv, vs, p0, npos);
-    load_peff(ptile + buf * tile_elems, bl, st, b, p0, npos, vs);
-    load_scales(asb + buf * (1 + kMaxBlocks) * kBN, bl, a, b, p0, npos);
-  };
-  stage(0);
-  cp_async_commit();
-
-  // the row's softmax over all N: M, L from the chunks' (m, l)
   const bool live = g < t_tok;
-  float M = 0.f, L = 1.f;
-  if (live) {
-    const float* st_ = stats + static_cast<size_t>(b) * gridDim.x * kStatFloats +
-                       2 * (h * kRows + g);
-    M = -CUDART_INF_F;
-    for (int c = 0; c < gridDim.x; ++c) M = fmaxf(M, st_[c * kStatFloats]);
-    L = 0.f;
-    for (int c = 0; c < gridDim.x; ++c)
-      L += st_[c * kStatFloats + 1] * __expf(st_[c * kStatFloats] - M);
+
+  auto stage = [&](int it) {
+    const int s = it % kStages, p0 = c0 + it * kBN;
+    unsigned char* dst = smem + s * stage_bytes;
+    // lane 0 of each warp issues a share of the loads: KS and KC; P_eff; the
+    // scales, split over warps 2 and 3
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(&full[s], 2 * kTileBytes + (tma ? st.n * kStepBytes + scale_bytes(bl, a) : 0));
+      wg::tma_load_4d(dst, &maps.ks, &full[s], 0, p0, 0, 0);
+      wg::tma_load_4d(dst + kTileBytes, &maps.kc, &full[s], 0, p0, 0, 0);
+    } else if (threadIdx.x == 32 && tma) {
+      peff_tma(dst + 2 * kTileBytes, maps, bl, &full[s], b, p0);
+    } else if (threadIdx.x % 32 == 0 && tma) {  // warps 2, 3
+      scales_tma(scl + s * kScaleElems, maps, bl, a, &full[s], b, p0, threadIdx.x / 32 - 2, 2);
+    }
+    if (!tma) {
+      peff_threads(dst + 2 * kTileBytes, bl, st, b, p0, npos);
+      scales_threads(scl + s * kScaleElems, bl, a, b, p0, npos, false);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) wg::mbar_init(&full[s], 1);
+    wg::mbar_fence_init();
   }
+  if (tma)
+    for (int s = 0; s < kStages; ++s) scales_threads(scl + s * kScaleElems, bl, a, b, 0, npos, true);
+  __syncthreads();
+  for (int it = 0; it < kStages - 1 && it < ntiles; ++it) stage(it);
+  uint32_t qf[4];
+  head_pair_q(qf, q, b, t_tok);
+  uint32_t t1[kMaxSteps][4];
+  t1_pair_fragments(t1, qf, uk + static_cast<size_t>(b) * rtot * kD, st);
+  wg::fence_async_shared();
+  __syncthreads();
 
-  float ov[2][4], t2[kMaxSteps][4];
-#pragma unroll
-  for (int nd = 0; nd < 2; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ov[nd][e] = 0.f;
-#pragma unroll
-  for (int s = 0; s < kMaxSteps; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) t2[s][e] = 0.f;
-
+  const int ntot = (npos + kBN - 1) / kBN;
+  float* srec = scores + (static_cast<size_t>(b) * ntot + c0 / kBN) * kTileFloats + 4 * threadIdx.x;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
   for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) stage(it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int p0 = c0 + it * kBN, buf = it & 1;
-    const bf16* pt = ptile + buf * tile_elems;
-    const bf16* vt = vtile + buf * kBN * kLdv;
-    const float* srow = sct + (buf * kHeads * kRows + h * kRows + g) * kLds;
-    const float* as = asb + buf * (1 + kMaxBlocks) * kBN;
-#pragma unroll 1
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      // p at (token g, positions 16 kk + 8 u + 2t + e)
-      float pv[2][2];
+    if (it + kStages - 1 < ntiles) stage(it + kStages - 1);
+    const int s = it % kStages;
+    const unsigned char* kst = smem + s * stage_bytes;
+    const unsigned char* pt = kst + 2 * kTileBytes;
+    const bf16* as = scl + s * kScaleElems + 2 * t;
+    wg::mbar_wait(&full[s], (it / kStages) & 1);
+
+    // head terms: S = (q KS^T) a + q KC^T on mma.sync, each warp its two
+    // heads' channels (the block-diagonal q's other rows are zeros)
+    float S[32], acc[32];
+    head_terms(S, qf, kst);
+    head_terms(acc, qf, kst + kTileBytes);
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float2 sv = *reinterpret_cast<const float2*>(srow + 16 * kk + 8 * u + 2 * t);
-        const int pos = p0 + 16 * kk + 8 * u + 2 * t;
-        pv[u][0] = live && pos < npos ? __fdividef(__expf(sv.x - M), L) : 0.f;
-        pv[u][1] = live && pos + 1 < npos ? __fdividef(__expf(sv.y - M), L) : 0.f;
-      }
-      const int j = 16 * kk + 2 * t;
-      const uint32_t pa[4] = {pack2(pv[0][0] * as[j], pv[0][1] * as[j + 1]), 0u,
-                              pack2(pv[1][0] * as[j + 8], pv[1][1] * as[j + 9]), 0u};
+    for (int j = 0; j < 8; ++j) {
+      const float2 w = scale_pair(as, 8 * j);
+      S[4 * j] = fmaf(S[4 * j], w.x, acc[4 * j]);
+      S[4 * j + 1] = fmaf(S[4 * j + 1], w.y, acc[4 * j + 1]);
+      S[4 * j + 2] = fmaf(S[4 * j + 2], w.x, acc[4 * j + 2]);
+      S[4 * j + 3] = fmaf(S[4 * j + 3], w.y, acc[4 * j + 3]);
+    }
+
+    // rank term: each block's fp32 product times its scale, in block order
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
 #pragma unroll
-      for (int nd = 0; nd < 2; ++nd) {
-        uint32_t bv[2];
-        ldmatrix_x2_trans(bv, vt + (16 * kk + (lane & 15)) * kLdv + h * kHd + 8 * nd);
-        mma_bf16(ov[nd], pa, bv);
-      }
+    for (int ks = 0; ks < kMaxSteps; ++ks) {
+      if (ks < st.n) {  // a block's first step overwrites acc
+        wg::wgmma_rs(acc, t1[ks], wg::make_desc<128>(pt + ks * kStepBytes), st.lr0[ks] > 0);
+        if (st.last[ks]) {
+          wg::wgmma_commit();
+          wg::wgmma_wait0();
+          wg::fence_regs(acc);
+          const bf16* w = as + (1 + st.blk[ks]) * kBN;
 #pragma unroll
-      for (int s = 0; s < kMaxSteps; ++s) {
-        if (s < st.n) {
-          const float* w = as + (1 + st.blk[s]) * kBN + j;
-          const uint32_t bb[2] = {pack2(pv[0][0] * w[0], pv[0][1] * w[1]),
-                                  pack2(pv[1][0] * w[8], pv[1][1] * w[9])};
-          const bf16* pr = pt + (16 * s + g) * kLdp + 16 * kk + 2 * t;
-          const uint32_t aa[4] = {lds32(pr), lds32(pr + 8 * kLdp), lds32(pr + 8),
-                                  lds32(pr + 8 * kLdp + 8)};
-          mma_bf16(t2[s], aa, bb);
+          for (int j = 0; j < 8; ++j) {
+            const float2 wv = scale_pair(w, 8 * j);
+            S[4 * j] = fmaf(acc[4 * j], wv.x, S[4 * j]);
+            S[4 * j + 1] = fmaf(acc[4 * j + 1], wv.y, S[4 * j + 1]);
+            S[4 * j + 2] = fmaf(acc[4 * j + 2], wv.x, S[4 * j + 2]);
+            S[4 * j + 3] = fmaf(acc[4 * j + 3], wv.y, S[4 * j + 3]);
+          }
+          wg::fence_regs(acc);
+          wg::wgmma_fence();
         }
       }
     }
-    __syncthreads();  // the buffers just read are refilled next iteration
+
+    // positions past npos out of the softmax; the live rows' scores stored
+    const int nv = npos - (c0 + it * kBN);
+    if (nv < kBN) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (8 * (i / 4) + 2 * t + (i & 1) >= nv) S[i] = -CUDART_INF_F;
+    }
+    if (live) {
+      float4* dst = reinterpret_cast<float4*>(srec + static_cast<size_t>(it) * kTileFloats);
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+        dst[v * kWgThreads] = make_float4(S[4 * v], S[4 * v + 1], S[4 * v + 2], S[4 * v + 3]);
+    }
+    // the rows' running max (over the quad, once a tile) and this lane's sum
+    float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(S[4 * j], S[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(S[4 * j + 2], S[4 * j + 3]));
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sum_lo += __expf(S[4 * j] - mn_lo) + __expf(S[4 * j + 1] - mn_lo);
+      sum_hi += __expf(S[4 * j + 2] - mn_hi) + __expf(S[4 * j + 3] - mn_hi);
+    }
+    l_lo = l_lo * __expf(m_lo - mn_lo) + sum_lo;  // 0 at the first tile
+    l_hi = l_hi * __expf(m_hi - mn_hi) + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    wg::fence_async_shared();  // the threads' writes of a later stage, before the barrier
+    __syncthreads();           // this stage is refilled next iteration
+  }
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  if (t == 0 && live) {
+    float* dst = stats + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * kStatFloats +
+                 2 * (16 * warp + g);
+    dst[0] = m_lo;
+    dst[1] = l_lo;
+    dst[2 * kRows] = m_hi;  // row 16w + 8 + g: head 2w + 1
+    dst[2 * kRows + 1] = l_hi;
+  }
+}
+
+// Pass 2: each row's max M and sum L over all positions from the chunks'
+// statistics; per tile p = exp(s - M) / L from the stored scores (one bulk
+// copy a tile), the value part bf16(p a) VS (per warp, its heads' channels)
+// and T2_i += bf16(p s_i) Pd_i^T (wgmma, a step of 16 ranks at a time). The
+// chunk's partial goes to part, in the layout t2i_merge_bf16_kernel reads.
+__global__ void __launch_bounds__(kWgThreads)
+    t2i_wgmma_kernel(const __grid_constant__ T2iMaps maps, const float* __restrict__ scores,
+                     Blocks bl, Steps st, const bf16* __restrict__ a,
+                     const float* __restrict__ stats, float* __restrict__ part, int t_tok,
+                     int npos, int per, int tma) {
+  extern __shared__ __align__(1024) unsigned char t2i_smem_raw[];
+  unsigned char* smem = wg::checked_base(t2i_smem_raw);
+  const int peff_bytes = st.n * kStepBytes;
+  const int stage_bytes = kTileBytes + peff_bytes + kTileFloats * 4;  // [VS | P_eff | scores]
+  bf16* scl = reinterpret_cast<bf16*>(smem + kStages * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scl + kStages * kScaleElems);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y;
+  int c0;
+  const int ntiles = chunk_tiles(npos, per, c0);
+  const bool live = g < t_tok;
+  const int ntot = (npos + kBN - 1) / kBN;
+  const float* srec = scores + (static_cast<size_t>(b) * ntot + c0 / kBN) * kTileFloats;
+
+  auto stage = [&](int it) {
+    const int s = it % kStages, p0 = c0 + it * kBN;
+    unsigned char* dst = smem + s * stage_bytes;
+    // lane 0 of each warp issues a share of the loads: VS and the scores;
+    // P_eff; the scales, split over warps 2 and 3
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(&full[s], kTileBytes + kTileFloats * 4 +
+                                       (tma ? peff_bytes + scale_bytes(bl, a) : 0));
+      wg::tma_load_4d(dst, &maps.vs, &full[s], 0, p0, 0, 0);
+      wg::bulk_load(dst + kTileBytes + peff_bytes, srec + static_cast<size_t>(it) * kTileFloats,
+                    kTileFloats * 4, &full[s]);
+    } else if (threadIdx.x == 32 && tma) {
+      peff_tma(dst + kTileBytes, maps, bl, &full[s], b, p0);
+    } else if (threadIdx.x % 32 == 0 && tma) {  // warps 2, 3
+      scales_tma(scl + s * kScaleElems, maps, bl, a, &full[s], b, p0, threadIdx.x / 32 - 2, 2);
+    }
+    if (!tma) {
+      peff_threads(dst + kTileBytes, bl, st, b, p0, npos);
+      scales_threads(scl + s * kScaleElems, bl, a, b, p0, npos, false);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) wg::mbar_init(&full[s], 1);
+    wg::mbar_fence_init();
+  }
+  if (tma)
+    for (int s = 0; s < kStages; ++s) scales_threads(scl + s * kScaleElems, bl, a, b, 0, npos, true);
+  __syncthreads();
+  for (int it = 0; it < kStages - 1 && it < ntiles; ++it) stage(it);
+
+  // the rows' softmax over all N: M, L from the chunks' (m, l)
+  float M_lo = 0.f, L_lo = 1.f, M_hi = 0.f, L_hi = 1.f;
+  if (live) {
+    const float* sr = stats + static_cast<size_t>(b) * gridDim.x * kStatFloats + 2 * (16 * warp + g);
+    M_lo = M_hi = -CUDART_INF_F;
+    for (int c = 0; c < gridDim.x; ++c) {
+      M_lo = fmaxf(M_lo, sr[c * kStatFloats]);
+      M_hi = fmaxf(M_hi, sr[c * kStatFloats + 2 * kRows]);
+    }
+    L_lo = L_hi = 0.f;
+    for (int c = 0; c < gridDim.x; ++c) {
+      L_lo += sr[c * kStatFloats + 1] * __expf(sr[c * kStatFloats] - M_lo);
+      L_hi += sr[c * kStatFloats + 2 * kRows + 1] * __expf(sr[c * kStatFloats + 2 * kRows] - M_hi);
+    }
+  }
+  // p = exp(s - M) / L as __fdividef computes it: exp times the approximate 1 / L
+  const float R_lo = __fdividef(1.f, L_lo), R_hi = __fdividef(1.f, L_hi);
+  wg::fence_async_shared();
+  __syncthreads();
+
+  float ov[4][4];  // the value part: n8 tiles of channels 32w + 8j (rows g: j < 2; g + 8: j >= 2)
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ov[j][0] = ov[j][1] = ov[j][2] = ov[j][3] = 0.f;
+  float t2[kMaxSteps][8];  // T2 of each rank step (m64n16)
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) t2[s][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + kStages - 1 < ntiles) stage(it + kStages - 1);
+    const int s = it % kStages;
+    const unsigned char* vt = smem + s * stage_bytes;
+    const unsigned char* pt = vt + kTileBytes;
+    const float4* sct = reinterpret_cast<const float4*>(pt + peff_bytes) + threadIdx.x;
+    const bf16* as = scl + s * kScaleElems + 2 * t;
+    wg::mbar_wait(&full[s], (it / kStages) & 1);
+    float p[32];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const float4 x = live ? sct[v * kWgThreads] : make_float4(0.f, 0.f, 0.f, 0.f);
+      p[4 * v] = live ? __expf(x.x - M_lo) * R_lo : 0.f;
+      p[4 * v + 1] = live ? __expf(x.y - M_lo) * R_lo : 0.f;
+      p[4 * v + 2] = live ? __expf(x.z - M_hi) * R_hi : 0.f;
+      p[4 * v + 3] = live ? __expf(x.w - M_hi) * R_hi : 0.f;
+    }
+
+    // value part: bf16(p a) x the VS tile at the warp's 32 channels
+    uint32_t f[kBN / 16][4];
+    scaled_fragments(f, p, as);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // matrices (positions 0-7, chunk c), (8-15, c), (0-7, c + 1), (8-15, c + 1)
+        const int mat = lane / 8, r = lane % 8, c = 4 * warp + 2 * hh + (mat >> 1);
+        const int pos = 16 * kk + 8 * (mat & 1) + r;
+        uint32_t vb[4];
+        ldmatrix_x4_trans_at(vb, wg::smem_u32(vt + wg::part_offset(c / 8) + pos * kRowBytes +
+                                              (((c % 8) ^ r) << 4)));
+        const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+        mma_bf16(ov[2 * hh], f[kk], b0);
+        mma_bf16(ov[2 * hh + 1], f[kk], b1);
+      }
+    }
+
+    // T2: pc_i = bf16(p s_i) against the P_eff tile read K-major
+#pragma unroll
+    for (int ks = 0; ks < kMaxSteps; ++ks) {
+      if (ks < st.n) {
+        if (st.lr0[ks] == 0) {  // a block's first step
+          if (ks > 0) {          // the previous block's products read f
+            wg::wgmma_commit();
+            wg::wgmma_wait0();
+          }
+          scaled_fragments(f, p, as + (1 + st.blk[ks]) * kBN);
+          wg::fence_regs(f);
+          wg::wgmma_fence();
+        }
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wg::wgmma_rs_kmajor(t2[ks], f[kk],
+                              wg::make_desc<128>(pt + ks * kStepBytes + 32 * kk));
+      }
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait0();
+#pragma unroll
+    for (int s2 = 0; s2 < kMaxSteps; ++s2) wg::fence_regs(t2[s2]);
+    wg::fence_regs(f);
+    wg::fence_async_shared();
+    __syncthreads();
   }
 
   float* rec = part + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * t2i_part_floats(st.n);
 #pragma unroll
-  for (int nd = 0; nd < 2; ++nd)
-    *reinterpret_cast<float2*>(rec + (h * kRows + g) * kHd + 8 * nd + 2 * t) =
-        make_float2(ov[nd][0], ov[nd][1]);
-  float* r2 = rec + kAccFloats + h * 16 * st.n * kRows;
+  for (int j = 0; j < 2; ++j) {
+    *reinterpret_cast<float2*>(rec + (16 * warp + g) * kHd + 8 * j + 2 * t) =
+        make_float2(ov[j][0], ov[j][1]);
+    *reinterpret_cast<float2*>(rec + (16 * warp + 8 + g) * kHd + 8 * j + 2 * t) =
+        make_float2(ov[2 + j][2], ov[2 + j][3]);
+  }
+  float* r2 = rec + kAccFloats;
 #pragma unroll
-  for (int s = 0; s < kMaxSteps; ++s) {
-    if (s < st.n) {
-      *reinterpret_cast<float2*>(r2 + (16 * s + g) * kRows + 2 * t) =
-          make_float2(t2[s][0], t2[s][1]);
-      *reinterpret_cast<float2*>(r2 + (16 * s + g + 8) * kRows + 2 * t) =
-          make_float2(t2[s][2], t2[s][3]);
+  for (int ks = 0; ks < kMaxSteps; ++ks) {
+    if (ks < st.n) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int h = 2 * warp + (e >> 1 & 1), rho = 16 * ks + 8 * (e >> 2) + 2 * t + (e & 1);
+        r2[(h * 16 * st.n + rho) * kRows + g] = t2[ks][e];
+      }
     }
   }
 }
@@ -929,6 +1287,29 @@ size_t peff_tile_bytes(const Steps& st) { return sizeof(bf16) * 16 * st.n * kLdp
 constexpr size_t kScaleBytes = sizeof(float) * (1 + kMaxBlocks) * kBN;
 constexpr size_t kRowsBytes = sizeof(bf16) * kBN * kLdv;  // a tile of KS, KC, VS, QS or QC
 
+// A bf16 array of dims {d0, d1, d2} (d0 contiguous; strides s1, s2 in
+// bytes, in any order) as a 4-D tensor map (a last dim of 1) with boxes {b0,
+// b1, b2, 1}, in the 128-byte swizzle (b0 * 2 bytes = 128) or unswizzled;
+// elements past the dims read as zeros. TMA takes a 16-byte aligned base and
+// strides: anything else, or a map cuTensorMapEncodeTiled refuses, returns
+// cudaErrorInvalidValue.
+int encode_map(CUtensorMap& map, const void* base, const cuuint64_t (&d)[3], cuuint64_t s1,
+               cuuint64_t s2, const cuuint32_t (&box3)[3], bool swizzle = true) {
+  const wg::EncodeTiledFn fn = wg::encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(base) % 16 || s1 % 16 || s2 % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[4] = {d[0], d[1], d[2], 1};
+  const cuuint64_t strides[3] = {s1, s2, s1 * d[1] > s2 * d[2] ? s1 * d[1] : s2 * d[2]};
+  const cuuint32_t box[4] = {box3[0], box3[1], box3[2], 1}, elem[4] = {1, 1, 1, 1};
+  const CUresult res = fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 int set_smem(const void* kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
@@ -963,10 +1344,11 @@ int sam6d_factored_ln_stats_bf16(const void* const* pd, const void* const* s, co
 
 // Floats of the workspace sam6d_factored_t2i_attention_bf16 takes for each
 // prompt: the statistics and the partial of every position chunk, and the
-// fp32 scores of every token row.
+// fp32 scores of every position tile (64 rows x 64 positions).
 int sam6d_factored_t2i_bf16_workspace(const int* r, int nblocks, int n) {
   const Steps st = make_steps(r, nblocks);
-  return t2i_split(n).chunks * (kStatFloats + t2i_part_floats(st.n)) + kHeads * kRows * n;
+  return t2i_split(n).chunks * (kStatFloats + t2i_part_floats(st.n)) +
+         (n + kBN - 1) / kBN * kTileFloats;
 }
 
 // The bf16 entry of factored_t2i_attention. q: (b, t, 128) pre-scaled
@@ -986,29 +1368,54 @@ int sam6d_factored_t2i_attention_bf16(const void* q, const void* uk, const void*
   const Blocks bl = make_blocks(pd, s, r, nblocks);
   const Steps st = make_steps(r, nblocks);
   const T2iSplit sp = t2i_split(n);
-  const auto* q16 = static_cast<const bf16*>(q);
-  const auto* uk16 = static_cast<const bf16*>(uk);
+  T2iMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const cuuint64_t row = sizeof(bf16) * kD;
+  int err = 0;
+  // a tile's two 64-channel parts as a third dim: one box lands [part][row][64]
+  for (auto [map, src] : {std::pair{&maps.ks, ks}, std::pair{&maps.kc, kc}, std::pair{&maps.vs, vs}})
+    if ((err = encode_map(*map, src, {64, static_cast<cuuint64_t>(n), 2}, row, row / 2,
+                          {64, kBN, 2})))
+      return err;
+  // P_eff and the scales by TMA where their rows are 16-byte aligned, else
+  // by the threads
+  const cuuint64_t prow = sizeof(bf16) * static_cast<cuuint64_t>(n);
+  const void* srcs[1 + kMaxBlocks] = {a, nullptr, nullptr, nullptr, nullptr};
+  for (int i = 0; i < nblocks; ++i) srcs[1 + i] = s[i];
+  bool tma = n % 8 == 0;
+  for (int i = 0; i < nblocks; ++i) tma = tma && reinterpret_cast<uintptr_t>(pd[i]) % 16 == 0;
+  for (const void* p : srcs) tma = tma && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; tma && i < nblocks; ++i)
+    if (r[i] > 0 &&
+        (err = encode_map(maps.pd[i], pd[i],
+                          {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(r[i]),
+                           static_cast<cuuint64_t>(b)},
+                          prow, prow * r[i], {kBN, static_cast<cuuint32_t>(16 * ((r[i] + 15) / 16)), 1})))
+      return err;
+  for (int k = 0; tma && k < 1 + kMaxBlocks; ++k)
+    if (srcs[k] && (err = encode_map(maps.sc[k], srcs[k],
+                                     {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(b), 1},
+                                     prow, prow * b, {kBN, 1, 1}, false)))
+      return err;
   const auto* a16 = static_cast<const bf16*>(a);
-  const auto* ks16 = static_cast<const bf16*>(ks);
-  const auto* kc16 = static_cast<const bf16*>(kc);
   float* stats = ws;
   float* part = ws + static_cast<size_t>(b) * sp.chunks * kStatFloats;
   float* scores = part + static_cast<size_t>(b) * sp.chunks * t2i_part_floats(st.n);
   const dim3 grid(sp.chunks, b);
 
-  const size_t b1 = 2 * (peff_tile_bytes(st) + kScaleBytes + 2 * kRowsBytes);
-  int err = set_smem(reinterpret_cast<const void*>(t2i_scores_bf16_kernel), b1);
-  if (err) return err;
-  t2i_scores_bf16_kernel<<<grid, kThreads, b1, stream>>>(q16, uk16, bl, st, a16, ks16, kc16,
-                                                         scores, stats, t, n, rtot, sp.per);
+  const size_t stage1 = 2 * kTileBytes + st.n * kStepBytes;
+  const size_t b1 = t2i_smem(stage1);
+  if ((err = set_smem(reinterpret_cast<const void*>(t2i_scores_wgmma_kernel), b1))) return err;
+  t2i_scores_wgmma_kernel<<<grid, kWgThreads, b1, stream>>>(
+      maps, static_cast<const bf16*>(q), static_cast<const bf16*>(uk), bl, st, a16, scores, stats,
+      t, n, rtot, sp.per, tma);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
 
-  const size_t b2 = 2 * (sizeof(float) * kHeads * kRows * kLds + kRowsBytes +
-                         peff_tile_bytes(st) + kScaleBytes);
-  if ((err = set_smem(reinterpret_cast<const void*>(t2i_bf16_kernel), b2))) return err;
-  t2i_bf16_kernel<<<grid, kThreads, b2, stream>>>(scores, bl, st, a16,
-                                                  static_cast<const bf16*>(vs), stats, part, t,
-                                                  n, sp.per);
+  const size_t stage2 = kTileBytes + st.n * kStepBytes + sizeof(float) * kTileFloats;
+  const size_t b2 = t2i_smem(stage2);
+  if ((err = set_smem(reinterpret_cast<const void*>(t2i_wgmma_kernel), b2))) return err;
+  t2i_wgmma_kernel<<<grid, kWgThreads, b2, stream>>>(maps, scores, bl, st, a16, stats, part, t, n,
+                                                     sp.per, tma);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
 
   const size_t b3 = sizeof(float) * kHeads * 16 * st.n * kRows;

@@ -879,6 +879,13 @@ def test_factored_ln_stats_bf16_entry_matches_plain(cuda_device, ranks, scaled, 
     # chunks' maxima differ widely
     pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 16, 7, 4.0,
                  id="stress-scores-x4"),
+    # edges of the 64-row layout: one partial position tile, one prompt,
+    # four blocks whose rank steps end mid-step, all 64 rows live
+    pytest.param((57, 2), (True, False), 40, 4, 7, 1.0, id="n40-one-partial-tile"),
+    pytest.param((57, 2, 57, 2), (True, True, True, False), 4096, 1, 7, 1.0, id="one-prompt"),
+    pytest.param((5, 16, 3, 9), (True, False, True, False), 1024, 4, 7, 1.0,
+                 id="four-blocks-mixed-scales"),
+    pytest.param((64, 64), (True, False), 4096, 4, 8, 1.0, id="eight-tokens-rank-128"),
 ])
 def test_factored_t2i_attention_bf16_entry_matches_plain(cuda_device, ranks, scaled, N, B,
                                                          T, q_mag):
