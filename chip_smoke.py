@@ -3164,12 +3164,29 @@ def _check_bf16_kernels(rng, ptxas):
     ]
 
 
-# the kernels of each bf16 factored entry (ptxas registers and spills)
+# the kernels of each bf16 factored entry (ptxas registers and spills); K2's
+# in both instantiations (<true>: a scaled block past the first)
 BF16_FACTORED_KERNELS = {
-    "factored_ln_stats": ("ln_stats_bf16_kernel",),
+    "factored_ln_stats": ("ln_stats_wgmma_kernel<false>", "ln_stats_wgmma_kernel<true>"),
     "factored_t2i_attention": ("t2i_scores_wgmma_kernel", "t2i_wgmma_kernel",
                                "t2i_merge_bf16_kernel"),
-    "factored_i2t_scores": ("i2t_bf16_kernel",)}
+    "factored_i2t_scores": ("i2t_wgmma_kernel",)}
+
+
+def bf16_factored_smem(lib, n, args):
+    """The dynamic shared memory a block of the K2 or K4 bf16 kernel takes on
+    these arguments, as its C entry sizes it (K2: and whether U stays
+    resident); None for K3."""
+    import ctypes
+    if n not in ("factored_ln_stats", "factored_i2t_scores"):
+        return None
+    blocks = args[0 if n == "factored_ln_stats" else 2]
+    ranks = (ctypes.c_int * 4)(*[pd.shape[1] for pd, _ in blocks])
+    if n == "factored_ln_stats":
+        resident = ctypes.c_int(0)
+        smem = lib.sam6d_factored_ln_stats_bf16_smem(ranks, len(blocks), ctypes.byref(resident))
+        return f"{smem} B (U {'resident' if resident.value else 'streamed'})"
+    return f"{lib.sam6d_factored_i2t_scores_bf16_smem(ranks, len(blocks), args[0].shape[1])} B"
 
 
 def bf16_factored_err(name, got, want):
@@ -3208,9 +3225,13 @@ def _check_bf16_factored(seg, ptxas):
     2 an operand). Fails on a spill in any of their kernels."""
     import torch
     from sam6d_torch.kernels import factored as fk
+    from sam6d_torch.kernels._build import load_library
+    lib = load_library()
     ptx = {}
     for n, kernels in BF16_FACTORED_KERNELS.items():
-        ptx[n] = {k: ptxas_record(ptxas, k) for k in kernels}
+        # a bool template argument as ptxas names it (<false>: ILb0E)
+        ptx[n] = {k: ptxas_record(ptxas, k.replace("<false>", "ILb0E").replace("<true>", "ILb1E"))
+                  for k in kernels}
         for kernel, (regs, spills) in ptx[n].items():
             log(f"{n} bf16: {kernel} ptxas {regs} registers, {spills} bytes spilled")
             if spills:
@@ -3249,13 +3270,15 @@ def _check_bf16_factored(seg, ptxas):
             blocks = args[{"factored_ln_stats": 0, "factored_t2i_attention": 3,
                            "factored_i2t_scores": 2}[n]]
             ranks = "+".join(str(pd.shape[1]) for pd, _ in blocks) or "0"
+            smem = bf16_factored_smem(lib, n, args)
             log(f"{n} bf16[B=128, ranks {ranks}]: {desc}; runs of 10 launches: bf16 entry "
                 f"{ms:.4f} ms, fp32 entry {fp32_ms:.4f} ms; plain {plain_ms:.4f} ms; dense-bf16 "
-                f"bound {b_ms:.4f} ms ({by}, {100 * b_ms / ms:.1f}% of it)")
+                f"bound {b_ms:.4f} ms ({by}, {100 * b_ms / ms:.1f}% of it)"
+                + (f"; dynamic shared memory a block {smem}" if smem else ""))
             if not ok:
                 raise AssertionError(f"{n}: the bf16 entry disagrees with its plain version")
             rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, fp32_ms=fp32_ms, b_ms=b_ms,
-                             by=by, ranks=ranks))
+                             by=by, ranks=ranks, smem=smem))
         first, last = rows[0], rows[-1]
         regs = {f"{k}_ptxas_registers": r for k, (r, _) in ptx[n].items()}
         records.append(dict(
@@ -3271,11 +3294,13 @@ def _check_bf16_factored(seg, ptxas):
             first_call_ms=first["ms"], first_call_plain_ms=first["plain_ms"],
             first_call_bound_ms=first["b_ms"], first_call_fp32_entry_ms=first["fp32_ms"],
             ptxas_spill_bytes=0, **regs,
-            # the kernels K3's wgmma design replaced are gone from the sources
-            **({"parent_note": "parent (one-pass mma.sync, warp = head) timed beside this "
-                               "design by scripts/time_attention_variants.py --factored "
-                               "--bf16 in one call, not in this run"}
-               if n == "factored_t2i_attention" else {}),
+            **({"dynamic_smem": f"{first['smem']} (ranks {first['ranks']}), {last['smem']} "
+                                f"(ranks {last['ranks']})"} if last["smem"] else {}),
+            # the one-pass mma.sync kernels the wgmma designs replaced are gone
+            # from the sources
+            parent_note="parent (one-pass mma.sync) timed beside this design by "
+                        "scripts/time_attention_variants.py --factored --bf16 in one call, "
+                        "not in this run",
             timing="ms, fp32_entry_ms: CUDA events over runs of 10 launches; plain_ms: one "
                    "launch",
             shapes=f"B=128, N=4096, ranks {last['ranks']} (ms); ranks {first['ranks']} "

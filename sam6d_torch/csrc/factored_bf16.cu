@@ -9,8 +9,8 @@
 // of csrc/factored.cu's header
 //   x[b] = a[b] * S + P_eff[b]^T U[b],  P_eff = [Pd_i * s_i]_i (i < 4)
 // with every operand bf16. Each product is bf16 x bf16 with fp32
-// accumulation, which is what mma.sync.m16n8k16.bf16 does
-// (bf16_attention.cuh), in one pass; the roundings are the JAX kernels':
+// accumulation, which is what wgmma and mma.sync.m16n8k16 do with bf16
+// operands, in one pass; the roundings are the JAX kernels':
 //  - K4: t_i = bf16(U_Q,i k^T); fp32 scores (k QS^T) a + k QC^T +
 //    sum_i (t_i Pd_i) s_i, each block's scale applied to its fp32 product;
 //    fp32 softmax over each head's T tokens; bf16 out, a last row of ones;
@@ -18,34 +18,26 @@
 //    fp32 softmax normalised over all N, then pa = bf16(p a) times VS and
 //    pc_i = bf16(p s_i) times Pd_i^T; t2 = bf16(the fp32 sums) times U_V;
 //    bf16 out;
-//  - K2: fp32 arithmetic on the bf16 values: tilde = Pd s (exact in fp32),
-//    x_l = P_eff^T U, mu = a mS + mean(x_l), E[x^2] = a^2 qS +
-//    2 a mean(S x_l) + mean(x_l^2) with the caller's bf16 mS, qS; fp32
-//    (mu, 1/sigma) out.
+//  - K2: fp32 arithmetic on the bf16 values: x_l = sum_i s_i (Pd_i^T U_i)
+//    (each block's fp32 product times its scale: JAX's statistics, which
+//    it forms from U's gram matrix, in another fp32 order), mu = a mS + mean(x_l),
+//    E[x^2] = a^2 qS + 2 a mean(S x_l) + mean(x_l^2) with the caller's bf16
+//    mS, qS; fp32 (mu, 1/sigma) out.
 //
 // Shapes on the main path (ViT-H SAM, 128-prompt chunks): B = 128,
 // N = 4096, C = 256, d = 128 as 8 heads of 16, T = 7 tokens, blocks of 57
 // (softmax) and 2 (LayerNorm) rows: ranks 57 / 116 (K2), 59 / 118 (K3),
 // 0 / 59 (K4).
 //
-// Designs (K4, K2: products m16n8k16 bf16; K3: wgmma and m16n8k16):
-//  - K4 (i2t_bf16_kernel): one block per (prompt, 64 positions). The score
-//    tile is M = the head's tokens (rows past T zero) x N = 8 positions:
-//    the head-score terms are one k16 step over the head's 16 channels
-//    each, the rank term k16 steps over the ranks, each block's rows
-//    padded to 16 (`Steps`) so that a block's product ends on a step, with
-//    t_i's A fragments formed once by mma (U_Q rows as B fragments) and
-//    rounded to bf16 in registers. The tile's QS and QC rows and its P_eff
-//    rows are staged once by cp.async (B fragments by 32-bit reads and by
-//    ldmatrix.trans). The softmax over tokens is a reduction over the
-//    lanes' g; the probabilities leave through shared memory as 16-byte
-//    rows.
-//  - K3: the normalised p is rounded (JAX's order), so it takes two
-//    passes over the positions, one block of one warpgroup per (prompt,
-//    chunk of position tiles) each, on wgmma (bf16_wgmma.cuh): the 8 heads'
-//    token rows packed into wgmma's 64 rows (see the K3 section).
-//    t2i_scores_wgmma_kernel forms each tile's fp32 scores (head terms on
-//    mma.sync, the rank term on wgmma against the P_eff tile), stores them
+// Designs (all on wgmma, bf16_wgmma.cuh, with operands by TMA where N % 8
+// == 0; each section says more):
+//  - K3 and K4 share one layout: one warpgroup per (prompt, chunk of 64-
+//    position tiles), the 8 heads' token rows packed into wgmma's 64 rows
+//    (row 8h + token). A tile's fp32 scores (`stage_scores`: head terms on
+//    mma.sync, the rank term on wgmma against the P_eff tile) are the same
+//    in both.
+//  - K3: the normalised p is rounded (JAX's order), so it takes two passes
+//    over the positions. t2i_scores_wgmma_kernel stores each tile's scores
 //    in the accumulator's order to a workspace and keeps each row's max and
 //    sum of exp over its chunk; t2i_wgmma_kernel merges the chunks'
 //    statistics, reads each tile's scores back (one bulk copy), forms p =
@@ -57,16 +49,21 @@
 //    (PERF.md); an online softmax in one pass rounds exp(s - m) before it is
 //    normalised, and measured up to 4 output ulps off JAX's order at four
 //    times the scores.
-//  - K2 (ln_stats_bf16_kernel): one block of 8 warps per (prompt, 64
-//    positions), the x_l tile (64 positions x 256 channels) on the tensor
-//    cores: each tilde (16 significant bits) is split exactly into two
-//    bf16, hi = bf16(tilde) and lo = bf16(tilde - hi), so x_l = hi^T U +
-//    lo^T U in two one-pass products (one where a stage holds no scaled
-//    block: lo is 0), U exact in bf16. Ranks go in stages of 16 through a
-//    cp.async ring (U rows, raw P_eff rows and their scales); the thread
-//    that copied a chunk splits it into hi and lo planes [rank][position]
-//    (A fragments by ldmatrix.trans); the channel sums of x_l, S x_l and
-//    x_l^2 are reduced over quads, then over the four channel warps.
+//  - K4 (i2t_wgmma_kernel): K3's pass 1 whose tiles end in the softmax over
+//    each head's tokens (through shared memory, one thread a head at four
+//    positions) instead of a store of the scores; the bf16 probabilities
+//    are staged in the output's row order and leave by one TMA store a
+//    tile.
+//  - K2 (ln_stats_wgmma_kernel): x_l = P_eff^T U, a 64-position x 256-
+//    channel tile, on wgmma m64n256k16 with both operands MN-major from
+//    shared memory: A the P_eff rows of a 16-rank step, B the prompt's U,
+//    loaded once a block (or streamed with the P_eff rows where it does not
+//    fit). The first scaled block's product is scaled per position after
+//    the product instead of splitting its scaled rows into bf16 hi + lo
+//    (one product a step, no split pass); the channel sums of x_l, S x_l
+//    and x_l^2 come out of the accumulator against a TMA-staged S tile.
+//    Producer warps keep the loads in flight; two consumer warpgroups take
+//    alternate tiles, so one's epilogue runs beside the other's products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -75,18 +72,14 @@
 #include <utility>
 
 #include "bf16_attention.cuh"
-#include "bf16_wgmma.cuh"  // K3: wgmma, TMA, mbarriers
+#include "bf16_wgmma.cuh"  // wgmma, TMA, mbarriers
 
 namespace {
 
-using sam6d::cp_async16;
-using sam6d::cp_async_commit;
-using sam6d::cp_async_wait;
 using sam6d::quad_max;
 using sam6d::quad_sum;
 using sam6d::bf16attn::bf16;
 using sam6d::bf16attn::hi_of;
-using sam6d::bf16attn::ldmatrix_x2_trans;
 using sam6d::bf16attn::lo_of;
 using sam6d::bf16attn::mma_bf16;
 using sam6d::bf16attn::pack2;
@@ -95,7 +88,7 @@ namespace wg = sam6d::wgattn;
 
 constexpr int kMaxBlocks = 4;
 constexpr int kThreads = 256;
-constexpr int kHeads = 8;             // K3 / K4: one warp per head
+constexpr int kHeads = 8;             // K3 / K4: heads of kHd channels
 constexpr int kHd = 16;               // channels per head
 constexpr int kD = kHeads * kHd;      // attention channels
 constexpr int kRows = 8;              // tokens per head at most
@@ -104,8 +97,6 @@ constexpr int kMaxRank = 128;
 // sum ceil(r_i / 16) <= (kMaxRank + 15 kMaxBlocks) / 16 = 11
 constexpr int kMaxSteps = (kMaxRank + 15 * kMaxBlocks) / 16;
 constexpr int kBN = 64;               // positions a tile (K3, K4)
-constexpr int kLdp = kBN + 8;         // bf16 a staged P_eff row: ldmatrix rows conflict-free
-constexpr int kLdv = kD + 8;          // bf16 a staged VS row
 
 struct Blocks {
   const bf16* pd[kMaxBlocks];  // (B, r[i], N) raw factor rows
@@ -129,68 +120,6 @@ struct Steps {
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of m16n8k16 from a [k][m] bf16 array in shared memory (rows of
-// k, m contiguous): the four 8x8 matrices at (m0, k0), (m0 + 8, k0),
-// (m0, k0 + 8), (m0 + 8, k0 + 8), transposed as they load.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* km, int ld) {
-  const int lane = threadIdx.x % 32, mat = lane / 8;
-  const bf16* row = km + (lane % 8 + 8 * (mat / 2)) * ld + 8 * (mat % 2);
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// ------------------------------------------------------ K3 / K4 pieces
-//
-// Warp h = head h, lane (g, t). A score tile is the m16n8 C fragment of
-// M = token rows (g < T live; rows g + 8 are padding) x N = 8 positions:
-// lane (g, t) holds token g at positions 2t, 2t + 1 in c0, c1.
-
-// The head's token rows as an A fragment over its 16 channels: a0 (token
-// g, channels 2t, 2t + 1), a2 (channels 2t + 8, 2t + 9); a1 = a3 = 0.
-__device__ __forceinline__ void token_fragment(uint32_t (&qa)[2], const bf16* qh, int t_tok) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  qa[0] = qa[1] = 0u;
-  if (g < t_tok) {
-    qa[0] = ld32(qh + g * kD + 2 * t);
-    qa[1] = ld32(qh + g * kD + 2 * t + 8);
-  }
-}
-
-// T1 = bf16(token rows x U_h^T) as the A fragments of the rank term, one
-// pair a step: t1[ks][0] (token g, the step's ranks 2t, 2t + 1), t1[ks][1]
-// (ranks 2t + 8, 2t + 9). ub: the prompt's U rows at head h (row stride kD).
-__device__ __forceinline__ void t1_fragments(uint32_t (&t1)[kMaxSteps][2],
-                                             const uint32_t (&qa)[2], const bf16* ub,
-                                             const Steps& st) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const uint32_t a[4] = {qa[0], 0u, qa[1], 0u};
-#pragma unroll
-  for (int ks = 0; ks < kMaxSteps; ++ks) {
-    t1[ks][0] = t1[ks][1] = 0u;
-    if (ks < st.n) {
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = 8 * u + g;
-        uint32_t b[2] = {0u, 0u};
-        if (j < st.rows[ks]) {
-          const bf16* row = ub + static_cast<size_t>(st.r0[ks] + j) * kD + 2 * t;
-          b[0] = ld32(row);
-          b[1] = ld32(row + 8);
-        }
-        mma_bf16(c[u], a, b);
-      }
-      t1[ks][0] = pack2(c[0][0], c[0][1]);
-      t1[ks][1] = pack2(c[1][0], c[1][1]);
-    }
-  }
-}
 
 // bl.pd[i] / bl.s[i] for a runtime i, without indexing the kernel
 // parameter (which would copy the record to local memory)
@@ -207,188 +136,6 @@ __device__ __forceinline__ int pick(const int (&r)[kMaxBlocks], int i) {
   for (int k = 1; k < kMaxBlocks; ++k)
     if (i == k) v = r[k];
   return v;
-}
-
-// The tile's P_eff rows (16 a step, zero past a step's rows and past npos)
-// into tile [16 ks + j][kLdp], by 16-byte cp.async (2-byte loads, stored
-// as they arrive, when rows are not 16-byte aligned); threads < 128 copy
-// one 16-byte chunk of each step. `fill`: any valid global address, the
-// source of the zero-filled copies.
-__device__ __forceinline__ void load_peff(bf16* tile, const Blocks& bl, const Steps& st, int b,
-                                          int p0, int npos, const bf16* fill) {
-  static_assert(16 * kBN / 8 <= kThreads, "one chunk a thread a step");
-  if (threadIdx.x >= 16 * kBN / 8) return;
-  const bool vec = (npos & 7) == 0;
-  const int j = threadIdx.x / (kBN / 8), q = 8 * (threadIdx.x % (kBN / 8)), pos = p0 + q;
-#pragma unroll
-  for (int ks = 0; ks < kMaxSteps; ++ks) {
-    if (ks < st.n) {
-      const int blk = st.blk[ks];
-      const bool ok = j < st.rows[ks] && pos < npos;
-      const bf16* src = ok ? pick(bl.pd, blk) +
-                                 (static_cast<size_t>(b) * pick(bl.r, blk) + st.lr0[ks] + j) *
-                                     npos + pos
-                           : fill;
-      bf16* dst = tile + (16 * ks + j) * kLdp + q;
-      if (vec) {
-        cp_async16(dst, src, ok);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          dst[k] = ok && pos + k < npos ? src[k] : __float2bfloat16(0.f);
-      }
-    }
-  }
-}
-
-// a and the blocks' scales at the tile's positions as floats into
-// as[(1 + kMaxBlocks)][kBN]: row 0 a (ones where a is null), row 1 + i block
-// i's scale (ones where it has none); zeros past npos.
-__device__ __forceinline__ void load_scales(float* as, const Blocks& bl, const bf16* a, int b,
-                                            int p0, int npos) {
-  for (int e = threadIdx.x; e < (1 + kMaxBlocks) * kBN; e += kThreads) {
-    const int k = e / kBN, pos = p0 + e % kBN;
-    const bf16* src = k == 0 ? a : (k - 1 < bl.n ? pick(bl.s, k - 1) : nullptr);
-    float v = 0.f;
-    if (pos < npos) v = src ? __bfloat162float(src[static_cast<size_t>(b) * npos + pos]) : 1.f;
-    as[e] = v;
-  }
-}
-
-// kBN rows of a shared (N, kD) projection from row p0 into rows [kBN][kLdv]
-// by 16-byte cp.async, rows past npos zero-filled.
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int p0, int npos) {
-  for (int e = threadIdx.x; e < kBN * (kD / 8); e += kThreads) {
-    const int j = e / (kD / 8), c = 8 * (e % (kD / 8));
-    const bool ok = p0 + j < npos;
-    cp_async16(dst + j * kLdv + c, src + static_cast<size_t>(ok ? p0 + j : 0) * kD + c, ok);
-  }
-}
-
-// The scores of token row g at positions 8 (nt0 + u) + 2t, + 1 of the
-// tile, u < NT: (q sm^T) a + q cm^T, then each block's rank product times
-// its scale, in block order. smt, cmt: the tile's rows of the shared
-// projections ([kBN][kLdv], load_rows), read at head h as B fragments. The
-// NT n8 tiles' products are issued side by side: their chains of mma are
-// independent.
-template <int NT>
-__device__ __forceinline__ void tile_scores(float (&s)[NT][2], int nt0,
-                                            const uint32_t (&qa)[2],
-                                            const uint32_t (&t1)[kMaxSteps][2],
-                                            const Steps& st, const bf16* ptile,
-                                            const float* as, const bf16* smt, const bf16* cmt) {
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const uint32_t a[4] = {qa[0], 0u, qa[1], 0u};
-  float cs[NT][4], cc[NT][4], acc[NT][4];
-#pragma unroll
-  for (int u = 0; u < NT; ++u) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) cs[u][e] = cc[u][e] = acc[u][e] = 0.f;
-    const int o = (8 * (nt0 + u) + g) * kLdv + h * kHd + 2 * t;
-    const uint32_t bs[2] = {lds32(smt + o), lds32(smt + o + 8)};
-    const uint32_t bc[2] = {lds32(cmt + o), lds32(cmt + o + 8)};
-    mma_bf16(cs[u], a, bs);
-    mma_bf16(cc[u], a, bc);
-  }
-#pragma unroll
-  for (int u = 0; u < NT; ++u) {
-    const int j = 8 * (nt0 + u) + 2 * t;
-    s[u][0] = cs[u][0] * as[j] + cc[u][0];
-    s[u][1] = cs[u][1] * as[j + 1] + cc[u][1];
-  }
-#pragma unroll
-  for (int ks = 0; ks < kMaxSteps; ++ks) {
-    if (ks < st.n) {
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int u = 0; u < NT; ++u)
-        ldmatrix_x2_trans(b[u], ptile + (16 * ks + (lane & 15)) * kLdp + 8 * (nt0 + u));
-      const uint32_t ar[4] = {t1[ks][0], 0u, t1[ks][1], 0u};
-#pragma unroll
-      for (int u = 0; u < NT; ++u) mma_bf16(acc[u], ar, b[u]);
-      if (st.last[ks]) {
-#pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          const float* w = as + (1 + st.blk[ks]) * kBN + 8 * (nt0 + u) + 2 * t;
-          s[u][0] += acc[u][0] * w[0];
-          s[u][1] += acc[u][1] * w[1];
-          acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
-        }
-      }
-    }
-  }
-}
-
-// ----------------------------------------------------------------- K4
-
-// One block per (prompt, kBN positions), warp h = head h.
-__global__ void __launch_bounds__(kThreads)
-    i2t_bf16_kernel(const bf16* __restrict__ kt, const bf16* __restrict__ uq, Blocks bl,
-                    Steps st, const bf16* __restrict__ a, const bf16* __restrict__ qs,
-                    const bf16* __restrict__ qc, bf16* __restrict__ out, int t_tok, int npos,
-                    int rtot) {
-  extern __shared__ uint4 smem_u4[];
-  bf16* qst = reinterpret_cast<bf16*>(smem_u4);                    // [2][kBN][kLdv] QS, QC
-  bf16* ptile = qst + 2 * kBN * kLdv;                              // [16 st.n][kLdp]
-  float* as = reinterpret_cast<float*>(ptile + 16 * st.n * kLdp);  // [1 + kMaxBlocks][kBN]
-  bf16* ot = reinterpret_cast<bf16*>(as + (1 + kMaxBlocks) * kBN);  // [8 t_tok + 1][kLdp]
-
-  const int h = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.y, p0 = blockIdx.x * kBN;
-  load_rows(qst, qs, p0, npos);
-  load_rows(qst + kBN * kLdv, qc, p0, npos);
-  load_peff(ptile, bl, st, b, p0, npos, qs);
-  cp_async_commit();
-  load_scales(as, bl, a, b, p0, npos);
-  uint32_t qa[2];
-  token_fragment(qa, kt + static_cast<size_t>(b) * t_tok * kD + h * kHd, t_tok);
-  uint32_t t1[kMaxSteps][2];
-  t1_fragments(t1, qa, uq ? uq + static_cast<size_t>(b) * rtot * kD + h * kHd : nullptr, st);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const bool live = g < t_tok;
-  constexpr int NT = 4;  // n8 tiles a step
-  for (int nt0 = 0; nt0 < kBN / 8; nt0 += NT) {
-    float s[NT][2];
-    tile_scores<NT>(s, nt0, qa, t1, st, ptile, as, qst, qst + kBN * kLdv);
-#pragma unroll
-    for (int u = 0; u < NT; ++u) {
-      float p[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float x = live ? s[u][e] : -CUDART_INF_F;
-        float m = x;
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        const float ex = live ? __expf(x - m) : 0.f;  // token 0 is always live
-        float sum = ex;
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        p[e] = __fdividef(ex, sum);
-      }
-      if (live)
-        *reinterpret_cast<uint32_t*>(ot + (h * t_tok + g) * kLdp + 8 * (nt0 + u) + 2 * t) =
-            pack2(p[0], p[1]);
-    }
-  }
-  const int ht = kHeads * t_tok;
-  for (int j = threadIdx.x; j < kBN; j += kThreads) ot[ht * kLdp + j] = __float2bfloat16(1.f);
-  __syncthreads();
-
-  const bool vec = (npos & 7) == 0;
-  bf16* ob = out + static_cast<size_t>(b) * (ht + 1) * npos;
-  for (int e = threadIdx.x; e < (ht + 1) * (kBN / 8); e += kThreads) {
-    const int row = e / (kBN / 8), q = 8 * (e % (kBN / 8)), pos = p0 + q;
-    if (pos >= npos) continue;
-    const bf16* src = ot + row * kLdp + q;
-    bf16* dst = ob + static_cast<size_t>(row) * npos + pos;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int k = 0; k < 8 && pos + k < npos; ++k) dst[k] = src[k];
-    }
-  }
 }
 
 // ----------------------------------------------------------------- K3
@@ -665,6 +412,76 @@ size_t t2i_smem(size_t stage_bytes) {
   return kStages * (stage_bytes + sizeof(bf16) * kScaleElems + sizeof(uint64_t));
 }
 
+// The loads of stage `dst` of a pass-1 ring (K3's first pass, K4): the
+// head-term tiles (KS and KC, or QS and QC) by TMA; P_eff and the scales by
+// TMA or, where N % 8 != 0, by the threads, completing on `full`. Lane 0 of
+// each warp issues a share: the two tiles; P_eff; the scales, split over
+// warps 2 and 3.
+__device__ __forceinline__ void scores_stage(unsigned char* dst, bf16* scl, uint64_t* full,
+                                             const T2iMaps& maps, const Blocks& bl,
+                                             const Steps& st, const bf16* a, int b, int p0,
+                                             int npos, int tma) {
+  if (threadIdx.x == 0) {
+    wg::mbar_expect_tx(full, 2 * kTileBytes + (tma ? st.n * kStepBytes + scale_bytes(bl, a) : 0));
+    wg::tma_load_4d(dst, &maps.ks, full, 0, p0, 0, 0);
+    wg::tma_load_4d(dst + kTileBytes, &maps.kc, full, 0, p0, 0, 0);
+  } else if (threadIdx.x == 32 && tma) {
+    peff_tma(dst + 2 * kTileBytes, maps, bl, full, b, p0);
+  } else if (threadIdx.x % 32 == 0 && tma) {  // warps 2, 3
+    scales_tma(scl, maps, bl, a, full, b, p0, threadIdx.x / 32 - 2, 2);
+  }
+  if (!tma) {
+    peff_threads(dst + 2 * kTileBytes, bl, st, b, p0, npos);
+    scales_threads(scl, bl, a, b, p0, npos, false);
+  }
+}
+
+// The fp32 scores of a landed pass-1 stage kst ([head-term tile 0 | tile 1
+// | P_eff]) in the accumulator's layout: the head terms S = (q KS^T) a + q
+// KC^T on mma.sync, each warp its two heads' channels (the block-diagonal
+// q's other rows are zeros), then the rank term, each block's fp32 product
+// on wgmma times its scale, in block order. as: the stage's scales + 2t.
+__device__ __forceinline__ void stage_scores(float (&S)[32], const uint32_t (&qf)[4],
+                                             const uint32_t (&t1)[kMaxSteps][4], const Steps& st,
+                                             const unsigned char* kst, const bf16* as) {
+  const unsigned char* pt = kst + 2 * kTileBytes;
+  float acc[32];
+  head_terms(S, qf, kst);
+  head_terms(acc, qf, kst + kTileBytes);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 w = scale_pair(as, 8 * j);
+    S[4 * j] = fmaf(S[4 * j], w.x, acc[4 * j]);
+    S[4 * j + 1] = fmaf(S[4 * j + 1], w.y, acc[4 * j + 1]);
+    S[4 * j + 2] = fmaf(S[4 * j + 2], w.x, acc[4 * j + 2]);
+    S[4 * j + 3] = fmaf(S[4 * j + 3], w.y, acc[4 * j + 3]);
+  }
+  wg::fence_regs(acc);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kMaxSteps; ++ks) {
+    if (ks < st.n) {  // a block's first step overwrites acc
+      wg::wgmma_rs(acc, t1[ks], wg::make_desc<128>(pt + ks * kStepBytes), st.lr0[ks] > 0);
+      if (st.last[ks]) {
+        wg::wgmma_commit();
+        wg::wgmma_wait0();
+        wg::fence_regs(acc);
+        const bf16* w = as + (1 + st.blk[ks]) * kBN;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 wv = scale_pair(w, 8 * j);
+          S[4 * j] = fmaf(acc[4 * j], wv.x, S[4 * j]);
+          S[4 * j + 1] = fmaf(acc[4 * j + 1], wv.y, S[4 * j + 1]);
+          S[4 * j + 2] = fmaf(acc[4 * j + 2], wv.x, S[4 * j + 2]);
+          S[4 * j + 3] = fmaf(acc[4 * j + 3], wv.y, S[4 * j + 3]);
+        }
+        wg::fence_regs(acc);
+        wg::wgmma_fence();
+      }
+    }
+  }
+}
+
 // Pass 1: each row's fp32 scores over the chunk, stored to the workspace,
 // and the chunk's max and sum of exp of each row.
 __global__ void __launch_bounds__(kWgThreads)
@@ -686,23 +503,9 @@ __global__ void __launch_bounds__(kWgThreads)
   const bool live = g < t_tok;
 
   auto stage = [&](int it) {
-    const int s = it % kStages, p0 = c0 + it * kBN;
-    unsigned char* dst = smem + s * stage_bytes;
-    // lane 0 of each warp issues a share of the loads: KS and KC; P_eff; the
-    // scales, split over warps 2 and 3
-    if (threadIdx.x == 0) {
-      wg::mbar_expect_tx(&full[s], 2 * kTileBytes + (tma ? st.n * kStepBytes + scale_bytes(bl, a) : 0));
-      wg::tma_load_4d(dst, &maps.ks, &full[s], 0, p0, 0, 0);
-      wg::tma_load_4d(dst + kTileBytes, &maps.kc, &full[s], 0, p0, 0, 0);
-    } else if (threadIdx.x == 32 && tma) {
-      peff_tma(dst + 2 * kTileBytes, maps, bl, &full[s], b, p0);
-    } else if (threadIdx.x % 32 == 0 && tma) {  // warps 2, 3
-      scales_tma(scl + s * kScaleElems, maps, bl, a, &full[s], b, p0, threadIdx.x / 32 - 2, 2);
-    }
-    if (!tma) {
-      peff_threads(dst + 2 * kTileBytes, bl, st, b, p0, npos);
-      scales_threads(scl + s * kScaleElems, bl, a, b, p0, npos, false);
-    }
+    const int s = it % kStages;
+    scores_stage(smem + s * stage_bytes, scl + s * kScaleElems, &full[s], maps, bl, st, a, b,
+                 c0 + it * kBN, npos, tma);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) wg::mbar_init(&full[s], 1);
@@ -725,50 +528,9 @@ __global__ void __launch_bounds__(kWgThreads)
   for (int it = 0; it < ntiles; ++it) {
     if (it + kStages - 1 < ntiles) stage(it + kStages - 1);
     const int s = it % kStages;
-    const unsigned char* kst = smem + s * stage_bytes;
-    const unsigned char* pt = kst + 2 * kTileBytes;
-    const bf16* as = scl + s * kScaleElems + 2 * t;
     wg::mbar_wait(&full[s], (it / kStages) & 1);
-
-    // head terms: S = (q KS^T) a + q KC^T on mma.sync, each warp its two
-    // heads' channels (the block-diagonal q's other rows are zeros)
-    float S[32], acc[32];
-    head_terms(S, qf, kst);
-    head_terms(acc, qf, kst + kTileBytes);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 w = scale_pair(as, 8 * j);
-      S[4 * j] = fmaf(S[4 * j], w.x, acc[4 * j]);
-      S[4 * j + 1] = fmaf(S[4 * j + 1], w.y, acc[4 * j + 1]);
-      S[4 * j + 2] = fmaf(S[4 * j + 2], w.x, acc[4 * j + 2]);
-      S[4 * j + 3] = fmaf(S[4 * j + 3], w.y, acc[4 * j + 3]);
-    }
-
-    // rank term: each block's fp32 product times its scale, in block order
-    wg::fence_regs(acc);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kMaxSteps; ++ks) {
-      if (ks < st.n) {  // a block's first step overwrites acc
-        wg::wgmma_rs(acc, t1[ks], wg::make_desc<128>(pt + ks * kStepBytes), st.lr0[ks] > 0);
-        if (st.last[ks]) {
-          wg::wgmma_commit();
-          wg::wgmma_wait0();
-          wg::fence_regs(acc);
-          const bf16* w = as + (1 + st.blk[ks]) * kBN;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 wv = scale_pair(w, 8 * j);
-            S[4 * j] = fmaf(acc[4 * j], wv.x, S[4 * j]);
-            S[4 * j + 1] = fmaf(acc[4 * j + 1], wv.y, S[4 * j + 1]);
-            S[4 * j + 2] = fmaf(acc[4 * j + 2], wv.x, S[4 * j + 2]);
-            S[4 * j + 3] = fmaf(acc[4 * j + 3], wv.y, S[4 * j + 3]);
-          }
-          wg::fence_regs(acc);
-          wg::wgmma_fence();
-        }
-      }
-    }
+    float S[32];
+    stage_scores(S, qf, t1, st, smem + s * stage_bytes, scl + s * kScaleElems + 2 * t);
 
     // positions past npos out of the softmax; the live rows' scores stored
     const int nv = npos - (c0 + it * kBN);
@@ -1028,217 +790,606 @@ __global__ void __launch_bounds__(kThreads)
                               my_c) = make_uint2(pack2(o[0], o[1]), pack2(o[2], o[3]));
 }
 
-// ----------------------------------------------------------------- K2
+// ----------------------------------------------------------------- K4
+//
+// K3's first pass with another end to each tile: the same blocks (one
+// warpgroup a (prompt, chunk of 64-position tiles)), rows (8h + token),
+// ring and scores (`scores_stage`, `stage_scores`; QS and QC take KS's and
+// KC's places, a null a reads as ones), then the fp32 softmax over each
+// head's tokens at every position. The scores go through shared memory
+// (over the stage's QS and QC tiles, once the products have read them), so
+// that each thread takes one head at four positions (dead rows, tokens past
+// T, never read). Done in the accumulator's layout instead, as shuffle
+// reductions over the lanes g that hold a head's tokens, the softmax took
+// 2.7x the time of the rest of the kernel, and as a shuffle transpose of
+// each head's 8 x 8 (token, position) blocks it measured 12% slower than
+// through shared memory (PERF.md). The bf16 probabilities are staged in the
+// output's row order (row h T + token, one 128-byte row of 64 positions
+// each, in the 128-byte swizzle; the last row ones, written once) and leave
+// by one TMA store a tile (clipped at N), two staged tiles in turn so that a
+// tile's store runs beside the next tile's products; where N % 8 != 0 the
+// threads store them (2-byte stores). Rank 0 (layer 1: no blocks) runs the
+// same pipeline with no rank term. Two prompts a block, sharing each
+// stage's QS and QC tiles, measured no faster.
 
-constexpr int kLnC = 256;          // channels (the only C the kernel takes)
-constexpr int kLnBM = 64;          // positions a block: 32 a warp row
-constexpr int kLnThreads = 4 * kLnBM;  // warps: kLnBM / 32 along positions, four along channels
-constexpr int kLnKC = 16;          // ranks a stage: one k16 step
-constexpr int kLnStages = 3;       // stages of the cp.async ring
-constexpr int kLnLdu = kLnC + 8;   // bf16 a staged U row
-constexpr int kLnLdp = kLnBM + 8;  // bf16 a plane row
-// The ring of U rows, raw P_eff rows and their scales, the hi / lo planes
-// of two stages, and the cross-warp sums: 49 KB.
-constexpr size_t kLnSmemBytes = sizeof(bf16) * kLnStages * kLnKC * (kLnLdu + 2 * kLnBM) +
-                                sizeof(bf16) * 2 * 2 * kLnKC * kLnLdp +
-                                sizeof(float) * 3 * 4 * kLnBM;
-static_assert(kLnKC * kLnBM / 8 <= kLnThreads, "one P_eff chunk a thread a stage");
+// The tensor maps of a call: K3's (QS, QC in the places of KS, KC; no VS)
+// and the output (B, 8T + 1, N) with boxes of 64 positions x all its rows.
+struct I2tMaps {
+  T2iMaps in;
+  CUtensorMap out;
+};
 
-// One block per (prompt, kLnBM positions), warp (wm, wn) owns positions
-// 32 wm.. (two m16 tiles) and channels 64 wn.. (eight n8 tiles).
-__global__ void __launch_bounds__(kLnThreads, 512 / kLnThreads)
-    ln_stats_bf16_kernel(Blocks bl, const bf16* __restrict__ uc, const bf16* __restrict__ smat,
-                         const bf16* __restrict__ ms, const bf16* __restrict__ qs,
-                         const bf16* __restrict__ a, float* __restrict__ out, int npos, int rtot,
-                         float eps) {
-  constexpr int NS = kLnStages, BM = kLnBM, KC = kLnKC;
-  constexpr int kU = KC * kLnLdu, kP = KC * BM, kPlane = KC * kLnLdp;
-  extern __shared__ uint4 smem_u4[];
-  bf16* us = reinterpret_cast<bf16*>(smem_u4);  // [NS][KC][kLnLdu]
-  bf16* pr = us + NS * kU;                      // [NS][KC][BM] raw rows
-  bf16* sr = pr + NS * kP;                      // [NS][KC][BM] their scales
-  bf16* planes = sr + NS * kP;                  // [2][hi, lo][KC][kLnLdp]
-  float* red = reinterpret_cast<float*>(planes + 2 * 2 * kPlane);  // [4][BM][3]
+// A row of a tile's fp32 scores staged for the softmax: 64 positions and a
+// pad that keeps the warps' float2 stores and float4 loads at their fewest
+// wavefronts.
+constexpr int kSxLd = kBN + 8;
+static_assert(kRows * kHeads * kSxLd * 4 <= 2 * kTileBytes, "the scores fit a stage's tiles");
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-  const int b = blockIdx.y, n0 = blockIdx.x * BM;
-  const int nst = (rtot + KC - 1) / KC;
-  const bf16* ub = uc + static_cast<size_t>(b) * rtot * kLnC;
+// Bytes of a staged output tile of 8T + 1 rows, rounded to the 1 KB of the
+// swizzle atom.
+__host__ __device__ constexpr int i2t_out_tile_bytes(int t_tok) {
+  return ((kHeads * t_tok + 1) * kRowBytes + 1023) & ~1023;
+}
 
-  // this thread's P_eff chunk (threads < KC * BM / 8): rank KC s + prr,
-  // positions ppos..ppos + 7
-  const bool owner = threadIdx.x < KC * BM / 8;
-  const int prr = threadIdx.x / (BM / 8), pq = 8 * (threadIdx.x % (BM / 8));
-  const int ppos = n0 + pq, chunk = prr * BM + pq;
-  const bool vec = (npos & 7) == 0;
-  auto issue = [&](int s) {
-    bf16* ud = us + (s % NS) * kU;
-    for (int e = threadIdx.x; e < KC * kLnC / 8; e += kLnThreads) {
-      const int rr = e / (kLnC / 8), c = 8 * (e % (kLnC / 8)), r = KC * s + rr;
-      cp_async16(ud + rr * kLnLdu + c, ub + static_cast<size_t>(r < rtot ? r : 0) * kLnC + c,
-                 r < rtot);
-    }
-    if (!owner) return;
-    const int r = KC * s + prr;
-    const bf16* row = nullptr;
-    const bf16* sc = nullptr;
-    if (r < rtot && ppos < npos) {
-      int off = 0;
-#pragma unroll
-      for (int i = 0; i < kMaxBlocks; ++i) {
-        if (!row && i < bl.n && r < off + bl.r[i]) {
-          row = bl.pd[i] + (static_cast<size_t>(b) * bl.r[i] + (r - off)) * npos + ppos;
-          if (bl.s[i]) sc = bl.s[i] + static_cast<size_t>(b) * npos + ppos;
-        }
-        off += bl.r[i];
-      }
-    }
-    bf16* pd = pr + (s % NS) * kP + chunk;
-    bf16* sd = sr + (s % NS) * kP + chunk;
-    if (vec) {
-      cp_async16(pd, row ? row : ub, row != nullptr);
-      if (sc)
-        cp_async16(sd, sc, true);
-      else
-        *reinterpret_cast<uint4*>(sd) = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
-                                                   0x3f803f80u);  // bf16 ones
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const bool ok = row && ppos + k < npos;
-        pd[k] = ok ? row[k] : __float2bfloat16(0.f);
-        sd[k] = ok && sc ? sc[k] : __float2bfloat16(1.f);
-      }
-    }
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(0), "r"(wg::smem_u32(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// the bulk stores issued by this thread have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// ... and have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kWgThreads)
+    i2t_wgmma_kernel(const __grid_constant__ I2tMaps maps, const bf16* __restrict__ kt,
+                     const bf16* __restrict__ uq, Blocks bl, Steps st, const bf16* __restrict__ a,
+                     bf16* __restrict__ out, int t_tok, int npos, int rtot, int per, int tma) {
+  extern __shared__ __align__(1024) unsigned char t2i_smem_raw[];
+  unsigned char* smem = wg::checked_base(t2i_smem_raw);
+  const int stage_bytes = 2 * kTileBytes + st.n * kStepBytes;  // [QS | QC | P_eff]
+  const int ht = kHeads * t_tok, ot_bytes = i2t_out_tile_bytes(t_tok);
+  unsigned char* ot = smem + kStages * stage_bytes;  // [2][ht + 1 rows of 128 bytes]
+  bf16* scl = reinterpret_cast<bf16*>(ot + 2 * ot_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scl + kStages * kScaleElems);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y;
+  int c0;
+  const int ntiles = chunk_tiles(npos, per, c0);
+
+  auto stage = [&](int it) {
+    const int s = it % kStages;
+    scores_stage(smem + s * stage_bytes, scl + s * kScaleElems, &full[s], maps.in, bl, st, a, b,
+                 c0 + it * kBN, npos, tma);
   };
-  // the stage's chunk, landed: tilde = pd * s in fp32 (exact), split into
-  // hi = bf16(tilde) and lo = bf16(tilde - hi) (exact: tilde has 16
-  // significant bits)
-  auto split = [&](int s) {
-    if (!owner) return;
-    const uint4 x = *reinterpret_cast<const uint4*>(pr + (s % NS) * kP + chunk);
-    const uint4 w = *reinterpret_cast<const uint4*>(sr + (s % NS) * kP + chunk);
-    const uint32_t xv[4] = {x.x, x.y, x.z, x.w}, wv[4] = {w.x, w.y, w.z, w.w};
-    uint32_t hi[4], lo[4];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) wg::mbar_init(&full[s], 1);
+    wg::mbar_fence_init();
+  }
+  if (tma)
+    for (int s = 0; s < kStages; ++s) scales_threads(scl + s * kScaleElems, bl, a, b, 0, npos, true);
+  if (threadIdx.x < 2 * 8)  // the ones row of both staged tiles
+    *reinterpret_cast<uint4*>(ot + threadIdx.x / 8 * ot_bytes + ht * kRowBytes +
+                              16 * (threadIdx.x % 8)) =
+        make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u);
+  __syncthreads();
+  for (int it = 0; it < kStages - 1 && it < ntiles; ++it) stage(it);
+  uint32_t qf[4];
+  head_pair_q(qf, kt, b, t_tok);
+  uint32_t t1[kMaxSteps][4];
+  t1_pair_fragments(t1, qf, uq + static_cast<size_t>(b) * rtot * kD, st);  // uq: null at rank 0
+  wg::fence_async_shared();
+  __syncthreads();
+
+  bf16* ob = out + static_cast<size_t>(b) * (ht + 1) * npos;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + kStages - 1 < ntiles) stage(it + kStages - 1);
+    const int s = it % kStages, p0 = c0 + it * kBN;
+    wg::mbar_wait(&full[s], (it / kStages) & 1);
+    float S[32];
+    stage_scores(S, qf, t1, st, smem + s * stage_bytes, scl + s * kScaleElems + 2 * t);
+
+    // the scores [row 8h + token][position] (fp32, rows of kSxLd floats)
+    // over the stage's tiles, which the products have read
+    __syncthreads();
+    float* sx = reinterpret_cast<float*>(smem + s * stage_bytes);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(sx + (16 * warp + g) * kSxLd + 8 * j + 2 * t) =
+          make_float2(S[4 * j], S[4 * j + 1]);
+      *reinterpret_cast<float2*>(sx + (16 * warp + 8 + g) * kSxLd + 8 * j + 2 * t) =
+          make_float2(S[4 * j + 2], S[4 * j + 3]);
+    }
+    __syncthreads();
+    // thread (h, q): the softmax over head h's tokens at positions 4q..4q +
+    // 3, in three passes over its own scores (the max; exp(x - max) in place
+    // and their sum; the probabilities, into the staged tile)
+    unsigned char* o = ot + (it & 1) * ot_bytes;
+    {
+      const int h = threadIdx.x / 16, q = threadIdx.x % 16;
+      float4* xh = reinterpret_cast<float4*>(sx + kRows * h * kSxLd + 4 * q);
+      float4 m = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F);
+#pragma unroll
+      for (int tok = 0; tok < kRows; ++tok) {
+        if (tok < t_tok) {
+          const float4 x = xh[tok * kSxLd / 4];
+          m = make_float4(fmaxf(m.x, x.x), fmaxf(m.y, x.y), fmaxf(m.z, x.z), fmaxf(m.w, x.w));
+        }
+      }
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int tok = 0; tok < kRows; ++tok) {
+        if (tok < t_tok) {
+          const float4 x = xh[tok * kSxLd / 4];
+          const float4 e = make_float4(__expf(x.x - m.x), __expf(x.y - m.y), __expf(x.z - m.z),
+                                       __expf(x.w - m.w));
+          xh[tok * kSxLd / 4] = e;
+          sum = make_float4(sum.x + e.x, sum.y + e.y, sum.z + e.z, sum.w + e.w);
+        }
+      }
+#pragma unroll
+      for (int tok = 0; tok < kRows; ++tok) {
+        if (tok < t_tok) {
+          const float4 e = xh[tok * kSxLd / 4];
+          const int row = h * t_tok + tok;
+          *reinterpret_cast<uint2*>(o + row * kRowBytes + (((q / 2) ^ (row & 7)) << 4) +
+                                    8 * (q % 2)) =
+              make_uint2(pack2(__fdividef(e.x, sum.x), __fdividef(e.y, sum.y)),
+                         pack2(__fdividef(e.z, sum.z), __fdividef(e.w, sum.w)));
+        }
+      }
+    }
+    wg::fence_async_shared();  // the staged tile for the TMA store; the threads' writes of a stage
+    if (threadIdx.x == 0) bulk_wait_read();  // the previous tile's store has read its tile
+    __syncthreads();  // this stage is refilled next iteration; the other staged tile is free
+    if (tma) {
+      if (threadIdx.x == 0) tma_store_4d(&maps.out, o, p0, 0, b);
+    } else {
+      for (int e = threadIdx.x; e < (ht + 1) * kBN; e += kWgThreads) {
+        const int row = e / kBN, q = e % kBN;
+        if (p0 + q < npos)
+          ob[static_cast<size_t>(row) * npos + p0 + q] = *reinterpret_cast<const bf16*>(
+              o + row * kRowBytes + (((q / 8) ^ (row & 7)) << 4) + 2 * (q % 8));
+      }
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait();
+}
+
+// ----------------------------------------------------------------- K2
+//
+// x_l = P_eff^T U on wgmma: M = the 64 positions of a tile, N = the 256
+// channels (one m64n256k16 a step), K = 16 ranks (a step). A is a step's raw
+// P_eff rows [rank][position] and B its U rows [rank][channel], both
+// MN-major from shared memory in the 128-byte swizzle, B in four parts of 64
+// channels (the descriptor's LBO steps between them). Each block's rows are
+// padded to whole steps (TMA reads the rows past it as zeros), so a block's
+// product ends on a step. The blocks come in the host's order: a scaled
+// block first, whose fp32 product is scaled per position in the accumulator
+// (x_l = s_0 (Pd_0^T U_0)) before the other blocks' products add on (the
+// iou pass's layer-2 call has just that one scaled block); where a further
+// block is scaled (kSplit), every block past the first has its rows split
+// exactly in place into bf16 hi + lo (tilde = Pd s has 16 significant bits;
+// an unscaled block's scale row is ones) and takes two products a step.
+//
+// A block is one prompt and a chunk of its position tiles (K3's split) and
+// has three producer warps, each with one job on full / empty mbarriers:
+// warp 8 loads the prompt's U once (resident, a barrier a step, where it fits
+// beside the rest; else each step's U rows come with its P_eff rows) and a
+// step's P_eff rows into a slot of its warpgroup's half of the ring (each
+// half filled and drained in order: a parity wait must never run two phases
+// ahead of its slot); warp 9 loads each tile's S (64 rows, 4 parts of 64
+// channels) into the buffer of the warpgroup that takes it; warp 10's
+// threads write each tile's per-position rows (a, the blocks' scales, mS,
+// qS) into one of four sets. Where N % 8 != 0 (P_eff's rows not 16-byte
+// aligned) warp 8's threads write the P_eff rows into TMA's layout.
+// Warpgroups 0 and 1 take alternate tiles, so one's epilogue (the channel
+// sums of x_l, S x_l and x_l^2: the accumulator against S's words by
+// ldmatrix, then over each quad) runs beside the other's products. What
+// holds it back on an H100 (clock64 phases, PERF.md): the warpgroups wait
+// for P_eff's rows about a third of the time, though the ring runs 16 steps
+// ahead of each; the epilogue takes as long as a tile's products.
+
+constexpr int kLnC = 256;                            // channels (the only C the kernel takes)
+constexpr int kLnBM = 64;                            // positions a tile: wgmma's M
+constexpr int kLnConsumers = 2;                      // warpgroups, alternate tiles
+constexpr int kLnThreads = 128 * kLnConsumers + 96;  // and three producer warps
+constexpr int kLnPStep = 16 * kLnBM * 2;             // a step's P_eff rows, [16][64]
+constexpr int kLnUPart = 16 * 128;                   // a step's U rows at 64 channels
+constexpr int kLnUStep = 4 * kLnUPart;               // a step's U rows, [4 parts][16][64]
+constexpr int kLnSTile = kLnBM * kLnC * 2;           // an S tile, [4 parts][64][64]
+// per-position rows of a tile: a, the blocks' scales, mS, qS
+constexpr int kLnRowA = 0, kLnRowS = 1, kLnRowMS = 1 + kMaxBlocks, kLnRowQS = 2 + kMaxBlocks;
+constexpr int kLnRowsN = 3 + kMaxBlocks;
+constexpr int kLnRowSets = 2 * kLnConsumers;  // a tile's rows in set it % 4
+constexpr int kLnMaxSlots = 32;     // resident U: as many as fit, at most 32
+constexpr int kLnMinSlots = 4;      // ... and at least 4, else U streams
+constexpr int kLnStreamSlots = 8;   // streamed U
+constexpr int kLnMaxResident = 15;  // steps of a resident U: one full mbarrier each
+constexpr size_t kLnMaxSmem = 232448;
+
+// The tensor maps of a call, 128-byte swizzled: S (N, 256) with boxes of 64
+// rows x its 4 parts; block i's U rows (B, r_i, 256) and P_eff rows (B,
+// r_i, N) with boxes of a step's 16 rows (x 4 parts of U, x 64 positions of
+// P_eff), P_eff's only where N % 8 == 0.
+struct LnMaps {
+  CUtensorMap s;
+  CUtensorMap u[kMaxBlocks];
+  CUtensorMap pd[kMaxBlocks];
+};
+
+// The shared memory of a call: [U, resident: nsteps x 8 KB][S tiles, one a
+// warpgroup][ring: slots of a step's P_eff rows (+ its U rows, streamed)]
+// [lo planes, one a warpgroup][rows, four sets][mbarriers]. Every tile and
+// step starts 1 KB aligned, as the swizzle atoms need.
+struct LnGeometry {
+  int nsteps, slots, slot_bytes, resident;
+  size_t smem;
+};
+
+LnGeometry ln_geometry(const int* r, int nblocks) {
+  LnGeometry g{};
+  for (int i = 0; i < nblocks; ++i) g.nsteps += (r[i] + 15) / 16;
+  auto bytes = [&](size_t ures, int slots, int slot_bytes) {
+    return ures + kLnConsumers * (kLnSTile + kLnPStep) +
+           sizeof(bf16) * kLnRowSets * kLnRowsN * kLnBM + static_cast<size_t>(slots) * slot_bytes +
+           sizeof(uint64_t) * (kLnMaxResident + 2 * kLnConsumers + 2 * kLnRowSets + 2 * kLnMaxSlots);
+  };
+  // U resident with the deepest ring that fits (up to 32 steps ahead), else
+  // streamed with the P_eff rows
+  const size_t ures = static_cast<size_t>(g.nsteps) * kLnUStep;
+  for (int slots = kLnMaxSlots; g.nsteps <= kLnMaxResident && slots >= kLnMinSlots; slots -= 2)
+    if (bytes(ures, slots, kLnPStep) <= kLnMaxSmem)
+      return {g.nsteps, slots, kLnPStep, 1, bytes(ures, slots, kLnPStep)};
+  return {g.nsteps, kLnStreamSlots, kLnPStep + kLnUStep, 0,
+          bytes(0, kLnStreamSlots, kLnPStep + kLnUStep)};
+}
+
+// the source of per-position row k (null: ones)
+__device__ __forceinline__ const bf16* ln_row_src(const Blocks& bl, const bf16* a, const bf16* ms,
+                                                  const bf16* qs, int k) {
+  return k == kLnRowA    ? a
+         : k == kLnRowMS ? ms
+         : k == kLnRowQS ? qs
+         : k - kLnRowS < bl.n ? pick(bl.s, k - kLnRowS)
+                              : nullptr;
+}
+
+// d (64 x 256 fp32) (+)= A (64 x 16, MN-major) x B (16 x 256, MN-major),
+// both from shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ln(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define F32(i) F4(i), F4(i + 4), F4(i + 8), F4(i + 12), F4(i + 16), F4(i + 20), F4(i + 24), F4(i + 28)
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      " %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : F32(0), F32(32), F32(64), F32(96)
+      : "l"(da), "l"(db), "r"(scale_d));
+#undef F32
+#undef F4
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// descriptor of an MN-major operand at p in the 128-byte swizzle whose
+// 64-element column blocks lie lbo bytes apart (SBO 8 rows)
+__device__ __forceinline__ uint64_t desc_mn128(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((wg::smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// The producer warp's threads write a step's P_eff rows (block rows j0..j0
+// + 15 of pd, r rows; zeros past r and npos) by 2-byte loads into TMA's
+// swizzled layout: 16-byte chunk c of row j at j * 128 + (c ^ j % 8) * 16.
+__device__ __forceinline__ void ln_peff_threads(unsigned char* dst, const bf16* pd, int r, int b,
+                                                int j0, int p0, int npos) {
+  for (int e = threadIdx.x % 32; e < 16 * (kLnBM / 8); e += 32) {
+    const int j = e / 8, c = e % 8, pos = p0 + 8 * c;
+    const bool ok = j0 + j < r;
+    const auto* src = reinterpret_cast<const unsigned short*>(
+        pd + (static_cast<size_t>(b) * r + j0 + j) * npos + pos);
+    uint32_t w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float t0 = lo_of(xv[k]) * lo_of(wv[k]), t1 = hi_of(xv[k]) * hi_of(wv[k]);
-      hi[k] = pack2(t0, t1);
-      lo[k] = pack2(t0 - lo_of(hi[k]), t1 - hi_of(hi[k]));
+      const uint32_t lo = ok && pos + 2 * k < npos ? src[2 * k] : 0u;
+      const uint32_t hi = ok && pos + 2 * k + 1 < npos ? src[2 * k + 1] : 0u;
+      w[k] = lo | hi << 16;
     }
-    bf16* dst = planes + (s & 1) * 2 * kPlane + prr * kLnLdp + pq;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(dst + kPlane) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  };
-  // whether stage s holds a row of a scaled block (else lo is 0)
-  auto scaled = [&](int s) {
-    bool any = false;
-    int off = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxBlocks; ++i) {
-      if (i < bl.n && bl.s[i] && off < KC * (s + 1) && off + bl.r[i] > KC * s) any = true;
-      off += bl.r[i];
-    }
-    return any;
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < nst) issue(s);
-    cp_async_commit();
+    *reinterpret_cast<uint4*>(dst + j * 128 + ((c ^ (j & 7)) << 4)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
-  for (int s = 0; s < nst; ++s) {
-    cp_async_wait<NS - 2>();
-    __syncthreads();  // stage s has landed; stage s - 1 is computed
-    split(s);
-    if (s + NS - 1 < nst) issue(s + NS - 1);
-    cp_async_commit();
-    __syncthreads();  // the planes of stage s are in place
-    const bf16* pl = planes + (s & 1) * 2 * kPlane;
-    const bf16* ust = us + (s % NS) * kU;
-    const bool two = scaled(s);
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      ldmatrix_x4_trans(ah[mt], pl + 32 * wm + 16 * mt, kLnLdp);
-      if (two) ldmatrix_x4_trans(al[mt], pl + kPlane + 32 * wm + 16 * mt, kLnLdp);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t bb[2];
-      ldmatrix_x2_trans(bb, ust + (lane & 15) * kLnLdu + 64 * wn + 8 * nt);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (two) mma_bf16(acc[mt][nt], al[mt], bb);
-        mma_bf16(acc[mt][nt], ah[mt], bb);
-      }
-    }
-  }
+}
 
-  // the channel sums of x_l, S x_l and x_l^2: quad shuffles, then across
-  // the four channel warps in shared memory
+// A warp's threads write a tile's per-position rows (ones for a null row,
+// zeros past npos): 16-byte loads where the rows are 16-byte aligned (vec),
+// else 2-byte loads.
+__device__ __forceinline__ void ln_rows_threads(bf16* rw, const Blocks& bl, const bf16* a,
+                                                const bf16* ms, const bf16* qs, int b, int p0,
+                                                int npos, bool vec) {
+  for (int e = threadIdx.x % 32; e < kLnRowsN * kLnBM / 8; e += 32) {
+    const int k = e / (kLnBM / 8), pos = p0 + 8 * (e % (kLnBM / 8));
+    const bf16* src = ln_row_src(bl, a, ms, qs, k);
+    const size_t base = k == kLnRowMS || k == kLnRowQS ? 0 : static_cast<size_t>(b) * npos;
+    uint32_t w[4];
+    if (!src) {
+      w[0] = w[1] = w[2] = w[3] = 0x3f803f80u;  // bf16 ones
+    } else if (vec && pos < npos) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + base + pos));
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+      const auto* h = reinterpret_cast<const unsigned short*>(src + base + pos);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int lp = 32 * wm + 16 * mt + 8 * hh + g, pos = n0 + lp;
-      float sum = 0.f, cross = 0.f, sq = 0.f;
-      if (pos < npos) {
-        const bf16* srow = smat + static_cast<size_t>(pos) * kLnC + 64 * wn + 2 * t;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const uint32_t sw = ld32(srow + 8 * nt);
-          const float x0 = acc[mt][nt][2 * hh], x1 = acc[mt][nt][2 * hh + 1];
-          sum += x0 + x1;
-          cross = fmaf(lo_of(sw), x0, fmaf(hi_of(sw), x1, cross));
-          sq = fmaf(x0, x0, fmaf(x1, x1, sq));
-        }
-      }
-      sum = quad_sum(sum);
-      cross = quad_sum(cross);
-      sq = quad_sum(sq);
-      if (t == 0) {
-        float* r = red + 3 * (wn * BM + lp);
-        r[0] = sum;
-        r[1] = cross;
-        r[2] = sq;
-      }
+      for (int q = 0; q < 4; ++q)
+        w[q] = (pos + 2 * q < npos ? h[2 * q] : 0u) | (pos + 2 * q + 1 < npos ? h[2 * q + 1] : 0u) << 16;
     }
+    *reinterpret_cast<uint4*>(rw + 8 * e) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// A landed step's raw P_eff rows of a scaled block that is not the first,
+// split in place: tilde = Pd s (exact in fp32) into hi = bf16(tilde) at ps
+// and lo = bf16(tilde - hi) (exact) at lo; each thread of the warpgroup one
+// 16-byte chunk (row tid / 8, physical chunk tid % 8). srow: the block's
+// scale row.
+__device__ __forceinline__ void ln_split_step(unsigned char* ps, unsigned char* lo,
+                                              const bf16* srow) {
+  const int tid = threadIdx.x % 128, j = tid / 8, c = (tid % 8) ^ (j & 7);
+  uint4* hp = reinterpret_cast<uint4*>(ps + 16 * tid);
+  const uint4 x = *hp, w = *reinterpret_cast<const uint4*>(srow + 8 * c);
+  const uint32_t xv[4] = {x.x, x.y, x.z, x.w}, wv[4] = {w.x, w.y, w.z, w.w};
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float t0 = lo_of(xv[k]) * lo_of(wv[k]), t1 = hi_of(xv[k]) * hi_of(wv[k]);
+    h[k] = pack2(t0, t1);
+    l[k] = pack2(t0 - lo_of(h[k]), t1 - hi_of(h[k]));
+  }
+  *hp = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + 16 * tid) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// kSplit: a scaled block past the first. Every block past the first then
+// takes the split (an unscaled one with its row of ones: lo = 0), so that no
+// wgmma sits on a branch the data decides: ptxas serializes every wgmma of a
+// kernel that has one.
+template <bool kSplit>
+__global__ void __launch_bounds__(kLnThreads, 1)
+    ln_stats_wgmma_kernel(const __grid_constant__ LnMaps maps, Blocks bl,
+                          const bf16* __restrict__ ms, const bf16* __restrict__ qs,
+                          const bf16* __restrict__ a, float* __restrict__ out, int npos, int per,
+                          int nsteps, int slots, int slot_bytes, int resident, int tma,
+                          float eps) {
+  extern __shared__ __align__(1024) unsigned char ln_smem_raw[];
+  unsigned char* ures = wg::checked_base(ln_smem_raw);
+  unsigned char* stiles = ures + (resident ? nsteps * kLnUStep : 0);
+  unsigned char* ring = stiles + kLnConsumers * kLnSTile;
+  unsigned char* lo_planes = ring + slots * slot_bytes;
+  bf16* rows = reinterpret_cast<bf16*>(lo_planes + kLnConsumers * kLnPStep);
+  uint64_t* ufull = reinterpret_cast<uint64_t*>(rows + kLnRowSets * kLnRowsN * kLnBM);  // a U step
+  uint64_t* sfull = ufull + kLnMaxResident;
+  uint64_t* sempty = sfull + kLnConsumers;
+  uint64_t* wfull = sempty + kLnConsumers;  // a rows set landed
+  uint64_t* wempty = wfull + kLnRowSets;    // ... and was read
+  uint64_t* rfull = wempty + kLnRowSets;
+  uint64_t* rempty = rfull + kLnMaxSlots;
+
+  const int b = blockIdx.y, lane = threadIdx.x % 32;
+  // the ring: one half a warpgroup, each filled and drained in its tiles'
+  // order (a parity wait must never run two phases ahead of its slot)
+  const int half = slots / kLnConsumers;
+  int c0;
+  const int ntiles = chunk_tiles(npos, per, c0);
+  if (threadIdx.x == 0) {
+    // a slot's arrivals: lane 0's, or the whole P_eff producer warp's where
+    // its threads write the P_eff rows
+    const int arrivals = tma ? 1 : 32;
+    for (int k = 0; k < kLnMaxResident; ++k) wg::mbar_init(&ufull[k], 1);
+    for (int c = 0; c < kLnConsumers; ++c) {
+      wg::mbar_init(&sfull[c], 1);
+      wg::mbar_init(&sempty[c], 128);
+    }
+    for (int w = 0; w < kLnRowSets; ++w) {
+      wg::mbar_init(&wfull[w], 32);  // the rows' writers: their producer warp
+      wg::mbar_init(&wempty[w], 128);
+    }
+    for (int s = 0; s < slots; ++s) {
+      wg::mbar_init(&rfull[s], arrivals);
+      wg::mbar_init(&rempty[s], 1);
+    }
+    wg::mbar_fence_init();
   }
   __syncthreads();
-  for (int lp = threadIdx.x; lp < BM; lp += kLnThreads) {
-    const int pos = n0 + lp;
-    if (pos >= npos) continue;
-    float sum = 0.f, cross = 0.f, sq = 0.f;
+
+  if (threadIdx.x >= 128 * kLnConsumers + 64) {  // the producer of the rows
+    for (int it = 0; it < ntiles; ++it) {  // into the set tile it - 4 read
+      if (it >= kLnRowSets) wg::mbar_wait(&wempty[it % kLnRowSets], (it / kLnRowSets - 1) & 1);
+      ln_rows_threads(rows + it % kLnRowSets * kLnRowsN * kLnBM, bl, a, ms, qs, b,
+                      c0 + it * kLnBM, npos, tma);
+      wg::mbar_arrive(&wfull[it % kLnRowSets]);
+    }
+    return;
+  }
+  if (threadIdx.x >= 128 * kLnConsumers + 32) {  // the producer of the S tiles
+    for (int it = 0; it < ntiles; ++it) {
+      const int c = it % kLnConsumers, p0 = c0 + it * kLnBM;
+      if (it >= kLnConsumers) wg::mbar_wait(&sempty[c], (it / kLnConsumers - 1) & 1);
+      if (lane == 0) {
+        wg::mbar_expect_tx(&sfull[c], kLnSTile);
+        wg::tma_load_4d(stiles + c * kLnSTile, &maps.s, &sfull[c], 0, p0, 0, 0);
+      }
+    }
+    return;
+  }
+  if (threadIdx.x >= 128 * kLnConsumers) {  // the producer of U and the P_eff rows
+    if (resident && lane == 0) {  // each step of U on its own barrier
+      int k = 0;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float* r = red + 3 * (w * BM + lp);
-      sum += r[0];
-      cross += r[1];
-      sq += r[2];
+      for (int i = 0; i < kMaxBlocks; ++i)
+        if (i < bl.n)
+          for (int j0 = 0; j0 < bl.r[i]; j0 += 16, ++k) {
+            wg::mbar_expect_tx(&ufull[k], kLnUStep);
+            wg::tma_load_4d(ures + k * kLnUStep, &maps.u[i], &ufull[k], 0, j0, 0, b);
+          }
     }
-    const float mu_d = sum / kLnC, cr = cross / kLnC, d2 = sq / kLnC;
-    const float mS = __bfloat162float(ms[pos]), qS = __bfloat162float(qs[pos]);
-    float mu, e2;
-    if (a) {
-      const float av = __bfloat162float(a[static_cast<size_t>(b) * npos + pos]);
-      mu = av * mS + mu_d;
-      e2 = av * av * qS + 2.f * av * cr + d2;
-    } else {
-      mu = mS + mu_d;
-      e2 = qS + 2.f * cr + d2;
+    for (int it = 0; it < ntiles; ++it) {
+      const int p0 = c0 + it * kLnBM, c = it % kLnConsumers;
+      int m = it / kLnConsumers * nsteps;  // the step's place in its warpgroup's ring
+#pragma unroll
+      for (int i = 0; i < kMaxBlocks; ++i) {
+        if (i >= bl.n) break;
+        for (int j0 = 0; j0 < bl.r[i]; j0 += 16, ++m) {
+          const int slot = c * half + m % half;
+          if (m >= half) wg::mbar_wait(&rempty[slot], (m / half - 1) & 1);
+          unsigned char* dst = ring + slot * slot_bytes;
+          if (!tma) {
+            ln_peff_threads(dst, bl.pd[i], bl.r[i], b, j0, p0, npos);
+            wg::fence_async_shared();  // the threads' rows, before wgmma reads them
+          }
+          if (lane == 0) {
+            const int bytes = (tma ? kLnPStep : 0) + (resident ? 0 : kLnUStep);
+            if (bytes)
+              wg::mbar_expect_tx(&rfull[slot], bytes);
+            else
+              wg::mbar_arrive(&rfull[slot]);
+            if (tma) wg::tma_load_4d(dst, &maps.pd[i], &rfull[slot], p0, j0, b, 0);
+            if (!resident) wg::tma_load_4d(dst + kLnPStep, &maps.u[i], &rfull[slot], 0, j0, 0, b);
+          } else if (!tma) {
+            wg::mbar_arrive(&rfull[slot]);
+          }
+        }
+      }
     }
-    out[static_cast<size_t>(b) * 2 * npos + pos] = mu;
-    out[(static_cast<size_t>(b) * 2 + 1) * npos + pos] = 1.f / sqrtf(e2 - mu * mu + eps);
+    return;
+  }
+
+  // a consumer warpgroup: tiles c, c + 2, ...; this thread's accumulator
+  // rows are positions r_lo and r_lo + 8 of a tile
+  // the warpgroup's index, uniform to the compiler
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = lane / 4, t = lane % 4, r_lo = 16 * warp + g;
+  const unsigned char* sx = stiles + c * kLnSTile;
+  unsigned char* lo = lo_planes + c * kLnPStep;
+  float acc[128];
+  for (int it = c; it < ntiles; it += kLnConsumers) {
+    const int p0 = c0 + it * kLnBM, m0 = it / kLnConsumers * nsteps;
+    const bf16* rw = rows + it % kLnRowSets * kLnRowsN * kLnBM;
+    wg::mbar_wait(&wfull[it % kLnRowSets], (it / kLnRowSets) & 1);
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
+    int k = 0;  // the tile's step
+#pragma unroll
+    for (int i = 0; i < kMaxBlocks; ++i) {
+      if (i >= bl.n) break;
+      for (int j0 = 0; j0 < bl.r[i]; j0 += 16, ++k) {
+        const int m = m0 + k, slot = c * half + m % half;
+        unsigned char* ps = ring + slot * slot_bytes;
+        const uint64_t db = desc_mn128(resident ? ures + k * kLnUStep : ps + kLnPStep, kLnUPart);
+        if (resident && it < kLnConsumers) wg::mbar_wait(&ufull[k], 0);  // a block's first tile
+        wg::mbar_wait(&rfull[slot], (m / half) & 1);
+        if (kSplit && i > 0) {
+          wg::wgmma_wait0();  // the previous step's products have read the lo plane
+          ln_split_step(ps, lo, rw + (kLnRowS + i) * kLnBM);
+          wg::fence_async_shared();
+          wg::wg_sync(1 + c);
+          wgmma_ln(acc, wg::make_desc<128>(ps), db, 1);
+          wgmma_ln(acc, wg::make_desc<128>(lo), db, 1);
+        } else {  // the tile's first step overwrites acc
+          wgmma_ln(acc, wg::make_desc<128>(ps), db, k > 0);
+        }
+        wg::wgmma_commit();
+        wgmma_wait1();  // the previous step's products are done: its slot is free
+        if (k > 0 && tid == 0) wg::mbar_arrive(&rempty[c * half + (m - 1) % half]);
+      }
+      if (i == 0) {  // x_l = s_0 (Pd_0^T U_0) so far (s_0 = 1 for an unscaled block)
+        wg::wgmma_wait0();
+        wg::fence_regs(acc);
+        const bool sc = bl.s[0] != nullptr;
+        const float s_lo = sc ? __bfloat162float(rw[kLnRowS * kLnBM + r_lo]) : 1.f;
+        const float s_hi = sc ? __bfloat162float(rw[kLnRowS * kLnBM + r_lo + 8]) : 1.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          acc[4 * j] *= s_lo;
+          acc[4 * j + 1] *= s_lo;
+          acc[4 * j + 2] *= s_hi;
+          acc[4 * j + 3] *= s_hi;
+        }
+        wg::fence_regs(acc);
+        wg::wgmma_fence();
+      }
+    }
+    wg::wgmma_wait0();
+    wg::fence_regs(acc);
+    if (tid == 0) wg::mbar_arrive(&rempty[c * half + (m0 + nsteps - 1) % half]);
+
+    // the channel sums of rows r_lo, r_lo + 8: this lane's 64 channels 8j +
+    // 2t, + 1 (S's chunk j % 8 of part j / 8, swizzled by the row's g), then
+    // the quad's
+    wg::mbar_wait(&sfull[c], (it / kLnConsumers) & 1);
+    // S's words by ldmatrix.x4: 8x8 matrices (rows r_lo - g + 8h, channels
+    // 8j..8j + 7) of (j, h) = (j, 0), (j, 1), (j + 1, 0), (j + 1, 1), lane l
+    // giving row l % 8 of matrix l / 8; two partial sums a value halve the
+    // chains
+    float sum[2][2] = {}, cross[2][2] = {}, sq[2][2] = {};
+    const int lrow = 16 * warp + 8 * (lane / 8 % 2) + lane % 8, ljj = lane / 16;
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int jj = j + ljj;
+      uint32_t sw[4];
+      ldmatrix_x4_at(sw, wg::smem_u32(sx + (jj / 8) * (kLnBM * 128) + lrow * 128 +
+                                      (((jj % 8) ^ (lane % 8)) << 4)));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q & 1, jq = j + (q >> 1), u = q >> 1;
+        const float x0 = acc[4 * jq + 2 * h], x1 = acc[4 * jq + 2 * h + 1];
+        sum[h][u] += x0 + x1;
+        cross[h][u] = fmaf(lo_of(sw[q]), x0, fmaf(hi_of(sw[q]), x1, cross[h][u]));
+        sq[h][u] = fmaf(x0, x0, fmaf(x1, x1, sq[h][u]));
+      }
+    }
+    float sum_h[2], cross_h[2], sq_h[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum_h[h] = quad_sum(sum[h][0] + sum[h][1]);
+      cross_h[h] = quad_sum(cross[h][0] + cross[h][1]);
+      sq_h[h] = quad_sum(sq[h][0] + sq[h][1]);
+    }
+    if (t < 2) {  // lane t = h writes row r_lo + 8h
+      const int r = r_lo + 8 * t, pos = p0 + r;
+      if (pos < npos) {
+        const float mu_d = (t ? sum_h[1] : sum_h[0]) / kLnC;
+        const float cr = (t ? cross_h[1] : cross_h[0]) / kLnC, d2 = (t ? sq_h[1] : sq_h[0]) / kLnC;
+        const float av = __bfloat162float(rw[kLnRowA * kLnBM + r]);
+        const float mS = __bfloat162float(rw[kLnRowMS * kLnBM + r]);
+        const float qS = __bfloat162float(rw[kLnRowQS * kLnBM + r]);
+        const float mu = av * mS + mu_d;
+        const float e2 = av * av * qS + 2.f * av * cr + d2;
+        out[static_cast<size_t>(b) * 2 * npos + pos] = mu;
+        out[(static_cast<size_t>(b) * 2 + 1) * npos + pos] = 1.f / sqrtf(e2 - mu * mu + eps);
+      }
+    }
+    wg::mbar_arrive(&sempty[c]);  // this tile's S and rows are read
+    wg::mbar_arrive(&wempty[it % kLnRowSets]);
   }
 }
 
@@ -1283,31 +1434,77 @@ Steps make_steps(const int* r, int nblocks) {
   return st;
 }
 
-size_t peff_tile_bytes(const Steps& st) { return sizeof(bf16) * 16 * st.n * kLdp; }
-constexpr size_t kScaleBytes = sizeof(float) * (1 + kMaxBlocks) * kBN;
-constexpr size_t kRowsBytes = sizeof(bf16) * kBN * kLdv;  // a tile of KS, KC, VS, QS or QC
-
-// A bf16 array of dims {d0, d1, d2} (d0 contiguous; strides s1, s2 in
-// bytes, in any order) as a 4-D tensor map (a last dim of 1) with boxes {b0,
-// b1, b2, 1}, in the 128-byte swizzle (b0 * 2 bytes = 128) or unswizzled;
-// elements past the dims read as zeros. TMA takes a 16-byte aligned base and
-// strides: anything else, or a map cuTensorMapEncodeTiled refuses, returns
+// A bf16 array of dims {d0, d1, d2, d3} (d0 contiguous; strides s1..s3 in
+// bytes, in any order) as a tensor map with boxes `box`, in the 128-byte
+// swizzle (box[0] * 2 bytes = 128) or unswizzled; elements past the dims
+// read as zeros. TMA takes a 16-byte aligned base and strides: anything
+// else, or a map cuTensorMapEncodeTiled refuses, returns
 // cudaErrorInvalidValue.
-int encode_map(CUtensorMap& map, const void* base, const cuuint64_t (&d)[3], cuuint64_t s1,
-               cuuint64_t s2, const cuuint32_t (&box3)[3], bool swizzle = true) {
+int encode_map4(CUtensorMap& map, const void* base, const cuuint64_t (&dims)[4],
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4], bool swizzle = true) {
   const wg::EncodeTiledFn fn = wg::encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (reinterpret_cast<uintptr_t>(base) % 16 || s1 % 16 || s2 % 16)
+  if (reinterpret_cast<uintptr_t>(base) % 16 || strides[0] % 16 || strides[1] % 16 ||
+      strides[2] % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t dims[4] = {d[0], d[1], d[2], 1};
-  const cuuint64_t strides[3] = {s1, s2, s1 * d[1] > s2 * d[2] ? s1 * d[1] : s2 * d[2]};
-  const cuuint32_t box[4] = {box3[0], box3[1], box3[2], 1}, elem[4] = {1, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                           strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same of dims {d0, d1, d2} (strides s1, s2), a last dim of 1.
+int encode_map(CUtensorMap& map, const void* base, const cuuint64_t (&d)[3], cuuint64_t s1,
+               cuuint64_t s2, const cuuint32_t (&box3)[3], bool swizzle = true) {
+  return encode_map4(map, base, {d[0], d[1], d[2], 1},
+                     {s1, s2, s1 * d[1] > s2 * d[2] ? s1 * d[1] : s2 * d[2]},
+                     {box3[0], box3[1], box3[2], 1}, swizzle);
+}
+
+// K3's and K4's maps of a call: two (N, 128) head-term operands (KS and KC,
+// or QS and QC) and VS (if any) with their two 64-channel parts as a third
+// dim (one box lands [part][row][64]); P_eff and the scales where N % 8 ==
+// 0 and their rows are 16-byte aligned (tma = 1; else the threads load
+// them, tma = 0). Returns 0 or a CUDA error code.
+int encode_t2i_maps(T2iMaps& maps, int& tma, const void* ks, const void* kc, const void* vs,
+                    const void* const* pd, const void* const* s, const int* r, int nblocks,
+                    const void* a, int b, int n) {
+  memset(&maps, 0, sizeof(maps));
+  const cuuint64_t row = sizeof(bf16) * kD;
+  int err = 0;
+  for (auto [map, src] : {std::pair{&maps.ks, ks}, std::pair{&maps.kc, kc}, std::pair{&maps.vs, vs}})
+    if (src && (err = encode_map(*map, src, {64, static_cast<cuuint64_t>(n), 2}, row, row / 2,
+                                 {64, kBN, 2})))
+      return err;
+  const cuuint64_t prow = sizeof(bf16) * static_cast<cuuint64_t>(n);
+  const void* srcs[1 + kMaxBlocks] = {a, nullptr, nullptr, nullptr, nullptr};
+  for (int i = 0; i < nblocks; ++i) srcs[1 + i] = s[i];
+  bool on = n % 8 == 0;
+  for (int i = 0; i < nblocks; ++i) on = on && reinterpret_cast<uintptr_t>(pd[i]) % 16 == 0;
+  for (const void* p : srcs) on = on && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  tma = on;
+  for (int i = 0; on && i < nblocks; ++i)
+    if (r[i] > 0 &&
+        (err = encode_map(maps.pd[i], pd[i],
+                          {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(r[i]),
+                           static_cast<cuuint64_t>(b)},
+                          prow, prow * r[i], {kBN, static_cast<cuuint32_t>(16 * ((r[i] + 15) / 16)), 1})))
+      return err;
+  for (int k = 0; on && k < 1 + kMaxBlocks; ++k)
+    if (srcs[k] && (err = encode_map(maps.sc[k], srcs[k],
+                                     {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(b), 1},
+                                     prow, prow * b, {kBN, 1, 1}, false)))
+      return err;
+  return 0;
+}
+
+// K4's dynamic shared memory: the ring, two staged output tiles, the ring's
+// scales and barriers.
+size_t i2t_smem(const Steps& st, int t) {
+  return t2i_smem(2 * kTileBytes + st.n * kStepBytes) + 2 * i2t_out_tile_bytes(t);
 }
 
 int set_smem(const void* kernel, size_t bytes) {
@@ -1331,15 +1528,69 @@ int sam6d_factored_ln_stats_bf16(const void* const* pd, const void* const* s, co
                                  int rtot, float eps, cudaStream_t stream) {
   if (!blocks_ok(r, nblocks, rtot, 1 << 20) || nblocks < 1 || rtot < 1 || c != kLnC)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Blocks bl = make_blocks(pd, s, r, nblocks);
-  const int err = set_smem(reinterpret_cast<const void*>(ln_stats_bf16_kernel), kLnSmemBytes);
+  // the blocks in the kernel's order: those with rows, the first scaled one
+  // first (U's rows stay where they are: each block's map starts at its own)
+  int order[kMaxBlocks], m = 0, off[kMaxBlocks + 1] = {0}, first = -1;
+  for (int i = 0; i < nblocks; ++i) {
+    off[i + 1] = off[i] + r[i];
+    if (first < 0 && r[i] > 0 && s[i]) first = i;
+  }
+  if (first >= 0) order[m++] = first;
+  for (int i = 0; i < nblocks; ++i)
+    if (r[i] > 0 && i != first) order[m++] = i;
+  const void* pdo[kMaxBlocks];
+  const void* so[kMaxBlocks];
+  int ro[kMaxBlocks];
+  for (int k = 0; k < m; ++k) {
+    pdo[k] = pd[order[k]];
+    so[k] = s[order[k]];
+    ro[k] = r[order[k]];
+  }
+  const Blocks bl = make_blocks(pdo, so, ro, m);
+
+  LnMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const cuuint64_t row = sizeof(bf16) * kLnC, prow = sizeof(bf16) * static_cast<cuuint64_t>(n);
+  const auto nn = static_cast<cuuint64_t>(n), bb = static_cast<cuuint64_t>(b);
+  // S and U with their four 64-channel parts as a dim: a box lands [part][row][64]
+  int err = encode_map(maps.s, smat, {64, nn, 4}, row, row / 4, {64, kLnBM, 4});
+  for (int k = 0; !err && k < m; ++k)
+    err = encode_map4(maps.u[k], static_cast<const unsigned char*>(uc) + off[order[k]] * row,
+                      {64, static_cast<cuuint64_t>(ro[k]), 4, bb},
+                      {row, row / 4, row * static_cast<cuuint64_t>(rtot)}, {64, 16, 4, 1});
   if (err) return err;
-  const dim3 grid((n + kLnBM - 1) / kLnBM, b);
-  ln_stats_bf16_kernel<<<grid, kLnThreads, kLnSmemBytes, stream>>>(
-      bl, static_cast<const bf16*>(uc), static_cast<const bf16*>(smat),
-      static_cast<const bf16*>(ms), static_cast<const bf16*>(qs), static_cast<const bf16*>(a),
-      out, n, rtot, eps);
+  // P_eff and the rows by TMA where their rows are 16-byte aligned, else by
+  // the producer's threads
+  const void* rsrc[kLnRowsN] = {a, nullptr, nullptr, nullptr, nullptr, ms, qs};
+  for (int k = 0; k < m; ++k) rsrc[kLnRowS + k] = so[k];
+  bool tma = n % 8 == 0;
+  for (int k = 0; k < m; ++k) tma = tma && reinterpret_cast<uintptr_t>(pdo[k]) % 16 == 0;
+  for (const void* p : rsrc) tma = tma && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int k = 0; tma && !err && k < m; ++k)
+    err = encode_map(maps.pd[k], pdo[k], {nn, static_cast<cuuint64_t>(ro[k]), bb}, prow,
+                     prow * ro[k], {kLnBM, 16, 1});
+  if (err) return err;
+
+  const LnGeometry g = ln_geometry(ro, m);
+  bool split = false;  // a scaled block past the first
+  for (int k = 1; k < m; ++k) split = split || so[k] != nullptr;
+  const auto kernel = split ? ln_stats_wgmma_kernel<true> : ln_stats_wgmma_kernel<false>;
+  if ((err = set_smem(reinterpret_cast<const void*>(kernel), g.smem))) return err;
+  const T2iSplit sp = t2i_split(n);
+  kernel<<<dim3(sp.chunks, b), kLnThreads, g.smem, stream>>>(
+      maps, bl, static_cast<const bf16*>(ms), static_cast<const bf16*>(qs),
+      static_cast<const bf16*>(a), out, n, sp.per, g.nsteps, g.slots, g.slot_bytes, g.resident,
+      tma, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of sam6d_factored_ln_stats_bf16's kernel for
+// blocks of ranks r, and whether the prompt's U stays resident in it (1) or
+// streams with the P_eff rows (0).
+int sam6d_factored_ln_stats_bf16_smem(const int* r, int nblocks, int* resident) {
+  const LnGeometry g = ln_geometry(r, nblocks);
+  *resident = g.resident;
+  return static_cast<int>(g.smem);
 }
 
 // Floats of the workspace sam6d_factored_t2i_attention_bf16 takes for each
@@ -1369,34 +1620,9 @@ int sam6d_factored_t2i_attention_bf16(const void* q, const void* uk, const void*
   const Steps st = make_steps(r, nblocks);
   const T2iSplit sp = t2i_split(n);
   T2iMaps maps;
-  memset(&maps, 0, sizeof(maps));
-  const cuuint64_t row = sizeof(bf16) * kD;
-  int err = 0;
-  // a tile's two 64-channel parts as a third dim: one box lands [part][row][64]
-  for (auto [map, src] : {std::pair{&maps.ks, ks}, std::pair{&maps.kc, kc}, std::pair{&maps.vs, vs}})
-    if ((err = encode_map(*map, src, {64, static_cast<cuuint64_t>(n), 2}, row, row / 2,
-                          {64, kBN, 2})))
-      return err;
-  // P_eff and the scales by TMA where their rows are 16-byte aligned, else
-  // by the threads
-  const cuuint64_t prow = sizeof(bf16) * static_cast<cuuint64_t>(n);
-  const void* srcs[1 + kMaxBlocks] = {a, nullptr, nullptr, nullptr, nullptr};
-  for (int i = 0; i < nblocks; ++i) srcs[1 + i] = s[i];
-  bool tma = n % 8 == 0;
-  for (int i = 0; i < nblocks; ++i) tma = tma && reinterpret_cast<uintptr_t>(pd[i]) % 16 == 0;
-  for (const void* p : srcs) tma = tma && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  for (int i = 0; tma && i < nblocks; ++i)
-    if (r[i] > 0 &&
-        (err = encode_map(maps.pd[i], pd[i],
-                          {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(r[i]),
-                           static_cast<cuuint64_t>(b)},
-                          prow, prow * r[i], {kBN, static_cast<cuuint32_t>(16 * ((r[i] + 15) / 16)), 1})))
-      return err;
-  for (int k = 0; tma && k < 1 + kMaxBlocks; ++k)
-    if (srcs[k] && (err = encode_map(maps.sc[k], srcs[k],
-                                     {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(b), 1},
-                                     prow, prow * b, {kBN, 1, 1}, false)))
-      return err;
+  int tma = 0;
+  int err = encode_t2i_maps(maps, tma, ks, kc, vs, pd, s, r, nblocks, a, b, n);
+  if (err) return err;
   const auto* a16 = static_cast<const bf16*>(a);
   float* stats = ws;
   float* part = ws + static_cast<size_t>(b) * sp.chunks * kStatFloats;
@@ -1437,16 +1663,29 @@ int sam6d_factored_i2t_scores_bf16(const void* kt, const void* uq, const void* c
     return static_cast<int>(cudaErrorInvalidValue);
   const Blocks bl = make_blocks(pd, s, r, nblocks);
   const Steps st = make_steps(r, nblocks);
-  const size_t bytes = 2 * kRowsBytes + peff_tile_bytes(st) + kScaleBytes +
-                       sizeof(bf16) * (kHeads * t + 1) * kLdp;
-  const int err = set_smem(reinterpret_cast<const void*>(i2t_bf16_kernel), bytes);
+  const T2iSplit sp = t2i_split(n);
+  I2tMaps maps;
+  int tma = 0;
+  int err = encode_t2i_maps(maps.in, tma, qs, qc, nullptr, pd, s, r, nblocks, a, b, n);
+  // the output by TMA stores where its rows are 16-byte aligned (as P_eff's)
+  const cuuint64_t prow = sizeof(bf16) * static_cast<cuuint64_t>(n);
+  const auto rows = static_cast<cuuint64_t>(kHeads * t + 1);
+  tma = tma && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (!err && tma)
+    err = encode_map(maps.out, out, {static_cast<cuuint64_t>(n), rows, static_cast<cuuint64_t>(b)},
+                     prow, prow * rows, {kBN, static_cast<cuuint32_t>(rows), 1});
   if (err) return err;
-  const dim3 grid((n + kBN - 1) / kBN, b);
-  i2t_bf16_kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(kt), static_cast<const bf16*>(uq), bl, st,
-      static_cast<const bf16*>(a), static_cast<const bf16*>(qs), static_cast<const bf16*>(qc),
-      static_cast<bf16*>(out), t, n, rtot);
+  const size_t bytes = i2t_smem(st, t);
+  if ((err = set_smem(reinterpret_cast<const void*>(i2t_wgmma_kernel), bytes))) return err;
+  i2t_wgmma_kernel<<<dim3(sp.chunks, b), kWgThreads, bytes, stream>>>(
+      maps, static_cast<const bf16*>(kt), static_cast<const bf16*>(uq), bl, st,
+      static_cast<const bf16*>(a), static_cast<bf16*>(out), t, n, rtot, sp.per, tma);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of sam6d_factored_i2t_scores_bf16's kernel.
+int sam6d_factored_i2t_scores_bf16_smem(const int* r, int nblocks, int t) {
+  return static_cast<int>(i2t_smem(make_steps(r, nblocks), t));
 }
 
 }  // extern "C"

@@ -65,11 +65,13 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _P],
     "sam6d_factored_ln_stats_bf16": [_PP, _PP, _IP, _I, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _F, _P],
+    "sam6d_factored_ln_stats_bf16_smem": [_IP, _I, _IP],
     "sam6d_factored_t2i_bf16_workspace": [_IP, _I, _I],
     "sam6d_factored_t2i_attention_bf16": [_P, _P, _P, _PP, _PP, _IP, _I, _P, _P,
                                           _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sam6d_factored_i2t_scores_bf16": [_P, _P, _PP, _PP, _IP, _I, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _P],
+    "sam6d_factored_i2t_scores_bf16_smem": [_IP, _I, _I],
 }
 
 _lib = None

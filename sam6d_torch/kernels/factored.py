@@ -22,8 +22,8 @@ head-diagonal output blocks the caller keeps. The kernels are held to them;
 no single PyTorch call computes any of the three functions. What bounds
 each kernel and how it is laid out is in the header of `csrc/factored.cu`.
 
-bfloat16 operands take the bf16 entries (`csrc/factored_bf16.cu`, one-pass
-bf16 `mma.sync`) or, on the CPU, the `*_bf16_plain` versions: the bf16
+bfloat16 operands take the bf16 entries (`csrc/factored_bf16.cu`, on
+Hopper's `wgmma`) or, on the CPU, the `*_bf16_plain` versions: the bf16
 contract of the Pallas kernels, the form the JAX package runs them in
 (bf16 operands, the kernels' fp32 islands and their casts). Each dispatch
 routes by the operands' one dtype; float16 or mixed dtypes are refused.

@@ -17,7 +17,8 @@ directory: its ptxas registers and spills, K8 at 16x16x1025x64 and K9 at
 medians of 20 runs, `chip_smoke.cuda_ms`), K5 on the same qkv at both
 lengths, K1 at SAM's global (1x4096) and windowed (25x196) shapes, 16
 heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
-116 (layer 2), K3 at ranks 59 and 118, K4 at ranks 0 (layer 1) and 59
+116 (layer 2; in bf16 also with a second scaled block), K3 at ranks 59
+and 118, K4 at ranks 0 (layer 1) and 59
 (layer 2; also over runs of 10 launches, which hide the host's dispatch),
 and each kernel's max |diff| from its plain version (K2: mu's,
 and 1/sigma's relative), K3 beside its plain version's time (5 runs);
@@ -404,8 +405,11 @@ def factored_bf16_fields(rng, cs):
                 f"{device_split(fn, top=4)}), {err}")
 
     fields = []
-    for ranks, scaled, with_a in (((57,), (False,), False),
-                                  ((57, 2, 57), (True, True, False), True)):
+    # layer 2's blocks as the iou pass carries them (the first scaled by
+    # layer 1's 1/sigma), then with a second scaled block
+    for ranks, scaled, with_a, note in (((57,), (False,), False, ""),
+                                        ((57, 2, 57), (True, False, False), True, ""),
+                                        ((57, 2, 57), (True, True, False), True, " 2 scaled")):
         st = bf(factored_state(rng, ranks, scaled, with_a))
         args = (st["blocks"], st["U"], st["S"], st["a"])
         mu, inv = fk.factored_ln_stats_bf16_cuda(*args)
@@ -413,7 +417,7 @@ def factored_bf16_fields(rng, cs):
         err = (f"mu |diff| {float((mu - mu_p).abs().max()):.2e}, 1/sigma rel "
                f"{float(((inv - inv_p).abs() / inv_p.abs()).max()):.2e}")
         del mu, inv, mu_p, inv_p
-        fields.append(timed(f"K2 bf16 rank {sum(ranks)}",
+        fields.append(timed(f"K2 bf16 rank {sum(ranks)}{note}",
                             lambda: fk.factored_ln_stats_bf16_cuda(*args), err))
         del st, args
     for ranks, scaled in (((57, 2), (True, False)), ((57, 2, 57, 2), (True, True, True, False))):

@@ -846,10 +846,25 @@ def _bf16_state(st):
     pytest.param((57, 2, 57), (True, True, False), True, 128, 4096, 1.0,
                  id="main-path-B128-116"),
     pytest.param((57, 2, 57), (True, True, False), True, 16, 4096, 4.0, id="stress-Ux4"),
+    # edges of the wgmma design: one prompt (8 blocks), a 128-rank U, one
+    # partial position tile, and ranks whose U does not fit shared memory
+    # beside the ring (it streams with the P_eff rows), with further scaled
+    # blocks split into hi + lo, also where the threads write P_eff
+    pytest.param((57, 2, 57), (True, True, False), True, 1, 4096, 1.0, id="one-prompt"),
+    pytest.param((64, 64), (True, False), True, 16, 4096, 1.0, id="rank-128"),
+    pytest.param((57, 2, 57), (True, True, False), True, 16, 40, 1.0,
+                 id="n40-one-partial-tile"),
+    pytest.param((200, 2, 100), (True, True, False), True, 4, 1024, 1.0,
+                 id="streamed-U-rank-302"),
+    pytest.param((300,), (True,), True, 4, 100, 1.0, id="streamed-U-ragged-N100"),
+    # layer 2's blocks as the iou pass carries them: only the first scaled
+    pytest.param((57, 2, 57), (True, False, False), True, 128, 4096, 1.0,
+                 id="main-path-scales-B128-116"),
 ])
 def test_factored_ln_stats_bf16_entry_matches_plain(cuda_device, ranks, scaled, with_a, B,
                                                     N, u_mag):
-    """The hi/lo split of the scaled rows and fp32 sums: mu within 1e-4 and
+    """Each scaled block's product scaled after it (a further scaled
+    block's rows split into hi + lo) and fp32 sums: mu within 1e-4 and
     1/sigma within rtol 1e-3 of the plain bf16 version, as the fp32 entry."""
     st = _bf16_state(factored_state(np.random.RandomState(11), B, N, 256, 128, ranks, scaled,
                                     with_a, cuda_device))
@@ -919,6 +934,11 @@ def test_factored_t2i_attention_bf16_entry_matches_plain(cuda_device, ranks, sca
     pytest.param(4, (57, 2), (True, False), True, 1024, 1, id="one-token"),
     pytest.param(4, (57, 2), (True, False), False, 1024, 8, id="eight-tokens"),
     pytest.param(4, (17, 2), (True, False), True, 98, 7, id="n98-2-byte-staging"),
+    # edges of the 64-row layout, as K3's: one partial position tile, one
+    # prompt, all 64 rows live at rank 128
+    pytest.param(4, (57, 2), (True, False), True, 40, 7, id="n40-one-partial-tile"),
+    pytest.param(1, (57, 2), (True, False), True, 4096, 7, id="one-prompt"),
+    pytest.param(4, (64, 64), (True, False), True, 4096, 8, id="eight-tokens-rank-128"),
 ])
 def test_factored_i2t_scores_bf16_entry_matches_plain(cuda_device, B, ranks, scaled, with_a,
                                                       N, T):

@@ -10,8 +10,10 @@ widths, with the scaled-block cases of `test_torch_port_sam_modules.py`.
 - K2's fp32 (mu, 1/sigma) within atol = rtol = 1e-4 (fp32 arithmetic on
   bf16 values, summed in another order), on the moments mS, qS rounded to
   bf16 as the JAX package forms them;
+- K2 summed in its bf16 entry's order (each block's product scaled after
+  it) against the same Pallas kernel, within the same tolerance;
 - the exact split of K2's scaled rows into two bf16 (the bf16 entry's
-  one-pass products rest on it);
+  products of a scaled block past the first rest on it);
 - the dispatches refuse float16 and mixed dtypes."""
 import jax.numpy as jnp
 import ml_dtypes
@@ -88,6 +90,58 @@ def test_ln_stats_bf16_plain_matches_pallas(ranks, scaled, with_a):
     np.testing.assert_allclose(f32(inv), f32(inv_w), atol=LN_TOL, rtol=LN_TOL)
 
 
+def _ln_stats_kernel_order(blocks, U, S, a, eps=1e-6):
+    """K2's bf16 entry in its own order, in fp32 on the bf16 values: the
+    blocks with rows, a scaled one first, x_l = s_0 (Pd_0^T U_0) (that
+    block's fp32 product scaled per position), then each other block's
+    product added, a scaled one as (Pd s)^T U (its exact hi + lo split);
+    the channel sums of x_l, S x_l and x_l^2 with the bf16 mS, qS."""
+    mS, qS = (m.float() for m in factored.ln_moments(S))
+    offs = np.cumsum([0] + [pd.shape[1] for pd, _ in blocks])
+    live = [i for i, (pd, _) in enumerate(blocks) if pd.shape[1] > 0]
+    first = next((i for i in live if blocks[i][1] is not None), None)
+    order = ([first] if first is not None else []) + [i for i in live if i != first]
+    x = None
+    for k, i in enumerate(order):
+        pd, sc = (None if v is None else v.float() for v in blocks[i])
+        u = U[:, offs[i]:offs[i + 1]].float()
+        if k == 0:
+            x = torch.einsum("brn,brc->bnc", pd, u)
+            if sc is not None:
+                x = x * sc[:, :, None]
+        else:
+            x = x + torch.einsum("brn,brc->bnc", pd if sc is None else pd * sc[:, None, :], u)
+    C = S.shape[-1]
+    mu_d, cr = x.sum(-1) / C, (S.float()[None] * x).sum(-1) / C
+    d2 = (x * x).sum(-1) / C
+    av = 1.0 if a is None else a.float()
+    mu = av * mS + mu_d
+    return mu, torch.rsqrt(av * av * qS + 2.0 * av * cr + d2 - mu * mu + eps)
+
+
+@pytest.mark.parametrize("ranks,scaled,with_a", [
+    ((9,), (False,), False),
+    ((9, 2, 9), (True, False, False), True),    # the iou pass's layer-2 blocks
+    ((9, 2, 9), (True, True, False), True),     # a second scaled block: its split
+    ((2, 9, 5), (False, True, True), True),     # the first scaled block taken first
+])
+def test_ln_stats_bf16_kernel_order_matches_pallas(ranks, scaled, with_a):
+    """The bf16 entry scales each block's fp32 product after the product
+    (the Pallas kernel forms tilde = Pd s first and the statistics from U's
+    gram matrix): the same sums in another fp32 order, within the plain
+    version's tolerance of the Pallas kernel."""
+    blocks, x = _state(np.random.RandomState(10), ranks, scaled)
+    a = x["a"] if with_a else None
+    mS, qS = factored.ln_moments(t16(x["S"]))
+    with pltpu.force_tpu_interpret_mode():
+        mu_w, inv_w = jfac.factored_ln_stats(
+            _blocks(blocks, j16), jnp.asarray(x["U"]), jnp.asarray(x["S"]),
+            jnp.asarray(f32(mS).astype(JBF)), jnp.asarray(f32(qS).astype(JBF)), j16(a))
+    mu, inv = _ln_stats_kernel_order(_blocks(blocks, t16), t16(x["U"]), t16(x["S"]), t16(a))
+    np.testing.assert_allclose(f32(mu), f32(mu_w), atol=LN_TOL, rtol=LN_TOL)
+    np.testing.assert_allclose(f32(inv), f32(inv_w), atol=LN_TOL, rtol=LN_TOL)
+
+
 @pytest.mark.parametrize("ranks,scaled,q_mag", [((9, 2), (True, False), 1.0),
                                                 ((9, 2, 9, 2), (True, True, True, False), 1.0),
                                                 ((9, 2, 9, 2), (True, True, True, False), 4.0)])
@@ -132,8 +186,8 @@ def test_i2t_scores_bf16_plain_matches_pallas(ranks, scaled, with_a):
 def test_scaled_rows_split_exactly_into_two_bf16():
     """tilde = Pd * s of two bf16 values has at most 16 significant bits, so
     hi = bf16(tilde) and lo = bf16(tilde - hi) hold it exactly (the bf16
-    K2 entry forms P_eff^T U as hi^T U + lo^T U), over wide exponents, for
-    both signs and at the rounding ties."""
+    K2 entry forms a scaled block past the first as hi^T U + lo^T U), over
+    wide exponents, for both signs and at the rounding ties."""
     rng = np.random.RandomState(9)
     n = 1 << 16
     pd = torch.from_numpy(rng.randn(n).astype(np.float32) * np.exp2(rng.randint(-40, 40, n))
