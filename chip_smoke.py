@@ -48,9 +48,20 @@ Phases, in order; any failure raises and exits non-zero:
      (42 views at 512^2 on the card, two views held to the plain CPU
      render), run_demo (render -> ISM -> PEM, every output file, K1-K7
      launched), MultiObjectStream with two objects over 4 frames,
-     synchronous and pipelined, with equal poses, and the ISM describe at
-     DINOv2 img_size 448 (1025 tokens: K8 launched 24 times, held to the
-     plain attention on the card);
+     synchronous and pipelined, timed (submit_frame's host ms against the
+     CUDA-event ms of the work it queued; ms per frame; the pipelined
+     run's busy share), with equal poses, and once more with every
+     submit_frame checked to wait on nothing (it returns while a ~0.5 s
+     torch.cuda._sleep queued before it still runs, and raises nothing
+     under torch.cuda.set_sync_debug_mode("error")); the NMS fixed-point
+     kernel (two launches a frame; the AMG's inside the segmentor's
+     captured frame graph) against its plain version on captured problems
+     (the frame's full-grid AMG at T = 3072, run eagerly, and the ISM's 128
+     slots), timed beside its bound; the describe graph (an
+     IF conditional node a 16-crop chunk) against the eager describe at 48
+     valid of 128 slots (K5 72, counted from the graph's chunk runs); and
+     the ISM describe at DINOv2 img_size 448 (1025 tokens: K8 launched 24
+     times, held to the plain attention on the card);
   8. BOP evaluation through the CLI, at full width: write_bop_job (lmo's
      layout: two boxes, 2 test frames at 480x640, a train_pbr scene, 16
      detections a frame), `render-bop` (2 objects x 42 views at 512^2),
@@ -109,8 +120,10 @@ Phases, in order; any failure raises and exits non-zero:
      match_frame (K5 bf16 72), PEM run_frame at B=16
      (K6, K7 as in fp32), the 448 describe (K8 bf16 24), each against the
      fp32 pipeline on CUDA events over three calls with the card's busy
-     share; run_demo with Config(dtype="bfloat16") and a bf16
-     MultiObjectStream frame;
+     share; run_demo with Config(dtype="bfloat16") and phase 7's stream
+     (ViT-H, DINOv2-L, PEM-base, two objects, 4 frames) in bf16, driven as
+     phase 7's (timed, then every submit_frame checked to wait on nothing;
+     its NMS problems held to the plain version);
  13. export, at full width: PEM-base inference at B=16 (fp32, on a prepared
      synthetic frame, the sampler's uniforms an input), the DINOv2-L
      describe at 16 crops (fp32 and bf16) and ViT-H's prompt decode at 16
@@ -123,8 +136,10 @@ Phases, in order; any failure raises and exits non-zero:
      ctypes wrapper (medians of 1000 calls).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after; each kernel's record carries its launches on its own
-path (`launches`), on phases 8-12 (`path_launches`) and in a training step
+read just after (a describe graph's replayed chunks are counted into its
+body's kernels when the counts are read); each kernel's record carries its
+launches on its own path (`launches`; the NMS kernel's on phase 7's
+synchronous stream), on phases 8-12 (`path_launches`) and in a training step
 (`train_launches`; K6 and K7 also their times at the training shapes,
 `train_ms` and the rest); the bf16 entries' records their launches on the
 bf16 path of phase 12; every record its launches in each artifact of
@@ -134,6 +149,9 @@ kernel records (times, launches, errors, bounds), then as the last line
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import inspect
 import json
 import os
@@ -232,7 +250,8 @@ def device_busy(fn, label):
     """Run fn() once under torch.profiler: log the card's busy share (the
     sum of device-side op times over the wall time; one stream, so they do
     not overlap), the ops that took most of it, and the factored kernels
-    (K2-K4) wherever they rank."""
+    (K2-K4) wherever they rank. Returns the share (None where the profiler
+    saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -256,7 +275,7 @@ def device_busy(fn, label):
     if busy == 0:
         log(f"{label}: device busy share not measured (the profiler saw no "
             f"device time); wall {wall:.1f} ms")
-        return
+        return None
     ranked = sorted(kernels, key=dev_us, reverse=True)
     top = ranked[:6] + [e for e in ranked[6:]
                         if any(k in e.key for k in ("ln_stats", "t2i", "i2t"))]
@@ -264,6 +283,7 @@ def device_busy(fn, label):
         f"profiler ({100 * busy / wall:.0f}%), {sum(e.count for e in kernels)} "
         f"device ops; most time: " + "; ".join(
             f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.1f} ms" for e in top))
+    return busy / wall
 
 
 # ------------------------------------------------------------------ phase 1
@@ -1206,12 +1226,12 @@ def phase_ism(kernels_mod, cfg, job_dir, job, device="cuda"):
             rgb01, masks, boxes, valid, depth, Kt, ds, ref["descriptors"],
             ref["appe_descriptors"], ref["poses_R"], cl, n_valid, True),
             reps=3)
-    rounds = pipe.last_nms_rounds
+    rounds = int(pipe.last_nms_rounds)
     log("ism: match_frame wall ms: " + ", ".join(f"{m:.1f}" for m in frame_ms)
         + f"; on CUDA events: describe of {n_valid} valid {describe:.1f} ms "
         f"(capacity {n_slots}: {describe_cap:.1f}), describe + scores "
         f"{score:.1f} ms, with per-object NMS {score_nms:.1f} ms "
-        f"({rounds} rounds, {rounds + 1} device->host syncs)")
+        f"({rounds} rounds in one NMS kernel launch)")
 
     device_busy(lambda: pipe.match_frame(*args, **kw), "ism: match_frame")
     check_ism_against_plain(pipe, job["rgb_arr"], job["depth_arr"], props, cloud)
@@ -1264,11 +1284,18 @@ def sam_counters():
 
 
 def reset_counts(fns):
+    from sam6d_torch.kernels.graphs import settle_graph_launches
+    settle_graph_launches()
     for fn in fns.values():
         fn.launches = 0
 
 
 def read_counts(fns):
+    """Each wrapper's launches, the describe graphs' chunk runs settled
+    into them first (kernels/graphs.py: a replayed chunk counts its
+    body's launches)."""
+    from sam6d_torch.kernels.graphs import settle_graph_launches
+    settle_graph_launches()
     return {k: fn.launches for k, fn in fns.items()}
 
 
@@ -1324,7 +1351,7 @@ def sam_stage_times(seg, rgb):
         lows = seg._score_all_impl(emb, pe, pref, Ry, Rx)[3]
         t["gather_resize"] = cuda_ms(lambda: resize_logits(lows[order], Ry, Rx) > 0, reps=5)
     t["nms"] = t["select"] - t["full_decode"] - t["gather_resize"]
-    return t, seg.last_nms_rounds, pref.shape[0]
+    return t, int(seg.last_nms_rounds), pref.shape[0]
 
 
 def check_sam_against_plain(rgb, cfg, fns):
@@ -1421,8 +1448,8 @@ def phase_sam(seg, ism_cfg, job_dir, job):
     n_kept = check_proposals(out, H0, W0, cfg.max_proposals)
     log(f"sam: generate_masks on the {H0}x{W0} frame (ViT-H, {cfg.points_per_side ** 2} "
         f"prompts, capacity {cfg.max_proposals}) cold {cold_ms:.1f} ms; {n_kept} proposals "
-        f"kept, NMS {seg.last_nms_rounds} rounds ({seg.last_nms_rounds + 1} device->host "
-        f"syncs); kernel launches {seg_launches}")
+        f"kept, NMS {int(seg.last_nms_rounds)} rounds in one kernel launch; kernel "
+        f"launches {seg_launches}")
     for name, n in want.items():
         if seg_launches[name] != n:
             raise AssertionError(f"{name}: {seg_launches[name]} launches, expected {n}")
@@ -1623,14 +1650,269 @@ def phase_demo(job, fns):
     return os.path.join(out, "templates")
 
 
+# ~0.5 s of the card's clock (1.98 GHz boost), queued before each checked
+# submit_frame: the call must return while it still runs
+SUBMIT_SLEEP_CYCLES = 1_000_000_000
+# stream_runs' summaries by label, carried in the NMS kernel's record
+STREAMS = {}
+
+
+class recorded_nms:
+    """Inside the block, copies of every problem (overlap, valid) the frame
+    chain hands the NMS operator, made on the stream (no host read). A
+    replayed graph calls no Python: the AMG's NMS inside the segmentor's
+    frame graph is seen only where the AMG runs eagerly."""
+
+    def __enter__(self):
+        from sam6d_torch.ops import masks
+        self._mod, self._orig, self.calls = masks, masks.nms_fixed_point, []
+
+        def record(overlap, valid):
+            self.calls.append((overlap.clone(), valid.clone()))
+            return self._orig(overlap, valid)
+
+        masks.nms_fixed_point = record
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.nms_fixed_point = self._orig
+
+
+def checked_submit(submit, item):
+    """submit(*item) checked to wait on nothing: a ~0.5 s torch.cuda._sleep
+    queued before it must still be running when it returns, and nothing in
+    it may synchronize (torch.cuda.set_sync_debug_mode("error") raises on a
+    synchronizing call). Returns its host ms."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SUBMIT_SLEEP_CYCLES)
+    after_sleep = torch.cuda.Event()
+    after_sleep.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        submit(*item)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if after_sleep.query():
+        raise AssertionError(f"submit_frame returned after the sleep queued before it had "
+                             f"ended ({host_ms:.1f} ms on the host)")
+    return host_ms
+
+
+def same_poses(a_frames, b_frames, what):
+    for a, b in zip(a_frames, b_frames):
+        if len(a["poses"]) != len(b["poses"]):
+            raise AssertionError(f"{what}: the runs posed different detections")
+        for pa, pb in zip(a["poses"], b["poses"]):
+            if not (pa["object_id"] == pb["object_id"]
+                    and np.allclose(pa["R"], pb["R"], atol=1e-5, rtol=0)
+                    and np.allclose(pa["t"], pb["t"], atol=1e-3, rtol=0)):
+                raise AssertionError(f"{what}: pose differs: {pa} vs {pb}")
+
+
+def stream_runs(label, make_stream, items, fns):
+    """A stream set-up (`make_stream()`: a MultiObjectStream with its
+    objects onboarded) driven three ways over `items`:
+
+    - synchronous (submit + complete a frame), timed: per frame submit_frame's
+      host ms and the CUDA-event ms from before it to the end of the work
+      it queued (the frame's segmentation and scoring on the card);
+    - pipelined with one frame in flight (process_stream), timed, then its
+      busy share under torch.profiler;
+    - pipelined on a fresh stream with every submit_frame checked
+      (checked_submit) and the NMS problems of the frames recorded.
+
+    The three runs' poses agree (R atol 1e-5, t 1e-3 mm). Returns
+    (synchronous results, recorded NMS problems, the synchronous run's
+    launches per kernel, summary)."""
+    import torch
+    stream = make_stream()
+    stream.finish_onboarding()
+    torch.cuda.synchronize()
+    reset_counts(fns)
+    sync, host_ms, event_ms = [], [], []
+    for item in items:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        stream.submit_frame(*item)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        sync.append(stream.complete_frame())
+        event_ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = read_counts(fns)
+    tp_sync = stream.throughput()
+
+    stream = make_stream()
+    stream.finish_onboarding()
+    torch.cuda.synchronize()
+    pipe = list(stream.process_stream(iter(items), depth_in_flight=1))
+    torch.cuda.synchronize()
+    tp_pipe = stream.throughput()
+    busy = device_busy(lambda: list(stream.process_stream(iter(items), depth_in_flight=1)),
+                       f"{label}: process_stream, one frame in flight")
+
+    # a fresh stream: right after a torch.profiler session, a submit_frame
+    # was seen to block the host for 740 ms behind the queued sleep
+    stream = make_stream()
+    stream.finish_onboarding()
+    submit = stream.submit_frame
+    checked_ms = []
+    stream.submit_frame = lambda *it: checked_ms.append(checked_submit(submit, it))
+    with recorded_nms() as nms_calls:
+        checked = list(stream.process_stream(iter(items), depth_in_flight=1))
+    del stream.submit_frame   # the wrapper holds the stream: no cycle left behind
+    torch.cuda.synchronize()
+    same_poses(pipe, sync, f"{label}: pipelined vs synchronous")
+    same_poses(checked, sync, f"{label}: checked vs synchronous")
+    n_poses = sum(len(r["poses"]) for r in sync)
+    for r in sync:
+        check_pose_records(r["poses"], label)
+    if n_poses < 1:
+        raise AssertionError(f"{label}: the stream posed nothing")
+    graphs = stream.ism._describe_graphs
+    out = dict(sync_ms_per_frame=tp_sync["ms_per_frame"], sync_p50_ms=tp_sync.get("p50_ms"),
+               pipelined_ms_per_frame=tp_pipe["ms_per_frame"],
+               pipelined_p50_ms=tp_pipe.get("p50_ms"), busy_share=busy,
+               submit_host_ms=statistics.median(host_ms),
+               frame_event_ms=statistics.median(event_ms),
+               checked_submit_host_ms=statistics.median(checked_ms))
+    STREAMS[label] = out
+    log(f"{label}: {len(items)} frames, poses per frame {[len(r['poses']) for r in sync]}, "
+        f"pipelined and checked poses equal the synchronous ones (R atol 1e-5, t atol 1e-3 "
+        f"mm); ms per frame synchronous {tp_sync['ms_per_frame']} (p50 "
+        f"{tp_sync.get('p50_ms')}) vs pipelined {tp_pipe['ms_per_frame']} (p50 "
+        f"{tp_pipe.get('p50_ms')}); submit_frame host ms per frame "
+        f"{', '.join(f'{m:.1f}' for m in host_ms)} against the CUDA-event ms of the work it "
+        f"queued {', '.join(f'{m:.1f}' for m in event_ms)}; every checked submit_frame "
+        f"returned under a queued {SUBMIT_SLEEP_CYCLES:.0e}-cycle sleep with no "
+        f"synchronizing call ({', '.join(f'{m:.1f}' for m in checked_ms)} ms on the host); "
+        f"describe graphs {[(k[:2], g.node_types) for k, g in graphs.items()]}; "
+        f"launches of the synchronous run {launches}")
+    return sync, nms_calls.calls, launches, out
+
+
+def nms_work(overlap, valid):
+    """(integer operations, rounds) of the fixed point on one problem, as
+    this run's data needs it: packing reads every flag once, and each
+    round ANDs and tests each undecided row's words twice."""
+    O = overlap.cpu().numpy()
+    n = O.shape[0]
+    words = -(-n // 32)
+    kept = np.zeros(n, bool)
+    supp = ~valid.cpu().numpy()
+    ops, rounds = n * n, 0
+    while (~kept & ~supp).any():
+        und = ~kept & ~supp
+        ops += int(und.sum()) * words * 4
+        above_live = (O & ~supp[None, :]).any(axis=1)
+        above_kept = (O & kept[None, :]).any(axis=1)
+        kept, supp = kept | (und & ~above_live), supp | (und & above_kept)
+        rounds += 1
+    return ops, rounds
+
+
+def check_nms_kernel(problems, launches):
+    """The NMS fixed-point kernel against its plain version on the problems
+    a frame handed it (the AMG's box NMS over the frame's candidates and
+    over the top T = 3072 of the full grid, the ISM's per-object NMS over
+    the 128 slots): keep sets and rounds
+    exactly equal, each timed (CUDA events) beside the plain loop and its
+    bound (O read once, the flags and the outputs: bytes; the integer
+    operations this data needs at the fp32 units' rate). Returns the
+    kernel's record."""
+    import torch
+    from sam6d_torch.kernels import nms
+    sizes = {}
+    for overlap, valid in reversed(problems):   # the last problem of each size
+        n = overlap.shape[0]
+        if n in sizes:
+            continue
+        keep, rounds = nms.nms_fixed_point_cuda(overlap, valid)
+        want_keep, want_rounds = nms.nms_fixed_point_plain(overlap, valid)
+        torch.cuda.synchronize()
+        if not (torch.equal(keep, want_keep) and int(rounds) == int(want_rounds)):
+            raise AssertionError(f"nms[{n}]: the kernel's keep set or rounds differ from "
+                                 f"the plain version's ({int(rounds)} vs {int(want_rounds)})")
+        ms = cuda_ms(lambda: nms.nms_fixed_point_cuda(overlap, valid), reps=5)
+        plain_ms = cuda_ms(lambda: nms.nms_fixed_point_plain(overlap, valid), reps=3)
+        ops, r = nms_work(overlap, valid)
+        b = bound(ops, n * n + 2 * n + 4)
+        sizes[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], rounds=r,
+                        kept=int(keep.sum()), valid=int(valid.sum()))
+        log(f"nms[{n}x{n}]: kernel equals the plain loop ({r} rounds, {int(keep.sum())} of "
+            f"{int(valid.sum())} valid kept); {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b[0]:.5f} ms ({b[1]})")
+    if not {3072, 128} <= set(sizes):
+        raise AssertionError(f"expected the AMG's 3072 and the ISM's 128 NMS problems, got "
+                             f"{sorted(sizes)}")
+    amg, ism = sizes[3072], sizes[128]
+    return dict(name="nms_fixed_point_cuda", route="cuda", source="sam6d_torch/csrc/nms.cu",
+                replaces="sam6d_tpu/ops/masks.py:143 (nms_masked, an XLA while_loop: no "
+                         "Pallas kernel)",
+                launches=launches, max_abs_err=0.0, tolerance="exact keep sets and rounds",
+                ms=amg["ms"], plain_ms=amg["plain_ms"], bound_ms=amg["bound_ms"],
+                bound_by=amg["bound_by"], library_ms=None,
+                ism_ms=ism["ms"], ism_plain_ms=ism["plain_ms"], ism_bound_ms=ism["bound_ms"],
+                ism_bound_by=ism["bound_by"], problems=sizes,
+                shapes="AMG full grid 3072x3072 (ms); ISM 128x128 (ism_ms); the AMG's "
+                       "prefix candidates in `problems`; from a stream frame")
+
+
+def check_graph_describe(ism, job):
+    """The describe graph against the eager describe on the job's 128
+    proposal slots with 48 valid: a device n_needed of 48 runs three chunk
+    bodies, K5 launched 72 times (24 a chunk, counted from the graph's
+    chunk runs), descriptors within DESCRIBE_ATOL of the eager loop's
+    (host n), the slots past the prefix zero; both on CUDA events."""
+    import torch
+    from sam6d_torch.kernels import attention_qkv
+    dev = torch.device("cuda")
+    props = job["proposals"]
+    n_valid = int(props["valid"].sum())
+    k5 = {"fused_attention_qkv_cuda": attention_qkv.fused_attention_qkv_cuda}
+    with torch.inference_mode():
+        rgb01 = torch.as_tensor(job["rgb_arr"], device=dev).float() / 255.0
+        masks = torch.as_tensor(props["masks"], device=dev).float()
+        boxes = torch.as_tensor(props["boxes"], device=dev).int()
+        n_dev = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        reset_counts(k5)
+        g_cls, g_patch = ism._describe_impl(rgb01, masks, boxes, n_dev)
+        launches = read_counts(k5)["fused_attention_qkv_cuda"]
+        e_cls, e_patch = ism._describe_impl(rgb01, masks, boxes, n_valid)
+        torch.cuda.synchronize()
+        err = max(float((g_cls - e_cls).abs().max()), float((g_patch - e_patch).abs().max()))
+        g_ms = cuda_ms(lambda: ism._describe_impl(rgb01, masks, boxes, n_dev), reps=3)
+        e_ms = cuda_ms(lambda: ism._describe_impl(rgb01, masks, boxes, n_valid), reps=3)
+    want = ism.cfg.dinov2.depth * -(-n_valid // ism.cfg.dinov2.chunk_size)
+    described = -(-n_valid // ism.cfg.dinov2.chunk_size) * ism.cfg.dinov2.chunk_size
+    log(f"describe graph: {n_valid} valid of {len(props['valid'])} slots, K5 launched "
+        f"{launches} times by the graph (expected {want}); vs the eager loop max |diff| "
+        f"{err:.2e} (atol {DESCRIBE_ATOL}); {g_ms:.1f} ms graph, {e_ms:.1f} ms eager (CUDA "
+        f"events)")
+    if launches != want:
+        raise AssertionError(f"the describe graph launched K5 {launches} times, not {want}")
+    if not err <= DESCRIBE_ATOL or g_cls[described:].any():
+        raise AssertionError("the describe graph disagrees with the eager describe")
+    return dict(graph_ms=g_ms, eager_ms=e_ms, max_abs_err=err, k5_launches=launches)
+
+
 def phase_stream(seg, ism_cfg, job, tdir, fns):
     """MultiObjectStream with two onboarded objects (the job's box and a
     second box of other extents) over 4 frames (the job's frame and 3 with
-    the objects moved): synchronous process_frame on one stream, then
-    process_stream(depth_in_flight=1) on a fresh one; the poses must agree."""
+    the objects moved), through stream_runs: synchronous and pipelined,
+    timed, and pipelined with every submit_frame checked to wait on
+    nothing; then the NMS kernel on the frames' captured problems and the
+    describe graph against the eager describe. Returns the NMS kernel's
+    record."""
     import torch
     from sam6d_torch.data.mesh import load_ply
     from sam6d_torch.data.synthetic import K_CAM, write_stream_frames
+    from sam6d_torch.kernels import nms
     from sam6d_torch.pipelines.ism import ISMPipeline
     from sam6d_torch.pipelines.pem import PEMConfig, PEMPipeline
     from sam6d_torch.pipelines.streaming import MultiObjectStream
@@ -1642,47 +1924,33 @@ def phase_stream(seg, ism_cfg, job, tdir, fns):
     pem = PEMPipeline(pem_cfg, seed=SEED, device="cuda")
     items = [(rgb, depth, K_CAM, 1.0) for rgb, depth in frames]
 
-    def run(pipelined):
+    def make_stream():
         stream = MultiObjectStream(ism, pem, det_score_thresh=-1.0)
         rng = np.random.RandomState(0)
-        t0 = time.perf_counter()
         for i, (d, cad) in enumerate(((tdir, job["cad"]), (tdir2, cad2))):
             mesh = load_ply(cad)
             stream.onboard_object(
                 i + 1, d, mesh.sample(pem_cfg.n_sample_model_point, rng) / 1000.0,
                 ism_points=mesh.sample(ism_cfg.matching.pointcloud_sample_num, rng) / 1000.0)
-        torch.cuda.synchronize()
-        onboard_s = time.perf_counter() - t0
-        reset_counts(fns)
-        out = (list(stream.process_stream(iter(items), depth_in_flight=1)) if pipelined
-               else [stream.process_frame(*it) for it in items])
-        torch.cuda.synchronize()
-        tp = stream.throughput()
-        log(f"stream ({'pipelined, 1 in flight' if pipelined else 'synchronous'}): onboarding "
-            f"2 objects {onboard_s:.2f} s; {len(out)} frames, poses per frame "
-            f"{[len(r['poses']) for r in out]}; throughput {tp}; last frame host split "
-            + ", ".join(f"{k} {v:.1f}" for k, v in stream.last_timing.items())
-            + f"; kernel launches {read_counts(fns)}")
-        return out, tp
+        return stream
 
-    sync, tp_sync = run(False)
-    pipe, tp_pipe = run(True)
-    n_poses = 0
-    for a, b in zip(pipe, sync):
-        if len(a["poses"]) != len(b["poses"]):
-            raise AssertionError("pipelined and synchronous streams posed different detections")
-        for pa, pb in zip(a["poses"], b["poses"]):
-            if not (pa["object_id"] == pb["object_id"]
-                    and np.allclose(pa["R"], pb["R"], atol=1e-5, rtol=0)
-                    and np.allclose(pa["t"], pb["t"], atol=1e-3, rtol=0)):
-                raise AssertionError(f"pipelined pose differs: {pa} vs {pb}")
-        check_pose_records(a["poses"], "stream")
-        n_poses += len(a["poses"])
-    if len(pipe) != len(items) or n_poses < 1:
-        raise AssertionError("the stream posed nothing")
-    log(f"stream: pipelined poses equal the synchronous ones over {len(items)} frames, "
-        f"{n_poses} poses (R atol 1e-5, t atol 1e-3 mm); ms per frame synchronous "
-        f"{tp_sync['ms_per_frame']} vs pipelined {tp_pipe['ms_per_frame']}")
+    counted = dict(fns, nms_fixed_point_cuda=nms.nms_fixed_point_cuda)
+    _, problems, launches, _ = stream_runs("stream (fp32)", make_stream, items, counted)
+    if launches["nms_fixed_point_cuda"] != 2 * len(items):
+        raise AssertionError(f"expected 2 NMS launches a frame, got {launches}")
+    # at capacity 128 the iou prefix leaves the AMG 384 candidates; its exact
+    # twin (no prefix) hands NMS the full T = amg_nms_topk = 3072 of the frame
+    full = copy.copy(seg)
+    full.cfg = dataclasses.replace(seg.cfg, amg_iou_prefix_factor=0.0)
+    resized, _, (hs, ws), (h_in, w_in) = full.preprocess_frame_u8(items[0][0])
+    Ry, Rx, pts = full.frame_constants(hs, ws, h_in, w_in)
+    with torch.inference_mode(), recorded_nms() as full_grid:   # eager: its NMS call is seen
+        full._propose_impl(full._encode_u8(torch.as_tensor(resized, device="cuda")), pts, Ry, Rx)
+    record = check_nms_kernel(full_grid.calls + problems, launches["nms_fixed_point_cuda"])
+    record["streams"] = STREAMS
+    record["describe_graph"] = check_graph_describe(ism, job)
+    torch.cuda.synchronize()
+    return record
 
 
 def phase_describe_448(job, fns):
@@ -1727,16 +1995,16 @@ def phase_describe_448(job, fns):
 
 def phase_frame(seg, ism_cfg, job):
     """Phase 7: the frame through the port's entry points, at full width.
-    Returns the launches of the 448 describe."""
+    Returns (the launches of the 448 describe, the NMS kernel's record)."""
     import torch
     fns = frame_counters()
     tdir = phase_render(job)
     torch.cuda.empty_cache()
     phase_demo(job, fns)
     torch.cuda.empty_cache()
-    phase_stream(seg, ism_cfg, job, tdir, fns)
+    nms_record = phase_stream(seg, ism_cfg, job, tdir, fns)
     torch.cuda.empty_cache()
-    return phase_describe_448(job, fns)
+    return phase_describe_448(job, fns), nms_record
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2572,7 +2840,8 @@ def fastsam_stages(seg, rgb):
         return dict(x=x, all_scores=preds[0, :, 4], top=top, scores=scores, keep=keep,
                     coefs=coefs, protos=protos[0],
                     boxes_in=boxes, boxes=seg.original_boxes(boxes, scale, H0, W0),
-                    probs=probs, geometry=(h_in, w_in, H0, W0), rounds=seg.last_nms_rounds)
+                    probs=probs, geometry=(h_in, w_in, H0, W0),
+                    rounds=int(seg.last_nms_rounds))
 
 
 def check_fastsam_against_plain(seg, rgb, card):
@@ -2704,8 +2973,8 @@ def phase_fastsam(job, device="cuda"):
     log(f"fastsam: generate_masks_device on the {H0}x{W0} frame (FastSAM-x at "
         f"{seg.cfg.imgsz}, {D} slots) cold {cold_ms:.1f} ms, then wall "
         + ", ".join(f"{m:.1f}" for m in walls) + f" ms; {n_valid} of {D} slots valid; NMS "
-        f"{seg.last_nms_rounds} rounds ({seg.last_nms_rounds + 1} device->host syncs); no "
-        f"kernel launched; split on CUDA events (median of 5; the host letterbox on the "
+        f"{int(seg.last_nms_rounds)} rounds in one NMS kernel launch; no attention or "
+        f"point kernel launched; split on CUDA events (median of 5; the host letterbox on the "
         f"host's clock) beside the fp32 bound: "
         + "; ".join(f"{k} {v:.3f} ms (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})"
                     for k, v in t.items()))
@@ -3463,12 +3732,13 @@ def phase_bf16_path(job, ptxas):
     from sam6d_torch.core.config import (Config, DINOv2Config, ISMConfig, ISMMatchingConfig,
                                          SAMConfig)
     from sam6d_torch.data.mesh import load_ply
-    from sam6d_torch.data.synthetic import K_CAM, write_pem_job
+    from sam6d_torch.data.synthetic import K_CAM, write_pem_job, write_stream_frames
     from sam6d_torch.pipelines.demo import run_demo
     from sam6d_torch.pipelines.ism import ISMPipeline
     from sam6d_torch.pipelines.pem import PEMConfig, PEMPipeline
     from sam6d_torch.pipelines.sam_amg import SAMSegmentor
     from sam6d_torch.pipelines.streaming import MultiObjectStream
+    from sam6d_torch.render.templates import render_templates
     f32, b16 = torch.float32, torch.bfloat16
     fns = bf16_counters()
     rgb, depth = job["rgb_arr"], job["depth_arr"]
@@ -3658,27 +3928,42 @@ def phase_bf16_path(job, ptxas):
             got[n + "_cuda"] for n in FACTORED):
         raise AssertionError("bf16 run_demo reached an fp32 attention or factored entry")
 
+    # phase 7's stream in bf16: the same two objects and four frames
     seg16 = SAMSegmentor(scfg, seed=SEED, device="cuda", dtype=b16)
-    stream = MultiObjectStream(
-        ISMPipeline(icfg, seed=SEED, device="cuda", segmentor=seg16, dtype=b16),
-        PEMPipeline(pcfg, seed=SEED, device="cuda", dtype=b16), det_score_thresh=-1.0)
-    mesh = load_ply(job["cad"])
-    rs = np.random.RandomState(0)
-    stream.onboard_object(1, os.path.join(out_dir, "templates"),
-                          mesh.sample(pcfg.n_sample_model_point, rs) / 1000.0,
-                          ism_points=mesh.sample(icfg.matching.pointcloud_sample_num, rs) / 1000.0)
-    reset_counts(fns)
-    frames = list(stream.process_stream(iter([(rgb, depth, K_CAM, 1.0)] * 2),
-                                        depth_in_flight=1))
-    torch.cuda.synchronize()
-    got = read_counts(fns)
-    paths["bf16 MultiObjectStream, 2 frames"] = got
-    n_poses = sum(len(f["poses"]) for f in frames)
-    for f in frames:
-        check_pose_records(f["poses"], "bf16 stream")
-    log(f"bf16 MultiObjectStream: {len(frames)} frames, {n_poses} poses; launches {got}")
-    if n_poses < 1 or got["flash_attention_relpos_bf16_cuda"] < 1:
-        raise AssertionError("the bf16 stream posed nothing or skipped the bf16 entries")
+    ism16 = ISMPipeline(icfg, seed=SEED, device="cuda", segmentor=seg16, dtype=b16)
+    pem16 = PEMPipeline(pcfg, seed=SEED, device="cuda", dtype=b16)
+    cad2, _, frames2 = write_stream_frames(job["dir"], np.random.RandomState(SEED + 3))
+    tdir2 = os.path.join(job["dir"], "obj2", "templates")
+    if not os.path.isdir(tdir2):   # phase 12 run alone
+        tdir2 = render_templates(load_ply(cad2), os.path.join(job["dir"], "obj2"),
+                                 device="cuda")
+    objects = ((os.path.join(out_dir, "templates"), job["cad"]), (tdir2, cad2))
+
+    def make_stream():
+        stream = MultiObjectStream(ism16, pem16, det_score_thresh=-1.0)
+        rs = np.random.RandomState(0)
+        for i, (tdir, cad) in enumerate(objects):
+            mesh = load_ply(cad)
+            stream.onboard_object(
+                i + 1, tdir, mesh.sample(pcfg.n_sample_model_point, rs) / 1000.0,
+                ism_points=mesh.sample(icfg.matching.pointcloud_sample_num, rs) / 1000.0)
+        return stream
+
+    from sam6d_torch.kernels import nms
+    counted = dict(fns, nms_fixed_point_cuda=nms.nms_fixed_point_cuda)
+    _, problems, got, _ = stream_runs("stream (bf16)", make_stream,
+                                      [(r, d, K_CAM, 1.0) for r, d in frames2], counted)
+    got.pop("nms_fixed_point_cuda")
+    paths["bf16 MultiObjectStream, 4 frames"] = got
+    for overlap, valid in problems[:2]:
+        keep, rounds = nms.nms_fixed_point_cuda(overlap, valid)
+        want_keep, want_rounds = nms.nms_fixed_point_plain(overlap, valid)
+        if not (torch.equal(keep, want_keep) and int(rounds) == int(want_rounds)):
+            raise AssertionError("bf16 stream: the NMS kernel differs from its plain version")
+    log(f"bf16 stream: the NMS kernel equals its plain version on the frame's "
+        f"{[tuple(o.shape) for o, _ in problems[:2]]} problems; launches {got}")
+    if got["flash_attention_relpos_bf16_cuda"] < 1:
+        raise AssertionError("the bf16 stream skipped the bf16 entries")
     return launches, paths, factored_records
 
 
@@ -3975,12 +4260,13 @@ def main():
         torch.cuda.empty_cache()
         sam_launches = phase_sam(seg, ism_cfg, job_dir, job)
         torch.cuda.empty_cache()
-        describe_launches = phase_frame(seg, ism_cfg, dict(job, dir=job_dir))
+        describe_launches, nms_record = phase_frame(seg, ism_cfg, dict(job, dir=job_dir))
         torch.cuda.empty_cache()
         bop_launches, bop_rgb, bop_job = phase_bop(job_dir)
         torch.cuda.empty_cache()
         predictor_launches = phase_predictor(seg, bop_rgb, bop_job)
         del seg
+        gc.collect()   # pipelines caught in reference cycles hold the card's memory
         torch.cuda.empty_cache()
         train_launches, train_records = phase_train(job_dir)
         torch.cuda.empty_cache()
@@ -4013,6 +4299,9 @@ def main():
             "PEM training step": train_launches[k["name"]]}
         k["path_launches"].update({p: n[k["name"]] for p, n in option_launches.items()})
         k["path_launches"].update({p: n[k["name"]] for p, n in bf16_paths.items()})
+    # the NMS kernel (no TPU kernel: JAX's NMS is an XLA loop), its
+    # launches on phase 7's synchronous stream
+    kernels.append(nms_record)
     # the bf16 entries: their launches on the bf16 path of phase 12
     kernels += bf16_kernels
     # and every kernel's launches in each deployment artifact (phase 13)

@@ -194,8 +194,10 @@ struct RelPosBias : RelPosAdd {
 template <int HD>
 struct RelPosBiasBf16 {
   static constexpr bool kPrescale = true;
-  __nv_bfloat16* tab_h;  // [64][gh + 1]: the warpgroup's rows, in shared memory
-  __nv_bfloat16* tab_w;  // [64][gw + 2]
+  // the warpgroup's rows, in shared memory (mutable: RelPosBiasBf16Global
+  // points them at the current row tile's rows in global memory)
+  mutable __nv_bfloat16* tab_h;  // [64][gh + 1]
+  mutable __nv_bfloat16* tab_w;  // [64][gw + 2]
   int gh, gw;
   int row;               // the lane's row g in the warpgroup's tile
   const __nv_bfloat16* pos_h;  // rel_pos_h (2 gh - 1, HD)
@@ -364,6 +366,127 @@ size_t smem_bytes_bf16(int n, int gh, int gw) {
          sizeof(float) * sam6d::wgattn::kThreads / 32 * 2 * HD;
 }
 
+// Where a grid's table rows do not fit shared memory beside the ring (1 x
+// 1000 at hd 16 needs 330 KB), the tables come from global memory: a
+// pre-pass (relpos_tables_bf16_kernel) forms every query's rows, each entry
+// in the same two FMA chains as RelPosBiasBf16::prepare, into a workspace
+// of rows padded like the shared ones ([n rounded up to 64][gh + 1] and
+// [..][gw + 2] a (sample, head)), and the attention kernel's bias points
+// its rows at the current row tile's rows there: add() then reads them
+// from global memory (L2) instead of shared memory.
+template <int HD>
+struct RelPosBiasBf16Global : RelPosBiasBf16<HD> {
+  const __nv_bfloat16* rows_h;  // the (sample, head)'s rel_h rows
+  const __nv_bfloat16* rows_w;  // its rel_w rows
+
+  __device__ __forceinline__ void prepare(const unsigned char*, int q0, int) const {
+    this->tab_h = const_cast<__nv_bfloat16*>(rows_h) + q0 * (this->gh + 1);
+    this->tab_w = const_cast<__nv_bfloat16*>(rows_w) + q0 * (this->gw + 2);
+  }
+};
+
+__host__ __device__ constexpr int padded_rows(int n) {
+  return (n + sam6d::wgattn::kRowsWG - 1) / sam6d::wgattn::kRowsWG * sam6d::wgattn::kRowsWG;
+}
+
+// the global tables of one (sample, head): rel_h rows then rel_w rows
+__host__ __device__ constexpr size_t table_entries(int n, int gh, int gw) {
+  return static_cast<size_t>(padded_rows(n)) * (gh + 1 + gw + 2);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256)
+    relpos_tables_bf16_kernel(const sam6d::wgattn::bf16* __restrict__ qkv,
+                              const sam6d::wgattn::bf16* __restrict__ rel_pos_h,
+                              const sam6d::wgattn::bf16* __restrict__ rel_pos_w,
+                              sam6d::wgattn::bf16* __restrict__ tables, int n, int heads,
+                              int gh, int gw) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int per_row = gh + gw;
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  const int tok = e / per_row, j = e - tok * per_row;
+  if (tok >= padded_rows(n)) return;
+  __nv_bfloat16* rows = tables + (static_cast<size_t>(b) * heads + h) * table_entries(n, gh, gw);
+  const bool is_w = j >= gh;
+  __nv_bfloat16* dst = is_w ? rows + static_cast<size_t>(padded_rows(n)) * (gh + 1) +
+                                  static_cast<size_t>(tok) * (gw + 2) + (j - gh)
+                            : rows + static_cast<size_t>(tok) * (gh + 1) + j;
+  if (tok >= n) {  // rows past n: finite entries, never read into an output
+    *dst = __float2bfloat16_rn(0.f);
+    return;
+  }
+  const int c = heads * HD;
+  const __nv_bfloat16* q = qkv + (static_cast<size_t>(b) * n + tok) * 3 * c + h * HD;
+  const __nv_bfloat16* rel = is_w ? rel_pos_w + (tok % gw - (j - gh) + gw - 1) * HD
+                                  : rel_pos_h + (tok / gw - j + gh - 1) * HD;
+  float even = 0.f, odd = 0.f;  // RelPosBiasBf16::prepare's two chains
+#pragma unroll
+  for (int d = 0; d < HD; d += 2) {
+    even = fmaf(__bfloat162float(q[d]), __bfloat162float(rel[d]), even);
+    odd = fmaf(__bfloat162float(q[d + 1]), __bfloat162float(rel[d + 1]), odd);
+  }
+  *dst = __float2bfloat16_rn(even + odd);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
+    attention_relpos_wgmma_global_kernel(const __grid_constant__ sam6d::wgattn::KVMaps maps,
+                                         const sam6d::wgattn::bf16* __restrict__ qkv,
+                                         const sam6d::wgattn::bf16* __restrict__ tables,
+                                         sam6d::wgattn::bf16* __restrict__ out, int n,
+                                         int heads, int gh, int gw, int row_tiles,
+                                         float scale) {
+  namespace wa = sam6d::wgattn;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = wa::checked_base(smem_raw);
+  const int c = heads * HD;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* rows = tables + (static_cast<size_t>(b) * heads + h) *
+                                           table_entries(n, gh, gw);
+  RelPosBiasBf16Global<HD> bias;
+  bias.gh = gh;
+  bias.gw = gw;
+  bias.row = static_cast<int>(threadIdx.x % 128 / 32) * 16 + lane / 4;
+  bias.rows_h = rows;
+  bias.rows_w = rows + static_cast<size_t>(padded_rows(n)) * (gh + 1);
+  const wa::Tiles op{qkv + static_cast<size_t>(b) * n * 3 * c + h * HD,
+                     out + static_cast<size_t>(b) * n * c + h * HD,
+                     3LL * c, c, n, n, HD, h, b};
+  const int rt0 = blockIdx.x * row_tiles;
+  wa::attend<HD>(maps, op, smem, rt0, min(row_tiles, (n + wa::kRowsWG - 1) / wa::kRowsWG - rt0),
+                 scale, wa::kLog2e, bias);
+}
+
+template <int HD>
+int launch_bf16_global(const void* qkv, const void* rel_pos_h, const void* rel_pos_w,
+                       void* tables, void* out, int b, int n, int heads, int gh, int gw,
+                       float scale, cudaStream_t stream) {
+  namespace wa = sam6d::wgattn;
+  const size_t bytes = wa::core_smem_bytes<HD>(n);
+  if (bytes > kMaxSmemBf16) return static_cast<int>(cudaErrorInvalidValue);
+  wa::KVMaps maps;
+  int err = wa::encode_qkv_maps<HD>(maps, qkv, b, n, heads);
+  if (err != 0) return err;
+  err = static_cast<int>(cudaFuncSetAttribute(attention_relpos_wgmma_global_kernel<HD>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(bytes)));
+  if (err != 0) return err;
+  const long long entries = static_cast<long long>(padded_rows(n)) * (gh + gw);
+  const dim3 pre((entries + 255) / 256, heads, b);
+  relpos_tables_bf16_kernel<HD><<<pre, 256, 0, stream>>>(
+      static_cast<const wa::bf16*>(qkv), static_cast<const wa::bf16*>(rel_pos_h),
+      static_cast<const wa::bf16*>(rel_pos_w), static_cast<wa::bf16*>(tables), n, heads, gh, gw);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int row_tiles = wa::row_tiles_per_block<HD>(n, n);
+  const dim3 grid(((n + wa::kRowsWG - 1) / wa::kRowsWG + row_tiles - 1) / row_tiles, heads, b);
+  attention_relpos_wgmma_global_kernel<HD><<<grid, wa::kThreads, bytes, stream>>>(
+      maps, static_cast<const wa::bf16*>(qkv), static_cast<const wa::bf16*>(tables),
+      static_cast<wa::bf16*>(out), n, heads, gh, gw, row_tiles, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 __global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
     attention_relpos_wgmma_kernel(const __grid_constant__ sam6d::wgattn::KVMaps maps,
@@ -456,6 +579,24 @@ int sam6d_flash_attention_relpos_bf16(const void* qkv, const void* rel_pos_h,
   }
 }
 
+// The bf16 entry for a grid whose tables do not fit shared memory beside the
+// ring: the same contract, the tables formed by a pre-pass into `tables`
+// (sam6d_flash_attention_relpos_bf16_tables_bytes bytes, 16-byte aligned)
+// and read from there. Two launches on `stream`.
+int sam6d_flash_attention_relpos_bf16_global(const void* qkv, const void* rel_pos_h,
+                                             const void* rel_pos_w, void* tables, void* out,
+                                             int b, int n, int heads, int hd, int gh, int gw,
+                                             float scale, cudaStream_t stream) {
+  if (gh * gw != n) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return launch_bf16_global<16>(qkv, rel_pos_h, rel_pos_w, tables, out, b, n, heads, gh, gw, scale, stream);
+    case 32: return launch_bf16_global<32>(qkv, rel_pos_h, rel_pos_w, tables, out, b, n, heads, gh, gw, scale, stream);
+    case 64: return launch_bf16_global<64>(qkv, rel_pos_h, rel_pos_w, tables, out, b, n, heads, gh, gw, scale, stream);
+    case 80: return launch_bf16_global<80>(qkv, rel_pos_h, rel_pos_w, tables, out, b, n, heads, gh, gw, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // Dynamic shared memory, bytes, of a block of the bf16 entry on a gh x gw
 // grid (n == gh * gw keys) at head dim hd, as its launch sizes it; -1 for an
 // hd it does not take. The launch refuses a size above 227 KB.
@@ -467,6 +608,18 @@ int sam6d_flash_attention_relpos_bf16_smem(int n, int hd, int gh, int gw) {
     case 80: return static_cast<int>(smem_bytes_bf16<80>(n, gh, gw));
     default: return -1;
   }
+}
+
+// Bytes of the global tables the bf16 entry needs on a gh x gw grid at head
+// dim hd: 0 where its tables fit shared memory beside the ring (the launch
+// of sam6d_flash_attention_relpos_bf16), else the workspace of
+// sam6d_flash_attention_relpos_bf16_global; -1 for an hd it does not take.
+long long sam6d_flash_attention_relpos_bf16_tables_bytes(int b, int n, int heads, int hd,
+                                                         int gh, int gw) {
+  const int smem = sam6d_flash_attention_relpos_bf16_smem(n, hd, gh, gw);
+  if (smem < 0) return -1;
+  if (static_cast<size_t>(smem) <= kMaxSmemBf16) return 0;
+  return static_cast<long long>(sizeof(__nv_bfloat16)) * b * heads * table_entries(n, gh, gw);
 }
 
 }  // extern "C"

@@ -72,7 +72,18 @@ _SIGNATURES = {
     "sam6d_factored_i2t_scores_bf16": [_P, _P, _PP, _PP, _IP, _I, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _P],
     "sam6d_factored_i2t_scores_bf16_smem": [_IP, _I, _I],
+    "sam6d_nms_workspace_bytes": [_I],
+    "sam6d_nms_fixed_point": [_P, _P, _P, _I, _P, _P, _P],
+    "sam6d_describe_graph_build": [_PP, _I, _PP, _LP, _I, _P, _I, _PP, _PP, _IP],
+    "sam6d_describe_graph_launch": [_P, _P],
+    "sam6d_describe_graph_destroy": [_P, _P],
+    "sam6d_describe_graph_node_types": [],
+    "sam6d_flash_attention_relpos_bf16_global": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                                 _I, _I, _F, _P],
+    "sam6d_flash_attention_relpos_bf16_tables_bytes": [_I, _I, _I, _I, _I, _I],
 }
+# entries that return something other than a CUDA error code (an int)
+_RESTYPES = {"sam6d_flash_attention_relpos_bf16_tables_bytes": ctypes.c_longlong}
 
 _lib = None
 
@@ -147,7 +158,7 @@ def load_library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

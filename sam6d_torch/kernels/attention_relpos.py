@@ -31,13 +31,14 @@ tokens of the windowed blocks included, as the reference does; the output
 
 A bfloat16 qkv with bfloat16 rel-pos tables (the weights' dtype) takes the
 bf16 entry (`csrc/attention_relpos.cu` on the core of `csrc/bf16_wgmma.cuh`:
-`wgmma` for both products, K/V tiles by TMA; a grid whose tables do not fit
-a block's shared memory beside the ring is refused) or, on the
-CPU, its plain version: the tables formed in fp32 from the bf16 q and
-rel-pos rows and rounded to bf16, as the TPU wrapper casts them before its
-kernel (flash_attention.py:337-372), each entry summed in the kernel's
-order (`bf16_rel_pos_tables`); q enters the product as
-bf16(q * bf16(scale)); then the bf16 contract of
+`wgmma` for both products, K/V tiles by TMA; the tables in shared memory,
+or, for a grid whose tables do not fit a block's shared memory beside the
+ring, formed by a pre-pass into global memory and read from there:
+`bf16_tables_in_global`) or, on the CPU, its plain version: the tables
+formed in fp32 from the bf16 q and rel-pos rows and rounded to bf16, as
+the TPU wrapper casts them before its kernel (flash_attention.py:337-372),
+each entry summed in the kernel's order (`bf16_rel_pos_tables`); q enters
+the product as bf16(q * bf16(scale)); then the bf16 contract of
 `attention.bf16_attention_plain`, bf16 out.
 """
 from __future__ import annotations
@@ -208,15 +209,31 @@ def flash_attention_relpos_bf16_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     lib = load_library()
     out = torch.empty((B, N, C3 // 3), dtype=torch.bfloat16, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.sam6d_flash_attention_relpos_bf16(
-        qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(),
-        B, N, heads, hd, H, W, bf16_scale(hd ** -0.5), stream)
+    table_bytes = lib.sam6d_flash_attention_relpos_bf16_tables_bytes(B, N, heads, hd, H, W)
+    if table_bytes:   # the tables do not fit beside the ring: formed in global memory
+        tables = torch.empty(table_bytes // 2, dtype=torch.bfloat16, device=qkv.device)
+        err = lib.sam6d_flash_attention_relpos_bf16_global(
+            qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), tables.data_ptr(),
+            out.data_ptr(), B, N, heads, hd, H, W, bf16_scale(hd ** -0.5), stream)
+    else:
+        err = lib.sam6d_flash_attention_relpos_bf16(
+            qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(),
+            B, N, heads, hd, H, W, bf16_scale(hd ** -0.5), stream)
     flash_attention_relpos_bf16_cuda.launches += 1
     check(err, name)
     return out
 
 
 flash_attention_relpos_bf16_cuda.launches = 0
+
+
+def bf16_tables_in_global(B: int, hw, heads: int, hd: int) -> bool:
+    """Whether the bf16 entry forms a grid's tables in global memory (they
+    do not fit a block's shared memory beside the ring) rather than in
+    shared memory."""
+    H, W = hw
+    return load_library().sam6d_flash_attention_relpos_bf16_tables_bytes(
+        B, H * W, heads, hd, H, W) > 0
 
 
 def flash_attention_relpos(qkv: torch.Tensor, rel_pos_h: torch.Tensor,

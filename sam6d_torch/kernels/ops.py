@@ -1,4 +1,4 @@
-"""The nine kernel entries as PyTorch operators: `torch.ops.sam6d.<name>`.
+"""The kernel entries as PyTorch operators: `torch.ops.sam6d.<name>`.
 
 Each operator has exactly two implementations and a fake one:
 
@@ -23,12 +23,12 @@ length. The launch counters stay on the `*_cuda` functions, which count a
 launch where they make it.
 
 The public dispatch functions of `fps.py`, `ball_query.py`,
-`attention_qkv.py`, `attention.py`, `attention_relpos.py` and `factored.py`
-call these operators; importing `sam6d_torch.kernels` registers them.
+`attention_qkv.py`, `attention.py`, `attention_relpos.py`, `factored.py` and
+`nms.py` call these operators; importing `sam6d_torch.kernels` registers them.
 """
 import torch
 
-from . import attention, attention_qkv, attention_relpos, ball_query, factored, fps
+from . import attention, attention_qkv, attention_relpos, ball_query, factored, fps, nms
 from .attention import operand_dtype
 
 NAMESPACE = "sam6d"
@@ -215,3 +215,18 @@ factored_i2t_scores = _register(
     ("factored_i2t_scores_bf16_cuda", "factored_i2t_scores_bf16_plain"), blocks_at=2,
     operands=lambda kt, UQ, pds, scales, *rest: (kt, UQ, *pds, *scales, *rest[:3]),
     fake=_i2t_fake)
+
+
+# ------------------------------------------- NMS to its fixed point (no TPU kernel)
+
+
+def _nms_fake(overlap, valid):
+    return (valid.new_empty(valid.shape, dtype=torch.bool),
+            valid.new_empty((), dtype=torch.int32))
+
+
+nms_fixed_point = _register(
+    "nms_fixed_point", "(Tensor overlap, Tensor valid) -> (Tensor, Tensor)",
+    nms,
+    ("nms_fixed_point_cuda", "nms_fixed_point_plain"),
+    fake=_nms_fake)

@@ -43,10 +43,12 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.uploads import device_constant
 from ..kernels.attention_relpos import flash_attention_relpos
 from ..kernels.factored import (blocks_concat, factored_i2t_scores,
                                 factored_ln_stats, factored_t2i_attention,
@@ -252,7 +254,8 @@ class PromptEncoder(nn.Module):
 
     def _size(self, like):
         H, W = self.input_image_size
-        return torch.tensor([W, H], dtype=torch.float32, device=like.device)
+        return device_constant(("sam_input_size", W, H), lambda: np.array([W, H], np.float32),
+                               like.device)
 
     def embed_points(self, points, labels, pad: bool = True):
         """points (B, N, 2) pixel coords in the model input frame; labels

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.uploads import device_constant
+
 
 def _split_mul(m: torch.Tensor, p: torch.Tensor):
     """Exact product m*p = a + b for integer-valued f32 m (|m| < 2^12) and
@@ -139,7 +141,10 @@ def masked_crop_resize_pad_nearest(image: torch.Tensor, masks: torch.Tensor,
 
 
 def normalize_imagenet(rgb: torch.Tensor) -> torch.Tensor:
-    """float [0,1] (..., 3) -> ImageNet-normalized."""
-    mean = torch.tensor([0.485, 0.456, 0.406], dtype=rgb.dtype, device=rgb.device)
-    std = torch.tensor([0.229, 0.224, 0.225], dtype=rgb.dtype, device=rgb.device)
+    """float [0,1] (..., 3) -> ImageNet-normalized (the constants uploaded
+    once a device and dtype)."""
+    mean = device_constant("imagenet_mean", lambda: torch.tensor(
+        [0.485, 0.456, 0.406], dtype=rgb.dtype), rgb.device, rgb.dtype)
+    std = device_constant("imagenet_std", lambda: torch.tensor(
+        [0.229, 0.224, 0.225], dtype=rgb.dtype), rgb.device, rgb.dtype)
     return (rgb - mean) / std

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.nms import nms_fixed_point, nms_fixed_point_plain
+
 
 def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
     """(N, H, W) binary -> (N, 4) float32 xyxy boxes (exclusive max); an
@@ -51,11 +53,25 @@ def mask_iou_matrix(masks: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(area[:, None] + area[None, :] - inter, min=1e-8)
 
 
+def nms_overlap(iou: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                same_group: torch.Tensor, thresh: float) -> torch.Tensor:
+    """(N, N) bool O: O[i, j] where j ranks above i and the two overlap above
+    `thresh` in one group. j ranks above i iff (score_j, -j) > (score_i, -i):
+    the stable argsort(-score) order, with no gathers; invalid slots score
+    -inf."""
+    N = scores.shape[0]
+    s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
+    idx = torch.arange(N, device=scores.device)
+    beats = (s[None, :] > s[:, None]) | ((s[None, :] == s[:, None])
+                                         & (idx[None, :] < idx[:, None]))
+    return (iou > thresh) & same_group & beats
+
+
 def nms_masked_rounds(iou: torch.Tensor, scores: torch.Tensor,
                       valid: torch.Tensor, same_group: torch.Tensor,
                       thresh: float):
-    """Greedy NMS over a fixed-capacity set as a parallel fixed point.
-    Returns (keep mask (N,), number of rounds).
+    """Greedy NMS over a fixed-capacity set as a parallel fixed point, in
+    plain torch ops. Returns (keep mask (N,), number of rounds).
 
     Each round decides every candidate whose higher-ranked overlapping
     candidates are decided: it is KEPT if none of them is kept-or-undecided,
@@ -63,28 +79,21 @@ def nms_masked_rounds(iou: torch.Tensor, scores: torch.Tensor,
     candidate always has all its predecessors decided, so the loop ends
     within the longest suppression chain and equals sequential greedy NMS.
     The test for undecided candidates is read on the host once per round
-    (rounds + 1 device->host syncs in all)."""
-    N = scores.shape[0]
-    # j precedes i iff (score_j, -j) > (score_i, -i): the stable
-    # argsort(-score) order, with no gathers
-    s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
-    idx = torch.arange(N, device=scores.device)
-    beats = (s[None, :] > s[:, None]) | ((s[None, :] == s[:, None])
-                                         & (idx[None, :] < idx[:, None]))
-    O = ((iou > thresh) & same_group & beats).to(torch.float32)
-    kept = torch.zeros(N, dtype=torch.bool, device=scores.device)
-    # invalid slots start suppressed: never kept, never blocking
-    supp = ~valid.to(torch.bool)
-    rounds = 0
-    while bool((~kept & ~supp).any()):
-        und = ~kept & ~supp
-        # both per-candidate reductions as one (N, N) @ (N, 2) product:
-        # exact, 0/1 terms summed in fp32 and only the sign read
-        R = O @ torch.stack([(~supp).to(torch.float32),
-                             kept.to(torch.float32)], dim=1)
-        kept, supp = kept | (und & ~(R[:, 0] > 0)), supp | (und & (R[:, 1] > 0))
-        rounds += 1
-    return kept, rounds
+    (rounds + 1 device->host syncs in all); nms_masked_device runs the same
+    rounds in one CUDA kernel on the card."""
+    keep, rounds = nms_fixed_point_plain(
+        nms_overlap(iou, scores, valid, same_group, thresh), valid)
+    return keep, int(rounds)
+
+
+def nms_masked_device(iou: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                      same_group: torch.Tensor, thresh: float):
+    """nms_masked_rounds through `torch.ops.sam6d.nms_fixed_point`: on the
+    card one launch of the fixed-point kernel, with no host read; on the CPU
+    the plain loop. Returns (keep mask (N,), rounds () int32), both on the
+    device of `scores`."""
+    return nms_fixed_point(nms_overlap(iou, scores, valid, same_group, thresh),
+                           valid.to(torch.bool))
 
 
 def nms_masked(iou: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,

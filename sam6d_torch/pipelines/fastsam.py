@@ -15,8 +15,9 @@ The host letterboxes the frame (long side to `imgsz`, Python's half-even
 `round`, the cv2-equivalent bilinear resize) and uploads uint8; scaling to
 [0, 1] and the 114/255 padding run on the device. Top-k takes a stable sort
 (ties to the lower index, as `jax.lax.top_k`); box NMS is the masked fixed
-point of `ops/masks.nms_masked_rounds` over an all-true group (one
-device->host sync a round, rounds in `last_nms_rounds`). Mask assembly
+point over an all-true group, one launch of the NMS kernel on the card
+(`ops/masks.nms_masked_device`; rounds in `last_nms_rounds`, a device
+int32), and `generate_masks_device` reads nothing back. Mask assembly
 keeps the JAX contract: sigmoid(coefs . protos) cropped to the box at
 proto resolution (`>=`, `<` on pixel indices), bilinearly resized to
 (H0, W0) and thresholded after the resize; slots NMS did not keep keep
@@ -37,9 +38,10 @@ import torch
 from .. import use_strict_fp32
 from ..core.config import FastSAMConfig
 from ..core.params import cast_float_params
+from ..core.uploads import device_constant, upload
 from ..data.preprocess import bilinear_resize
 from ..models.fastsam import FastSAMNet
-from ..ops.masks import box_iou, nms_masked_rounds
+from ..ops.masks import box_iou, nms_masked_device
 from ..weights.fastsam import fastsam_arch, random_fastsam_state_dict
 from .sam_amg import bilinear_matrix, resize_logits, stable_top_k
 
@@ -105,7 +107,7 @@ class FastSAMSegmentor:
         boxes, top_scores, coefs = preds[top, :4], scores[top], preds[top, 5:]
         valid = top_scores > cfg.conf_thresh
         same = torch.ones((len(top), len(top)), dtype=torch.bool, device=preds.device)
-        keep, self.last_nms_rounds = nms_masked_rounds(
+        keep, self.last_nms_rounds = nms_masked_device(
             box_iou(boxes, boxes), top_scores, valid, same, cfg.iou_thresh)
         return boxes, top_scores, keep, coefs
 
@@ -124,15 +126,18 @@ class FastSAMSegmentor:
         m = m * inside
         hp, wp = max(int(round(h_in / 4)), 1), max(int(round(w_in / 4)), 1)
         dev = m.device
-        return resize_logits(m[:, :hp, :wp], torch.as_tensor(bilinear_matrix(H0, hp), device=dev),
-                             torch.as_tensor(bilinear_matrix(W0, wp), device=dev))
+        return resize_logits(
+            m[:, :hp, :wp],
+            device_constant(("bilinear", H0, hp), lambda: bilinear_matrix(H0, hp), dev),
+            device_constant(("bilinear", W0, wp), lambda: bilinear_matrix(W0, wp), dev))
 
     def original_boxes(self, boxes, scale: float, H0: int, W0: int):
         """Letterbox-pixel boxes -> original coordinates, clipped to
         [0, W0 - 1] x [0, H0 - 1]."""
-        out = boxes / torch.tensor(scale, dtype=torch.float32, device=boxes.device)
-        lim = torch.tensor([W0 - 1, H0 - 1, W0 - 1, H0 - 1], dtype=torch.float32,
-                           device=boxes.device)
+        out = boxes / torch.full((), scale, dtype=torch.float32, device=boxes.device)
+        lim = device_constant(("box_limits", H0, W0),
+                              lambda: np.array([W0 - 1, H0 - 1, W0 - 1, H0 - 1]), boxes.device,
+                              torch.float32)
         return torch.minimum(out.clamp(min=0), lim)
 
     # ------------------------------------------------------------------ API
@@ -145,7 +150,7 @@ class FastSAMSegmentor:
         (orig_size == seg_size == (H0, W0))."""
         H0, W0 = image.shape[:2]
         resized, scale, (h_in, w_in) = self.letterbox_u8(image)
-        canvas = self.canvas(torch.as_tensor(resized, device=self.device)).to(self.dtype)
+        canvas = self.canvas(upload(resized, self.device)).to(self.dtype)
         preds, protos = (t.to(torch.float32) for t in self.net(canvas))
         boxes, scores, keep, coefs = self.select(preds[0])
         probs = self.assemble(boxes, coefs, protos[0], h_in, w_in, H0, W0)

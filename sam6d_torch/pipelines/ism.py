@@ -31,12 +31,14 @@ from .. import use_strict_fp32
 from ..core.checkpoint import load_template_cache, save_template_cache
 from ..core.config import ISMConfig
 from ..core.params import cast_float_params
+from ..core.uploads import device_constant, upload
 from ..data.rle import rle_encode_coco
 from ..models import ism_scoring
 from ..models.dinov2 import DINOv2, fold_ln_affine, masked_patch_descriptors
+from ..kernels.graphs import ChunkGraphs
 from ..ops.images import (crop_resize_pad_nearest_stack,
                           masked_crop_resize_pad_nearest, normalize_imagenet)
-from ..ops.masks import box_iou, nms_masked_rounds
+from ..ops.masks import box_iou, nms_masked_device
 from ..render.poses import template_obj_poses
 from ..weights.dinov2 import random_dinov2_state_dict
 from .sam_amg import SAMSegmentor, bilinear_matrix, resize_logits
@@ -59,9 +61,10 @@ def host_size_filter(masks: np.ndarray, boxes: np.ndarray, valid: np.ndarray,
 def device_size_filter(masks: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
                        min_box_size: float, min_mask_size: float) -> torch.Tensor:
     """host_size_filter on the device, in the same float32 arithmetic, for
-    proposals that were made there."""
+    proposals that were made there (the area a device tensor: torch divides
+    by a host scalar as a product with its reciprocal)."""
     H, W = masks.shape[1:]
-    area = torch.tensor(np.float32(H * W), device=masks.device)
+    area = torch.full((), float(np.float32(H * W)), dtype=torch.float32, device=masks.device)
     box_areas = ((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])) / area
     mask_areas = masks.to(torch.float32).sum(dim=(1, 2)) / area
     return (valid & (box_areas > float(np.float32(min_box_size ** 2)))
@@ -74,6 +77,12 @@ def needed_prefix(valid: np.ndarray) -> int:
     slots need descriptors."""
     idx = np.flatnonzero(np.asarray(valid))
     return int(idx[-1]) + 1 if idx.size else 0
+
+
+def needed_prefix_device(valid: torch.Tensor) -> torch.Tensor:
+    """needed_prefix on the device: () int32, no host read."""
+    idx = torch.arange(1, valid.shape[0] + 1, dtype=torch.int32, device=valid.device)
+    return torch.where(valid.to(torch.bool), idx, torch.zeros_like(idx)).amax()
 
 
 class ISMPipeline:
@@ -102,17 +111,19 @@ class ISMPipeline:
         self.segmentor = segmentor
         self.ref_data: Dict[str, torch.Tensor] = {}
         self.last_nms_rounds = 0
+        self._describe_graphs: Dict[tuple, ChunkGraphs] = {}
 
     # ------------------------------------------------------------- internals
 
-    def _dino_forward_chunked(self, images: torch.Tensor,
-                              n_needed: Optional[int] = None):
+    def _dino_forward_chunked(self, images: torch.Tensor, n_needed=None):
         """(N, S, S, 3) -> (cls (N, C), patch (N, P, C)) in chunks of
         `chunk_size` crops, the last chunk padded by repeating crop 0.
 
-        `n_needed` (a host int): only the first ceil(n_needed / chunk)
-        chunks are described; the rest stay zero, which the scores mask
-        through `valid`."""
+        `n_needed` (a host int, or a () device tensor): only the first
+        ceil(n_needed / chunk) chunks are described; the rest stay zero,
+        which the scores mask through `valid`. A device tensor on the card
+        takes the describe graph (`describe_graph`), so the host reads
+        nothing; on the CPU it is read."""
         chunk = self.cfg.dinov2.chunk_size
         N = images.shape[0]
         if N <= chunk:
@@ -122,14 +133,50 @@ class ISMPipeline:
             images = torch.cat([images, images[:1].expand(pad, *images.shape[1:])])
         xs = images.reshape(-1, chunk, *images.shape[1:])
         n_chunks = xs.shape[0]
-        trips = n_chunks if n_needed is None else min(-(-n_needed // chunk), n_chunks)
         C = self.dinov2.cls_token.shape[-1]
         P = self.dinov2.pos_embed.shape[1] - 1
+        if isinstance(n_needed, torch.Tensor):
+            if images.is_cuda:
+                cls, patch = self.describe_graph(n_chunks).run(images, n_needed)
+                return cls.reshape(-1, C)[:N], patch.reshape(-1, P, C)[:N]
+            n_needed = int(n_needed)
+        trips = n_chunks if n_needed is None else min(-(-n_needed // chunk), n_chunks)
         cls = images.new_zeros((n_chunks, chunk, C), dtype=self.dtype)
         patch = images.new_zeros((n_chunks, chunk, P, C), dtype=self.dtype)
         for i in range(trips):
             cls[i], patch[i] = self.dinov2(xs[i])
         return cls.reshape(-1, C)[:N], patch.reshape(-1, P, C)[:N]
+
+    def describe_graph(self, n_chunks: int) -> ChunkGraphs:
+        """The describe graph of `n_chunks` chunks (an IF node a chunk,
+        kernels/graphs.py), built at its first use and kept: one a
+        (chunks, chunk, image size, dtype)."""
+        d = self.cfg.dinov2
+        key = (n_chunks, d.chunk_size, d.img_size, self.dtype)
+        g = self._describe_graphs.get(key)
+        if g is None:
+            example = torch.zeros((n_chunks * d.chunk_size, d.img_size, d.img_size, 3),
+                                  dtype=torch.float32, device=self.device)
+            g = self._describe_graphs[key] = ChunkGraphs(self.dinov2, example, n_chunks,
+                                                         d.chunk_size)
+        return g
+
+    @torch.inference_mode()
+    def prepare_frames(self, pointclouds, frame_hw=(480, 640)) -> None:
+        """Run the segmentor branch of match_frame_device once on a blank
+        frame of `frame_hw` and wait for it: what its first call does once
+        (build the describe graph at the segmentor's capacity; load each
+        kernel the chain launches, which CUDA does at a kernel's first
+        launch and which waits for the card; upload the frame geometry's
+        constants) then happens here, so that a frame's call waits on
+        nothing. Nothing on the CPU or without a segmentor."""
+        if self.segmentor is None or self.device.type != "cuda":
+            return
+        H, W = frame_hw
+        self.match_frame_device(np.zeros((H, W, 3), np.uint8), np.zeros((H, W), np.float32),
+                                np.eye(3, dtype=np.float32), 1.0, pointclouds,
+                                apply_nms_per_object=True)
+        torch.cuda.synchronize(self.device)
 
     def _describe_impl(self, rgb01, masks, boxes, n_needed=None):
         """Query proposals -> (cls descriptors, masked patch descriptors), as
@@ -298,9 +345,11 @@ class ISMPipeline:
 
     def _score_frame_impl(self, rgb01, masks, boxes, valid, depth, K,
                           depth_scale, ref_desc, ref_appe_all, poses_R_all,
-                          pointclouds, n_needed: int, apply_nms: bool):
-        """Descriptors of the first `n_needed` slots, the three scores, their
-        fusion and the optional per-object NMS, on the device."""
+                          pointclouds, n_needed, apply_nms: bool):
+        """Descriptors of the first `n_needed` slots (a host int or a ()
+        device tensor), the three scores, their fusion and the optional
+        per-object NMS (`last_nms_rounds` a () device tensor), on the
+        device."""
         cfg = self.cfg
         cls_desc, patch_desc = self._describe_impl(
             rgb01, masks, boxes.to(torch.int32), n_needed)
@@ -324,7 +373,7 @@ class ISMPipeline:
         self.last_nms_rounds = 0
         if apply_nms:
             same = obj_idx[:, None] == obj_idx[None, :]
-            keep, self.last_nms_rounds = nms_masked_rounds(
+            keep, self.last_nms_rounds = nms_masked_device(
                 box_iou(boxes, boxes), final, selected, same, cfg.post.nms_thresh)
             selected = selected & keep
         return dict(scores=final, object_ids=obj_idx, valid=selected,
@@ -341,12 +390,14 @@ class ISMPipeline:
         masks, boxes = seg["masks"], seg["boxes"]
         if (H0, W0) != (hs, ws):
             dev = self.device
-            masks = resize_logits(masks.to(torch.float32),
-                                  torch.as_tensor(bilinear_matrix(H0, hs), device=dev),
-                                  torch.as_tensor(bilinear_matrix(W0, ws), device=dev))
+            masks = resize_logits(
+                masks.to(torch.float32),
+                device_constant(("bilinear", H0, hs), lambda: bilinear_matrix(H0, hs), dev),
+                device_constant(("bilinear", W0, ws), lambda: bilinear_matrix(W0, ws), dev))
             boxes = boxes * (W0 / ws)
-            lim = torch.tensor([W0 - 1, H0 - 1, W0 - 1, H0 - 1], dtype=boxes.dtype,
-                               device=dev)
+            lim = device_constant(("box_limits", H0, W0),
+                                  lambda: np.array([W0 - 1, H0 - 1, W0 - 1, H0 - 1]), dev,
+                                  boxes.dtype)
             boxes = torch.minimum(boxes.clamp(min=0), lim)
         return masks, boxes, seg["valid"]
 
@@ -370,9 +421,8 @@ class ISMPipeline:
             if apply_size_filters:
                 valid = device_size_filter(masks, boxes, valid, post.min_box_size,
                                            post.min_mask_size)
-            # the one read-back of the segmentor branch: the (K,) valid flags,
-            # to size the describe to the valid prefix
-            valid_np = valid.cpu().numpy()
+            # the describe is sized on the device from the valid flags
+            n_needed = needed_prefix_device(valid)
             masks = masks.to(torch.float32)
         else:
             masks_np = np.asarray(detections["masks"])
@@ -383,19 +433,19 @@ class ISMPipeline:
                                             post.min_box_size, post.min_mask_size)
             # uploaded in the caller's dtype (a bool mask stack is a quarter
             # of its float32 size) and converted on the card
-            masks = torch.as_tensor(masks_np, device=dev).to(torch.float32)
-            boxes = torch.as_tensor(boxes_np, device=dev)
-        rgb_t = torch.as_tensor(np.ascontiguousarray(rgb), device=dev)
-        rgb01 = rgb_t.to(torch.float32) / 255.0
+            masks = upload(masks_np, dev).to(torch.float32)
+            boxes = upload(boxes_np, dev)
+            valid = upload(valid_np, dev)
+            n_needed = needed_prefix(valid_np)
+        rgb01 = upload(rgb, dev).to(torch.float32) / 255.0
         out = self._score_frame_impl(
-            rgb01, masks, boxes, torch.as_tensor(valid_np, device=dev),
-            torch.as_tensor(depth.astype(np.float32), device=dev),
-            torch.as_tensor(np.asarray(K, np.float32), device=dev),
-            torch.tensor(np.float32(depth_scale), device=dev),
+            rgb01, masks, boxes, valid,
+            upload(np.asarray(depth, np.float32), dev),
+            upload(np.asarray(K, np.float32), dev),
+            upload(np.float32(depth_scale), dev),
             self.ref_data["descriptors"], self.ref_data["appe_descriptors"],
-            self.ref_data["poses_R"],
-            torch.as_tensor(pointclouds, dtype=torch.float32, device=dev),
-            needed_prefix(valid_np), apply_nms_per_object)
+            self.ref_data["poses_R"], upload(pointclouds, dev, torch.float32),
+            n_needed, apply_nms_per_object)
         out["masks"] = masks
         out["boxes"] = boxes
         # one (K, 12) row per proposal, so that a serving loop reads the

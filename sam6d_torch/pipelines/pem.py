@@ -17,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -204,6 +204,12 @@ class PEMPipeline:
 
     # ---------------------------------------------------------- multi-object
 
+    @staticmethod
+    def model_radii(model_points_all: torch.Tensor) -> np.ndarray:
+        """(O, M, 3) model clouds -> (O,) largest point norm of each, on the
+        host (a device read)."""
+        return torch.linalg.vector_norm(model_points_all, dim=2).amax(dim=1).cpu().numpy()
+
     def run_frame_multi(self, *args, **kwargs):
         """Multi-object frame, synchronous: dispatch + finalize."""
         return self.finalize_frame_multi(self.dispatch_frame_multi(*args, **kwargs))
@@ -213,20 +219,22 @@ class PEMPipeline:
                              depth_scale: float, detections: List[Dict],
                              model_points_all: torch.Tensor,
                              templates_all: Dict[str, torch.Tensor],
-                             det_score_thresh: float = 0.2, seed: int = 1):
+                             det_score_thresh: float = 0.2, seed: int = 1,
+                             model_radii: Optional[np.ndarray] = None):
         """Host half of a multi-object frame and the launch of its batch.
         Each detection carries an `object_id` index into the stacked
         per-object arrays (model_points_all (O, M, 3) on the device;
         `templates_all` maps each onboard_templates key to its (O, ...)
         stack); every instance's templates are gathered on the device by
         that index, so one batched PEMNet run poses a mixed-object frame.
-        Returns a handle for finalize_frame_multi. Only the (O,) model radii
-        are read back here (the host preparation needs them); the poses are
-        not, so a serving loop can queue the next frame's device work first
-        (the JAX package's order)."""
+        Returns a handle for finalize_frame_multi. `model_radii` (O,): the
+        objects' radii on the host (model_radii(model_points_all)); without
+        them they are read back here. The poses are not, so a serving loop
+        can queue the next frame's device work first (the JAX package's
+        order)."""
         tm = {}
         tt = time.perf_counter()
-        radii = torch.linalg.vector_norm(model_points_all, dim=2).amax(dim=1).cpu().numpy()
+        radii = model_radii if model_radii is not None else self.model_radii(model_points_all)
         insts, kept = self._prepare_instances(
             rgb, depth, K, depth_scale, detections,
             lambda det: float(radii[int(det["object_id"])]), det_score_thresh, seed)

@@ -14,8 +14,12 @@ segment_anything/automatic_mask_generator.py:266-321):
   full decode, stability and boxes run only for the top points;
 - mask postprocessing (256^2 logits -> 1024^2 -> crop -> segmentor size)
   is one composed pair of bilinear matrices per axis;
-- box NMS is the port's masked fixed point (`ops/masks.nms_masked_rounds`,
-  one device->host sync per round, rounds in `last_nms_rounds`).
+- box NMS is the port's masked fixed point, one launch of the NMS kernel
+  on the card (`ops/masks.nms_masked_device`; rounds in `last_nms_rounds`,
+  a device int32); the frame and the constants are uploaded without
+  waiting (`core/uploads.py`), so `generate_masks_device` reads nothing
+  back; on the card the encoder and the AMG tail of a frame geometry run
+  as one captured CUDA graph (`_frame_graph`).
 
 Top-k selections take a stable descending sort, so ties go to the lower
 index as `jax.lax.top_k` breaks them (`torch.topk` promises no order among
@@ -49,10 +53,12 @@ from PIL import Image
 from .. import use_strict_fp32
 from ..core.config import SAMConfig
 from ..core.params import cast_float_params
+from ..core.uploads import device_constant, upload
 from ..data.preprocess import bilinear_resize
 from ..data.regions import postprocess_small_regions
+from ..kernels.graphs import StaticGraph
 from ..models.sam import SAM
-from ..ops.masks import box_iou, masks_to_boxes, nms_masked_rounds
+from ..ops.masks import box_iou, masks_to_boxes, nms_masked_device
 from ..weights.sam import random_sam_state_dict
 
 SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
@@ -124,6 +130,8 @@ class SAMSegmentor:
         self.points = build_point_grid(cfg.points_per_side)
         self.last_nms_rounds = 0
         self.last_prefix = 0
+        self._frame_constants = {}
+        self._frame_graphs = {}
 
     # -------------------------------------------------------------- internals
 
@@ -131,8 +139,9 @@ class SAMSegmentor:
         """(h_in, w_in, 3) uint8 on the device -> (g, g, C) embedding:
         SAM normalization and zero padding to the square canvas here."""
         dev = self.device
-        x = ((u8.to(torch.float32) - torch.as_tensor(SAM_PIXEL_MEAN, device=dev))
-             / torch.as_tensor(SAM_PIXEL_STD, device=dev))
+        mean = device_constant("sam_pixel_mean", lambda: SAM_PIXEL_MEAN, dev)
+        std = device_constant("sam_pixel_std", lambda: SAM_PIXEL_STD, dev)
+        x = (u8.to(torch.float32) - mean) / std
         S = self.cfg.img_size
         x = torch.nn.functional.pad(x, (0, 0, 0, S - u8.shape[1], 0, S - u8.shape[0]))
         return self.sam.image_encoder(x[None])[0]
@@ -224,7 +233,7 @@ class SAMSegmentor:
             top = torch.arange(n_cand, device=iou.device)
         iou_t, valid_t, boxes_t = iou[top], valid[top], boxes[top]
         same = torch.ones((T, T), dtype=torch.bool, device=iou.device)
-        keep, self.last_nms_rounds = nms_masked_rounds(
+        keep, self.last_nms_rounds = nms_masked_device(
             box_iou(boxes_t, boxes_t), iou_t, valid_t, same, cfg.box_nms_thresh)
         K = cfg.max_proposals
         order_t = stable_top_k(torch.where(keep, iou_t, torch.full_like(iou_t, -torch.inf)),
@@ -286,7 +295,11 @@ class SAMSegmentor:
         frame) on the device: the composed postprocess matrices (low-res ->
         canvas -> crop -> segmentor size) and the scaled point grid.
         `grid01` overrides the [0, 1]^2 prompt grid (the crop cascade's
-        layers take coarser grids)."""
+        layers take coarser grids). Uploaded without waiting for the card;
+        with the config's grid they are made once a frame geometry."""
+        key = (hs, ws, h_in, w_in)
+        if grid01 is None and key in self._frame_constants:
+            return self._frame_constants[key]
         cfg = self.cfg
         low = cfg.img_size // 4
         R1 = bilinear_matrix(cfg.img_size, low)
@@ -296,8 +309,10 @@ class SAMSegmentor:
         pts = grid * np.array([ws, hs], np.float32) * np.array(
             [w_in / ws, h_in / hs], np.float32)
         dev = self.device
-        return (torch.as_tensor(Ry, device=dev), torch.as_tensor(Rx, device=dev),
-                torch.as_tensor(pts, dtype=torch.float32, device=dev))
+        consts = (upload(Ry, dev), upload(Rx, dev), upload(pts, dev, torch.float32))
+        if grid01 is None:
+            self._frame_constants[key] = consts
+        return consts
 
     @torch.inference_mode()
     def generate_masks_device(self, image: np.ndarray, grid01=None) -> Dict:
@@ -308,10 +323,25 @@ class SAMSegmentor:
         seg_size)."""
         resized, (H0, W0), (hs, ws), (h_in, w_in) = self.preprocess_frame_u8(image)
         Ry, Rx, pts = self.frame_constants(hs, ws, h_in, w_in, grid01)
-        embedding = self._encode_u8(torch.as_tensor(resized, device=self.device))
-        masks, boxes, valid, iou = self._propose_impl(embedding, pts, Ry, Rx)
+        u8 = upload(resized, self.device)
+        if self.device.type == "cuda" and grid01 is None:
+            masks, boxes, valid, iou = self._frame_graph(u8, Ry, Rx, pts).run(u8)
+        else:
+            masks, boxes, valid, iou = self._propose_impl(self._encode_u8(u8), pts, Ry, Rx)
         return dict(masks=masks, boxes=boxes, valid=valid, iou_preds=iou,
                     orig_size=(H0, W0), seg_size=(hs, ws))
+
+    def _frame_graph(self, u8, Ry, Rx, pts) -> StaticGraph:
+        """The encoder and the AMG tail of a frame geometry as one CUDA graph
+        (kernels/graphs.StaticGraph): the work depends on the shapes alone,
+        and as kernel launches a frame would queue thousands of them.
+        Built at the geometry's first frame, for this config and dtype."""
+        key = (tuple(u8.shape), tuple(Ry.shape), tuple(Rx.shape), self.cfg, self.dtype)
+        g = self._frame_graphs.get(key)
+        if g is None:
+            g = self._frame_graphs[key] = StaticGraph(
+                lambda x: self._propose_impl(self._encode_u8(x), pts, Ry, Rx), (u8,))
+        return g
 
     def truncation_divergence(self, image: np.ndarray, grid01=None) -> Dict:
         """How far the AMG truncations move the result on one frame: this

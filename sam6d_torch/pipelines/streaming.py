@@ -16,10 +16,14 @@ Order on the device. PyTorch queues work on one CUDA stream in the order it
 is launched, as JAX dispatches it. `process_stream` keeps the JAX package's
 order: frame t's detections are read back and its PEM batch launched
 (phase a) before frame t+1's segmentation is queued, and only then does the
-host wait for frame t's poses (phase b). The syncs that remain per frame
-are the segmentor's and the scoring's own (the valid flags, one per NMS
-round), the (K, 12) packed read, the bitpacked mask read, the (O,) model
-radii in `dispatch_frame_multi`, and the (n, 13) pose read.
+host wait for frame t's poses (phase b). `submit_frame` waits on nothing:
+the uploads go through pinned memory, NMS runs to its fixed point in one
+kernel, and the describe is sized on the device by a CUDA graph of
+conditional nodes (built, with every kernel's first launch, by a warm-up
+frame at the end of the onboarding: `finish_onboarding`). The
+host reads per frame are phase a's (K, 12) packed read and bitpacked mask
+read and phase b's (n, 13) pose read; the (O,) model radii are read once,
+at the onboarding.
 """
 from __future__ import annotations
 
@@ -92,7 +96,16 @@ class MultiObjectStream:
             cloud=torch.as_tensor(ism_pts.astype(np.float32), device=self.ism.device),
         ))
 
-    def _finalize(self) -> None:
+    def finish_onboarding(self, frame_hw=(480, 640)) -> None:
+        """Stack the onboarded objects and make what the frames reuse: the
+        model radii, and one warm-up of the frame chain on a blank frame of
+        `frame_hw` (ISMPipeline.prepare_frames: the describe graph, each
+        kernel's loading, the geometry's constants). The first submit_frame
+        does it when the caller has not; a frame of another size uploads
+        its own constants at its first call."""
+        self._finalize(frame_hw)
+
+    def _finalize(self, frame_hw=(480, 640)) -> None:
         if self._finalized:
             return
         assert self._objs, "no objects onboarded"
@@ -112,9 +125,11 @@ class MultiObjectStream:
             poses_R)
         self._clouds = torch.stack([o["cloud"] for o in self._objs])
         self._model_all = torch.stack([o["model"] for o in self._objs])
+        self._radii = self.pem.model_radii(self._model_all)
         self._templates_all = {
             k: torch.stack([o["templates"][k] for o in self._objs])
             for k in self._objs[0]["templates"]}
+        self.ism.prepare_frames(self._clouds, frame_hw)
         self._finalized = True
 
     # --------------------------------------------------------------- serving
@@ -123,9 +138,10 @@ class MultiObjectStream:
                      K: np.ndarray, depth_scale: float = 1.0,
                      seed: int = 1) -> None:
         """Queue the device chain (AMG + multi-object scoring) of one frame
-        and enqueue it for complete_frame(). Returns once the work is
-        launched; the segmentor's and the scoring's own syncs stay inside."""
-        self._finalize()
+        and enqueue it for complete_frame(). Returns once the work is queued,
+        before any result exists: nothing in it waits for the card (after
+        finish_onboarding, which the first call runs otherwise)."""
+        self._finalize(np.shape(rgb)[:2])
         t0 = time.time()
         dev = self.ism.match_frame_device(rgb, depth, K, depth_scale,
                                           self._clouds,
@@ -188,7 +204,7 @@ class MultiObjectStream:
         pem_state = self.pem.dispatch_frame_multi(
             rgb, depth, K, depth_scale, dets,
             self._model_all, self._templates_all,
-            det_score_thresh=self.det_score_thresh, seed=seed)
+            det_score_thresh=self.det_score_thresh, seed=seed, model_radii=self._radii)
         tm["pem_dispatch_ms"] = (time.perf_counter() - tt) * 1e3
         return dict(pem_state=pem_state, dets=dets, t0=t0, tm=tm)
 

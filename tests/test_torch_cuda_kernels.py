@@ -4,8 +4,12 @@ query (also at the training shapes, on inputs that carry autograd
 history), the fused attentions (K5 off the qkv projection, K8 and K9 on
 head-major operands), SAM's rel-pos attention (K1) and the factored AMG
 kernels (K2-K4), and the bf16 entries of K1, K5, K8, K9 and K2-K4 against
-the plain versions of their bf16 contract. The file imports torch, numpy,
-pytest and sam6d_torch only, so it runs where JAX is absent:
+the plain versions of their bf16 contract; the NMS fixed-point kernel, the
+describe sized on the device by CUDA-graph conditional nodes, and
+`MultiObjectStream.submit_frame` returning before any result exists. The
+file imports torch, numpy, pytest and sam6d_torch only (and the numpy NMS
+problems of tests/torch_port_nms_cases.py), so it runs where JAX is
+absent:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
 """
@@ -16,8 +20,11 @@ import torch
 from sam6d_torch.kernels import attention, attention_qkv
 from sam6d_torch.kernels import attention_relpos as relpos
 from sam6d_torch.kernels import ball_query as bq
-from sam6d_torch.kernels import factored, fps
+from sam6d_torch.kernels import factored, fps, nms
+from sam6d_torch.ops import masks
 from sam6d_torch.ops.geometry import pairwise_sq_distance
+
+from torch_port_nms_cases import NMS_CASES, nms_case
 
 def _fps_case(rng, case):
     """(points (B, N, 3), valid mask or None, npoint)."""
@@ -771,13 +778,6 @@ def test_bf16_entries_refuse_what_they_do_not_take(cuda_device):
         attention.fused_attention(q.half(), q.half(), q.half(), 0.1)
     with pytest.raises(ValueError):
         attention.fused_attention(q, q.bfloat16(), q, 0.1)
-    # a grid whose tables do not fit a block's shared memory beside the ring:
-    # the C launch refuses it (cudaErrorInvalidValue)
-    wide = torch.zeros(1, 1000, 3 * 16, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError):
-        relpos.flash_attention_relpos_bf16_cuda(
-            wide, torch.zeros(1, 16, device=cuda_device, dtype=torch.bfloat16),
-            torch.zeros(1999, 16, device=cuda_device, dtype=torch.bfloat16), (1, 1000), 1)
     with pytest.raises(ValueError):
         relpos.flash_attention_relpos_cuda(torch.zeros(1, 9, 96, device=cuda_device).bfloat16(),
                                            torch.zeros(5, 8, device=cuda_device).bfloat16(),
@@ -1057,3 +1057,207 @@ def test_sam6d_op_on_the_card_is_its_kernel(cuda_device, name, dtype):
         fake = flat(public(*tree_map_only(torch.Tensor, mode.from_tensor, args)))
     for f, g in zip(fake, flat(got)):
         assert (tuple(f.shape), f.dtype, f.stride()) == (tuple(g.shape), g.dtype, g.stride())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,heads,hd,in_global", [
+    pytest.param(1, (1, 1000), 1, 16, True, id="1-1x1000-1-16"),
+    pytest.param(1, (8, 512), 2, 64, False, id="1-8x512-2-64"),
+    pytest.param(2, (8, 1024), 2, 64, True, id="2-8x1024-2-64"),
+    pytest.param(1, (2, 700), 2, 80, True, id="1-2x700-2-80"),
+])
+def test_flash_attention_relpos_bf16_tables_in_global_memory(cuda_device, B, hw, heads, hd,
+                                                             in_global):
+    """Grids whose rel-pos tables do not fit a block's shared memory beside
+    the ring (1 x 1000 at hd 16 wants 257 KB of tables) take the second
+    instantiation: a pre-pass forms the tables in the plain version's FMA
+    order into global memory and the attention reads them from there. 8 x
+    512 at hd 64 fits (187 168 B) and keeps the shared tables. Both within
+    atol 8e-3 of the plain version."""
+    rng = np.random.RandomState(28)
+    H, W = hw
+    C = heads * hd
+    assert relpos.bf16_tables_in_global(B, hw, heads, hd) == in_global
+    qkv = _bf16_on_card(rng, cuda_device, (B, H * W, 3 * C))
+    with torch.no_grad():
+        qkv[..., :2 * C] *= 0.5
+    rh = _bf16_on_card(rng, cuda_device, (2 * H - 1, hd), 0.1)
+    rw = _bf16_on_card(rng, cuda_device, (2 * W - 1, hd), 0.1)
+    got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, hw, heads)
+    _bf16_close(got, relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, hw, heads))
+
+
+def _nms_problem(case, device):
+    boxes, scores, valid, groups, rounds = nms_case(case)
+    b = torch.from_numpy(boxes).to(device)
+    same = torch.from_numpy(groups[:, None] == groups[None, :]).to(device)
+    overlap = masks.nms_overlap(masks.box_iou(b, b), torch.from_numpy(scores).to(device),
+                                torch.from_numpy(valid).to(device), same, 0.5)
+    return overlap, torch.from_numpy(valid).to(device), rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NMS_CASES + ["single", "isolated_128"])
+def test_nms_fixed_point_kernel_equals_plain(cuda_device, case):
+    """One launch of the fixed-point kernel keeps exactly the plain loop's
+    set in as many rounds (N = 3072 packs O into a workspace, N <= 1280 into
+    shared memory)."""
+    overlap, valid, rounds_want = _nms_problem(case, cuda_device)
+    before = nms.nms_fixed_point_cuda.launches
+    keep, rounds = nms.nms_fixed_point_cuda(overlap, valid)
+    assert nms.nms_fixed_point_cuda.launches == before + 1
+    want_keep, want_rounds = nms.nms_fixed_point_plain(overlap, valid)
+    assert torch.equal(keep, want_keep) and int(rounds) == int(want_rounds)
+    if rounds_want is not None:
+        assert int(rounds) == rounds_want
+
+
+def _tiny_dinov2_pipeline(device, segmentor=None, dtype=torch.float32):
+    """ISM at a tiny DINOv2 the kernels take (C = 64, 2 heads of hd 32, 2
+    blocks, 224 crops of 257 tokens, chunks of 16), seeded random weights."""
+    from sam6d_torch.core.config import DINOv2Config, ISMConfig, ISMMatchingConfig
+    from sam6d_torch.pipelines.ism import ISMPipeline
+    cfg = ISMConfig(dinov2=DINOv2Config(embed_dim=64, depth=2, num_heads=2),
+                    matching=ISMMatchingConfig(confidence_thresh=-1.0,
+                                               pointcloud_sample_num=256))
+    return ISMPipeline(cfg, seed=0, device=device, segmentor=segmentor, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_graph_describe_equals_the_eager_loop(cuda_device, dtype):
+    """The describe graph (an IF node a chunk) with a device n_needed runs
+    ceil(n / 16) chunk bodies, as the eager loop with a host n: the same
+    descriptors (within 1e-5: the bodies replay the eager calls' kernels),
+    the rows past the prefix exactly zero, and K5 launched depth x chunks
+    times by the count settled from the graph's device counter."""
+    from sam6d_torch.kernels.graphs import settle_graph_launches
+    pipe = _tiny_dinov2_pipeline(cuda_device, dtype=dtype)
+    imgs = torch.from_numpy(np.random.RandomState(3).rand(40, 224, 224, 3).astype(np.float32))
+    imgs = imgs.to(cuda_device)
+    k5 = (attention_qkv.fused_attention_qkv_bf16_cuda if dtype == torch.bfloat16
+          else attention_qkv.fused_attention_qkv_cuda)
+    with torch.inference_mode():
+        graph = pipe.describe_graph(3)
+        assert graph.node_types.get("kernel", 0) > 0
+        for n in (0, 1, 16, 17, 40):
+            settle_graph_launches()
+            before = k5.launches
+            cls, patch = pipe._dino_forward_chunked(
+                imgs, torch.tensor(n, dtype=torch.int32, device=cuda_device))
+            settle_graph_launches()
+            chunks = -(-n // 16)
+            assert k5.launches - before == pipe.cfg.dinov2.depth * chunks
+            want_cls, want_patch = pipe._dino_forward_chunked(imgs, n)
+            assert float((cls.float() - want_cls.float()).abs().max()) <= 1e-5
+            assert float((patch.float() - want_patch.float()).abs().max()) <= 1e-5
+            assert not cls[16 * chunks:].any() and not patch[16 * chunks:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_segmentor_frame_graph_equals_the_eager_amg(cuda_device, tmp_path, dtype):
+    """generate_masks_device on the card replays the encoder and the AMG
+    tail as one captured graph: its masks, boxes and valid flags equal the
+    eager call's on the same frame, its IoUs within 1e-5, and each replay
+    counts K1-K4 and the NMS kernel as the eager call launches them."""
+    stream, frames = _tiny_card_stream(tmp_path, dtype)
+    seg = stream.ism.segmentor
+    rgb = frames[0][0]
+    counted = [relpos.flash_attention_relpos_cuda, relpos.flash_attention_relpos_bf16_cuda,
+               nms.nms_fixed_point_cuda, factored.factored_ln_stats_cuda,
+               factored.factored_ln_stats_bf16_cuda]
+    for _ in range(2):   # the first call builds the graph
+        before = [fn.launches for fn in counted]
+        got = seg.generate_masks_device(rgb)
+        graph_launches = [fn.launches - b for fn, b in zip(counted, before)]
+    resized, _, (hs, ws), (h_in, w_in) = seg.preprocess_frame_u8(rgb)
+    Ry, Rx, pts = seg.frame_constants(hs, ws, h_in, w_in)
+    before = [fn.launches for fn in counted]
+    with torch.inference_mode():
+        want = seg._propose_impl(seg._encode_u8(torch.as_tensor(resized, device=cuda_device)),
+                                 pts, Ry, Rx)
+    assert graph_launches == [fn.launches - b for fn, b in zip(counted, before)]
+    for k, w in zip(("masks", "boxes", "valid"), want):
+        assert torch.equal(got[k], w), k
+    assert float((got["iou_preds"] - want[3]).abs().max()) <= 1e-5
+
+
+# ~0.5 s of the card's clock (1.98 GHz boost): longer than submit_frame's
+# host time at these widths
+SLEEP_CYCLES = 1_000_000_000
+
+
+def _tiny_card_stream(tmp_path, dtype):
+    """MultiObjectStream on the card at tiny widths the kernels take: SAM
+    with a C = 64 encoder of 2 blocks (hd 16) and the full-width decoder
+    (K2-K4 take C = 256), an 8 x 8 prompt grid, capacity 32; the tiny
+    DINOv2; a small PEM; two box objects rendered on the card; three
+    random 480 x 640 frames."""
+    from sam6d_torch.core.config import (GeoEmbeddingConfig, PEMConfig,
+                                         PointMatchingConfig, SAMConfig, ViTConfig)
+    from sam6d_torch.data.mesh import load_ply
+    from sam6d_torch.data.synthetic import box_ply
+    from sam6d_torch.pipelines.pem import PEMPipeline
+    from sam6d_torch.pipelines.sam_amg import SAMSegmentor
+    from sam6d_torch.pipelines.streaming import MultiObjectStream
+    from sam6d_torch.render.templates import render_templates
+    seg = SAMSegmentor(SAMConfig(encoder_embed_dim=64, encoder_depth=2, encoder_num_heads=4,
+                                 encoder_global_attn_indexes=(1,), points_per_side=8,
+                                 points_per_batch=64, pred_iou_thresh=-10.0,
+                                 stability_score_thresh=0.0, max_proposals=32,
+                                 amg_nms_topk=192), seed=0, device="cuda", dtype=dtype)
+    ism = _tiny_dinov2_pipeline("cuda", segmentor=seg, dtype=dtype)
+    pem_cfg = PEMConfig(
+        coarse_npoint=24, fine_npoint=96,
+        vit=ViTConfig(patch_size=16, embed_dim=64, depth=4, num_heads=4, img_size=64,
+                      out_dim=32),
+        geo_embedding=GeoEmbeddingConfig(hidden_dim=32),
+        coarse=PointMatchingConfig(nblock=2, input_dim=32, hidden_dim=32, out_dim=32,
+                                   nproposal1=120, nproposal2=30),
+        fine=PointMatchingConfig(nblock=2, input_dim=32, hidden_dim=32, out_dim=32,
+                                 pe_nsample1=8, pe_nsample2=16),
+        img_size=64, n_sample_model_point=64, n_sample_observed_point=96,
+        n_sample_template_point=200, n_template_view=2)
+    pem = PEMPipeline(pem_cfg, seed=0, device="cuda")
+    stream = MultiObjectStream(ism, pem, det_score_thresh=-1.0)
+    rng = np.random.RandomState(0)
+    for i, half in enumerate(((40.0, 30.0, 20.0), (25.0, 25.0, 35.0))):
+        cad = str(tmp_path / f"obj{i}.ply")
+        box_ply(cad, half)
+        mesh = load_ply(cad)
+        tdir = render_templates(mesh, str(tmp_path / f"obj{i}"), device="cuda")
+        stream.onboard_object(i + 1, tdir, mesh.sample(64, rng) / 1000.0,
+                              ism_points=mesh.sample(256, rng) / 1000.0)
+    K = np.array([[572.4, 0, 320.0], [0, 573.6, 240.0], [0, 0, 1]], np.float32)
+    frames = [((rng.rand(480, 640, 3) * 255).astype(np.uint8),
+               (rng.rand(480, 640) * 400 + 400).astype(np.float32), K, 1.0)
+              for _ in range(3)]
+    return stream, frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_submit_frame_waits_on_nothing(cuda_device, tmp_path, dtype):
+    """After finish_onboarding, submit_frame raises nothing under
+    torch.cuda.set_sync_debug_mode("error") (no synchronizing call) and
+    returns while a ~0.5 s torch.cuda._sleep queued before it is still
+    running; the frames then complete with poses."""
+    stream, frames = _tiny_card_stream(tmp_path, dtype)
+    stream.finish_onboarding()
+    for item in frames:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        after_sleep = torch.cuda.Event()
+        after_sleep.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stream.submit_frame(*item)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert not after_sleep.query(), "submit_frame waited for the card"
+        res = stream.complete_frame()
+        assert res["detections"] and len(res["poses"]) == len(res["detections"])
+        for p in res["poses"]:
+            R = np.asarray(p["R"])
+            assert np.allclose(R @ R.T, np.eye(3), atol=1e-3) and np.isfinite(p["t"]).all()

@@ -21,7 +21,7 @@ from sam6d_torch.deploy import (export_dinov2_describe, export_fn, export_pem_in
                                 export_sam_decode, load_exported, pem_example_inputs,
                                 save_exported)
 from sam6d_torch.kernels import (attention, attention_qkv, attention_relpos, ball_query,
-                                 factored, fps)
+                                 factored, fps, nms)
 from sam6d_torch.kernels.ops import OPS
 
 from torch_port_common import (close, jax_variables, one_torch_thread,  # noqa: F401
@@ -71,6 +71,10 @@ def _op_case(name, dtype):
     if name == "two_scale_ball_query":
         return (ball_query.two_scale_ball_query, ball_query.two_scale_ball_query_plain,
                 (t(2, 40, 3), t(2, 10, 3), 0.3, 4, 0.6, 8))
+    if name == "nms_fixed_point":
+        overlap = torch.from_numpy(np.tril(rng.rand(24, 24) > 0.7, -1))
+        return nms.nms_fixed_point, nms.nms_fixed_point_plain, (
+            overlap, torch.from_numpy(rng.rand(24) > 0.2))
     sfx = "_bf16_plain" if dtype == torch.bfloat16 else "_plain"
     if name == "fused_attention_qkv":
         return (attention_qkv.fused_attention_qkv, getattr(attention_qkv, name + sfx),
@@ -100,7 +104,7 @@ def _op_case(name, dtype):
 
 OP_CASES = [(n, torch.float32) for n in OPS] + [
     (n, torch.bfloat16) for n in OPS if n not in ("farthest_point_sample",
-                                                  "two_scale_ball_query")]
+                                                  "two_scale_ball_query", "nms_fixed_point")]
 
 
 def _flat(out):
