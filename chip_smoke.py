@@ -3194,6 +3194,55 @@ def _bf16_timed(name, fn, plain, lib, products, other, nbytes):
                 bound_ms=b_ms, bound_by=by)
 
 
+def card_alone_ms(fn, calls=10):
+    """(ms a call of the device work fn() queues, how it was read) with the
+    host's dispatch out of the number: the kernels' device time under
+    torch.profiler over `calls` calls (their names listed), or, where the
+    profiler reports no device time (seen after many profiler sessions in
+    one process), the CUDA-event time of a CUDA graph of `calls` calls
+    replayed, over `calls`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        if ops:
+            names = ", ".join(
+                f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][:48]} "
+                f"x{e.count} {dev_us(e) / 1e3 / calls:.4f}" for e in ops)
+            return sum(map(dev_us, ops)) / 1e3 / calls, "torch.profiler: " + names
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()   # warm-up on the capture stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    return cuda_ms(graph.replay, reps=5) / calls, "a CUDA graph replayed (the profiler saw nothing)"
+
+
+# K1's windowed launch (keys resident in the ring) at each size of its last
+# key tile: 1 (3 x 43), 4 (14 x 14), 8 (8 x 25), 9 (3 x 67), 16 (13 x 16) and
+# 64 keys (16 x 16), at hd 80 and 64
+K1_WINDOW_EDGES = tuple((hw, hd) for hw in ((3, 43), (14, 14), (8, 25), (3, 67), (13, 16),
+                                            (16, 16)) for hd in (80, 64))
+
+
 def _check_bf16_kernels(rng, ptxas):
     """The bf16 entries against the plain versions of their contract at the
     main path's shapes and stress cases, timed beside their dense-bf16
@@ -3210,7 +3259,8 @@ def _check_bf16_kernels(rng, ptxas):
     # product (K8, Lb1) and, at 16, 32 and 64, with the product scaled (K9, Lb0)
     head_major = tuple(f"{hd}ELb{p}" for hd in (16, 32, 64, 80, 128) for p in (1, 0)
                        if p or hd <= 64)
-    for kernel, hds in (("attention_relpos_wgmma_kernel", (16, 32, 64, 80)),
+    for kernel, hds in (("attention_relpos_window_kernel", (16, 32, 64, 80)),
+                        ("attention_relpos_wgmma_kernel", (16, 32, 64, 80)),
                         ("attention_qkv_wgmma_kernel", (32, 64)),
                         ("head_major_attention_wgmma_kernel", head_major)):
         for hd in hds:
@@ -3222,19 +3272,24 @@ def _check_bf16_kernels(rng, ptxas):
             if kernel == "attention_qkv_wgmma_kernel":
                 smem[f"{kernel}<{hd}>"] = "/".join(
                     str(lib.sam6d_fused_attention_qkv_bf16_smem(n, hd)) for n in (257, 4096))
-            elif kernel == "attention_relpos_wgmma_kernel":
-                smem[f"{kernel}<{hd}>"] = "/".join(
-                    str(lib.sam6d_flash_attention_relpos_bf16_smem(g * g, hd, g, g))
-                    for g in (14, 64))
+            elif kernel.startswith("attention_relpos"):  # windowed on 14 x 14, streaming on 64 x 64
+                g = 14 if "window" in kernel else 64
+                smem[f"{kernel}<{hd}>"] = str(lib.sam6d_flash_attention_relpos_bf16_smem(
+                    g * g, hd, g, g))
             elif hd.endswith("Lb1"):
                 smem[f"{kernel}<{hd}>"] = "/".join(
                     str(lib.sam6d_fused_attention_bf16_smem(n, n, int(hd[:-4])))
                     for n in (257, 1025))
     log("bf16 entries' ptxas registers (no spills): "
         + ", ".join(f"{k} {v}" for k, v in regs.items()))
-    log("wgmma kernels' dynamic shared memory a block, bytes (K5 at 257/4096 keys, K1 on a "
-        "14x14/64x64 grid, K8/K9 at 257/1025 keys): "
-        + ", ".join(f"{k} {v}" for k, v in smem.items()))
+    log("wgmma kernels' dynamic shared memory a block, bytes (K5 at 257/4096 keys, K1's "
+        "windowed kernel on a 14x14 grid and its streaming one on 64x64, K8/K9 at 257/1025 "
+        "keys): " + ", ".join(f"{k} {v}" for k, v in smem.items()))
+    if int(smem["attention_relpos_window_kernel<80>"]) > 115712:
+        raise AssertionError("K1's windowed kernel at 14x14, hd 80 no longer fits two blocks an SM")
+    tab_regs = {hd: ptxas_record(ptxas, "relpos_window_tables_kernel", hd) for hd in (16, 32, 64, 80)}
+    log("K1's table stage alone (relpos_window_tables_kernel, a check entry): ptxas "
+        "(registers, spill bytes) " + ", ".join(f"<{hd}> {r}" for hd, r in tab_regs.items()))
 
     # K5: the describe chunk, a ragged batch, large scores; then the wgmma
     # core's tile edges (64-row and 64-key tiles; the ring's five resident
@@ -3354,9 +3409,13 @@ def _check_bf16_kernels(rng, ptxas):
             ("edge", 2, (1, 1), 1.0, 4, 16), ("edge", 2, (7, 9), 1.0, 4, 32),
             ("edge", 2, (5, 13), 1.0, 4, 64), ("edge", 1, (1, 257), 1.0, 4, 32),
             ("edge", 2, (16, 16), 1.0, 4, 80), ("edge", 2, (13, 20), 1.0, 4, 80),
-            ("edge, peaked", 1, (64, 64), 1.0, 4, 80)):
+            ("edge, peaked", 1, (64, 64), 1.0, 4, 80),
+            ("edge, windowed peaked", 25, (14, 14), 1.0, heads, hd),
+            *(("edge, windowed", 2, hw, 1.0, 4, ehd) for hw, ehd in K1_WINDOW_EDGES)):
         N = H * W
-        if name == "edge, peaked":   # peaked scores, a V offset a key tile
+        if name.startswith("edge, windowed") and rp.bf16_tables_in_global(B, (H, W), eh, ehd):
+            raise AssertionError(f"{H}x{W} at hd {ehd} left K1's windowed launch")
+        if name.endswith("peaked"):   # peaked scores, a V offset a key tile
             qkv = _peaked_qkv_cards(rng, B, N, eh, ehd)
         else:
             qkv = _bf16_cards(rng, (B, N, 3 * eh * ehd))
@@ -3392,6 +3451,41 @@ def _check_bf16_kernels(rng, ptxas):
             products, other, nbytes)
         del mask
     g, w = rec1["global"], rec1["windowed"]
+    # the windowed launch's table stage alone, bit for bit against the plain
+    # tables (rel-pos x1 and x3)
+    for rel in (1.0, 3.0):
+        qkv = _bf16_cards(rng, (25, 196, 3 * C))
+        rh, rw = (_bf16_cards(rng, (27, hd), 0.1 * rel) for _ in range(2))
+        got = rp.window_tables_bf16_cuda(qkv, rh, rw, (14, 14), heads)
+        want = rp.bf16_rel_pos_tables(qkv, rh, rw, (14, 14), heads)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K1's windowed table stage differs from bf16_rel_pos_tables "
+                                 f"(rel-pos x{rel:g})")
+    log("relpos_attention bf16 windowed table stage: equal to bf16_rel_pos_tables bit for bit "
+        "at 25x14x14, 16 heads of 80, rel-pos x1 and x3")
+    # the windowed and global launches on the card alone, beside SDPA's kernels
+    alone = {}
+    for name, B, (H, W) in (("windowed", 25, (14, 14)), ("global", 1, (64, 64))):
+        N = H * W
+        qkv = _bf16_cards(rng, (B, N, 3 * C))
+        with torch.no_grad():
+            qkv[..., :2 * C] *= 0.5
+        rh, rw = (_bf16_cards(rng, (2 * s - 1, hd), 0.1) for s in (H, W))
+        args = (qkv, rh, rw, (H, W), heads)
+        q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = rp.bf16_rel_pos_tables(qkv, rh, rw, (H, W), heads)
+        mask = (rel_h.view(B, heads, N, H, 1) + rel_w.view(B, heads, N, 1, W)
+                ).reshape(B, heads, N, N).to(torch.bfloat16)
+        del rel_h, rel_w
+        ms, names = card_alone_ms(lambda: rp.flash_attention_relpos_bf16_cuda(*args))
+        lib_ms, lib_names = card_alone_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=hd ** -0.5))
+        del mask
+        alone[name] = (ms, lib_ms)
+        log(f"relpos_attention bf16[{name} {B}x{N}x{3 * C}] on the card alone (torch.profiler, "
+            f"10 calls): bf16 entry {ms:.4f} ms ({names}); SDPA bf16 {lib_ms:.4f} ms "
+            f"({lib_names}); entry/SDPA {ms / lib_ms:.3f}; dense-bf16 bound "
+            f"{rec1[name]['bound_ms']:.4f} ms ({rec1[name]['bound_by']})")
     common = dict(route="cuda", tolerance=f"atol {BF16_ATOL} against the plain bf16 version",
                   timing="ms, plain_ms, library_ms: CUDA events over runs of 10 launches")
     return [
@@ -3399,12 +3493,20 @@ def _check_bf16_kernels(rng, ptxas):
              replaces="sam6d_tpu/kernels/flash_attention.py:316", max_abs_err=err1, **g,
              windowed_ms=w["ms"], windowed_plain_ms=w["plain_ms"],
              windowed_bound_ms=w["bound_ms"], windowed_library_ms=w["library_ms"],
+             card_ms=alone["global"][0], library_card_ms=alone["global"][1],
+             windowed_card_ms=alone["windowed"][0], windowed_library_card_ms=alone["windowed"][1],
              ptxas_registers=regs["attention_relpos_wgmma_kernel<80>"], ptxas_spill_bytes=0,
+             windowed_ptxas_registers=regs["attention_relpos_window_kernel<80>"],
+             windowed_smem_bytes=int(smem["attention_relpos_window_kernel<80>"]),
+             windowed_table_stage="equal to bf16_rel_pos_tables at rel-pos x1 and x3",
              stress_max_abs_err=stress_err1, edge_max_abs_err=edge1,
              shapes="global 1x4096x3840 bf16, 16 heads of 80 (ms; library_ms: SDPA with the "
-                    "bf16 bias as a float mask); windowed 25x196x3840 (windowed_*); windowed "
-                    "with rel-pos x3 checked (stress_*); tile edges N 1, 63, 65, 257, 256, "
-                    "260 at hd 16-80 and 64x64 with peaked scores checked (edge_*)", **common),
+                    "bf16 bias as a float mask; card_ms, library_card_ms: the kernels' time on "
+                    "the card alone, 10 calls under torch.profiler); windowed 25x196x3840 "
+                    "(windowed_*; attention_relpos_window_kernel); windowed with rel-pos x3 "
+                    "checked (stress_*); tile edges N 1, 63, 65, 257, 256, 260 at hd 16-80, "
+                    "64x64 and 25x14x14 with peaked scores, and windowed last tiles of 1, 4, 8, "
+                    "9, 16 and 64 keys at hd 80 and 64 checked (edge_*)", **common),
         dict(name="fused_attention_qkv_bf16_cuda", source="sam6d_torch/csrc/attention_qkv.cu",
              replaces="sam6d_tpu/kernels/flash_attention.py:280", max_abs_err=err5, **k5,
              ptxas_registers=regs["attention_qkv_wgmma_kernel<64>"], ptxas_spill_bytes=0,

@@ -52,10 +52,12 @@
 // block's products take 0.087 ms and its bytes (42 MB) 0.013 ms:
 // operations; its tables are 671 M fp32 FMAs more (~23 us on the FMA
 // units). A block is two warpgroups of 64 rows: a windowed (window, head)'s
-// 196 keys stay resident in the ring (one block takes all four row tiles),
-// a global one's 4096 stream through two stages (one block a 128 rows);
-// 98-116 KB of shared memory and at most 128 registers let two blocks
-// share an SM.
+// 196 keys stay resident in the ring and one block takes all four row
+// tiles (attention_relpos_window_kernel, its own design below); a global
+// one's 4096 stream through two stages, one block a 128 rows
+// (attention_relpos_wgmma_kernel on the core's attend(), tables by
+// RelPosBiasBf16); 100-115 KB of shared memory and at most 128 registers
+// let two blocks share an SM.
 #include "bf16_wgmma.cuh"
 #include "tf32x3.cuh"
 
@@ -487,6 +489,580 @@ int launch_bf16_global(const void* qkv, const void* rel_pos_h, const void* rel_p
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- the windowed (resident) launch
+//
+// Grids whose keys fit the ring (<= 256 at hd 80, <= 320 below: SAM's 14 x
+// 14 windows) take attention_relpos_window_kernel: two 64-row tiles of one
+// (sample, head) a block, one a warpgroup, its q tiles and every K/V tile
+// loaded by TMA up front. A phase split of the
+// previous kernel (clock64 stamps, PERF.md) put nearly half of a windowed
+// row tile in forming its table rows and four fifths of each key tile in
+// the bias add, so:
+//  - the table pass gives lane i of a warp the tile's rows 2i and 2i + 1,
+//    whose grid positions are equal or one apart, and walks the rel-pos
+//    rows once for both (entry u - s of one row and u of the other read the
+//    same rel-pos row), so each staged value feeds two rows' FMAs, in the
+//    FMA order of bf16_rel_pos_tables; the two warps of a table split the
+//    walk; the rows are staged once a block as bf16 (rel_w's even rows
+//    before its odd ones, so the rows a warp reads at once sit in distinct
+//    bank groups), and the walk has no branches. A 16-byte shared load a
+//    lane costs the SM 4 cycles a warp (2.2 where a quarter warp reads one
+//    address), against 0.25 for an FMA, so the pass is bound by its loads;
+//  - the bias add finds a key's grid row by a multiply, and on an even grid
+//    width a lane's two keys share one rel_h entry and one rel_w word;
+//  - a last tile of at most 16 keys takes a 16-key ring stage (its own
+//    tensor maps; keys past n read as zeros) and runs as m64n8 or m64n16,
+//    which leaves room at two blocks an SM (106 064 B at 14 x 14, hd 80);
+//  - a warp with no row below n (rows 192-195 of a window live in warp 0
+//    of the last tile) skips its bias add and softmax; its p stays 0;
+//  - two row tiles a block rather than all four: 800 blocks of one
+//    tile-time for SAM's 400 (window, head)s on the 264 two-an-SM slots,
+//    where 400 of two tile-times left the card two-thirds idle in a second
+//    round (K/V is read twice, from L2).
+namespace window {
+namespace wa = sam6d::wgattn;
+using wa::bf16;
+
+constexpr int kU = 8;          // rel-pos rows a thread walks at a time
+constexpr int kTailKeys = 16;  // keys of the short last ring stage
+
+// 32-bit words (bf16 pairs) a staged rel-pos row: 4 or 12 past HD / 2 (mod
+// 32), so 8 consecutive rows start in 8 different bank groups
+template <int HD>
+__host__ __device__ constexpr int rel_stride() { return HD / 2 + 4; }
+__host__ __device__ constexpr int rh_stride(int gh) { return gh + 1; }
+// rel_w rows: an even number of entries (a lane's pair of neighbouring
+// entries is one aligned word) and an odd number of words (no two of a
+// lane quad's eight rows in one bank)
+__host__ __device__ constexpr int rw_stride(int gw) {
+  return (gw + 2) / 2 * 2 + ((gw + 2) / 2 % 2 ? 0 : 2);
+}
+// bytes of one operand's tile in the short stage, 1024-aligned for the
+// 128-byte swizzle atoms of the next one
+template <int HD>
+__host__ __device__ constexpr int tail_tile_bytes() {
+  return (kTailKeys * HD * 2 + 1023) / 1024 * 1024;
+}
+
+// The block's shared memory: the ring (full stages, then the last one),
+// the warpgroups' q tiles, the staged rel-pos rows, the full barriers and
+// the warpgroups' table rows.
+template <int HD>
+struct Layout {
+  int n_kt;          // key tiles
+  bool short_tail;   // the last one takes a 16-key stage
+  size_t q, rel, bars, tabs, total;
+  __host__ __device__ Layout(int n, int gh, int gw) {
+    n_kt = (n + wa::kTileKeys - 1) / wa::kTileKeys;
+    short_tail = n - wa::kTileKeys * (n_kt - 1) <= kTailKeys;
+    q = (n_kt - short_tail) * 2 * static_cast<size_t>(wa::tile_bytes<HD>()) +
+        (short_tail ? 2 * tail_tile_bytes<HD>() : 0);
+    rel = q + wa::kWarpgroups * wa::q_tile_bytes<HD>();
+    bars = rel + sizeof(uint32_t) * rel_stride<HD>() * (2 * gh - 1 + 2 * gw - 1);
+    tabs = bars + (sizeof(uint64_t) * (n_kt + wa::kWarpgroups) + 15) / 16 * 16;
+    total = tabs + sizeof(bf16) * wa::kWarpgroups * wa::kRowsWG * (rh_stride(gh) + rw_stride(gw));
+  }
+};
+
+// Where a staged rel-pos row m lies among its table's rows: rel_h's in
+// order; rel_w's even rows first, then its odd ones, so that the rows m, m +
+// 2, m + 4, ... that a rel_w warp's lanes read at once (their row pairs'
+// columns step by 2) are consecutive rows, each in its own bank group.
+__device__ __forceinline__ int staged_row(int m, bool is_w, int gw) {
+  return is_w ? ((m & 1) ? gw + (m >> 1) : (m >> 1)) : m;
+}
+
+// rel_pos_h's 2 gh - 1 rows then rel_pos_w's 2 gw - 1 (bf16), by `nthreads`
+// threads
+template <int HD>
+__device__ __forceinline__ void stage_rel_rows(uint32_t* rel_s, const bf16* __restrict__ rel_pos_h,
+                                               const bf16* __restrict__ rel_pos_w, int gh, int gw,
+                                               int nthreads) {
+  const int rows_h = 2 * gh - 1, chunks = (rows_h + 2 * gw - 1) * (HD / 8);
+  for (int e = threadIdx.x; e < chunks; e += nthreads) {
+    const int row = e / (HD / 8), c = e - row * (HD / 8);
+    const bf16* src = row < rows_h ? rel_pos_h + row * HD : rel_pos_w + (row - rows_h) * HD;
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(src) + c);
+    const int at = row < rows_h ? row : rows_h + staged_row(row - rows_h, true, gw);
+    *reinterpret_cast<uint4*>(rel_s + at * rel_stride<HD>() + 4 * c) = x;
+  }
+}
+
+// q rows q0.. of one (sample, head) (row stride sq, 16-byte aligned) into a
+// warpgroup's swizzled tile, zeros past n; the warpgroup's 128 threads
+template <int HD>
+__device__ __forceinline__ void load_q_tile(unsigned char* qs, const bf16* q, long long sq, int q0,
+                                            int n) {
+  constexpr int CH = HD / 8;
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < HD / 16; ++i) {
+    const int e = tid + 128 * i;
+    const int r = e / CH, c = e - r * CH;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < n) x = *reinterpret_cast<const uint4*>(q + (q0 + r) * sq + 8 * c);
+    *reinterpret_cast<uint4*>(qs + wa::chunk_offset<HD>(r, c)) = x;
+  }
+}
+
+// The table rows of the 64-row tile from q0 of a gh x gw grid, from its
+// unscaled q tile `qs` and the staged rel-pos rows: rel_h[r][j] (stride
+// rh_stride) and rel_w[r][j] (stride rw_stride), bf16. Entry j of a row at
+// grid position p (its grid row for rel_h, its column for rel_w) is q .
+// rel[p - j + g - 1], the exact fp32 products of its even channels summed in
+// one chain and of its odd ones in another, channel by channel, the two sums
+// added and rounded to bf16 once (bf16_rel_pos_tables). Rows past n hold
+// zeros. The warpgroup's 128 threads: warps 0-1 rel_h, 2-3 rel_w; lane i of
+// a warp takes rows 2i and 2i + 1, whose positions are equal or consecutive
+// except where a row wraps, so both rows' entries come from one walk over
+// the rel-pos rows (entry u - s of the first row and u of the second use
+// the same row, s the step in position), each staged value feeding two rows'
+// products; the two warps of a table split the walk, kU rows at a time.
+template <int HD>
+__device__ __forceinline__ void form_tables(const unsigned char* qs, const uint32_t* rel_s,
+                                            bf16* tab_h, bf16* tab_w, int q0, int n, int gh,
+                                            int gw) {
+  constexpr int RS = rel_stride<HD>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const bool is_w = warp >= 2, second = warp & 1;
+  const int g = is_w ? gw : gh;
+  const uint32_t* rows = rel_s + (is_w ? (2 * gh - 1) * RS : 0);
+  const int r0 = 2 * lane, r1 = r0 + 1;
+  const bool live0 = q0 + r0 < n, live1 = q0 + r1 < n;
+  const int t0 = min(q0 + r0, n - 1), t1 = min(q0 + r1, n - 1);
+  const int p0 = is_w ? t0 % gw : t0 / gw, p1 = is_w ? t1 % gw : t1 / gw;
+  bf16* d0 = is_w ? tab_w + r0 * rw_stride(gw) : tab_h + r0 * rh_stride(gh);
+  bf16* d1 = is_w ? tab_w + r1 * rw_stride(gw) : tab_h + r1 * rh_stride(gh);
+
+  // rows ra and rb (tile rows; positions pa and pa + s, s 0 or 1) into da,
+  // db. Rows u0 + i of a group are reached from the group's first two rows
+  // at fixed offsets (kStep words between rows two apart), and every group
+  // runs all kU of them (rows past the walk's end feed only sums that are
+  // not stored), so the loop has no branches.
+  auto walk = [&](auto step, int ra, int rb, int pa, int s, bf16* da, bf16* db) {
+    constexpr int kStep = decltype(step)::value;
+    const int U = g + s, mid = (U + 1) / 2;
+    const int ub = second ? mid : 0, ue = second ? U : mid;
+    const int mtop = pa + s + g - 1;  // the row of u = 0
+    for (int u0 = ub; u0 < ue; u0 += kU) {
+      float e0[kU], o0[kU], e1[kU], o1[kU];
+#pragma unroll
+      for (int i = 0; i < kU; ++i) e0[i] = o0[i] = e1[i] = o1[i] = 0.f;
+      const uint32_t* pe = rows + staged_row(mtop - u0, is_w, gw) * RS;      // row of u0
+      const uint32_t* po = rows + staged_row(mtop - u0 - 1, is_w, gw) * RS;  // row of u0 + 1
+#pragma unroll 1
+      for (int c = 0; c < HD / 8; ++c) {
+        const uint4 a4 = *reinterpret_cast<const uint4*>(qs + wa::chunk_offset<HD>(ra, c));
+        const uint4 b4 = *reinterpret_cast<const uint4*>(qs + wa::chunk_offset<HD>(rb, c));
+        const float x[8] = {wa::lo_of(a4.x), wa::hi_of(a4.x), wa::lo_of(a4.y), wa::hi_of(a4.y),
+                            wa::lo_of(a4.z), wa::hi_of(a4.z), wa::lo_of(a4.w), wa::hi_of(a4.w)};
+        const float y[8] = {wa::lo_of(b4.x), wa::hi_of(b4.x), wa::lo_of(b4.y), wa::hi_of(b4.y),
+                            wa::lo_of(b4.z), wa::hi_of(b4.z), wa::lo_of(b4.w), wa::hi_of(b4.w)};
+#pragma unroll
+        for (int i = 0; i < kU; ++i) {
+          const uint4 w = *reinterpret_cast<const uint4*>((i & 1 ? po : pe) - (i >> 1) * kStep +
+                                                          4 * c);
+          const float r[8] = {wa::lo_of(w.x), wa::hi_of(w.x), wa::lo_of(w.y), wa::hi_of(w.y),
+                              wa::lo_of(w.z), wa::hi_of(w.z), wa::lo_of(w.w), wa::hi_of(w.w)};
+#pragma unroll
+          for (int d = 0; d < 8; d += 2) {
+            e0[i] = fmaf(x[d], r[d], e0[i]);
+            o0[i] = fmaf(x[d + 1], r[d + 1], o0[i]);
+            e1[i] = fmaf(y[d], r[d], e1[i]);
+            o1[i] = fmaf(y[d + 1], r[d + 1], o1[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kU; ++i) {
+        const int u = u0 + i;
+        if (u < ue && u - s >= 0 && u - s < g) da[u - s] = __float2bfloat16_rn(e0[i] + o0[i]);
+        if (u < ue && u < g) db[u] = __float2bfloat16_rn(e1[i] + o1[i]);
+      }
+    }
+  };
+  // rel_h rows two apart are 2 rows apart in the staging, rel_w's 1
+  auto pair = [&](int ra, int rb, int pa, int s, bf16* da, bf16* db) {
+    if (is_w)
+      walk(std::integral_constant<int, RS>{}, ra, rb, pa, s, da, db);
+    else
+      walk(std::integral_constant<int, 2 * RS>{}, ra, rb, pa, s, da, db);
+  };
+  if (__any_sync(0xffffffffu, live0)) {
+    if (p1 - p0 == 0 || p1 - p0 == 1) {
+      pair(r0, r1, p0, p1 - p0, d0, d1);
+    } else {  // the pair wraps to the next grid row (odd gw): each row alone
+      pair(r0, r0, p0, 0, d0, d0);
+      pair(r1, r1, p1, 0, d1, d1);
+    }
+  }
+  for (int j = 0; j < g; ++j) {  // rows past n: finite entries, never read into an output
+    if (!live0) d0[j] = __float2bfloat16_rn(0.f);
+    if (!live1) d1[j] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// rel_h + rel_w added to a lane's score fragments (rows g and g + 8 of its
+// warp, whose entries rh/rw and rh8/rw8 point at; keys k0 + 8 nt + 2 t and
+// the next), each bias summed in fp32 before it meets the score. A key's
+// grid row is (key + 0.5) * (1 / gw) truncated, exact for these key counts;
+// keys past n (a last tile) read key n - 1's (or n - 2's) entries, which the
+// caller masks.
+template <int NTT>
+__device__ __forceinline__ void add_bias(float (&s)[NTT][4], const bf16* rh, const bf16* rh8,
+                                         const bf16* rw, const bf16* rw8, int gw, float inv_gw,
+                                         int k0, int n, int t) {
+  if (gw % 2 == 0) {  // keys 2i and 2i + 1 share a grid row: one rel_h entry, one rel_w word
+#pragma unroll
+    for (int nt = 0; nt < NTT; ++nt) {
+      const int k = min(k0 + 8 * nt + 2 * t, n - 2);
+      const int kr = static_cast<int>((k + 0.5f) * inv_gw), kc = k - kr * gw;
+      const float h_lo = __bfloat162float(rh[kr]), h_hi = __bfloat162float(rh8[kr]);
+      const uint32_t w_lo = *reinterpret_cast<const uint32_t*>(rw + kc);
+      const uint32_t w_hi = *reinterpret_cast<const uint32_t*>(rw8 + kc);
+      s[nt][0] += h_lo + wa::lo_of(w_lo);
+      s[nt][1] += h_lo + wa::hi_of(w_lo);
+      s[nt][2] += h_hi + wa::lo_of(w_hi);
+      s[nt][3] += h_hi + wa::hi_of(w_hi);
+    }
+    return;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NTT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = min(k0 + 8 * nt + 2 * t + e, n - 1);
+      const int kr = static_cast<int>((k + 0.5f) * inv_gw), kc = k - kr * gw;
+      s[nt][e] += __bfloat162float(rh[kr]) + __bfloat162float(rw[kc]);
+      s[nt][e + 2] += __bfloat162float(rh8[kr]) + __bfloat162float(rw8[kc]);
+    }
+  }
+}
+
+// the tensor maps of K and V (64-key boxes, and 16-key ones for a short
+// last stage) and of q (64-row boxes, the K tile's layout)
+struct Maps {
+  wa::KVMaps full, tail;
+  CUtensorMap q[2];
+};
+
+template <int HD>
+__global__ void __launch_bounds__(wa::kThreads, 2)
+    attention_relpos_window_kernel(const __grid_constant__ Maps maps,
+                                   const bf16* __restrict__ rel_pos_h,
+                                   const bf16* __restrict__ rel_pos_w, bf16* __restrict__ out,
+                                   int n, int heads, int gh, int gw, float qscale) {
+  constexpr int TB = wa::tile_bytes<HD>(), TT = tail_tile_bytes<HD>();
+  constexpr int KS = HD / 16;                      // k16 steps of Q K^T
+  constexpr int NA = wa::part_cols<HD>(0);         // hd columns of part 0
+  constexpr int NB = wa::n_parts<HD>() == 2 ? wa::part_cols<HD>(1) : 16;
+  constexpr int W0 = wa::part_width<HD>(0), W1 = wa::part_width<HD>(1);
+  constexpr float kScore = wa::kLog2e;             // the scale is already in q
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = wa::checked_base(smem_raw);
+  const Layout<HD> L(n, gh, gw);
+  const int c = heads * HD, b = blockIdx.z, h = blockIdx.y;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint32_t* rel_s = reinterpret_cast<uint32_t*>(smem + L.rel);
+
+  uint64_t* q_full = full + L.n_kt;  // a warpgroup's q tile landed
+  unsigned char* qs = smem + L.q + wg * wa::q_tile_bytes<HD>();
+  // the block's row tiles: one a warpgroup
+  const int n_rt = (n + wa::kRowsWG - 1) / wa::kRowsWG, rt0 = blockIdx.x * wa::kWarpgroups;
+  if (threadIdx.x == 0) {  // the q tiles (unscaled; rows past n read as zeros), then every key tile
+    for (int s = 0; s < L.n_kt + wa::kWarpgroups; ++s) wa::mbar_init(&full[s], 1);
+    wa::mbar_fence_init();
+    for (int w = 0; w < min(wa::kWarpgroups, n_rt - rt0); ++w) {
+      wa::mbar_expect_tx(&q_full[w], TB);
+#pragma unroll
+      for (int p = 0; p < wa::n_parts<HD>(); ++p)
+        wa::tma_load_4d(smem + L.q + w * wa::q_tile_bytes<HD>() + wa::part_offset(p), &maps.q[p],
+                        &q_full[w], 64 * p, (rt0 + w) * wa::kRowsWG, h, b);
+    }
+    for (int kt = 0; kt < L.n_kt; ++kt) {
+      const bool tail = L.short_tail && kt == L.n_kt - 1;
+      const wa::KVMaps& m = tail ? maps.tail : maps.full;
+      const int rows = tail ? kTailKeys : wa::kTileKeys;
+      unsigned char* dst = smem + static_cast<size_t>(kt) * 2 * TB;
+      wa::mbar_expect_tx(&full[kt], 2 * rows * HD * 2);
+#pragma unroll
+      for (int p = 0; p < wa::n_parts<HD>(); ++p) {
+        wa::tma_load_4d(dst + p * rows * 128, &m.k[p], &full[kt], 64 * p, kt * wa::kTileKeys, h, b);
+        wa::tma_load_4d(dst + (tail ? TT : TB) + p * rows * 128, &m.v[p], &full[kt], 64 * p,
+                        kt * wa::kTileKeys, h, b);
+      }
+    }
+  }
+  stage_rel_rows<HD>(rel_s, rel_pos_h, rel_pos_w, gh, gw, wa::kThreads);
+  __syncthreads();
+  if (rt0 + wg >= n_rt) return;
+  bf16* tab_h = reinterpret_cast<bf16*>(smem + L.tabs) +
+                wg * wa::kRowsWG * (rh_stride(gh) + rw_stride(gw));
+  bf16* tab_w = tab_h + wa::kRowsWG * rh_stride(gh);
+
+  bf16* o_rows = out + static_cast<size_t>(b) * n * c + h * HD;
+  const int row = 16 * warp + lane / 4;  // the lane's row g in the tile
+  const float inv_gw = 1.f / gw;
+  const int bar = 1 + wg;
+  const int q0 = (rt0 + wg) * wa::kRowsWG;
+  const bool warp_live = q0 + 16 * warp < n;
+  __syncwarp();
+  wa::mbar_wait(&q_full[wg], 0);
+  form_tables<HD>(qs, rel_s, tab_h, tab_w, q0, n, gh, gw);
+  wa::wg_sync(bar);
+#pragma unroll
+  for (int i = 0; i < HD / 16; ++i) {  // q as bf16(q * bf16(scale)), the TPU kernel's q_aug
+    const int e = tid + 128 * i;
+    uint4* chunk = reinterpret_cast<uint4*>(qs + wa::chunk_offset<HD>(e / (HD / 8), e % (HD / 8)));
+    const uint4 v = *chunk;
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = wa::pack2(wa::lo_of(w[j]) * qscale, wa::hi_of(w[j]) * qscale);
+    *chunk = make_uint4(x[0], x[1], x[2], x[3]);
+  }
+  wa::fence_async_shared();
+  wa::wg_sync(bar);
+  const bf16* rh_lo = tab_h + row * rh_stride(gh);  // the lane's rows g, g + 8
+  const bf16* rh_hi = rh_lo + 8 * rh_stride(gh);
+  const bf16* rw_lo = tab_w + row * rw_stride(gw);
+  const bf16* rw_hi = rw_lo + 8 * rw_stride(gw);
+
+  float o[NA / 2];   // output columns 0..NA-1
+  float o1[NB / 2];  // hd 80: columns NA..HD-1
+#pragma unroll
+  for (int i = 0; i < NA / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) o1[i] = 0.f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;  // running max of rows g, g + 8
+  float l_lo = 0.f, l_hi = 0.f;                      // this lane's partial sums
+
+  // one key tile of NTT 8-key blocks whose K part 1 starts p1 bytes into
+  // its K tile and whose V tile starts vb bytes into the stage; `full`: 64
+  // keys below n
+  auto tile_step = [&](auto ntt, auto full, int kt, int p1, int vb) {
+    constexpr int NTT = decltype(ntt)::value;
+    constexpr bool kFull = decltype(full)::value;
+    constexpr int KTT = (NTT + 1) / 2;  // k16 steps of P V
+    const unsigned char* kt_s = smem + static_cast<size_t>(kt) * 2 * TB;
+    const unsigned char* vt_s = kt_s + vb;
+    float sf[NTT][4];
+
+    wa::fence_regs(sf);
+    wa::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk < NA / 16)
+        wa::wgmma_ss(sf, wa::make_desc<W0>(qs + 32 * kk), wa::make_desc<W0>(kt_s + 32 * kk), kk > 0);
+      else  // part 1 (hd 80)
+        wa::wgmma_ss(sf, wa::make_desc<W1>(qs + wa::part_offset(1) + 32 * (kk - NA / 16)),
+                     wa::make_desc<W1>(kt_s + p1 + 32 * (kk - NA / 16)), 1);
+    }
+    wa::wgmma_commit();
+    wa::wgmma_wait0();
+    wa::fence_regs(sf);
+
+    uint32_t pa[KTT][4];
+    if (warp_live) {
+      const int k0 = kt * wa::kTileKeys, nk = min(wa::kTileKeys, n - k0);
+      add_bias(sf, rh_lo, rh_hi, rw_lo, rw_hi, gw, inv_gw, k0, n, t);
+      if (!kFull) {  // keys past n
+#pragma unroll
+        for (int nt = 0; nt < NTT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * nt + 2 * t + (e & 1) >= nk) sf[nt][e] = -CUDART_INF_F;
+      }
+      float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+#pragma unroll
+      for (int nt = 0; nt < NTT; ++nt) {
+        mx_lo = fmaxf(mx_lo, fmaxf(sf[nt][0], sf[nt][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(sf[nt][2], sf[nt][3]));
+      }
+      const float mn_lo = fmaxf(m_lo, sam6d::quad_max(mx_lo));
+      const float mn_hi = fmaxf(m_hi, sam6d::quad_max(mx_hi));
+      const float corr_lo = wa::ex2((m_lo - mn_lo) * kScore);  // 0 at the first tile
+      const float corr_hi = wa::ex2((m_hi - mn_hi) * kScore);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      const float nb_lo = -mn_lo * kScore, nb_hi = -mn_hi * kScore;
+      // p rounded to bf16 pairs, the A fragments of P V; l sums the rounded p
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KTT; ++kk) {
+        const float(&x)[4] = sf[2 * kk];
+        pa[kk][0] = wa::pack2(wa::ex2(fmaf(x[0], kScore, nb_lo)), wa::ex2(fmaf(x[1], kScore, nb_lo)));
+        pa[kk][1] = wa::pack2(wa::ex2(fmaf(x[2], kScore, nb_hi)), wa::ex2(fmaf(x[3], kScore, nb_hi)));
+        sum_lo += wa::lo_of(pa[kk][0]) + wa::hi_of(pa[kk][0]);
+        sum_hi += wa::lo_of(pa[kk][1]) + wa::hi_of(pa[kk][1]);
+        if (2 * kk + 1 < NTT) {
+          const float(&y)[4] = sf[2 * kk + 1 < NTT ? 2 * kk + 1 : 0];
+          pa[kk][2] = wa::pack2(wa::ex2(fmaf(y[0], kScore, nb_lo)), wa::ex2(fmaf(y[1], kScore, nb_lo)));
+          pa[kk][3] = wa::pack2(wa::ex2(fmaf(y[2], kScore, nb_hi)), wa::ex2(fmaf(y[3], kScore, nb_hi)));
+          sum_lo += wa::lo_of(pa[kk][2]) + wa::hi_of(pa[kk][2]);
+          sum_hi += wa::lo_of(pa[kk][3]) + wa::hi_of(pa[kk][3]);
+        } else {
+          pa[kk][2] = pa[kk][3] = 0u;
+        }
+      }
+      l_lo = l_lo * corr_lo + sum_lo;
+      l_hi = l_hi * corr_hi + sum_hi;
+      // rescale O where a row's max moved (a factor of exactly 1 elsewhere)
+      if (__any_sync(0xffffffffu, corr_lo != 1.f || corr_hi != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < NA / 8; ++j) {
+          o[4 * j] *= corr_lo;
+          o[4 * j + 1] *= corr_lo;
+          o[4 * j + 2] *= corr_hi;
+          o[4 * j + 3] *= corr_hi;
+        }
+        if constexpr (wa::n_parts<HD>() == 2) {
+#pragma unroll
+          for (int j = 0; j < NB / 8; ++j) {
+            o1[4 * j] *= corr_lo;
+            o1[4 * j + 1] *= corr_lo;
+            o1[4 * j + 2] *= corr_hi;
+            o1[4 * j + 3] *= corr_hi;
+          }
+        }
+      }
+    } else {  // no row of this warp is below n: p = 0 leaves its O rows alone
+#pragma unroll
+      for (int kk = 0; kk < KTT; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    }
+
+    // O += P V
+    wa::fence_regs(o);
+    wa::fence_regs(o1);
+    wa::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KTT; ++kk) {
+      wa::wgmma_rs(o, pa[kk], wa::make_desc<W0>(vt_s + kk * 16 * W0));
+      if constexpr (wa::n_parts<HD>() == 2)
+        wa::wgmma_rs(o1, pa[kk], wa::make_desc<W1>(vt_s + p1 + kk * 16 * W1));
+    }
+    wa::wgmma_commit();
+    wa::wgmma_wait0();
+    wa::fence_regs(o);
+    wa::fence_regs(o1);
+    wa::fence_regs(pa);
+  };
+
+  const int last = n - wa::kTileKeys * (L.n_kt - 1);  // keys of the last tile
+  for (int kt = 0; kt < L.n_kt; ++kt) {
+    __syncwarp();
+    wa::mbar_wait(&full[kt], 0);
+    if (kt < L.n_kt - 1 || last == wa::kTileKeys)
+      tile_step(std::integral_constant<int, 8>{}, std::true_type{}, kt, wa::part_offset(1), TB);
+    else if (last > kTailKeys)
+      tile_step(std::integral_constant<int, 8>{}, std::false_type{}, kt, wa::part_offset(1), TB);
+    else if (last > 8)
+      tile_step(std::integral_constant<int, 2>{}, std::false_type{}, kt, kTailKeys * 128, TT);
+    else
+      tile_step(std::integral_constant<int, 1>{}, std::false_type{}, kt, kTailKeys * 128, TT);
+  }
+
+  // the row maximum contributes bf16(exp(0)) = 1 to l, so l >= 1 on live rows
+  const float inv_lo = 1.f / fmaxf(sam6d::quad_sum(l_lo), 1e-30f);
+  const float inv_hi = 1.f / fmaxf(sam6d::quad_sum(l_hi), 1e-30f);
+  const int r_lo = q0 + row, r_hi = r_lo + 8;
+  auto store = [&](float x0, float x1, float x2, float x3, int col) {
+    if (r_lo < n)
+      *reinterpret_cast<uint32_t*>(o_rows + static_cast<size_t>(r_lo) * c + col) =
+          wa::pack2(x0 * inv_lo, x1 * inv_lo);
+    if (r_hi < n)
+      *reinterpret_cast<uint32_t*>(o_rows + static_cast<size_t>(r_hi) * c + col) =
+          wa::pack2(x2 * inv_hi, x3 * inv_hi);
+  };
+#pragma unroll
+  for (int j = 0; j < NA / 8; ++j) store(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3], 8 * j + 2 * t);
+  if constexpr (wa::n_parts<HD>() == 2) {
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+      store(o1[4 * j], o1[4 * j + 1], o1[4 * j + 2], o1[4 * j + 3], NA + 8 * j + 2 * t);
+  }
+}
+
+// The table stage alone (a test entry): one 64-row tile a block of one
+// warpgroup, formed as the attention kernel forms it, written to tables (b,
+// heads, n, gh + gw) bf16, rel_h's gh entries then rel_w's gw, so a test can
+// hold the stage to bf16_rel_pos_tables exactly.
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+    relpos_window_tables_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel_pos_h,
+                                const bf16* __restrict__ rel_pos_w, bf16* __restrict__ tables,
+                                int n, int heads, int gh, int gw) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int c = heads * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * wa::kRowsWG;
+  unsigned char* qs = smem_raw;
+  uint32_t* rel_s = reinterpret_cast<uint32_t*>(smem_raw + wa::q_tile_bytes<HD>());
+  bf16* tab_h = reinterpret_cast<bf16*>(rel_s + rel_stride<HD>() * (2 * gh - 1 + 2 * gw - 1));
+  bf16* tab_w = tab_h + wa::kRowsWG * rh_stride(gh);
+  stage_rel_rows<HD>(rel_s, rel_pos_h, rel_pos_w, gh, gw, 128);
+  load_q_tile<HD>(qs, qkv + static_cast<size_t>(b) * n * 3 * c + h * HD, 3LL * c, q0, n);
+  __syncthreads();
+  form_tables<HD>(qs, rel_s, tab_h, tab_w, q0, n, gh, gw);
+  __syncthreads();
+  const int w = gh + gw;
+  bf16* dst = tables + ((static_cast<size_t>(b) * heads + h) * n + q0) * w;
+  for (int e = threadIdx.x; e < wa::kRowsWG * w; e += 128) {
+    const int r = e / w, j = e - r * w;
+    if (q0 + r < n) dst[e] = j < gh ? tab_h[r * rh_stride(gh) + j] : tab_w[r * rw_stride(gw) + j - gh];
+  }
+}
+
+template <int HD>
+size_t smem_bytes(int n, int gh, int gw) { return Layout<HD>(n, gh, gw).total; }
+
+template <int HD>
+int launch(const void* qkv, const void* rel_pos_h, const void* rel_pos_w, void* out, int b, int n,
+           int heads, int gh, int gw, float scale, cudaStream_t stream) {
+  const Layout<HD> L(n, gh, gw);
+  if (L.total > kMaxSmemBf16) return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps{};
+  const long long c = static_cast<long long>(heads) * HD;
+  const long long strides[3] = {n * 3 * c, HD, 3 * c};  // q's head-major view of qkv
+  int err = wa::encode_operand_maps<HD>(maps.q, qkv, strides, b, heads, n, HD);
+  if (err == 0) err = wa::encode_qkv_maps<HD>(maps.full, qkv, b, n, heads);
+  if (err == 0 && L.short_tail) err = wa::encode_qkv_maps<HD>(maps.tail, qkv, b, n, heads, kTailKeys);
+  if (err != 0) return err;
+  err = static_cast<int>(cudaFuncSetAttribute(attention_relpos_window_kernel<HD>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(L.total)));
+  if (err != 0) return err;
+  // two row tiles a block (see the design notes above)
+  const int blocks = ((n + wa::kRowsWG - 1) / wa::kRowsWG + wa::kWarpgroups - 1) / wa::kWarpgroups;
+  attention_relpos_window_kernel<HD><<<dim3(blocks, heads, b), wa::kThreads, L.total, stream>>>(
+      maps, static_cast<const bf16*>(rel_pos_h), static_cast<const bf16*>(rel_pos_w),
+      static_cast<bf16*>(out), n, heads, gh, gw, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_tables(const void* qkv, const void* rel_pos_h, const void* rel_pos_w, void* tables, int b,
+                  int n, int heads, int gh, int gw, cudaStream_t stream) {
+  const size_t bytes = wa::q_tile_bytes<HD>() +
+                       sizeof(uint32_t) * rel_stride<HD>() * (2 * gh - 1 + 2 * gw - 1) +
+                       sizeof(bf16) * wa::kRowsWG * (rh_stride(gh) + rw_stride(gw));
+  if (bytes > kMaxSmemBf16) return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaFuncSetAttribute(relpos_window_tables_kernel<HD>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  static_cast<int>(bytes)));
+  if (err != 0) return err;
+  relpos_window_tables_kernel<HD><<<dim3((n + wa::kRowsWG - 1) / wa::kRowsWG, heads, b), 128, bytes,
+                                    stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_pos_h),
+      static_cast<const bf16*>(rel_pos_w), static_cast<bf16*>(tables), n, heads, gh, gw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace window
+
+// The streaming launch: grids longer than the ring (SAM's 64 x 64 global
+// blocks), two row tiles a block, K/V through two stages.
 template <int HD>
 __global__ void __launch_bounds__(sam6d::wgattn::kThreads, 2)
     attention_relpos_wgmma_kernel(const __grid_constant__ sam6d::wgattn::KVMaps maps,
@@ -538,6 +1114,27 @@ int launch_bf16(const void* qkv, const void* rel_pos_h, const void* rel_pos_w, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// keys that fit the ring: the windowed launch; longer ones stream
+template <int HD>
+bool resident(int n) {
+  return (n + sam6d::wgattn::kTileKeys - 1) / sam6d::wgattn::kTileKeys <=
+         sam6d::wgattn::max_resident<HD>();
+}
+
+template <int HD>
+int launch_bf16_any(const void* qkv, const void* rel_pos_h, const void* rel_pos_w, void* out,
+                    int b, int n, int heads, int gh, int gw, float scale, cudaStream_t stream) {
+  return resident<HD>(n) ? window::launch<HD>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw,
+                                              scale, stream)
+                         : launch_bf16<HD>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw,
+                                           scale, stream);
+}
+
+template <int HD>
+size_t smem_bytes_bf16_any(int n, int gh, int gw) {
+  return resident<HD>(n) ? window::smem_bytes<HD>(n, gh, gw) : smem_bytes_bf16<HD>(n, gh, gw);
+}
+
 }  // namespace
 
 extern "C" {
@@ -564,17 +1161,20 @@ int sam6d_flash_attention_relpos(const float* qkv, const float* rel_pos_h,
 // rel_pos_w (2 gw - 1, hd) and out (b, n, heads * hd), all bfloat16, qkv
 // and the tables 16-byte aligned. `scale` is hd^-0.5 rounded to
 // bf16: q enters the product as bf16(q * scale). n == gh * gw; hd one of
-// 16, 32, 64, 80. Returns the CUDA error code of the launch.
+// 16, 32, 64, 80. Keys that fit the ring take the windowed kernel, longer
+// sequences the streaming one. Returns the CUDA error code of the launch
+// (cudaErrorInvalidValue where the block's shared memory would pass 227 KB:
+// sam6d_flash_attention_relpos_bf16_tables_bytes is then > 0).
 int sam6d_flash_attention_relpos_bf16(const void* qkv, const void* rel_pos_h,
                                       const void* rel_pos_w, void* out, int b, int n,
                                       int heads, int hd, int gh, int gw, float scale,
                                       cudaStream_t stream) {
   if (gh * gw != n) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch_bf16<16>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
-    case 32: return launch_bf16<32>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
-    case 64: return launch_bf16<64>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
-    case 80: return launch_bf16<80>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
+    case 16: return launch_bf16_any<16>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
+    case 32: return launch_bf16_any<32>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
+    case 64: return launch_bf16_any<64>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
+    case 80: return launch_bf16_any<80>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -602,11 +1202,29 @@ int sam6d_flash_attention_relpos_bf16_global(const void* qkv, const void* rel_po
 // hd it does not take. The launch refuses a size above 227 KB.
 int sam6d_flash_attention_relpos_bf16_smem(int n, int hd, int gh, int gw) {
   switch (hd) {
-    case 16: return static_cast<int>(smem_bytes_bf16<16>(n, gh, gw));
-    case 32: return static_cast<int>(smem_bytes_bf16<32>(n, gh, gw));
-    case 64: return static_cast<int>(smem_bytes_bf16<64>(n, gh, gw));
-    case 80: return static_cast<int>(smem_bytes_bf16<80>(n, gh, gw));
+    case 16: return static_cast<int>(smem_bytes_bf16_any<16>(n, gh, gw));
+    case 32: return static_cast<int>(smem_bytes_bf16_any<32>(n, gh, gw));
+    case 64: return static_cast<int>(smem_bytes_bf16_any<64>(n, gh, gw));
+    case 80: return static_cast<int>(smem_bytes_bf16_any<80>(n, gh, gw));
     default: return -1;
+  }
+}
+
+// The windowed launch's table stage alone (a test entry): tables (b, heads,
+// n, gh + gw) bfloat16 receives each query's rel_h entries then its rel_w
+// ones, formed as the attention kernel forms them. Same operands as
+// sam6d_flash_attention_relpos_bf16. Returns the CUDA error code.
+int sam6d_flash_attention_relpos_bf16_window_tables(const void* qkv, const void* rel_pos_h,
+                                                    const void* rel_pos_w, void* tables, int b,
+                                                    int n, int heads, int hd, int gh, int gw,
+                                                    cudaStream_t stream) {
+  if (gh * gw != n) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return window::launch_tables<16>(qkv, rel_pos_h, rel_pos_w, tables, b, n, heads, gh, gw, stream);
+    case 32: return window::launch_tables<32>(qkv, rel_pos_h, rel_pos_w, tables, b, n, heads, gh, gw, stream);
+    case 64: return window::launch_tables<64>(qkv, rel_pos_h, rel_pos_w, tables, b, n, heads, gh, gw, stream);
+    case 80: return window::launch_tables<80>(qkv, rel_pos_h, rel_pos_w, tables, b, n, heads, gh, gw, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -17,7 +17,8 @@
 // tile, so a K/V tile read into shared memory serves 64 * kWarpgroups rows.
 // Query rows and keys are counted apart (K8 takes cross-attention). Thread
 // 0 issues the TMA loads: all of them up front when a (sample, head)'s keys
-// fit the ring ("resident": K5's and K9's 257 keys, K1's 196-key windows),
+// fit the ring ("resident": K5's and K9's 257 keys; K1's 196-key windows run
+// a loop of their own on these wrappers, attention_relpos.cu),
 // and the block's warpgroups then loop over several row tiles on K/V loaded
 // once, one stage a key tile; otherwise (K1's 4096-key global blocks, K8's
 // 1025 keys at img_size 448) two stages stream, each refilled once every
@@ -288,6 +289,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[1][4], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// the same with B 16 x 16: K1's windowed last tile of 9-16 keys
+__device__ __forceinline__ void wgmma_ss(float (&d)[2][4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x N fp32) += A (64 x 16 bf16, registers) x B (16 x N, MN-major, shared)
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -412,10 +425,11 @@ struct KVMaps {
 // channels past hd and rows past n read as zeros. TMA takes a 16-byte
 // aligned base and strides of whole 16 bytes (8 elements) below 2^40
 // bytes: anything else returns cudaErrorInvalidValue. Returns 0 or a CUDA
-// error code.
+// error code. `box_rows` < 64 gives boxes of that many rows (K1's short
+// last ring stage).
 template <int HD>
 int encode_operand_maps(CUtensorMap (&maps)[2], const void* base, const long long (&s)[3], int b,
-                        int heads, int n, int hd) {
+                        int heads, int n, int hd, int box_rows = kTileKeys) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(base) % 16) return static_cast<int>(cudaErrorInvalidValue);
@@ -428,7 +442,8 @@ int encode_operand_maps(CUtensorMap (&maps)[2], const void* base, const long lon
                                  static_cast<cuuint64_t>(s[0]) * 2};
   for (int p = 0; p < n_parts<HD>(); ++p) {
     const int w = part_width<HD>(p);
-    const cuuint32_t box[4] = {static_cast<cuuint32_t>(part_cols<HD>(p)), kTileKeys, 1, 1};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(part_cols<HD>(p)),
+                               static_cast<cuuint32_t>(box_rows), 1, 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
     const CUtensorMapSwizzle swizzle = w == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                        : w == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -445,12 +460,14 @@ int encode_operand_maps(CUtensorMap (&maps)[2], const void* base, const long lon
 // The K and V maps of a (b, n, 3 heads HD) qkv matrix laid out [q | k | v]
 // on the channel axis (K1, K5): k and v are its head-major views.
 template <int HD>
-int encode_qkv_maps(KVMaps& maps, const void* qkv, int b, int n, int heads) {
+int encode_qkv_maps(KVMaps& maps, const void* qkv, int b, int n, int heads,
+                    int box_rows = kTileKeys) {
   const long long c = static_cast<long long>(heads) * HD;
   const long long s[3] = {n * 3 * c, HD, 3 * c};
   const auto* base = static_cast<const unsigned char*>(qkv);
-  const int err = encode_operand_maps<HD>(maps.k, base + 2 * c, s, b, heads, n, HD);
-  return err != 0 ? err : encode_operand_maps<HD>(maps.v, base + 4 * c, s, b, heads, n, HD);
+  const int err = encode_operand_maps<HD>(maps.k, base + 2 * c, s, b, heads, n, HD, box_rows);
+  return err != 0 ? err
+                  : encode_operand_maps<HD>(maps.v, base + 4 * c, s, b, heads, n, HD, box_rows);
 }
 
 // ------------------------------------------------------------ the core
@@ -607,9 +624,8 @@ __device__ __forceinline__ void attend(const KVMaps& maps, const Tiles& op, unsi
     float l_lo = 0.f, l_hi = 0.f;                      // this lane's partial sums
 
     // One key tile of NTT 8-key blocks: a full tile, or a last tile of at
-    // most 8 keys (K5's and K9's 257th, K8's 1025th, K1's windows' last 4 of
-    // 196), whose product, softmax and P V shrink to one block instead of
-    // running 64 padded keys.
+    // most 8 keys (K5's and K9's 257th, K8's 1025th), whose product, softmax
+    // and P V shrink to one block instead of running 64 padded keys.
     auto tile_step = [&](auto ntt, int kt, const unsigned char* kt_s,
                          const unsigned char* vt_s) {
       constexpr int NTT = decltype(ntt)::value;

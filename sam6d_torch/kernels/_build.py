@@ -81,6 +81,8 @@ _SIGNATURES = {
     "sam6d_flash_attention_relpos_bf16_global": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                                  _I, _I, _F, _P],
     "sam6d_flash_attention_relpos_bf16_tables_bytes": [_I, _I, _I, _I, _I, _I],
+    "sam6d_flash_attention_relpos_bf16_window_tables": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                                        _I, _P],
 }
 # entries that return something other than a CUDA error code (an int)
 _RESTYPES = {"sam6d_flash_attention_relpos_bf16_tables_bytes": ctypes.c_longlong}

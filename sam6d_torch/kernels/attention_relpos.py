@@ -32,8 +32,10 @@ tokens of the windowed blocks included, as the reference does; the output
 A bfloat16 qkv with bfloat16 rel-pos tables (the weights' dtype) takes the
 bf16 entry (`csrc/attention_relpos.cu` on the core of `csrc/bf16_wgmma.cuh`:
 `wgmma` for both products, K/V tiles by TMA; the tables in shared memory,
-or, for a grid whose tables do not fit a block's shared memory beside the
-ring, formed by a pre-pass into global memory and read from there:
+formed by a windowed kernel of its own where the keys fit the ring (SAM's
+14x14 windows; its table stage alone: `window_tables_bf16_cuda`), or, for a
+grid whose tables do not fit a block's shared memory beside the ring,
+formed by a pre-pass into global memory and read from there:
 `bf16_tables_in_global`) or, on the CPU, its plain version: the tables
 formed in fp32 from the bf16 q and rel-pos rows and rounded to bf16, as
 the TPU wrapper casts them before its kernel (flash_attention.py:337-372),
@@ -180,11 +182,10 @@ def flash_attention_relpos_bf16_plain(qkv: torch.Tensor, rel_pos_h: torch.Tensor
     return out.transpose(1, 2).reshape(B, N, C3 // 3)
 
 
-def flash_attention_relpos_bf16_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
-                                     rel_pos_w: torch.Tensor, hw,
-                                     heads: int) -> torch.Tensor:
-    """The bf16 entry: same contract as flash_attention_relpos_bf16_plain."""
-    name = "flash_attention_relpos_bf16_cuda"
+def _bf16_operands(name, qkv, rel_pos_h, rel_pos_w, hw, heads):
+    """The bf16 C entries' checks on their operands: (B, N, hd, rel_pos_h,
+    rel_pos_w), the tables contiguous; raises ValueError on what the kernels
+    do not take."""
     if not (qkv.is_cuda and rel_pos_h.is_cuda and rel_pos_w.is_cuda):
         raise ValueError(f"{name} takes CUDA tensors")
     if any(t.dtype != torch.bfloat16 for t in (qkv, rel_pos_h, rel_pos_w)) or qkv.dim() != 3:
@@ -206,8 +207,18 @@ def flash_attention_relpos_bf16_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     if not qkv.is_contiguous() or any(t.data_ptr() % 16 for t in (qkv, rel_pos_h, rel_pos_w)):
         raise ValueError("qkv must be contiguous, and qkv and the rel_pos tables "
                          "16-byte aligned")
+    return B, N, hd, rel_pos_h, rel_pos_w
+
+
+def flash_attention_relpos_bf16_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
+                                     rel_pos_w: torch.Tensor, hw,
+                                     heads: int) -> torch.Tensor:
+    """The bf16 entry: same contract as flash_attention_relpos_bf16_plain."""
+    name = "flash_attention_relpos_bf16_cuda"
+    B, N, hd, rel_pos_h, rel_pos_w = _bf16_operands(name, qkv, rel_pos_h, rel_pos_w, hw, heads)
+    H, W = hw
     lib = load_library()
-    out = torch.empty((B, N, C3 // 3), dtype=torch.bfloat16, device=qkv.device)
+    out = torch.empty((B, N, heads * hd), dtype=torch.bfloat16, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     table_bytes = lib.sam6d_flash_attention_relpos_bf16_tables_bytes(B, N, heads, hd, H, W)
     if table_bytes:   # the tables do not fit beside the ring: formed in global memory
@@ -225,6 +236,24 @@ def flash_attention_relpos_bf16_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
 
 
 flash_attention_relpos_bf16_cuda.launches = 0
+
+
+def window_tables_bf16_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
+                            rel_pos_w: torch.Tensor, hw, heads: int):
+    """The table stage of the bf16 entry's windowed launch (the grids whose
+    keys fit its ring), run alone: (rel_h (B, heads, N, H), rel_w (B, heads,
+    N, W)) float32 holding the bf16 entries the attention kernel forms, to
+    be held to `bf16_rel_pos_tables`. Same operands as
+    flash_attention_relpos_bf16_cuda."""
+    name = "window_tables_bf16_cuda"
+    B, N, hd, rel_pos_h, rel_pos_w = _bf16_operands(name, qkv, rel_pos_h, rel_pos_w, hw, heads)
+    H, W = hw
+    tables = torch.empty((B, heads, N, H + W), dtype=torch.bfloat16, device=qkv.device)
+    err = load_library().sam6d_flash_attention_relpos_bf16_window_tables(
+        qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), tables.data_ptr(),
+        B, N, heads, hd, H, W, torch.cuda.current_stream(qkv.device).cuda_stream)
+    check(err, name)
+    return tables[..., :H].float(), tables[..., H:].float()
 
 
 def bf16_tables_in_global(B: int, hw, heads: int, hd: int) -> bool:

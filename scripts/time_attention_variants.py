@@ -27,7 +27,10 @@ and 1/sigma's relative), K3 beside its plain version's time (5 runs);
 (16x16x257x64), K5 (16x257x3072) and K1 (global and windowed) are also
 timed, one launch and runs of 10, beside SDPA in bf16 on the same
 operands (K1's bias as a bf16 mask), each held to its plain bf16 version,
-with the ptxas registers of their kernels, and K2-K4 are their bf16 entries
+with the ptxas registers of their kernels (K1 global and windowed also on
+the card alone: their kernels' device time under torch.profiler over 10
+calls, beside SDPA's kernels, so that the host's dispatch cannot set the
+number), and K2-K4 are their bf16 entries
 on the same states rounded to bf16 (each held to its plain bf16 version;
 one launch and runs of 10; each call's kernels by name on the card under
 torch.profiler, which parts the card's time from the host's dispatch), and
@@ -47,9 +50,10 @@ one block barrier; plus a cluster barrier and a 16-slot DSMEM read) where
 the checkout has it. With `--sam`, also
 the ViT-H SAM's iou pass and `generate_masks_device` on a random 480x640
 frame (random weights, the load pinned as `chip_smoke.py` pins it;
-CUDA-event medians of 3 runs), and the iou pass's kernel split on the card
-(one run under torch.profiler: the largest kernels, and K2, K3's position
-chunks and their merge, and K4 by name).
+CUDA-event medians of 3 runs), and the iou pass's and the whole frame's
+kernel split on the card (one run under torch.profiler: the largest
+kernels, and K1's, K2's, K3's position chunks and their merge, and K4's by
+name).
 """
 from __future__ import annotations
 
@@ -219,17 +223,19 @@ def attention_bf16_fields(rng, cs, ptxas):
         return (torch.from_numpy(rng.randn(*shape).astype(np.float32) * np.float32(scale))
                 .cuda().to(torch.bfloat16))
 
-    def timed(name, fn, plain, lib):
+    def timed(name, fn, plain, lib, alone=False):
         err = float((fn().float() - plain().float()).abs().max())
         one = cs.cuda_ms(fn, reps=20)
         runs = cs.cuda_ms(fn, reps=10, launches=10)
         lib_runs = cs.cuda_ms(lib, reps=10, launches=10)
+        card = (f"; on the card alone {device_split(fn, calls=10)}, SDPA "
+                f"{device_split(lib, calls=10)}" if alone else "")
         return (f"{name} bf16 {one:.4f} ms ({runs:.4f} over runs of 10; SDPA bf16 "
-                f"{lib_runs:.4f}), max |diff| {err:.2e}")
+                f"{lib_runs:.4f}{card}), max |diff| {err:.2e}")
 
     kernels = [(m[1] + f"<{m[2]}>", rec) for name, rec in ptxas.items()
                if (m := re.search(r"((?:attention_(?:qkv|relpos)|head_major_attention)"
-                                  r"_(?:bf16|wgmma)_kernel)ILi(\d+)E(?:Lb(\d)E)?", name))]
+                                  r"_(?:bf16|wgmma|window)_kernel)ILi(\d+)E(?:Lb(\d)E)?", name))]
     fields = ["bf16 K1/K5/K8/K9 kernels (registers, spill bytes) "
               + ", ".join(f"{k} {rec}" for k, rec in kernels)]
     from sam6d_torch.kernels import attention as att
@@ -270,7 +276,8 @@ def attention_bf16_fields(rng, cs, ptxas):
         fields.append(timed(name, lambda: relpos.flash_attention_relpos_bf16_cuda(*args),
                             lambda: relpos.flash_attention_relpos_bf16_plain(*args),
                             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                                   scale=80 ** -0.5)))
+                                                                   scale=80 ** -0.5),
+                            alone=True))
         del mask
     return fields
 
@@ -294,22 +301,24 @@ def sam_fields(cs, bf16=False):
         iou = cs.cuda_ms(lambda: seg._iou_all_impl(emb, pe, pts), reps=3)
         split = device_split(lambda: seg._iou_all_impl(emb, pe, pts))
     dev = cs.cuda_ms(lambda: seg.generate_masks_device(rgb), reps=3)
+    frame = device_split(lambda: seg.generate_masks_device(rgb))
     return [f"iou pass {iou:.2f} ms", f"iou pass on the card {split}",
-            f"generate_masks_device {dev:.2f} ms"]
+            f"generate_masks_device {dev:.2f} ms", f"frame on the card {frame}"]
 
 
-def device_split(fn, top=8):
-    """One run of fn() under torch.profiler: the card's summed kernel time
-    and the kernels that took most of it, and K2, K3's two kernels and K4
-    wherever they rank (name, launches, ms)."""
-    keep = ("ln_stats", "t2i", "i2t")
+def device_split(fn, top=8, calls=1):
+    """`calls` runs of fn() under torch.profiler: the card's summed kernel
+    time a run and the kernels that took most of it, and K1's, K2's, K3's
+    two and K4's kernels wherever they rank (name, launches, ms a run)."""
+    keep = ("attention_relpos", "ln_stats", "t2i", "i2t")
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -319,8 +328,8 @@ def device_split(fn, top=8):
     ops.sort(key=dev_us, reverse=True)
     shown = [(e.key.replace("(anonymous namespace)::", "").split("(")[0][:40], e)
              for i, e in enumerate(ops) if i < top or any(k in e.key for k in keep)]
-    return f"{sum(map(dev_us, ops)) / 1e3:.2f} ms: " + ", ".join(
-        f"{n} x{e.count} {dev_us(e) / 1e3:.2f}" for n, e in shown)
+    return f"{sum(map(dev_us, ops)) / 1e3 / calls:.4f} ms: " + ", ".join(
+        f"{n} x{e.count} {dev_us(e) / 1e3 / calls:.4f}" for n, e in shown)
 
 
 def factored_state(rng, ranks, scaled, with_a, B=128, N=4096, C=256, d=128):

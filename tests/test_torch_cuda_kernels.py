@@ -4,7 +4,9 @@ query (also at the training shapes, on inputs that carry autograd
 history), the fused attentions (K5 off the qkv projection, K8 and K9 on
 head-major operands), SAM's rel-pos attention (K1) and the factored AMG
 kernels (K2-K4), and the bf16 entries of K1, K5, K8, K9 and K2-K4 against
-the plain versions of their bf16 contract; the NMS fixed-point kernel, the
+the plain versions of their bf16 contract (K1's windowed launch also at
+each last-tile size, with peaked scores, and its table stage bit for bit);
+the NMS fixed-point kernel, the
 describe sized on the device by CUDA-graph conditional nodes, and
 `MultiObjectStream.submit_frame` returning before any result exists. The
 file imports torch, numpy, pytest and sam6d_torch only (and the numpy NMS
@@ -752,6 +754,63 @@ def test_bf16_streaming_ring_reads_every_key_tile(cuda_device, entry, hw, heads,
         got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, hw, heads)
         want = relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, hw, heads)
     _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,hd", [
+    pytest.param(hw, hd, id=f"{hw[0]}x{hw[1]}-last-{last}-hd{hd}")
+    for hw, last in (((3, 43), 1), ((14, 14), 4), ((8, 25), 8), ((3, 67), 9),
+                     ((13, 16), 16), ((16, 16), 64))
+    for hd in (80, 64)
+])
+def test_flash_attention_relpos_bf16_windowed_last_tiles(cuda_device, hw, hd):
+    """The windowed launch (keys resident in the ring) on grids whose last
+    key tile holds 1, 4, 8, 9, 16 and 64 keys: m64n8 or m64n16 on a 16-key
+    ring stage up to 16 keys, a full stage past them. These grids keep their
+    tables in shared memory (the windowed launch), and every entry stays
+    within atol 8e-3 of the plain version."""
+    rng = np.random.RandomState(29)
+    H, W = hw
+    heads = 2
+    C = heads * hd
+    assert not relpos.bf16_tables_in_global(2, hw, heads, hd)
+    qkv = _bf16_on_card(rng, cuda_device, (2, H * W, 3 * C))
+    with torch.no_grad():
+        qkv[..., :2 * C] *= 0.5
+    rh = _bf16_on_card(rng, cuda_device, (2 * H - 1, hd), 0.1)
+    rw = _bf16_on_card(rng, cuda_device, (2 * W - 1, hd), 0.1)
+    got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, hw, heads)
+    _bf16_close(got, relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, hw, heads))
+
+
+@pytest.mark.cuda
+def test_flash_attention_relpos_bf16_windowed_peaked_scores(cuda_device):
+    """SAM's windowed shape (25 windows of 14 x 14, 16 heads of 80) with
+    every query peaked at one key and a V offset a 64-key tile: the peak
+    keys form a permutation, so four rows peak inside the 4-key last tile
+    and rows 192-195 (the tail row tile, warp 0 live) peak elsewhere. A key
+    tile or a tail row read wrong moves those rows by 1/36 or more."""
+    rng = np.random.RandomState(30)
+    qkv = torch.from_numpy(_peaked_qkv(rng, 25, 196, 16, 80)).to(cuda_device, torch.bfloat16)
+    rh = _bf16_on_card(rng, cuda_device, (27, 80), 0.1)
+    rw = _bf16_on_card(rng, cuda_device, (27, 80), 0.1)
+    got = relpos.flash_attention_relpos_bf16_cuda(qkv, rh, rw, (14, 14), 16)
+    _bf16_close(got, relpos.flash_attention_relpos_bf16_plain(qkv, rh, rw, (14, 14), 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rel_scale", [1.0, 3.0], ids=["rel-x1", "rel-x3"])
+def test_flash_attention_relpos_bf16_window_tables_equal_plain(cuda_device, rel_scale):
+    """The windowed launch's table stage, run alone, equals
+    bf16_rel_pos_tables bit for bit at SAM's windowed shape: each entry's
+    two FMA chains in the same order, rounded to bf16 once."""
+    rng = np.random.RandomState(31)
+    qkv = _bf16_on_card(rng, cuda_device, (25, 196, 3 * 1280))
+    rh = _bf16_on_card(rng, cuda_device, (27, 80), 0.1 * rel_scale)
+    rw = _bf16_on_card(rng, cuda_device, (27, 80), 0.1 * rel_scale)
+    got = relpos.window_tables_bf16_cuda(qkv, rh, rw, (14, 14), 16)
+    want = relpos.bf16_rel_pos_tables(qkv, rh, rw, (14, 14), 16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
