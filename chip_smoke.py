@@ -18,9 +18,11 @@ Phases, in order; any failure raises and exits non-zero:
      head-major operands, K9 with no caller on any path), the SAM rel-pos
      attention (K1, a global and a windowed ViT-H block; the kernel forms
      its rel-pos tables itself, and the plain version's two table einsums
-     are timed alone), K1 and K5 also at large scores, beside both bounds
-     (fp32 units; three-pass TF32) and their ptxas registers and spills
-     (none allowed), and the three factored kernels (K2-K4) on states
+     are timed alone; one launch, runs of 10 and the card alone, beside
+     SDPA in full fp32 the same three ways; its dynamic shared memory), K1
+     and K5 also at large scores, each against its three-pass TF32 bound
+     (the record's bound_ms; the fp32 units' beside it) and their ptxas registers and spills (none allowed;
+     K1's at every head dim), and the three factored kernels (K2-K4) on states
      captured from one 128-prompt chunk of the iou pass of the ViT-H SAM
      built first (K2, whose product runs in three-pass TF32, also beside
      that bound, with its registers and no spills);
@@ -211,10 +213,12 @@ def bound(flops, nbytes):
 
 
 def tc_bound(product_flops, other_flops, nbytes):
-    """Least ms the card could take when the products run in three-pass TF32
-    on the tensor cores and the rest on the fp32 units."""
-    return 1e3 * max(product_flops / PEAK_TF32X3_FLOPS + other_flops / PEAK_FP32_FLOPS,
-                     nbytes / PEAK_BYTES)
+    """(least ms the card could take, what bounds it) when the products run in
+    three-pass TF32 on the tensor cores and the rest on the fp32 units: the
+    bound of the kernels that run their products so."""
+    t_ops = product_flops / PEAK_TF32X3_FLOPS + other_flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def bf16_bound(product_flops, other_flops, nbytes):
@@ -279,6 +283,11 @@ def device_busy(fn, label):
     ranked = sorted(kernels, key=dev_us, reverse=True)
     top = ranked[:6] + [e for e in ranked[6:]
                         if any(k in e.key for k in ("ln_stats", "t2i", "i2t"))]
+    k1 = [e for e in kernels if "attention_relpos" in e.key or "tf32::" in e.key]
+    if k1:   # K1's kernels: the fp32 entry's pre-pass and attention, or the bf16 ones
+        log(f"{label}: K1 on the card {sum(map(dev_us, k1)) / 1e3:.3f} ms (" + "; ".join(
+            f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][:48]} x{e.count} "
+            f"{dev_us(e) / 1e3:.3f} ms" for e in k1) + ")")
     log(f"{label}: card busy {busy:.1f} ms of {wall:.1f} ms wall under the "
         f"profiler ({100 * busy / wall:.0f}%), {sum(e.count for e in kernels)} "
         f"device ops; most time: " + "; ".join(
@@ -559,21 +568,21 @@ def _check_attention(rng, ptxas):
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                      reps=20)
     flops, nbytes = 4 * B * heads * N * N * hd, 4 * B * N * 3 * C + 4 * B * N * C
-    b_ms, b_by = bound(flops, nbytes)
-    tc_ms = tc_bound(flops, 0, nbytes)
+    b_ms, _ = bound(flops, nbytes)
+    tc_ms, tc_by = tc_bound(flops, 0, nbytes)
     regs, spills = ptxas_record(ptxas, "attention_qkv_kernel", hd)
     if spills:
         raise AssertionError(f"fused_attention_qkv (hd {hd}) spills {spills} bytes")
     log(f"attention_qkv[16x257x3072]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {lib_ms:.4f} ms, kernel/SDPA {ms / lib_ms:.3f}; bound {b_ms:.4f} ms on the "
-        f"fp32 units ({b_by}, {100 * b_ms / ms:.1f}% of it), {tc_ms:.4f} ms in three-pass "
-        f"TF32 ({100 * tc_ms / ms:.1f}%); ptxas {regs} registers, {spills} bytes spilled")
+        f"SDPA {lib_ms:.4f} ms, kernel/SDPA {ms / lib_ms:.3f}; bound {tc_ms:.4f} ms in "
+        f"three-pass TF32 ({tc_by}, {100 * tc_ms / ms:.1f}% of it), {b_ms:.4f} ms on the fp32 "
+        f"units; ptxas {regs} registers, {spills} bytes spilled")
     return dict(name="fused_attention_qkv_cuda", route="cuda",
                 source="sam6d_torch/csrc/attention_qkv.cu",
                 replaces="sam6d_tpu/kernels/flash_attention.py:280",
                 max_abs_err=err, tolerance=f"atol {ATTENTION_ATOL}",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, library_ratio=ms / lib_ms, tc_bound_ms=tc_ms,
+                ms=ms, plain_ms=plain_ms, bound_ms=tc_ms, bound_by=tc_by,
+                library_ms=lib_ms, library_ratio=ms / lib_ms, fp32_units_bound_ms=b_ms,
                 ptxas_registers=regs, ptxas_spill_bytes=spills,
                 shapes="16x257x3072, 16 heads of 64 (ms); 3x257, 2x256 and 16x257 with q "
                        "and k x2 checked")
@@ -626,16 +635,17 @@ def _check_head_major_attention(rng, ptxas):
                          launches=10)
         one_ms = cuda_ms(lambda: fn(q, k, v, s), reps=10)
         flops, nbytes = 4 * B * H * Nq * Nk * hd, 4 * B * H * hd * (2 * Nq + 2 * Nk)
-        b_ms, b_by = bound(flops, nbytes)
-        tc_ms = tc_bound(flops, 0, nbytes)
+        b_ms, _ = bound(flops, nbytes)
+        tc_ms, tc_by = tc_bound(flops, 0, nbytes)
         regs, spills = ptxas_record(ptxas, "head_major_attention_kernel", hd)
         log(f"{name}[{B}x{H}x{Nq}x{Nk}x{hd}]: runs of 10 launches: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, kernel/SDPA {ms / lib_ms:.3f}; one launch "
-            f"after a sync (the other rows' method) {one_ms:.4f} ms; bound {b_ms:.4f} ms on the "
-            f"fp32 units ({b_by}, {100 * b_ms / ms:.1f}% of it), {tc_ms:.4f} ms in three-pass "
-            f"TF32 ({100 * tc_ms / ms:.1f}%); ptxas {regs} registers, {spills} bytes spilled")
+            f"after a sync (the other rows' method) {one_ms:.4f} ms; bound {tc_ms:.4f} ms in "
+            f"three-pass TF32 ({tc_by}, {100 * tc_ms / ms:.1f}% of it), {b_ms:.4f} ms on the "
+            f"fp32 units; ptxas {regs} registers, {spills} bytes spilled")
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_ratio=ms / lib_ms,
-                    one_launch_ms=one_ms, bound_ms=b_ms, bound_by=b_by, tc_bound_ms=tc_ms,
+                    one_launch_ms=one_ms, bound_ms=tc_ms, bound_by=tc_by,
+                    fp32_units_bound_ms=b_ms,
                     ptxas_registers=regs, ptxas_spill_bytes=spills)
 
     for hdp in range(16, 129, 16):
@@ -708,13 +718,18 @@ def _check_relpos(rng, ptxas):
     (1 x 64x64 tokens) and a windowed block (25 windows of 14x14), 16 heads
     of 80, and a stress case at the windowed shape (rel-pos parameters x3:
     scores up to ~20).
-    Timed at both shapes: the kernel (which forms the rel-pos tables of its
-    rows itself), the plain version's two table einsums alone, the plain
-    version, and SDPA with the materialized bias as its mask, beside both
-    bounds (fp32 units; three-pass TF32 on the tensor cores)."""
+    Timed at both shapes: the kernel (its K/V pre-pass and the attention
+    kernel, which forms the rel-pos tables of its rows itself) by one launch,
+    over runs of 10 launches and on the card alone, the plain version's two
+    table einsums alone, the plain version, and SDPA in full fp32 (TF32 off)
+    with the materialized bias as its mask, against the three-pass TF32
+    bound (the products on the tensor cores; the fp32 units' beside it);
+    with the attention kernel's and the pre-pass's ptxas registers and the
+    attention kernel's dynamic shared memory."""
     import torch
     import torch.nn.functional as F
     from sam6d_torch.kernels import attention_relpos as rp
+    from sam6d_torch.kernels._build import load_library
 
     heads, hd = 16, 80
     C = heads * hd
@@ -740,50 +755,74 @@ def _check_relpos(rng, ptxas):
             continue
         rel_h, rel_w = rp.rel_pos_tables(*args)
         ms = cuda_ms(lambda: rp.flash_attention_relpos_cuda(*args), reps=10)
+        runs_ms = cuda_ms(lambda: rp.flash_attention_relpos_cuda(*args), reps=5, launches=10)
+        alone_ms, alone_how = card_alone_ms(lambda: rp.flash_attention_relpos_cuda(*args))
         tables_ms = cuda_ms(lambda: rp.rel_pos_tables(*args), reps=10)
         plain_ms = cuda_ms(lambda: rp.flash_attention_relpos_plain(*args), reps=5)
         q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
         bias = (rel_h.view(B, heads, N, H, 1) + rel_w.view(B, heads, N, 1, W)
                 ).reshape(B, heads, N, N)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias, scale=hd ** -0.5), reps=5)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=hd ** -0.5)
+
+        lib_ms = cuda_ms(sdpa, reps=5)
+        lib_runs_ms = cuda_ms(sdpa, reps=5, launches=10)
+        lib_alone_ms, _ = card_alone_ms(sdpa)
         del bias, rel_h, rel_w
         # q k^T and p v; the bias adds and the tables' dot products
         products = 4 * B * heads * N * N * hd
         other = 2 * B * heads * N * N + 2 * B * heads * N * (H + W) * hd
         nbytes = 4 * (B * N * 3 * C + (2 * H + 2 * W - 2) * hd + B * N * C)
-        b_ms, b_by = bound(products + other, nbytes)
-        tc_ms = tc_bound(products, other, nbytes)
-        rec[name] = dict(err=err, ms=ms, tables_ms=tables_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                         b_ms=b_ms, b_by=b_by, tc_ms=tc_ms)
+        b_ms, _ = bound(products + other, nbytes)
+        tc_ms, tc_by = tc_bound(products, other, nbytes)
+        smem = load_library().sam6d_flash_attention_relpos_smem(N, hd, H, W)
+        rec[name] = dict(err=err, ms=ms, runs_ms=runs_ms, alone_ms=alone_ms, tables_ms=tables_ms,
+                         plain_ms=plain_ms, lib_ms=lib_ms, lib_runs_ms=lib_runs_ms,
+                         lib_alone_ms=lib_alone_ms, b_ms=b_ms, tc_ms=tc_ms, tc_by=tc_by, smem=smem)
         log(f"relpos_attention[{name} {B}x{N}x{3 * C}, {heads} heads of {hd}]: kernel "
-            f"{ms:.4f} ms (tables formed inside), the two table einsums alone "
-            f"{tables_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with the bias {lib_ms:.4f} ms, "
-            f"kernel/SDPA {ms / lib_ms:.3f}; bound {b_ms:.4f} ms on the fp32 units ({b_by}, "
-            f"{100 * b_ms / ms:.1f}% of it), {tc_ms:.4f} ms in three-pass TF32 "
-            f"({100 * tc_ms / ms:.1f}%)")
+            f"{ms:.4f} ms one launch, {runs_ms:.4f} over runs of 10, {alone_ms:.4f} on the card "
+            f"alone ({alone_how}); the two table einsums alone {tables_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; SDPA fp32 with the bias {lib_ms:.4f} ms, {lib_runs_ms:.4f} over "
+            f"runs, {lib_alone_ms:.4f} alone; kernel/SDPA {ms / lib_ms:.3f}, runs "
+            f"{runs_ms / lib_runs_ms:.3f}, alone {alone_ms / lib_alone_ms:.3f}; bound {tc_ms:.4f} "
+            f"ms in three-pass TF32 ({tc_by}, {100 * tc_ms / alone_ms:.1f}% of the time alone), "
+            f"{b_ms:.4f} ms on the fp32 units; attention kernel {smem} B of dynamic shared "
+            f"memory")
     g, w = rec["global"], rec["windowed"]
-    regs, spills = ptxas_record(ptxas, "attention_relpos_kernel", hd)
-    if spills:
-        raise AssertionError(f"flash_attention_relpos (hd {hd}) spills {spills} bytes")
-    log(f"relpos_attention: ptxas {regs} registers, {spills} bytes spilled (hd {hd})")
+    regs, spills = ptxas_record(ptxas, "tf3216attention_kernel", hd)
+    split_regs, _ = ptxas_record(ptxas, "tf3215split_kv_kernel", hd)
+    for h in (16, 32, 64, 80):   # no spill at any head dim the entry takes
+        for kernel in ("tf3216attention_kernel", "tf3215split_kv_kernel"):
+            if ptxas_record(ptxas, kernel, h)[1]:
+                raise AssertionError(f"flash_attention_relpos {kernel}<{h}> spills")
+    log(f"relpos_attention: ptxas attention_kernel<{hd}> {regs} registers, pre-pass "
+        f"split_kv_kernel {split_regs}; no spills at hd 16/32/64/80")
     return dict(name="flash_attention_relpos_cuda", route="cuda",
                 source="sam6d_torch/csrc/attention_relpos.cu",
                 replaces="sam6d_tpu/kernels/flash_attention.py:316",
                 max_abs_err=max(r["err"] for r in rec.values()),
                 tolerance=f"atol {ATTENTION_ATOL}",
-                ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["b_ms"],
-                bound_by=g["b_by"], library_ms=g["lib_ms"], library_ratio=g["ms"] / g["lib_ms"],
-                tc_bound_ms=g["tc_ms"], tables_einsum_ms=g["tables_ms"],
-                windowed_ms=w["ms"], windowed_tables_einsum_ms=w["tables_ms"],
-                windowed_plain_ms=w["plain_ms"], windowed_bound_ms=w["b_ms"],
-                windowed_tc_bound_ms=w["tc_ms"], windowed_library_ms=w["lib_ms"],
+                ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["tc_ms"],
+                bound_by=g["tc_by"], library_ms=g["lib_ms"], library_ratio=g["ms"] / g["lib_ms"],
+                runs_ms=g["runs_ms"], alone_ms=g["alone_ms"], library_runs_ms=g["lib_runs_ms"],
+                library_alone_ms=g["lib_alone_ms"],
+                fp32_units_bound_ms=g["b_ms"], tables_einsum_ms=g["tables_ms"],
+                windowed_ms=w["ms"], windowed_runs_ms=w["runs_ms"],
+                windowed_alone_ms=w["alone_ms"], windowed_tables_einsum_ms=w["tables_ms"],
+                windowed_plain_ms=w["plain_ms"], windowed_bound_ms=w["tc_ms"],
+                windowed_fp32_units_bound_ms=w["b_ms"], windowed_library_ms=w["lib_ms"],
+                windowed_library_runs_ms=w["lib_runs_ms"],
+                windowed_library_alone_ms=w["lib_alone_ms"],
                 windowed_library_ratio=w["ms"] / w["lib_ms"],
                 ptxas_registers=regs, ptxas_spill_bytes=spills,
-                shapes="global 1x4096x3840, 16 heads of 80 (ms: the kernel, tables formed "
-                       "inside; tables_einsum_ms: the plain version's two table einsums "
-                       "alone); windowed 25x196x3840 (windowed_*); windowed with rel-pos x3 "
-                       "checked")
+                split_ptxas_registers=split_regs, smem_bytes=g["smem"],
+                windowed_smem_bytes=w["smem"],
+                shapes="global 1x4096x3840, 16 heads of 80 (ms: the K/V pre-pass and the "
+                       "attention kernel, one launch; runs_ms over runs of 10; alone_ms their "
+                       "device time alone; tables_einsum_ms: the plain version's two table "
+                       "einsums alone); windowed 25x196x3840 (windowed_*); windowed with "
+                       "rel-pos x3 checked; library: SDPA in fp32 (TF32 off), bias as mask")
 
 
 FACTORED = ("factored_ln_stats", "factored_t2i_attention", "factored_i2t_scores")
@@ -902,7 +941,8 @@ def _check_factored(calls, ptxas):
     """K2-K4 against their plain versions on the captured chunk states;
     each record is timed at the larger (second) call, the first call's
     numbers kept beside it. All three run their products on the tensor
-    cores: their records add the three-pass TF32 bound and the ptxas
+    cores: their bound_ms is the three-pass TF32 bound (the fp32 units'
+    beside it), and their records add the ptxas
     registers of their kernels (K3: the position chunks' kernel, then the
     merge kernel; a spill fails)."""
     import torch
@@ -939,21 +979,21 @@ def _check_factored(calls, ptxas):
                 ms = cuda_ms(lambda: cuda_fn(*args), reps=10)
                 plain_ms = cuda_ms(lambda: plain_fn(*args), reps=3)
             b_ms, b_by = _factored_bound(n, args)
-            tc_ms = tc_bound(*tc[n][1](args))
+            tc_ms, tc_by = tc_bound(*tc[n][1](args))
             blocks = args[{"factored_ln_stats": 0, "factored_t2i_attention": 3,
                            "factored_i2t_scores": 2}[n]]
             ranks = "+".join(str(pd.shape[1]) for pd, _ in blocks) or "0"
             B = (args[1] if n == "factored_ln_stats" else args[0]).shape[0]
             log(f"{n}[B={B}, ranks {ranks}]: {desc}; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), three-pass TF32 "
-                f"bound {tc_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, bound {tc_ms:.4f} ms in three-pass TF32 ({tc_by}), "
+                f"{b_ms:.4f} ms on the fp32 units ({b_by})")
             if not ok:
                 raise AssertionError(f"{n} kernel differs from its plain version")
             rows.append(dict(err=err if n != "factored_ln_stats" else max(err, rel), ms=ms,
-                             plain_ms=plain_ms, b_ms=b_ms, b_by=b_by, tc_ms=tc_ms,
+                             plain_ms=plain_ms, b_ms=b_ms, tc_ms=tc_ms, tc_by=tc_by,
                              ranks=ranks))
         first, last = rows[0], rows[-1]
-        extra = dict(tc_bound_ms=last["tc_ms"], first_call_tc_bound_ms=first["tc_ms"],
+        extra = dict(fp32_units_bound_ms=last["b_ms"], first_call_fp32_units_bound_ms=first["b_ms"],
                      ptxas_registers=ptx[n][0][0], ptxas_spill_bytes=ptx[n][0][1])
         if len(ptx[n]) > 1:
             extra.update(merge_ptxas_registers=ptx[n][1][0],
@@ -965,10 +1005,10 @@ def _check_factored(calls, ptxas):
             tolerance=(f"mu atol {FACTORED_ATOL}, 1/sigma rtol {LN_INV_RTOL} (max_abs_err "
                        f"holds the larger)" if n == "factored_ln_stats"
                        else f"atol {FACTORED_ATOL}"),
-            ms=last["ms"], plain_ms=last["plain_ms"], bound_ms=last["b_ms"],
-            bound_by=last["b_by"], library_ms=None,
+            ms=last["ms"], plain_ms=last["plain_ms"], bound_ms=last["tc_ms"],
+            bound_by=last["tc_by"], library_ms=None,
             first_call_ms=first["ms"], first_call_plain_ms=first["plain_ms"],
-            first_call_bound_ms=first["b_ms"],
+            first_call_bound_ms=first["tc_ms"],
             shapes=f"B=128, N=4096, ranks {last['ranks']} (ms); ranks {first['ranks']} "
                    f"(first_call_ms); states captured from one chunk of the iou pass",
             **extra))

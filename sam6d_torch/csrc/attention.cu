@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks<HDP>())
                            v + b * sv.b + h * sv.h, out + b * so.b + h * so.h,
                            sq.n, sk.n, sv.n, so.n, nq, nk, hd};
   sam6d::attention_rows<HDP, kWarps, tile_keys<HDP>(), sam6d::Staging::kSplitOnce>(
-      op, reinterpret_cast<float*>(smem4), blockIdx.x * kRows, scale, sam6d::NoBias{});
+      op, reinterpret_cast<float*>(smem4), blockIdx.x * kRows, scale);
 }
 
 template <int HDP>

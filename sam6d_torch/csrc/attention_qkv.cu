@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
                            out + static_cast<size_t>(blockIdx.z) * n * c + blockIdx.y * HD,
                            rs, rs, rs, c, n, n, HD};
   sam6d::attention_rows<HD, kWarps, kTileKeys, sam6d::Staging::kSplitPerFragment>(
-      op, reinterpret_cast<float*>(smem4), blockIdx.x * kRows, scale, sam6d::NoBias{});
+      op, reinterpret_cast<float*>(smem4), blockIdx.x * kRows, scale);
 }
 
 template <int HD>

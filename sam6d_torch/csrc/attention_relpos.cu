@@ -24,23 +24,15 @@
 // tensor cores in three-pass TF32 (495/3 = 165 TFLOP/s) 0.52 ms and 30 us,
 // where the windowed block's bytes take 30 us too (3.35 TB/s).
 //
-// Design: the three-pass TF32 attention core of tf32x3.cuh (q rows in
-// shared memory, K/V tiles double-buffered with cp.async straight from the
-// strided qkv, online softmax in registers), 4 warps of 16 query rows per
-// block, with this bias:
-//  - prepare(): the block forms its rows of both tables from the unscaled q
-//    rows in shared memory and rel_pos_h / rel_pos_w (read through L1), on
-//    the fp32 units (gh + gw dot products of HD a row: 1.6% of the
-//    products' operations at the global shape, 7% at the windowed one), so
-//    no table reaches memory; two einsums outside take longer than the
-//    windowed kernel itself (PERF.md);
-//  - add(): each lane adds rel_h + rel_w from shared memory to its score
-//    fragments (rows g, g+8; keys 2t, 2t+1 of each 8-key tile), with
-//    key / gw and key % gw stepped once per tile, not divided per element.
-// 16-key tiles keep the block's shared memory (q, two K/V stages, tables:
-// 75 KB at the global shape) within three blocks an SM. At the windowed
-// shape (N = 196) the fourth row block holds one live warp, and the last
-// key tile (4 keys) runs one n8 tile of its two.
+// Design of the fp32 entry (sam6d_flash_attention_relpos): three-pass TF32
+// on wgmma (tf32_wgmma.cuh). A pre-pass splits K (times the scale), V and
+// the rel-pos rows once into big/small tf32 planes in a workspace, V
+// transposed (tf32 wgmma takes both operands K-major); the attention kernel
+// streams their tiles by TMA bulk copies through a ring in shared memory to
+// two consumer warpgroups of 64 query rows each, which split their q rows
+// once into registers and form their rows of the two tables as q R^T on the
+// tensor cores into shared memory, so no table reaches global memory
+// (namespace tf32 below).
 //
 // The bf16 entry (sam6d_flash_attention_relpos_bf16) is the wgmma core of
 // bf16_wgmma.cuh (wgmma.mma_async for Q K^T and P V with fp32
@@ -59,117 +51,13 @@
 // RelPosBiasBf16); 100-115 KB of shared memory and at most 128 registers
 // let two blocks share an SM.
 #include "bf16_wgmma.cuh"
+#include "tf32_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;
-constexpr int kMinBlocks = 3;   // resident blocks per SM the registers must allow
-constexpr int kTileKeys = 16;   // keys per K/V tile
-
 // shared memory a block of the bf16 entry may take (an H100's 227 KB)
 constexpr size_t kMaxSmemBf16 = 232448;
-
-template <int HD>
-size_t smem_bytes(int gh, int gw) {
-  return sam6d::core_smem_bytes<HD, kWarps, kTileKeys>() + sizeof(float) * kRows * (gh + gw + 2);
-}
-
-
-// the lane's row g in the block
-__device__ __forceinline__ int lane_row() {
-  return static_cast<int>(threadIdx.x / 32) * 16 + static_cast<int>(threadIdx.x % 32) / 4;
-}
-
-// The block's rows of the two tables in shared memory, and their add to a
-// lane's score fragments; the C fragment layout of the fp32 core's m16n8k8
-// and of the bf16 core's m16n8k16 is the same.
-struct RelPosAdd {
-  float* tab_h;          // [kRows][gh + 1] in shared memory
-  float* tab_w;          // [kRows][gw + 1]
-  int gh, gw;
-  int row;               // the lane's row g in the block
-
-  template <int NT>
-  __device__ __forceinline__ void add(float (&s)[NT][4], int k0, int nk, int t) const {
-    const float* rh_lo = tab_h + row * (gh + 1);
-    const float* rh_hi = rh_lo + 8 * (gh + 1);
-    const float* rw_lo = tab_w + row * (gw + 1);
-    const float* rw_hi = rw_lo + 8 * (gw + 1);
-    int kr = (k0 + 2 * t) / gw;
-    int kc = (k0 + 2 * t) - kr * gw;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int j = 8 * nt + 2 * t;  // this lane's first key in the tile
-      int kr1 = kr, kc1 = kc + 1;
-      if (kc1 == gw) {
-        kc1 = 0;
-        ++kr1;
-      }
-      if (j < nk) {
-        s[nt][0] += rh_lo[kr] + rw_lo[kc];
-        s[nt][2] += rh_hi[kr] + rw_hi[kc];
-      }
-      if (j + 1 < nk) {
-        s[nt][1] += rh_lo[kr1] + rw_lo[kc1];
-        s[nt][3] += rh_hi[kr1] + rw_hi[kc1];
-      }
-      kc += 8;
-      while (kc >= gw) {
-        kc -= gw;
-        ++kr;
-      }
-    }
-  }
-
-  // entry e of the block's kRows x (gh + gw) table entries: column j, row r
-  __device__ __forceinline__ void store(int j, int r, float x) const {
-    if (j < gh)
-      tab_h[r * (gh + 1) + j] = x;
-    else
-      tab_w[r * (gw + 1) + j - gh] = x;
-  }
-};
-
-template <int HD>
-struct RelPosBias : RelPosAdd {
-  const float* pos_h;    // rel_pos_h (2 gh - 1, HD)
-  const float* pos_w;    // rel_pos_w (2 gw - 1, HD)
-
-  // Consecutive threads take consecutive rows of one table column j, so a
-  // warp's rel_pos_h reads fall on one row (a broadcast) and its rel_pos_w
-  // reads on neighbouring rows. Lanes on different rel_pos rows would each
-  // fetch their own row from L2 (L1 is mostly shared memory here), and at
-  // the global shape that traffic cost more than the products' time it is
-  // meant to save. Table rows are padded by one float so these stores do
-  // not conflict.
-  __device__ __forceinline__ void prepare(const float* qs, int ld, int q0, int n) const {
-    const int w = gh + gw;
-    for (int e = threadIdx.x; e < kRows * w; e += kWarps * 32) {
-      const int j = e / kRows, r = e - j * kRows;
-      const int tok = q0 + r;
-      float acc = 0.f;
-      if (tok < n) {
-        const float* rp = j < gh ? pos_h + (tok / gw - j + gh - 1) * HD
-                                 : pos_w + (tok % gw - (j - gh) + gw - 1) * HD;
-        const float* qr = qs + r * ld;
-        float4 part = make_float4(0.f, 0.f, 0.f, 0.f);  // four short FMA chains
-#pragma unroll 4
-        for (int d = 0; d < HD; d += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(qr + d);
-          const float4 b = __ldg(reinterpret_cast<const float4*>(rp + d));
-          part.x = fmaf(a.x, b.x, part.x);
-          part.y = fmaf(a.y, b.y, part.y);
-          part.z = fmaf(a.z, b.z, part.z);
-          part.w = fmaf(a.w, b.w, part.w);
-        }
-        acc = (part.x + part.y) + (part.z + part.w);
-      }
-      store(j, r, acc);
-    }
-  }
-};
 
 // The bf16 entry's tables: each entry the fp32 dot product of a bf16 q row
 // (unscaled) and a bf16 rel-pos row, rounded to bf16, as the TPU wrapper
@@ -320,42 +208,517 @@ struct RelPosBiasBf16 {
   }
 };
 
+// ------------------------------------------------- the fp32 entry (tf32 wgmma)
+//
+// Two launches. split_kv_kernel splits K (times the softmax scale) and V
+// once into big/small tf32 planes in a workspace, already in the
+// shared-memory image the attention kernel reads (tf32_wgmma.cuh's 32-byte
+// swizzled parts): a tile of BK = 40 keys (SAM's 196-key windows take 5
+// tiles, its 4096-key grids 103) is [K big][K small][V^T big][V^T small], K
+// as its keys' rows of HD, V transposed (HD rows of its keys, in the
+// permuted order of P's fragments), keys past n zero; after every (sample,
+// head)'s tiles, rel_pos_h's and rel_pos_w's rows split the same way, BK
+// rows a tile. A thread issues all its loads before
+// its first store. attention_kernel then takes two consumer warpgroups of 64
+// query rows of one (sample, head) and a producer warpgroup, one thread of
+// which streams the rel-pos tiles and then the K and V^T tiles in turn
+// through a ring of operand buffers (4 deep where shared memory allows, else
+// 3 or 2), one bulk copy (cp.async.bulk, TMA) a tile on full/empty
+// mbarriers; the producer gives its registers to the consumers (setmaxnreg
+// 24 / 240). A consumer warpgroup:
+//  - loads its q rows (fp32) as wgmma A fragments and splits them once into
+//    big and small fragments, which stay in registers;
+//  - forms its rows of both tables on the tensor cores: G = q R^T over the
+//    rel-pos rows in three passes, each of its entries stored where the table
+//    takes it (rel_h[r][j] = q_r . rel_pos_h[row(r) - j + gh - 1], rel_w
+//    likewise), fp32, in shared memory;
+//  - per key tile: S = Q K^T in three passes of m64n{BK}k8 (q small x K big,
+//    q big x K small, q big x K big, HD / 8 k-steps each, q from registers,
+//    K from the ring); the bias (rel_h + rel_w) added to
+//    the fragments, keys past n masked; the online softmax in fp32 (ex2 of
+//    the score times log2 e); P split into big and small A fragments in
+//    registers; the tile's P V summed from zero in three passes of
+//    m64n{HD}k8 (its first wgmma with scale-d 0) and added to O on the fp32
+//    units as O * alpha + O_tile, so the tensor cores' truncating
+//    accumulation never runs across tiles;
+//  - out = O / max(l, 1e-30). A warp with no row below n skips its softmax
+//    (p = 0).
+// What bounds it on an H100 SXM: three-pass TF32 (495 / 3 TFLOP/s) puts a
+// global block's 85.9 GFLOP at 0.52 ms. At SAM's global grid a block holds
+// the ring (4 x 20 KB at hd 80) and its fp32 tables (65 KB), one block an
+// SM. An m64n32k8 pass with both operands in shared memory reads 3 KB for
+// 16 cycles of tensor work, past the 128 bytes a cycle shared memory gives;
+// with q from registers it reads 1 KB.
+// The tables took a quarter of the global launch and 43% of the windowed
+// one as dot products on the fp32 units (bound by their loads), a few per
+// cent as products on the tensor cores. Giving the producer's registers to
+// the consumers removed the spills that q's fragments caused at 168
+// registers; taking turns on the tensor cores (named barriers) and issuing
+// the next tile's Q K^T before this tile's P V measured no faster (PERF.md).
+namespace tf32 {
+namespace wa = sam6d::wgattn;
+namespace tw = sam6d::tf32wg;
+
+constexpr int kRows = 64;                        // query rows of a warpgroup's tile
+constexpr int kConsumers = 2;                    // consumer warpgroups of a block
+constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer warpgroup
+// registers a thread: the producer warpgroup gives up what the consumers take
+// (setmaxnreg; the launch allots 65536 / 384 = 168)
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr size_t kMaxSmem = 232448;              // an H100's 227 KB a block
+
+// keys of a K/V tile (and rel-pos rows of a rel-pos tile): 40 keys pad SAM's
+// 196-key windows to 200 and its 4096-key grids to 4120, and measured no
+// slower than 32 at either (faster at 4096: fewer tiles' softmax and waits;
+// PERF.md)
+constexpr int BK = 40;
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+// tiles of a table's 2 g - 1 rel-pos rows
+__host__ __device__ constexpr int rel_tiles(int g) { return (2 * g - 1 + BK - 1) / BK; }
+// bytes of a tile (two planes of BK rows of HD floats; a K/V tile is two)
 template <int HD>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-    attention_relpos_kernel(const float* __restrict__ qkv,
-                            const float* __restrict__ rel_pos_h,
-                            const float* __restrict__ rel_pos_w,
-                            float* __restrict__ out, int n, int heads, int gh,
-                            int gw, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* tab_h = smem + sam6d::core_smem_bytes<HD, kWarps, kTileKeys>() / sizeof(float);
-  const int c = heads * HD;
-  const float* q = qkv + static_cast<size_t>(blockIdx.z) * n * 3 * c + blockIdx.y * HD;
-  const long long rs = 3LL * c;
-  const sam6d::Operands op{q, q + c, q + 2 * c,
-                           out + static_cast<size_t>(blockIdx.z) * n * c + blockIdx.y * HD,
-                           rs, rs, rs, c, n, n, HD};
-  const RelPosBias<HD> bias{{tab_h, tab_h + kRows * (gh + 1), gh, gw, lane_row()}, rel_pos_h,
-                            rel_pos_w};
-  sam6d::attention_rows<HD, kWarps, kTileKeys, sam6d::Staging::kSplitPerFragment>(
-      op, smem, blockIdx.x * kRows, scale, bias);
+__host__ __device__ constexpr size_t tile_bytes() { return 8ull * BK * HD; }
+// workspace bytes of one (sample, head): its K and V tiles
+template <int HD>
+__host__ __device__ constexpr size_t head_bytes(int n) {
+  return 2 * tile_bytes<HD>() * (round_up(n, BK) / BK);
+}
+template <int HD>
+__host__ __device__ constexpr size_t workspace_bytes(int b, int n, int heads, int gh, int gw) {
+  return head_bytes<HD>(n) * b * heads +
+         tile_bytes<HD>() * (rel_tiles(gh) + rel_tiles(gw));
+}
+
+// The attention kernel's shared memory: the ring (nbuf tiles: a rel-pos, K
+// or V^T tile's big plane then its small one), each warpgroup's table rows
+// (rel_h [64][gh + 1], rel_w [64][gw + 1], fp32), the full and empty
+// barriers.
+template <int HD>
+struct Layout {
+  size_t tabs, bars, total;
+  __host__ __device__ Layout(int nbuf, int gh, int gw) {
+    tabs = static_cast<size_t>(nbuf) * tile_bytes<HD>();
+    bars = (tabs + sizeof(float) * kConsumers * kRows * (gh + gw + 2) + 15) / 16 * 16;
+    total = bars + 2 * sizeof(uint64_t) * nbuf;
+  }
+};
+// the deepest ring (4, 3 or 2 tiles) that fits a block's shared memory; 0 if none
+template <int HD>
+int ring_depth(int gh, int gw) {
+  for (int d = 4; d >= 2; --d)
+    if (Layout<HD>(d, gh, gw).total <= kMaxSmem) return d;
+  return 0;
+}
+
+// Row r (of `rows`) of a tile's two planes from 8 floats: part p's 32-byte row
+__device__ __forceinline__ void store_split_row(unsigned char* big, int plane, int r, int p,
+                                                int rows, const float4& lo, const float4& hi) {
+  uint4 b0, s0, b1, s1;
+  tw::split4(lo, b0, s0);
+  tw::split4(hi, b1, s1);
+  const int o0 = tw::part32_offset(r, 8 * p, rows), o1 = tw::part32_offset(r, 8 * p + 4, rows);
+  *reinterpret_cast<uint4*>(big + o0) = b0;
+  *reinterpret_cast<uint4*>(big + o1) = b1;
+  *reinterpret_cast<uint4*>(big + plane + o0) = s0;
+  *reinterpret_cast<uint4*>(big + plane + o1) = s1;
+}
+
+// Block (key tile, head, sample): K's rows times `scale` split into the
+// tile's two K planes, V's split and transposed into its two V^T planes, a
+// 32-byte row (8 floats) a thread, consecutive threads on consecutive rows.
+// Blocks past the key tiles of head 0, sample 0 split the rel-pos tiles.
+template <int HD>
+__global__ void __launch_bounds__(256)
+    split_kv_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_pos_h,
+                    const float* __restrict__ rel_pos_w, unsigned char* __restrict__ ws, int b_all,
+                    int n, int heads, int gh, int gw, float scale) {
+  constexpr int PLANE = 4 * BK * HD;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_kt = (n + BK - 1) / BK;
+  if (kt >= n_kt) {  // rel-pos tile kt - n_kt: rel_pos_h's, then rel_pos_w's
+    if (h != 0 || b != 0) return;
+    const int t = kt - n_kt, is_w = t >= rel_tiles(gh);
+    const int m0 = BK * (is_w ? t - rel_tiles(gh) : t), rows = 2 * (is_w ? gw : gh) - 1;
+    const float* rel = is_w ? rel_pos_w : rel_pos_h;
+    unsigned char* tile = ws + head_bytes<HD>(n) * b_all * heads + tile_bytes<HD>() * t;
+    for (int e = threadIdx.x; e < BK * HD / 8; e += 256) {
+      const int p = e / BK, r = e - p * BK;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (m0 + r < rows) {
+        lo = __ldg(reinterpret_cast<const float4*>(rel + (m0 + r) * HD + 8 * p));
+        hi = __ldg(reinterpret_cast<const float4*>(rel + (m0 + r) * HD + 8 * p + 4));
+      }
+      store_split_row(tile, PLANE, r, p, BK, lo, hi);
+    }
+    return;
+  }
+  const int k0 = BK * kt;
+  const long long c = static_cast<long long>(heads) * HD;
+  const float* kb = qkv + static_cast<size_t>(b) * n * 3 * c + c + h * HD;  // key 0's K row
+  const float* vb = kb + c;
+  unsigned char* tile = ws + (static_cast<size_t>(b) * heads + h) * head_bytes<HD>(n) +
+                        2 * tile_bytes<HD>() * kt;
+  // a thread's 32-byte rows: K's (key r, channels 8p..8p+7), then V^T's
+  // (channel d, keys 8p..8p+7); every load issued before the first store
+  constexpr int UK = BK * HD / 8, UT = (2 * UK + 255) / 256;
+  float4 lo[UT], hi[UT];
+#pragma unroll
+  for (int u = 0; u < UT; ++u) {
+    const int e = threadIdx.x + 256 * u;
+    lo[u] = hi[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (e < UK) {
+      const int p = e / BK, r = e - p * BK;
+      if (k0 + r < n) {
+        const float4* src = reinterpret_cast<const float4*>(kb + (k0 + r) * 3 * c + 8 * p);
+        const float4 a = __ldg(src), z = __ldg(src + 1);
+        lo[u] = make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+        hi[u] = make_float4(z.x * scale, z.y * scale, z.z * scale, z.w * scale);
+      }
+    } else if (e < 2 * UK) {
+      const int p = (e - UK) / HD, d = (e - UK) - p * HD;
+      float v[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const int key = k0 + 8 * p + o;
+        v[tw::vt_slot(o)] = key < n ? __ldg(vb + key * 3 * c + d) : 0.f;
+      }
+      lo[u] = make_float4(v[0], v[1], v[2], v[3]);
+      hi[u] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UT; ++u) {
+    const int e = threadIdx.x + 256 * u;
+    if (e < UK) {
+      const int p = e / BK;
+      store_split_row(tile, PLANE, e - p * BK, p, BK, lo[u], hi[u]);
+    } else if (e < 2 * UK) {
+      const int p = (e - UK) / HD;
+      store_split_row(tile + 2 * PLANE, PLANE, (e - UK) - p * HD, p, HD, lo[u], hi[u]);
+    }
+  }
 }
 
 template <int HD>
-int launch(const float* qkv, const float* rel_pos_h, const float* rel_pos_w, float* out,
-           int b, int n, int heads, int gh, int gw, float scale,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes<HD>(gh, gw);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_relpos_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows, heads, b);
-  attention_relpos_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
-      qkv, rel_pos_h, rel_pos_w, out, n, heads, gh, gw, scale);
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_kernel(const unsigned char* __restrict__ ws, const float* __restrict__ qkv,
+                     float* __restrict__ out, int b_all, int n, int heads, int gh, int gw,
+                     int nbuf) {
+  constexpr int KS = HD / 8;                   // k8 steps of Q K^T: the parts of a q or K row
+  constexpr int NK = BK / 8;                   // 8-key steps of a tile
+  constexpr int BUF = tile_bytes<HD>();        // bytes of a ring buffer (two planes)
+  constexpr int PLANE = BUF / 2;
+  constexpr float kL2e = 1.4426950408889634f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = wa::checked_base(smem_raw);
+  const Layout<HD> L(nbuf, gh, gw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + nbuf;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int n_kt = (n + BK - 1) / BK;
+  const int nth = rel_tiles(gh), n_rel = nth + rel_tiles(gw);
+  const int rt0 = blockIdx.x * kConsumers;
+  const int live = min(kConsumers, (n + kRows - 1) / kRows - rt0);  // warpgroups with rows
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nbuf; ++s) {
+      wa::mbar_init(&full[s], 1);
+      wa::mbar_init(&empty[s], live);
+    }
+    wa::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // the producer: the rel-pos tiles, then each key tile's K and
+                           // V^T, ring slot i % nbuf, issued by one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      const unsigned char* src =
+          ws + head_bytes<HD>(n) * b_all * heads;  // the rel-pos tiles
+      const unsigned char* head = ws + (static_cast<size_t>(b) * heads + h) * head_bytes<HD>(n);
+      for (int i = 0; i < n_rel + 2 * n_kt; ++i) {
+        const int buf = i % nbuf;
+        if (i == n_rel) src = head;
+        if (i >= nbuf) wa::mbar_wait(&empty[buf], (i / nbuf - 1) & 1);
+        wa::mbar_expect_tx(&full[buf], BUF);
+        wa::bulk_load(smem + static_cast<size_t>(buf) * BUF, src, BUF, &full[buf]);
+        src += BUF;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  if (wg >= live) return;
+
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int q0 = (rt0 + wg) * kRows;
+  const long long c = static_cast<long long>(heads) * HD;
+  float* tab_h = reinterpret_cast<float*>(smem + L.tabs) + wg * kRows * (gh + gw + 2);
+  float* tab_w = tab_h + kRows * (gh + 1);
+  const int bar = 1 + wg;
+  const int row = 16 * warp + lane / 4;  // the lane's row g in the tile
+
+  // q (unscaled: the scale is in K's planes) as A fragments in registers,
+  // split once into big and small: rows g, g + 8 and columns t, t + 4 of
+  // each k8 step (zeros past n); Q K^T then reads only its ring tile from
+  // shared memory
+  uint32_t qa[KS][4], qs[KS][4];
+  {
+    const float* qsrc = qkv + (static_cast<size_t>(b) * n + q0 + row) * 3 * c + h * HD + t;
+    const bool lo = q0 + row < n, hi = q0 + row + 8 < n;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const float x[4] = {lo ? __ldg(qsrc + 8 * kk) : 0.f, hi ? __ldg(qsrc + 8 * 3 * c + 8 * kk) : 0.f,
+                          lo ? __ldg(qsrc + 8 * kk + 4) : 0.f,
+                          hi ? __ldg(qsrc + 8 * 3 * c + 8 * kk + 4) : 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sam6d::split_tf32(x[e], qa[kk][e], qs[kk][e]);
+    }
+  }
+
+  // the ring tile of load i, once it has landed
+  auto ring_tile = [&](int i) {
+    __syncwarp();
+    wa::mbar_wait(&full[i % nbuf], (i / nbuf) & 1);
+    return static_cast<const unsigned char*>(smem + static_cast<size_t>(i % nbuf) * BUF);
+  };
+  auto release = [&](int i) {
+    if (tid == 0) wa::mbar_arrive(&empty[i % nbuf]);
+  };
+  // issues s (64 x BK) = q B^T in three passes, small terms first, B the big
+  // and small planes of a ring tile; one wgmma group
+  auto issue_qk = [&](float (&s)[NK][4], const unsigned char* bt) {
+    wa::fence_regs(s);
+    wa::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      tw::wgmma_tf32_rs(s, qs[kk], tw::part_desc(bt + kk * BK * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      tw::wgmma_tf32_rs(s, qa[kk], tw::part_desc(bt + PLANE + kk * BK * 32), 1);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      tw::wgmma_tf32_rs(s, qa[kk], tw::part_desc(bt + kk * BK * 32), 1);
+    wa::wgmma_commit();
+  };
+
+  float s[NK][4];
+  // the tables: G = q R^T a rel-pos tile at a time, entry (r, m) stored as
+  // table entry j = pos(r) - m + g - 1 where that lies in [0, g) (pos: the
+  // row's grid row for rel_h, its column for rel_w; rows past n take row n -
+  // 1's pattern on q = 0, so every entry is written)
+  for (int i = 0; i < n_rel; ++i) {
+    issue_qk(s, ring_tile(i));
+    wa::wgmma_wait0();
+    wa::fence_regs(s);
+    release(i);
+    const bool is_w = i >= nth;
+    const int g = is_w ? gw : gh, m0 = BK * (is_w ? i - nth : i);
+    float* tab = is_w ? tab_w : tab_h;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + 8 * half, tok = min(q0 + r, n - 1);
+      const int base = (is_w ? tok % gw : tok / gw) + g - 1 - m0;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = base - (8 * j + 2 * t + e);
+          if (k >= 0 && k < g) tab[r * (g + 1) + k] = s[j][2 * half + e];
+        }
+    }
+  }
+  wa::wg_sync(bar);  // every table entry written
+
+  const float* th_lo = tab_h + row * (gh + 1);
+  const float* th_hi = th_lo + 8 * (gh + 1);
+  const float* tw_lo = tab_w + row * (gw + 1);
+  const float* tw_hi = tw_lo + 8 * (gw + 1);
+  const bool warp_live = q0 + 16 * warp < n;
+  const float inv_gw = 1.f / gw;
+  float o[HD / 2], ot[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;  // running max of rows g, g + 8
+  float l_lo = 0.f, l_hi = 0.f;                      // this lane's partial sums
+
+  // s (tile kt's scores) turned into p in place: bias, mask, online softmax;
+  // (a_lo, a_hi) the rescale of O for this tile
+  auto softmax = [&](int kt, float& a_lo, float& a_hi) {
+    if (!warp_live) {  // no row of this warp is below n: p = 0
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      a_lo = a_hi = 1.f;
+      return;
+    }
+    const int k0 = kt * BK;
+    if (gw % 2 == 0) {  // keys 2i, 2i + 1 share a grid row
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const int k = min(k0 + 8 * j + 2 * t, n - 2);  // keys past n read n - 2's; masked below
+        const int kr = static_cast<int>((k + 0.5f) * inv_gw), kc = k - kr * gw;
+        const float h_lo = th_lo[kr], h_hi = th_hi[kr];
+        s[j][0] += h_lo + tw_lo[kc];
+        s[j][1] += h_lo + tw_lo[kc + 1];
+        s[j][2] += h_hi + tw_hi[kc];
+        s[j][3] += h_hi + tw_hi[kc + 1];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = min(k0 + 8 * j + 2 * t + e, n - 1);
+          const int kr = static_cast<int>((k + 0.5f) * inv_gw), kc = k - kr * gw;
+          s[j][e] += th_lo[kr] + tw_lo[kc];
+          s[j][e + 2] += th_hi[kr] + tw_hi[kc];
+        }
+    }
+    if (k0 + BK > n) {  // keys past n
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) >= n) s[j][e] = -CUDART_INF_F;
+    }
+    float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn_lo = fmaxf(m_lo, sam6d::quad_max(mx_lo));
+    const float mn_hi = fmaxf(m_hi, sam6d::quad_max(mx_hi));
+    a_lo = wa::ex2((m_lo - mn_lo) * kL2e);  // 0 at the first tile
+    a_hi = wa::ex2((m_hi - mn_hi) * kL2e);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    // p = 2^(s log2 e - m log2 e): the rounding of m log2 e is one factor a
+    // row, which the division by l takes out
+    const float nb_lo = -mn_lo * kL2e, nb_hi = -mn_hi * kL2e;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      s[j][0] = wa::ex2(fmaf(s[j][0], kL2e, nb_lo));
+      s[j][1] = wa::ex2(fmaf(s[j][1], kL2e, nb_lo));
+      s[j][2] = wa::ex2(fmaf(s[j][2], kL2e, nb_hi));
+      s[j][3] = wa::ex2(fmaf(s[j][3], kL2e, nb_hi));
+      sum_lo += s[j][0] + s[j][1];
+      sum_hi += s[j][2] + s[j][3];
+    }
+    l_lo = l_lo * a_lo + sum_lo;
+    l_hi = l_hi * a_hi + sum_hi;
+  };
+
+  // P's A fragments (a0..a3 = c0, c2, c1, c3), big and small, from p in s
+  uint32_t pb[NK][4], ps[NK][4];
+  auto split_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sam6d::split_tf32(p[e], pb[j][e], ps[j][e]);
+    }
+  };
+  // a tile's P V from zero, small terms first, as one wgmma group
+  auto issue_pv = [&](const unsigned char* vt) {
+    wa::fence_regs(ot);
+    wa::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NK; ++j) tw::wgmma_tf32_rs(ot, ps[j], tw::part_desc(vt + j * HD * 32), j > 0);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+      tw::wgmma_tf32_rs(ot, pb[j], tw::part_desc(vt + PLANE + j * HD * 32), 1);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) tw::wgmma_tf32_rs(ot, pb[j], tw::part_desc(vt + j * HD * 32), 1);
+    wa::wgmma_commit();
+  };
+  // once tile kt's P V is done: O = O * alpha + O_tile
+  auto finish_pv = [&](int kt, float a_lo, float a_hi) {
+    wa::wgmma_wait0();
+    wa::fence_regs(ot);
+    wa::fence_regs(pb);
+    wa::fence_regs(ps);
+    release(n_rel + 2 * kt + 1);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = fmaf(o[i], (i & 2) ? a_hi : a_lo, ot[i]);
+  };
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int ik = n_rel + 2 * kt;  // tile kt's K load; its V is ik + 1
+    issue_qk(s, ring_tile(ik));
+    wa::wgmma_wait0();
+    wa::fence_regs(s);
+    release(ik);
+    float a_lo, a_hi;
+    softmax(kt, a_lo, a_hi);
+    split_p();
+    issue_pv(ring_tile(ik + 1));
+    finish_pv(kt, a_lo, a_hi);
+  }
+
+  // the row maximum contributes exp(0) = 1 to l, so l >= 1 on live rows
+  const float inv_lo = 1.f / fmaxf(sam6d::quad_sum(l_lo), 1e-30f);
+  const float inv_hi = 1.f / fmaxf(sam6d::quad_sum(l_hi), 1e-30f);
+  float* orow = out + static_cast<size_t>(b) * n * c + h * HD + 2 * t;
+  const int r_lo = q0 + row, r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (r_lo < n)
+      *reinterpret_cast<float2*>(orow + r_lo * c + 8 * j) =
+          make_float2(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+    if (r_hi < n)
+      *reinterpret_cast<float2*>(orow + r_hi * c + 8 * j) =
+          make_float2(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+  }
+}
+
+template <int HD>
+int launch_split(const float* qkv, const float* rel_pos_h, const float* rel_pos_w, void* ws, int b,
+                 int n, int heads, int gh, int gw, float scale, cudaStream_t stream) {
+  const int blocks = (n + BK - 1) / BK + rel_tiles(gh) + rel_tiles(gw);
+  split_kv_kernel<HD><<<dim3(blocks, heads, b), 256, 0, stream>>>(
+      qkv, rel_pos_h, rel_pos_w, static_cast<unsigned char*>(ws), b, n, heads, gh, gw, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <int HD>
+int launch_attention(const float* qkv, const float* rel_pos_h, const float* rel_pos_w, void* ws,
+                     float* out, int b, int n, int heads, int gh, int gw, float scale,
+                     cudaStream_t stream) {
+  const int nbuf = ring_depth<HD>(gh, gw);
+  if (nbuf == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = Layout<HD>(nbuf, gh, gw).total;
+  int err = static_cast<int>(cudaFuncSetAttribute(attention_kernel<HD>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  static_cast<int>(bytes)));
+  if (err != 0) return err;
+  err = launch_split<HD>(qkv, rel_pos_h, rel_pos_w, ws, b, n, heads, gh, gw, scale, stream);
+  if (err != 0) return err;
+  const int blocks = ((n + kRows - 1) / kRows + kConsumers - 1) / kConsumers;
+  attention_kernel<HD><<<dim3(blocks, heads, b), kThreads, bytes, stream>>>(
+      static_cast<const unsigned char*>(ws), qkv, out, b, n, heads, gh, gw, nbuf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the entry's launches (split = true: the pre-pass alone)
+template <int HD>
+int launch(const float* qkv, const float* rel_pos_h, const float* rel_pos_w, void* ws, float* out,
+           int b, int n, int heads, int gh, int gw, float scale, bool split, cudaStream_t stream) {
+  return split ? launch_split<HD>(qkv, rel_pos_h, rel_pos_w, ws, b, n, heads, gh, gw, scale, stream)
+               : launch_attention<HD>(qkv, rel_pos_h, rel_pos_w, ws, out, b, n, heads, gh, gw,
+                                      scale, stream);
+}
+
+template <int HD>
+size_t smem_bytes(int gh, int gw) {
+  const int d = ring_depth<HD>(gh, gw);
+  return Layout<HD>(d ? d : 2, gh, gw).total;
+}
+
+}  // namespace tf32
 
 // the bf16 entry: the wgmma core's shared memory, then each warpgroup's
 // 64 rows of the two bf16 tables, then each warp's staged rel-pos row
@@ -1140,20 +1503,73 @@ size_t smem_bytes_bf16_any(int n, int gh, int gw) {
 extern "C" {
 
 // qkv: (b, n, 3 * heads * hd) float32; rel_pos_h: (2 gh - 1, hd);
-// rel_pos_w: (2 gw - 1, hd), all three 16-byte aligned; out: (b, n, heads *
-// hd). n == gh * gw; hd one of 16, 32, 64, 80. Returns the CUDA error code
-// of the launch (0 on success; cudaErrorInvalidValue for an unsupported hd).
+// rel_pos_w: (2 gw - 1, hd), all three 16-byte aligned; workspace:
+// sam6d_flash_attention_relpos_workspace_bytes bytes, 16-byte aligned (the
+// split K and V planes); out: (b, n, heads * hd). n == gh * gw; hd one of 16,
+// 32, 64, 80. Two launches on `stream`. Returns the CUDA error code of the
+// launch (0 on success; cudaErrorInvalidValue for an unsupported hd, or a grid
+// whose table rows leave no room for a ring of two tiles in 227 KB).
 int sam6d_flash_attention_relpos(const float* qkv, const float* rel_pos_h,
-                                 const float* rel_pos_w, float* out, int b, int n,
-                                 int heads, int hd, int gh, int gw, float scale,
+                                 const float* rel_pos_w, void* workspace, float* out, int b,
+                                 int n, int heads, int hd, int gh, int gw, float scale,
                                  cudaStream_t stream) {
   if (gh * gw != n) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch<16>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
-    case 32: return launch<32>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
-    case 64: return launch<64>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
-    case 80: return launch<80>(qkv, rel_pos_h, rel_pos_w, out, b, n, heads, gh, gw, scale, stream);
+    case 16: return tf32::launch<16>(qkv, rel_pos_h, rel_pos_w, workspace, out, b, n, heads, gh, gw, scale, false, stream);
+    case 32: return tf32::launch<32>(qkv, rel_pos_h, rel_pos_w, workspace, out, b, n, heads, gh, gw, scale, false, stream);
+    case 64: return tf32::launch<64>(qkv, rel_pos_h, rel_pos_w, workspace, out, b, n, heads, gh, gw, scale, false, stream);
+    case 80: return tf32::launch<80>(qkv, rel_pos_h, rel_pos_w, workspace, out, b, n, heads, gh, gw, scale, false, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Bytes of the fp32 entry's workspace: per (sample, head) 16 * hd bytes a
+// key of n rounded up to the key tile (sam6d_flash_attention_relpos_key_tile),
+// then 8 * hd * key tile bytes for each key tile's worth of rows of the two
+// rel-pos tables; -1 for an hd it does not take.
+long long sam6d_flash_attention_relpos_workspace_bytes(int b, int n, int heads, int hd, int gh,
+                                                      int gw) {
+  switch (hd) {
+    case 16: return static_cast<long long>(tf32::workspace_bytes<16>(b, n, heads, gh, gw));
+    case 32: return static_cast<long long>(tf32::workspace_bytes<32>(b, n, heads, gh, gw));
+    case 64: return static_cast<long long>(tf32::workspace_bytes<64>(b, n, heads, gh, gw));
+    case 80: return static_cast<long long>(tf32::workspace_bytes<80>(b, n, heads, gh, gw));
+    default: return -1;
+  }
+}
+
+// Keys of the fp32 entry's K/V tiles (and rel-pos rows of its rel-pos tiles).
+int sam6d_flash_attention_relpos_key_tile() { return tf32::BK; }
+
+// The fp32 entry's pre-pass alone (a test entry): K (times `scale`), V and
+// the rel-pos rows split into `workspace` as the attention kernel reads
+// them. Same operands as sam6d_flash_attention_relpos. Returns the CUDA
+// error code.
+int sam6d_flash_attention_relpos_split_kv(const float* qkv, const float* rel_pos_h,
+                                          const float* rel_pos_w, void* workspace, int b, int n,
+                                          int heads, int hd, int gh, int gw, float scale,
+                                          cudaStream_t stream) {
+  if (gh * gw != n) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return tf32::launch<16>(qkv, rel_pos_h, rel_pos_w, workspace, nullptr, b, n, heads, gh, gw, scale, true, stream);
+    case 32: return tf32::launch<32>(qkv, rel_pos_h, rel_pos_w, workspace, nullptr, b, n, heads, gh, gw, scale, true, stream);
+    case 64: return tf32::launch<64>(qkv, rel_pos_h, rel_pos_w, workspace, nullptr, b, n, heads, gh, gw, scale, true, stream);
+    case 80: return tf32::launch<80>(qkv, rel_pos_h, rel_pos_w, workspace, nullptr, b, n, heads, gh, gw, scale, true, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory, bytes, of a block of the fp32 entry's attention
+// kernel on a gh x gw grid (n == gh * gw keys) at head dim hd, as its launch
+// sizes it (a ring of 4 tiles, else 3 or 2; above 227 KB where not even 2
+// fit: the launch refuses it); -1 for an hd it does not take.
+int sam6d_flash_attention_relpos_smem(int n, int hd, int gh, int gw) {
+  switch (hd) {
+    case 16: return static_cast<int>(tf32::smem_bytes<16>(gh, gw));
+    case 32: return static_cast<int>(tf32::smem_bytes<32>(gh, gw));
+    case 64: return static_cast<int>(tf32::smem_bytes<64>(gh, gw));
+    case 80: return static_cast<int>(tf32::smem_bytes<80>(gh, gw));
+    default: return -1;
   }
 }
 

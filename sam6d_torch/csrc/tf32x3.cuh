@@ -1,7 +1,7 @@
 // Three-pass TF32 on Hopper's tensor cores, and the attention core built on
-// it (K1, K5, K8, K9): fp32-accurate products at up to 495/3 = 165 TFLOP/s
-// (H100 SXM dense TF32 over three passes), where the fp32 FMA units stop at
-// 67 TFLOP/s.
+// it (K5, K8, K9; K1's fp32 entry runs on tf32_wgmma.cuh): fp32-accurate
+// products at up to 495/3 = 165 TFLOP/s (H100 SXM dense TF32 over three
+// passes), where the fp32 FMA units stop at 67 TFLOP/s.
 //
 // Each fp32 operand x is split as big = rna_tf32(x) and small =
 // rna_tf32(x - big) (the rounding of cvt.rna.tf32.f32: to nearest, ties
@@ -114,10 +114,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // each warp owning 16 rows. Each kernel builds an Operands record for its
 // (sample, head): the q/k/v/out base pointers, their row strides (the head
 // dim contiguous), nq, nk and the true head dim, so one core serves a fused
-// (B, N, 3C) qkv (K1, K5: all three at row stride 3C, out at C) and
+// (B, N, 3C) qkv (K5: all three at row stride 3C, out at C) and
 // head-major (B, H, N, hd) operands of any strides (K8, K9).
-//  - S = q K^T by three-pass TF32 into C fragments in registers; the bias
-//    functor adds its term there, keys past nk get -inf;
+//  - S = q K^T by three-pass TF32 into C fragments in registers; keys
+//    past nk get -inf;
 //  - online softmax in registers: row max and sum by quad shuffles, the
 //    running max per row, each lane's partial sum, the rescale applied to
 //    the output fragments; scores never reach shared memory;
@@ -128,12 +128,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 //  - out = O / max(l, 1e-30). Key tiles wholly past nk are skipped, and a
 //    warp whose rows all lie past nq only helps load.
 // Two ways to stage q, K and V in shared memory (the Staging option):
-//  - kSplitPerFragment (K1, K5): fp32 tiles. K and V tiles of BK keys
+//  - kSplitPerFragment (K5): fp32 tiles. K and V tiles of BK keys
 //    stream through two stages with 16-byte cp.async (rows past nk zero
 //    filled), rows padded to HD + 4 floats so that both B-fragment reads
-//    are conflict-free; the block's q rows sit there pre-scaled (a bias may
-//    read them unscaled first); every warp splits every fragment element it
-//    reads, on every tile. Needs hd == HD and 16-byte aligned rows.
+//    are conflict-free; the block's q rows sit there pre-scaled; every warp
+//    splits every fragment element it reads, on every tile. Needs hd == HD
+//    and 16-byte aligned rows.
 //  - kSplitOnce (K8, K9): TF32 big/small pairs, each element's big and
 //    small side by side. The block's q rows are loaded, scaled and split
 //    once; each K/V tile is split once by the threads that load it: the
@@ -184,16 +184,6 @@ __host__ __device__ constexpr size_t core_smem_bytes() {
              : sizeof(uint32_t) * ((16 * WARPS + BK) * pair_row<HD>() + HD * pair_row<BK>());
 }
 
-// A bias functor has prepare(), which the whole block calls once with the
-// unscaled q rows in shared memory (row stride ld, first row q0 of n), and
-// add(), which a lane calls on its score fragments s[nt][e]: rows g (e 0,
-// 1) and g + 8 (e 2, 3), key k0 + 8 nt + 2 t + (e & 1), nk keys in the tile.
-struct NoBias {
-  __device__ __forceinline__ void prepare(const float*, int, int, int) const {}
-  template <int NT>
-  __device__ __forceinline__ void add(float (&)[NT][4], int, int, int) const {}
-};
-
 // Two elements as {big, small, big, small}.
 __device__ __forceinline__ uint4 split_pair2(float a, float b) {
   uint4 w;
@@ -202,14 +192,13 @@ __device__ __forceinline__ uint4 split_pair2(float a, float b) {
   return w;
 }
 
-template <int HD, int WARPS, int BK, Staging S, class Bias>
+template <int HD, int WARPS, int BK, Staging S>
 __device__ __forceinline__ void attention_rows(const Operands& op, float* smem, int q0,
-                                               float scale, const Bias& bias) {
+                                               float scale) {
   constexpr bool kOnce = S == Staging::kSplitOnce;
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   static_assert(BK % 8 == 0, "key tile must be a multiple of 8");
-  static_assert(!kOnce || (BK % 16 == 0 && std::is_same<Bias, NoBias>::value),
-                "split-once staging keeps no unscaled q rows for a bias");
+  static_assert(!kOnce || BK % 16 == 0, "split-once key tiles are multiples of 16");
   constexpr int LD = smem_row<HD>();
   constexpr int LDP = pair_row<HD>();  // words a q or K pair row
   constexpr int LDV = pair_row<BK>();  // words a V^T pair row
@@ -317,24 +306,17 @@ __device__ __forceinline__ void attention_rows(const Operands& op, float* smem, 
   } else {
     load_tile(0, 0);
     cp_async_commit();
-    // The block's q rows go to shared memory as they are (rows past nq as
-    // zeros); the bias may read them there (the rel-pos tables take the
-    // unscaled q); then they are scaled in place, the same fp32 product
-    // q * scale the plain version forms, and read per k8 step as A
-    // fragments: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+    // The block's q rows go to shared memory scaled (rows past nq as
+    // zeros), the same fp32 product q * scale the plain version forms, and
+    // are read per k8 step as A fragments: a0 (g, t), a1 (g+8, t), a2 (g,
+    // t+4), a3 (g+8, t+4).
     for (int e = threadIdx.x; e < kRows * (HD / 4); e += kThreads) {
       const int r = e / (HD / 4), d = 4 * (e % (HD / 4));
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + r < nq)
         x = *reinterpret_cast<const float4*>(op.q + (q0 + r) * op.sq + d);
-      *reinterpret_cast<float4*>(qs + r * LD + d) = x;
-    }
-    __syncthreads();
-    bias.prepare(qs, LD, q0, nq);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kRows * (HD / 4); e += kThreads) {
-      float4* x = reinterpret_cast<float4*>(qs + (e / (HD / 4)) * LD + 4 * (e % (HD / 4)));
-      *x = make_float4(x->x * scale, x->y * scale, x->z * scale, x->w * scale);
+      *reinterpret_cast<float4*>(qs + r * LD + d) =
+          make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
     }
   }
 
@@ -413,7 +395,6 @@ __device__ __forceinline__ void attention_rows(const Operands& op, float* smem, 
           }
         }
       }
-      bias.add(s, k0, nk, t);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll

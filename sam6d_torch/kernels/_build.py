@@ -44,8 +44,13 @@ _SIGNATURES = {
                               _I, _F, _P],
     "sam6d_fused_attention_small": [_P, _P, _P, _P, _LP, _LP, _LP, _I, _I, _I,
                                     _I, _F, _P],
-    "sam6d_flash_attention_relpos": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _F, _P],
+    "sam6d_flash_attention_relpos": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _F, _P],
+    "sam6d_flash_attention_relpos_workspace_bytes": [_I, _I, _I, _I, _I, _I],
+    "sam6d_flash_attention_relpos_split_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                              _P],
+    "sam6d_flash_attention_relpos_smem": [_I, _I, _I, _I],
+    "sam6d_flash_attention_relpos_key_tile": [],
     "sam6d_fused_attention_qkv_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "sam6d_fused_attention_qkv_bf16_smem": [_I, _I],
     "sam6d_fused_attention_bf16": [_P, _P, _P, _P, _LP, _LP, _LP, _LP, _I, _I,
@@ -85,7 +90,8 @@ _SIGNATURES = {
                                                         _I, _P],
 }
 # entries that return something other than a CUDA error code (an int)
-_RESTYPES = {"sam6d_flash_attention_relpos_bf16_tables_bytes": ctypes.c_longlong}
+_RESTYPES = {"sam6d_flash_attention_relpos_bf16_tables_bytes": ctypes.c_longlong,
+             "sam6d_flash_attention_relpos_workspace_bytes": ctypes.c_longlong}
 
 _lib = None
 

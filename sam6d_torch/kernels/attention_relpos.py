@@ -20,8 +20,12 @@ memory.
 What bounds it on the card: a global block is 4 * 16 * 4096^2 * 80 = 85.9
 GFLOP on 84 MB, bound by operations: 1.28 ms on the fp32 FMA units (67
 TFLOP/s), 0.52 ms on the tensor cores in three-pass TF32 (495/3 TFLOP/s),
-which is how the kernel runs its products at fp32 accuracy. A windowed
-block (25 windows of 196 tokens) is 4.9 GFLOP on 100 MB.
+which is how the kernel runs its products at fp32 accuracy: `wgmma` m64nNk8
+.tf32 (`csrc/tf32_wgmma.cuh`), after a pre-pass that splits K and V once
+into big/small tf32 planes, V transposed, in a workspace the wrapper
+allocates (`split_kv_cuda` runs the pre-pass alone); the attention kernel
+reads their tiles by TMA bulk copies. A windowed block (25 windows of 196
+tokens) is 4.9 GFLOP on 100 MB.
 
 Semantics shared by every version: qkv (B, N, 3C) laid out [q | k | v] with
 heads contiguous (hd = C // heads), N = H * W row-major; scores and softmax
@@ -129,9 +133,32 @@ def flash_attention_relpos_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
                                 heads: int) -> torch.Tensor:
     """The CUDA kernel: same contract as flash_attention_relpos_plain. The
     kernel forms the rel-pos tables of its rows itself, from rel_pos_h and
-    rel_pos_w."""
+    rel_pos_w; its K/V planes go to a workspace from the caching allocator
+    (so a CUDA graph captures it)."""
     if not qkv.is_cuda:
         raise ValueError("flash_attention_relpos_cuda takes a CUDA tensor")
+    B, N, hd, rel_pos_h, rel_pos_w = _fp32_operands(qkv, rel_pos_h, rel_pos_w, hw, heads)
+    H, W = hw
+    lib = load_library()
+    out = torch.empty((B, N, heads * hd), dtype=torch.float32, device=qkv.device)
+    workspace = torch.empty(lib.sam6d_flash_attention_relpos_workspace_bytes(B, N, heads, hd, H, W),
+                            dtype=torch.uint8, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.sam6d_flash_attention_relpos(
+        qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), workspace.data_ptr(),
+        out.data_ptr(), B, N, heads, hd, H, W, float(hd ** -0.5), stream)
+    flash_attention_relpos_cuda.launches += 1
+    check(err, "flash_attention_relpos_cuda")
+    return out
+
+
+flash_attention_relpos_cuda.launches = 0
+
+
+def _fp32_operands(qkv, rel_pos_h, rel_pos_w, hw, heads):
+    """The fp32 entry's checks on its operands: (B, N, hd, rel_pos_h,
+    rel_pos_w), the tables float32 and contiguous on qkv's device; raises
+    ValueError on what the kernel does not take."""
     if qkv.dtype != torch.float32 or qkv.dim() != 3:
         raise ValueError(f"qkv must be (B, N, 3C) float32, got "
                          f"{tuple(qkv.shape)} {qkv.dtype}")
@@ -151,18 +178,82 @@ def flash_attention_relpos_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor,
     if not qkv.is_contiguous() or any(t.data_ptr() % 16 for t in (qkv, rel_pos_h, rel_pos_w)):
         raise ValueError("qkv must be contiguous, and qkv and the rel_pos tables "
                          "16-byte aligned")
+    return B, N, hd, rel_pos_h, rel_pos_w
+
+
+# The fp32 entry's workspace (csrc/attention_relpos.cu, namespace tf32): per
+# (sample, head), tiles of the entry's key tile (40 keys:
+# sam6d_flash_attention_relpos_key_tile; keys past N zero), each
+# [K big][K small][V^T big][V^T small] of tile x hd floats, K times the
+# softmax scale; then rel_pos_h's and rel_pos_w's rows, a tile's worth at a
+# time (two planes, zero past 2H - 1 and 2W - 1). Every plane is stored in 32-byte swizzled parts of 8
+# K-elements (`_part32_offset`); V^T's keys inside each 8-key step in
+# VT_KEY_ORDER (slot s holds key VT_KEY_ORDER[s]).
+VT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _part32_offset(r, k, rows):
+    """Byte offset of element (row r, K index k) of a plane of `rows` rows
+    (csrc/tf32_wgmma.cuh: part32_offset)."""
+    return (k // 8) * rows * 32 + r * 32 + 16 * (((k % 8) // 4) ^ ((r >> 2) & 1)) + 4 * (k % 4)
+
+
+def split_kv_cuda(qkv: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor, hw,
+                  heads: int):
+    """The fp32 entry's pre-pass alone, its workspace read back as
+    `read_split_planes` reads it. Same operands as
+    flash_attention_relpos_cuda."""
+    if not qkv.is_cuda:
+        raise ValueError("split_kv_cuda takes a CUDA tensor")
+    B, N, hd, rel_pos_h, rel_pos_w = _fp32_operands(qkv, rel_pos_h, rel_pos_w, hw, heads)
+    H, W = hw
     lib = load_library()
-    out = torch.empty((B, N, C3 // 3), dtype=torch.float32, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.sam6d_flash_attention_relpos(
-        qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(),
-        B, N, heads, hd, H, W, float(hd ** -0.5), stream)
-    flash_attention_relpos_cuda.launches += 1
-    check(err, "flash_attention_relpos_cuda")
+    workspace = torch.empty(lib.sam6d_flash_attention_relpos_workspace_bytes(B, N, heads, hd, H, W),
+                            dtype=torch.uint8, device=qkv.device)
+    err = lib.sam6d_flash_attention_relpos_split_kv(
+        qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), workspace.data_ptr(),
+        B, N, heads, hd, H, W, float(hd ** -0.5),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    check(err, "split_kv_cuda")
+    return read_split_planes(workspace.view(torch.float32), B, N, heads, hd, hw,
+                             lib.sam6d_flash_attention_relpos_key_tile())
+
+
+def read_split_planes(words: torch.Tensor, B: int, N: int, heads: int, hd: int, hw, bk: int):
+    """The fp32 entry's workspace, seen as float32 words, read back: a dict
+    of float32 planes: "k_big", "k_small" (B, heads, NP, hd) and "vt_big",
+    "vt_small" (B, heads, hd, NP), NP = N rounded up to the key tile, keys
+    past N zero, V^T's columns in the stored order (column 8 i + s holds key
+    8 i + VT_KEY_ORDER[s]); "rh_big", "rh_small", "rw_big", "rw_small" (the
+    rel-pos rows padded to whole tiles, hd). bk: the key tile."""
+    n_pad = -(-N // bk) * bk
+    per_head = 4 * n_pad * hd                             # words of a (sample, head)
+    dev = words.device
+    key = torch.arange(n_pad, device=dev)
+    r = key % bk
+    base = (key // bk) * (16 * hd * bk)                   # byte offset of each key's tile
+    plane = 4 * bk * hd
+    d = torch.arange(hd, device=dev)
+    k_off = base[:, None] + _part32_offset(r[:, None], d[None, :], bk)
+    v_off = (base + 2 * plane)[None, :] + _part32_offset(d[:, None], r[None, :], hd)
+    heads_words = words[:B * heads * per_head].view(B, heads, per_head)
+
+    def read(src, off):
+        return src[..., (off // 4).reshape(-1)].reshape(*src.shape[:-1], *off.shape)
+
+    out = dict(k_big=read(heads_words, k_off), k_small=read(heads_words, k_off + plane),
+               vt_big=read(heads_words, v_off), vt_small=read(heads_words, v_off + plane))
+    rel = words[B * heads * per_head:]
+    t0 = 0
+    for name, g in (("rh", hw[0]), ("rw", hw[1])):
+        tiles = -(-(2 * g - 1) // bk)
+        m = torch.arange(tiles * bk, device=dev)
+        off = ((t0 + m // bk) * (2 * plane))[:, None] + _part32_offset(
+            (m % bk)[:, None], d[None, :], bk)
+        out[name + "_big"] = read(rel, off)
+        out[name + "_small"] = read(rel, off + plane)
+        t0 += tiles
     return out
-
-
-flash_attention_relpos_cuda.launches = 0
 
 
 def flash_attention_relpos_bf16_plain(qkv: torch.Tensor, rel_pos_h: torch.Tensor,

@@ -16,8 +16,11 @@ directory: its ptxas registers and spills, K8 at 16x16x1025x64 and K9 at
 16x16x257x64 on the (B, H, N, hd) views of a qkv projection (CUDA-event
 medians of 20 runs, `chip_smoke.cuda_ms`), K5 on the same qkv at both
 lengths, K1 at SAM's global (1x4096) and windowed (25x196) shapes, 16
-heads of 80, K2 at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and
-116 (layer 2; in bf16 also with a second scaled block), K3 at ranks 59
+heads of 80 (one launch, runs of 10 and on the card alone, each beside
+SDPA in full fp32 with the bias as its mask; a `csrc/` from before K1's
+fp32 workspace is called through its own C signature, `legacy_k1`), K2
+at the iou pass's B=128, N=4096 and ranks 57 (layer 1) and 116 (layer 2;
+in bf16 also with a second scaled block), K3 at ranks 59
 and 118, K4 at ranks 0 (layer 1) and 59
 (layer 2; also over runs of 10 launches, which hide the host's dispatch),
 and each kernel's max |diff| from its plain version (K2: mu's,
@@ -82,6 +85,8 @@ def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> 
     # an older csrc/ (a parent commit's) may lack entries added since
     lib = ctypes.CDLL(str(so))
     _build._SIGNATURES = {n: a for n, a in _build._SIGNATURES.items() if hasattr(lib, n)}
+    if not hasattr(lib, "sam6d_flash_attention_relpos_workspace_bytes"):
+        legacy_k1(_build, relpos)   # K1's fp32 entry before its split K/V workspace
     _build.load_library()
     ptxas, entry, spill = {}, None, 0
     for line in out.splitlines():
@@ -101,7 +106,8 @@ def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> 
     fields = [f"head-major<64> {regs('head_major_attention_kernel', 64)}",
               f"<128> {regs('head_major_attention_kernel', 128)}",
               f"K5<64> {regs('attention_qkv_kernel', 64)}",
-              f"K1<80> {regs('attention_relpos_kernel', 80)}",
+              f"K1<80> {regs('attention_relpos_kernel', 80)}"
+              f"{regs('tf3216attention_kernel', 80)} split {regs('tf3215split_kv_kernel', 80)}",
               f"K2 {[rec for name, rec in ptxas.items() if 'ln_stats' in name]}",
               f"K4 {[rec for name, rec in ptxas.items() if 'i2t' in name]}",
               "K3 " + ", ".join(f"{re.search(r't2i_\w*?kernel', name)[0]} {rec}"
@@ -115,17 +121,8 @@ def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> 
         ms = cs.cuda_ms(lambda: fn(q, k, v, 0.125), reps=20)
         k5 = cs.cuda_ms(lambda: attention_qkv.fused_attention_qkv_cuda(qkv, 16, 0.125), reps=20)
         fields.append(f"{name} {ms:.4f} ms (K5 {k5:.4f}), max |diff| {err:.2e}")
-    for name, B, (H, W) in () if factored_only else (
-            ("K1 global", 1, (64, 64)), ("K1 windowed", 25, (14, 14))):
-        N = H * W
-        qkv = torch.from_numpy(rng.randn(B, N, 3 * 1280).astype(np.float32)).cuda()
-        rh, rw = (torch.from_numpy(rng.randn(2 * n - 1, 80).astype(np.float32) * 0.1).cuda()
-                  for n in (H, W))
-        args = (qkv, rh, rw, (H, W), 16)
-        err = float((relpos.flash_attention_relpos_cuda(*args)
-                     - relpos.flash_attention_relpos_plain(*args)).abs().max())
-        ms = cs.cuda_ms(lambda: relpos.flash_attention_relpos_cuda(*args), reps=20)
-        fields.append(f"{name} {ms:.4f} ms, max |diff| {err:.2e}")
+    if not factored_only:
+        fields += k1_fp32_fields(rng, cs)
     if bf16 and not factored_only:
         fields += attention_bf16_fields(rng, cs, ptxas)
     fields += (factored_bf16_fields if bf16 else factored_fields)(rng, cs)
@@ -133,6 +130,72 @@ def time_one(csrc: Path, sam: bool, factored_only: bool, bf16: bool = False) -> 
         fields += sam_fields(cs, bf16)
     label = csrc.relative_to(ROOT) if csrc.is_relative_to(ROOT) else csrc
     return f"{label}: " + "; ".join(fields)
+
+
+def legacy_k1(build, relpos):
+    """Bind K1's fp32 C entry as a csrc/ from before its workspace declares
+    it (qkv, rel_pos_h, rel_pos_w, out, b, n, heads, hd, gh, gw, scale,
+    stream), and call it so: the wrapper of that commit."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    build._SIGNATURES["sam6d_flash_attention_relpos"] = [P, P, P, P, I, I, I, I, I, I, F, P]
+
+    def flash_attention_relpos_cuda(qkv, rel_pos_h, rel_pos_w, hw, heads):
+        import torch
+        B, N, hd, rel_pos_h, rel_pos_w = relpos._fp32_operands(qkv, rel_pos_h, rel_pos_w, hw,
+                                                               heads)
+        out = torch.empty((B, N, heads * hd), dtype=torch.float32, device=qkv.device)
+        err = build.load_library().sam6d_flash_attention_relpos(
+            qkv.data_ptr(), rel_pos_h.data_ptr(), rel_pos_w.data_ptr(), out.data_ptr(), B, N,
+            heads, hd, hw[0], hw[1], float(hd ** -0.5),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+        flash_attention_relpos_cuda.launches += 1
+        build.check(err, "flash_attention_relpos_cuda")
+        return out
+
+    flash_attention_relpos_cuda.launches = 0
+    relpos.flash_attention_relpos_cuda = flash_attention_relpos_cuda
+
+
+def k1_fp32_fields(rng, cs):
+    """K1's fp32 entry at SAM's global (1x4096) and windowed (25x196)
+    shapes, 16 heads of 80: one launch (median of 20), runs of 10 launches,
+    and on the card alone (its kernels' device time under torch.profiler
+    over 10 calls), beside SDPA in full fp32 (TF32 off) with the bias as its
+    mask in the same three ways, and its max |diff| from the plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from sam6d_torch import use_strict_fp32
+    from sam6d_torch.kernels import attention_relpos as relpos
+    use_strict_fp32()
+    fields = []
+    for name, B, (H, W) in (("K1 global", 1, (64, 64)), ("K1 windowed", 25, (14, 14))):
+        N = H * W
+        qkv = torch.from_numpy(rng.randn(B, N, 3 * 1280).astype(np.float32)).cuda()
+        rh, rw = (torch.from_numpy(rng.randn(2 * n - 1, 80).astype(np.float32) * 0.1).cuda()
+                  for n in (H, W))
+        args = (qkv, rh, rw, (H, W), 16)
+        err = float((relpos.flash_attention_relpos_cuda(*args)
+                     - relpos.flash_attention_relpos_plain(*args)).abs().max())
+        q, k, v = qkv.view(B, N, 3, 16, 80).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = relpos.rel_pos_tables(*args)
+        mask = (rel_h.view(B, 16, N, H, 1) + rel_w.view(B, 16, N, 1, W)).reshape(B, 16, N, N)
+        del rel_h, rel_w
+
+        def fn():
+            return relpos.flash_attention_relpos_cuda(*args)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=80 ** -0.5)
+
+        ms, sd = cs.cuda_ms(fn, reps=20), cs.cuda_ms(sdpa, reps=20)
+        runs = cs.cuda_ms(fn, reps=10, launches=10)
+        sd_runs = cs.cuda_ms(sdpa, reps=10, launches=10)
+        fields.append(f"{name} {ms:.4f} ms (SDPA fp32 {sd:.4f}; runs of 10 {runs:.4f}, SDPA "
+                      f"{sd_runs:.4f}; on the card alone {device_split(fn, calls=10)}, SDPA "
+                      f"{device_split(sdpa, calls=10)}), max |diff| {err:.2e}")
+        del mask
+    return fields
 
 
 def time_points(root: Path) -> str:
@@ -310,7 +373,7 @@ def device_split(fn, top=8, calls=1):
     """`calls` runs of fn() under torch.profiler: the card's summed kernel
     time a run and the kernels that took most of it, and K1's, K2's, K3's
     two and K4's kernels wherever they rank (name, launches, ms a run)."""
-    keep = ("attention_relpos", "ln_stats", "t2i", "i2t")
+    keep = ("attention_relpos", "tf32::", "ln_stats", "t2i", "i2t")
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -328,7 +391,10 @@ def device_split(fn, top=8, calls=1):
     ops.sort(key=dev_us, reverse=True)
     shown = [(e.key.replace("(anonymous namespace)::", "").split("(")[0][:40], e)
              for i, e in enumerate(ops) if i < top or any(k in e.key for k in keep)]
-    return f"{sum(map(dev_us, ops)) / 1e3 / calls:.4f} ms: " + ", ".join(
+    k1 = [e for e in ops if "attention_relpos" in e.key or "tf32::" in e.key]
+    k1_total = (f" (K1's kernels x{sum(e.count for e in k1)} "
+                f"{sum(map(dev_us, k1)) / 1e3 / calls:.4f} ms)" if k1 else "")
+    return f"{sum(map(dev_us, ops)) / 1e3 / calls:.4f} ms{k1_total}: " + ", ".join(
         f"{n} x{e.count} {dev_us(e) / 1e3 / calls:.4f}" for n, e in shown)
 
 

@@ -23,6 +23,7 @@ from sam6d_torch.kernels import attention, attention_qkv
 from sam6d_torch.kernels import attention_relpos as relpos
 from sam6d_torch.kernels import ball_query as bq
 from sam6d_torch.kernels import factored, fps, nms
+from sam6d_torch.kernels._build import load_library
 from sam6d_torch.ops import masks
 from sam6d_torch.ops.geometry import pairwise_sq_distance
 
@@ -394,6 +395,13 @@ def factored_state(rng, B, N, C, d, ranks, scaled, with_a, device="cpu"):
     pytest.param(25, (14, 14), 16, 80, 3.0, 0, id="25-14x14-16-80-large-bias"),
     pytest.param(1, (64, 64), 16, 80, 3.0, 0, id="1-64x64-16-80-large-bias"),
     pytest.param(2, (9, 9), 4, 64, 1.0, 4, id="2-9x9-4-64-offset-16-bytes"),
+    # the split K/V planes (40-key tiles): 15 keys leave a partial 8-key
+    # step in the permuted V^T, hd 32 and 64 at a 16-byte offset on grids
+    # whose last tile is 1 and 30 keys, and 44 keys a last tile of 4
+    pytest.param(2, (3, 5), 2, 16, 1.0, 0, id="2-3x5-2-16-partial-8-key-step"),
+    pytest.param(2, (9, 9), 4, 32, 1.0, 4, id="2-9x9-4-32-offset-16-bytes"),
+    pytest.param(3, (7, 10), 2, 64, 1.0, 4, id="3-7x10-2-64-offset-16-bytes"),
+    pytest.param(2, (4, 11), 4, 80, 3.0, 0, id="2-4x11-4-80-last-tile-4-keys"),
 ])
 def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, hd, rel_scale,
                                                      offset):
@@ -408,6 +416,81 @@ def test_flash_attention_relpos_kernel_matches_plain(cuda_device, B, hw, heads, 
     want = relpos.flash_attention_relpos_plain(qkv, rh, rw, hw, heads)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_relpos_windowed_peaked_scores(cuda_device):
+    """SAM's windowed shape with every query peaked at one key and a V offset
+    a 64-key tile (_peaked_qkv): four rows peak inside the last 4 keys of
+    the windows (the fp32 entry's last tile: 36 keys and 4 of padding), and a
+    key read from a wrong slot of the permuted V^T, or a tile from a wrong
+    ring buffer, moves a row by 1/36 or more."""
+    rng = np.random.RandomState(32)
+    qkv = torch.from_numpy(_peaked_qkv(rng, 25, 196, 16, 80)).to(cuda_device)
+    rh, rw = (torch.from_numpy(rng.randn(27, 80).astype(np.float32) * 0.1).to(cuda_device)
+              for _ in range(2))
+    got = relpos.flash_attention_relpos_cuda(qkv, rh, rw, (14, 14), 16)
+    want = relpos.flash_attention_relpos_plain(qkv, rh, rw, (14, 14), 16)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTENTION_ATOL
+
+
+def _tf32_split(x):
+    """(big, small) of the kernels' split: rna to 10 mantissa bits, twice."""
+    def rna(v):
+        u = v.view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,heads,hd", [
+    pytest.param(25, (14, 14), 16, 80, id="25x14x14-16-80"),
+    pytest.param(1, (64, 64), 16, 80, id="1x64x64-16-80"),
+    pytest.param(2, (3, 5), 2, 16, id="2x3x5-2-16"),
+    pytest.param(3, (7, 10), 2, 64, id="3x7x10-2-64"),
+])
+def test_flash_attention_relpos_split_kv_planes(cuda_device, B, hw, heads, hd):
+    """The fp32 entry's pre-pass, read back from its workspace: K times the
+    softmax scale, V and the rel-pos rows as big/small planes, the big ones
+    tf32 values, big + small within 2^-21 |x| of the fp32 value (and equal
+    to the split's own halves), keys and rel-pos rows past the end zero, and
+    V^T holding each 8-key step's keys in VT_KEY_ORDER; the key tile as the
+    C entry gives it."""
+    rng = np.random.RandomState(33)
+    H, W = hw
+    N = H * W
+    qkv = _qkv_on_card(rng, cuda_device, B, N, 3 * heads * hd)
+    rh, rw = (torch.from_numpy(rng.randn(2 * g - 1, hd).astype(np.float32) * 0.1).to(cuda_device)
+              for g in hw)
+    planes = relpos.split_kv_cuda(qkv, rh, rw, hw, heads)
+    bk = load_library().sam6d_flash_attention_relpos_key_tile()
+    n8 = planes["k_big"].shape[2]            # N rounded up to the key tile
+    assert n8 % bk == 0 and N <= n8 < N + bk
+    k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)[1:]   # (B, heads, N, hd)
+    order = torch.tensor(relpos.VT_KEY_ORDER, device=cuda_device)
+    perm = torch.arange(n8, device=cuda_device) // 8 * 8 + order.repeat(n8 // 8)
+
+    def padded(x, rows):
+        out = torch.zeros(*x.shape[:-2], rows, x.shape[-1], device=cuda_device)
+        out[..., :x.shape[-2], :] = x
+        return out
+
+    vt = padded(v, n8)[:, :, perm]          # V's keys in the stored order
+    for x, name in ((padded(k * np.float32(hd ** -0.5), n8), "k"), (vt, "vt"),
+                    (padded(rh, planes["rh_big"].shape[0]), "rh"),
+                    (padded(rw, planes["rw_big"].shape[0]), "rw")):
+        big, small = planes[name + "_big"], planes[name + "_small"]
+        if name == "vt":
+            big, small = big.transpose(-1, -2), small.transpose(-1, -2)
+        want_big, want_small = _tf32_split(x)
+        assert torch.equal(big, want_big) and torch.equal(small, want_small), name
+        assert bool(((big + small - x).abs() <= 2.0 ** -21 * x.abs()).all()), name
+        assert not bool((big.view(torch.int32) & 0x1FFF).any()), name
+    # the pad: keys past N in every plane (x above is zero there)
+    real = perm < N
+    assert not bool(planes["vt_big"][..., ~real].any() or planes["k_big"][:, :, N:].any())
 
 
 # the kernels sum over the C channels, the N positions and the R factor rows

@@ -374,7 +374,62 @@ def _attention(q, k, v, scale, bias, matmul, tile=None):
     return pv / p.sum(-1, keepdims=True)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K5", "K8"])
+def _online_attention(s, v, matmul, tile):
+    """The fp32 entry of K1's online softmax over key tiles of `tile` keys,
+    from its scores s (bias added): per tile the running max m, alpha =
+    exp(m_old - m), p = exp(s - m), l = l alpha + sum p, and O = O alpha +
+    (p v of the tile, by `matmul`, summed from zero), all in s's dtype."""
+    f = s.dtype.type
+    m = np.full(s.shape[0], -np.inf, s.dtype)
+    l = np.zeros(s.shape[0], s.dtype)
+    o = np.zeros((s.shape[0], v.shape[1]), s.dtype)
+    for k0 in range(0, s.shape[1], tile):
+        st = s[:, k0:k0 + tile]
+        m_new = np.maximum(m, st.max(-1))
+        alpha = np.exp(m - m_new).astype(s.dtype)
+        p = np.exp(st - m_new[:, None]).astype(s.dtype)
+        l = l * alpha + p.sum(-1, dtype=s.dtype)
+        o = o * alpha[:, None] + matmul(p, v[k0:k0 + tile]).astype(s.dtype)
+        m = m_new
+    return o / np.maximum(l, f(1e-30))[:, None]
+
+
+def _k1_global_online_tiles_are_fp32_accurate():
+    """K1's fp32 entry at SAM's global grid (64 x 64 = 4096 keys, hd 80, 2
+    heads) as the card runs it: S = (q * scale) K^T in three-pass TF32 plus
+    the rel-pos bias, the online softmax over 40-key tiles, each tile's P V
+    summed from zero in three-pass TF32 and added as O * alpha + O_tile in
+    float32. The drift over 103 tiles stays within ATTENTION_ATOL of float64
+    at rel-pos std 0.1 and x3, where one TF32 pass does not."""
+    rng = np.random.RandomState(20)
+    hd, (H, W), heads, tile = 80, (64, 64), 2, 40
+    N = H * W
+    qkv = rng.randn(1, N, 3 * heads * hd).astype(np.float32)
+    q, k, v = qkv[0].reshape(N, 3, heads, hd).transpose(1, 2, 0, 3)
+    for rel in (0.1, 0.3):
+        rh, rw = (torch.from_numpy(rng.randn(2 * s - 1, hd).astype(np.float32) * np.float32(rel))
+                  for s in (H, W))
+        th, tw = (t.numpy()[0] for t in relpos.rel_pos_tables(
+            torch.from_numpy(qkv), rh, rw, (H, W), heads))
+        err = {"tf32x3": 0.0, "tf32": 0.0}
+        for i in range(heads):
+            bias = (th[i][:, :, None] + tw[i][:, None, :]).reshape(N, N)
+            s64 = (q[i].astype(np.float64) * hd ** -0.5) @ k[i].T.astype(np.float64) + bias
+            p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+            want = (p64 @ v[i].astype(np.float64)) / p64.sum(-1, keepdims=True)
+            del s64, p64
+            for name, passes in (("tf32x3", 3), ("tf32", 1)):
+                def mm(a, b, passes=passes):
+                    return _tf32_matmul(a, b, passes)
+                s = mm(q[i] * np.float32(hd ** -0.5), k[i].T) + bias
+                got = _online_attention(s, v[i], mm, tile)
+                err[name] = max(err[name], float(np.abs(got - want).max()))
+        # on this draw: 1.1e-6 and 2.1e-6 against 7.8e-4 and 1.2e-3
+        assert err["tf32x3"] <= ATTENTION_ATOL, (rel, err)
+        assert err["tf32"] > 10 * ATTENTION_ATOL, (rel, err)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K8", "K1-global"])
 def test_three_pass_tf32_attention_is_fp32_accurate(kernel):
     """Both products of K1, K5 and K8 run on the tensor cores as three-pass
     TF32. Emulated here per head: the attention lies within ATTENTION_ATOL
@@ -382,7 +437,12 @@ def test_three_pass_tf32_attention_is_fp32_accurate(kernel):
     448 describe's 1025 keys (no bias), with P V summed per 32-key tile and
     the tiles added in float32. At qkv x4 the fp32 attention itself is
     beyond ATTENTION_ATOL of float64, which is why the card's stress cases
-    scale q and k by 2 (K5, K8) and the bias (K1) instead."""
+    scale q and k by 2 (K5, K8) and the bias (K1) instead. K1-global: the
+    online tiles of K1's fp32 entry at N = 4096
+    (_k1_global_online_tiles_are_fp32_accurate)."""
+    if kernel == "K1-global":
+        _k1_global_online_tiles_are_fp32_accurate()
+        return
     rng = np.random.RandomState(19)
     hd, (H, W) = {"K1": (80, (14, 14)), "K5": (64, (1, 257)), "K8": (64, (1, 1025))}[kernel]
     tile = 32 if kernel == "K8" else None
